@@ -1,0 +1,30 @@
+"""sph_mountain_waves_tpu_torch — the PyTorch/CUDA port of the SPH framework.
+
+A second package beside ``sph_mountain_waves_tpu`` (the JAX reference, which
+it never imports). It keeps the reference's module layout and names, its
+bucket-slot state layout and its configs, so every module's counterpart is
+found under the same path and states compare slot for slot. Plain tensor
+code is PyTorch; the pair sweeps that the reference wrote as Pallas TPU
+kernels are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on first
+use, each with a plain PyTorch twin that CPU tensors take.
+
+Ported so far: the 2-D WCSPH mountain-wave flagship
+(``models.wcsph_perturbed_witch`` on the bucket layout).
+"""
+import torch
+
+# No field value may go through reduced-precision matmul/conv paths.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .geometry import (  # noqa: E402
+    Shape, Box, Rectangle, Ball, BooleanUnion, BooleanDifference, Specification, BoundaryLayer, is_inside, boundarybox,
+)
+from .grids import Grid, Hexagrid, dimension, covering  # noqa: E402
+from .kernels import wendland2, rDwendland2  # noqa: E402
+from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
+from .ops.neighbors import NeighborEngine, Neighbors  # noqa: E402
+from .ops.apply import apply_unary  # noqa: E402
+from .interop import state_from_numpy, state_to_numpy  # noqa: E402
+
+__version__ = "0.1.0"

@@ -1,0 +1,315 @@
+"""Bucket-layout neighbor engine.
+
+Port of the bucket subset of ``sph_mountain_waves_tpu/ops/neighbors.py``. The
+state rows ARE bucket slots: slot = rank*(C+1) + key, so a field viewed as
+``[cap, C+1]`` is one plane per in-cell rank with the cells (x minor) along
+the columns and one trash column. Pair sweeps read the 9-cell stencil of a
+cell straight from that layout; nothing is gathered or sorted per step.
+
+``rebuild`` checks how far particles drifted since the last rescatter and
+re-places them (the stencil rescatter) only past the skin budget. The
+rescatter is a windowed compaction over the 9 neighbour cells in plain
+PyTorch, with the reference's packing order (offset-major, then source slot)
+and the same dropped-row count, so states stay slot-for-slot comparable with
+the JAX package.
+
+Not ported yet: the flat layout, the sort rescatter (``rescatter_mode=
+"sort"``), the 3-D stencil and the sharded engine's ``count_cells``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..structs import ParticleState
+
+__all__ = ["NeighborEngine", "Neighbors"]
+
+
+@dataclasses.dataclass
+class Neighbors:
+    """Per-rebuild neighbour structure of the bucket layout: everything else
+    is implied by the slot layout itself."""
+    counts: torch.Tensor    # [C+1] int32 particles per cell (trash last)
+    overflow: torch.Tensor  # [] int32 rows dropped at this rebuild
+
+
+def _is_bookkeeping(name: str) -> bool:
+    """Slot-bound accumulator fields, by convention "_"-prefixed (e.g.
+    ``_rescatter_count``): rescatters leave them in place. ``_xref`` is
+    particle data with its own handling."""
+    return name.startswith("_") and name != "_xref"
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborEngine:
+    """Static engine configuration.
+
+    ``h`` is the pair cutoff; ``cells`` the per-axis cell widths (each ≥ h);
+    ``phase``/``lims`` the reference's key_phase/key_lim. ``persistent``
+    names the fields a rescatter moves (() = all); the others are zeroed,
+    because the step recomputes them before reading them.
+    """
+    dim: int
+    h: float
+    phase: tuple
+    lims: tuple
+    cap: int
+    dtype: torch.dtype = torch.float32
+    mins: tuple = ()
+    maxs: tuple = ()
+    skin: float = 0.0
+    cells: tuple = ()
+    persistent: tuple = ()
+
+    # largest stencil·cap for which the reference keeps the stencil
+    # compaction (it switches to its sort rescatter beyond, not ported)
+    _STENCIL_COST_MAX = 2048
+
+    # ------------------------------------------------------------- creation
+    @staticmethod
+    def create(box, h: float, dim: int, positions: np.ndarray | None = None,
+               cap: int | None = None, dtype=torch.float32,
+               layout: str = "bucket", skin: float = 0.0,
+               cells: tuple | None = None,
+               persistent: tuple = ()) -> "NeighborEngine":
+        """Build an engine for domain ``box`` and interaction radius h.
+
+        Key arithmetic: with per-axis cell size L_a (default (1+skin)·h),
+        phase_a = floor(min_a/L_a), lim_a = floor(max_a/L_a) − phase_a + 1,
+        then nx is rounded up to a multiple of 128 and ny to a multiple of 8
+        (the JAX package's layout, kept so states compare slot for slot).
+        """
+        if layout != "bucket":
+            raise NotImplementedError(
+                f"layout={layout!r}: only the bucket layout is ported")
+        if dim != 2:
+            raise NotImplementedError("only the 2-D engine is ported")
+        if cells is None or len(cells) == 0:
+            cells = (h * (1.0 + skin),) * dim
+        cells = tuple(float(c) for c in cells)
+        if len(cells) != dim or not all(c >= h for c in cells):
+            raise ValueError(f"cells {cells} must be {dim} widths ≥ h={h}")
+        L = np.asarray(cells, dtype=np.float64)
+        mins = np.asarray(box.mins[:dim], dtype=np.float64)
+        maxs = np.asarray(box.maxs[:dim], dtype=np.float64)
+        phase = np.floor(mins / L).astype(np.int64)
+        lims = (np.floor(maxs / L).astype(np.int64) - phase + 1)
+        lims[0] = -(-lims[0] // 128) * 128
+        for a in range(1, dim):
+            lims[a] = -(-lims[a] // 8) * 8
+        if cap is None:
+            cap = NeighborEngine._estimate_cap(positions, L, phase, lims, dim)
+        if 9 * cap > NeighborEngine._STENCIL_COST_MAX:
+            raise NotImplementedError(
+                f"cap {cap}: the sort rescatter it needs is not ported")
+        return NeighborEngine(dim=dim, h=float(h),
+                              phase=tuple(int(p) for p in phase),
+                              lims=tuple(int(l) for l in lims), cap=int(cap),
+                              dtype=dtype, mins=tuple(mins), maxs=tuple(maxs),
+                              skin=float(skin), cells=cells,
+                              persistent=tuple(persistent))
+
+    @staticmethod
+    def _estimate_cap(positions, L, phase, lims, dim) -> int:
+        """Max bucket occupancy from ``positions`` binned at the per-axis
+        cell widths ``L``, plus a quarter for compression, rounded up to a
+        multiple of 8 (the reference's rule; rounding kept for slot parity)."""
+        if positions is None or len(positions) == 0:
+            return 16
+        pos = np.asarray(positions)[:, :dim]
+        pos = pos[np.isfinite(pos).all(axis=1)]
+        if len(pos) == 0:
+            return 16
+        ci = np.floor(pos / L).astype(np.int64) - phase
+        ci = np.clip(ci, 0, np.asarray(lims) - 1)
+        key = ci[:, 0]
+        stride = lims[0]
+        for a in range(1, dim):
+            key = key + stride * ci[:, a]
+            stride *= lims[a]
+        occ = np.bincount(key).max()
+        cap = int(occ) + max(1, int(occ) // 4)
+        return -(-cap // 8) * 8
+
+    # ------------------------------------------------------------ derived
+    @property
+    def cell_size(self) -> tuple:
+        """Per-axis cell widths."""
+        if self.cells:
+            return self.cells
+        return (self.h * (1.0 + self.skin),) * self.dim
+
+    @property
+    def skin_slack(self) -> float:
+        """Drift budget before a rescatter is needed: the narrowest cell's
+        margin over the pair cutoff h."""
+        return min(self.cell_size) - self.h
+
+    @property
+    def num_cells(self) -> int:
+        n = 1
+        for l in self.lims:
+            n *= l
+        return n
+
+    @property
+    def slots(self) -> int:
+        """State capacity: cap rows × (num_cells+1) columns."""
+        return self.cap * (self.num_cells + 1)
+
+    @property
+    def stencil(self) -> list:
+        """The 9 relative cell offsets (di, dj), dj-major."""
+        return [(di, dj) for dj in (-1, 0, 1) for di in (-1, 0, 1)]
+
+    def flat_key(self, cell: torch.Tensor) -> torch.Tensor:
+        """Flat cell index from per-axis coords [..., dim]."""
+        key = cell[..., 0]
+        stride = self.lims[0]
+        for a in range(1, self.dim):
+            key = key + stride * cell[..., a]
+            stride *= self.lims[a]
+        return key
+
+    def resident(self, arr: torch.Tensor) -> torch.Tensor:
+        """View a flat field [slots(, d)] as [cap, C+1(, d)]."""
+        return arr.reshape((self.cap, self.num_cells + 1) + tuple(arr.shape[1:]))
+
+    def grid_view(self, arr: torch.Tensor) -> torch.Tensor:
+        """A flat scalar field [slots] as [cap, ny, nx] (trash column cut)."""
+        nx, ny = self.lims
+        return self.resident(arr)[:, : self.num_cells].reshape(self.cap, ny, nx)
+
+    def to_flat(self, g: torch.Tensor) -> torch.Tensor:
+        """[cap, ny, nx] back to flat [slots] with a zero trash column."""
+        flat = g.reshape(self.cap, self.num_cells)
+        return torch.nn.functional.pad(flat, (0, 1)).reshape(self.slots)
+
+    # ------------------------------------------------------------- rebuild
+    def rebuild(self, state: ParticleState) -> tuple[ParticleState, Neighbors]:
+        """Rescatter if some particle drifted past the skin budget, then
+        derive the neighbour structure from the slot layout.
+
+        The reference decides under ``lax.cond`` on the device; here ``need``
+        is read on the host, one sync per step. A device-side flag (and
+        graph capture of the step) is later work."""
+        x = state.fields["x"]
+        d2 = torch.sum((x - state.fields["_xref"]) ** 2, dim=-1)
+        d2 = torch.nan_to_num(torch.where(state.active, d2, 0.0),
+                              nan=float("inf"), posinf=float("inf"))
+        budget = torch.tensor((0.5 * self.skin_slack) ** 2, dtype=x.dtype,
+                              device=x.device)
+        need = torch.max(d2) > budget
+        if bool(need):
+            state, overflow = self._stencil_rescatter(state)
+        else:
+            overflow = torch.zeros((), dtype=torch.int32, device=x.device)
+        if "_rescatter_count" in state.fields:
+            # opt-in cadence observable: one count per drift-triggered
+            # rescatter, summable per frame on the host
+            rc = state.fields["_rescatter_count"].clone()
+            rc[0] += need.to(rc.dtype)
+            state = state.replace(_rescatter_count=rc)
+        counts = self.resident(state.active).sum(dim=0, dtype=torch.int32)
+        return state, Neighbors(counts=counts, overflow=overflow)
+
+    def _screen_and_key(self, state: ParticleState):
+        """Containment/finiteness screen and per-slot cell keys, in the
+        state's float dtype exactly as the reference (floor(x/L) in f32)."""
+        x = state.fields["x"]
+        mins = torch.tensor(self.mins, dtype=x.dtype, device=x.device)
+        maxs = torch.tensor(self.maxs, dtype=x.dtype, device=x.device)
+        finite = torch.all(torch.isfinite(x), dim=-1)
+        inside = torch.all((x >= mins) & (x <= maxs), dim=-1)
+        active = state.active & finite & inside
+
+        xsafe = torch.where(finite[:, None], x, 0.0)
+        L = torch.tensor(self.cell_size, dtype=x.dtype, device=x.device)
+        phase = torch.tensor(self.phase, dtype=torch.int32, device=x.device)
+        lims = torch.tensor(self.lims, dtype=torch.int32, device=x.device)
+        cell = torch.floor(xsafe / L).to(torch.int32) - phase
+        cell = torch.minimum(torch.clamp(cell, min=0), lims - 1)
+        key = torch.where(active, self.flat_key(cell),
+                          self.num_cells).to(torch.int32)
+        return active, key
+
+    def _stencil_rescatter(self, state: ParticleState):
+        """1-cell-local rescatter: every active particle moves to the slot
+        of its new cell. Returns (new_state, n_dropped)."""
+        _, key = self._screen_and_key(state)
+        return self._stencil_compact(state, key)
+
+    def _stencil_compact(self, state: ParticleState, key: torch.Tensor):
+        """Windowed compaction over the 9 neighbour cells. For every cell c
+        and stencil offset o (offset-major, then source slot), the slots of
+        cell c+o whose new key is c are packed into c's slots in scan order.
+        Particles that overflow ``cap``, or land farther than one cell away,
+        are dropped and counted. ``key`` is the per-slot destination cell
+        ([slots] int32; ``num_cells`` = remove)."""
+        C, cap = self.num_cells, self.cap
+        nx, ny = self.lims
+        dev = key.device
+        pad1 = torch.nn.functional.pad
+
+        def sl(padded, off):
+            # shifted[..., y, x] = a[..., y+dj, x+di] over the padded grid
+            di, dj = off
+            return padded[..., 1 + dj:1 + dj + ny, 1 + di:1 + di + nx]
+
+        keyg = pad1(self.grid_view(key.to(torch.int32)), (1, 1, 1, 1), value=C)
+        idx = torch.arange(C, dtype=torch.int32, device=dev).reshape(ny, nx)
+
+        names = [n for n in state.fields
+                 if n != "_xref" and not _is_bookkeeping(n)
+                 and (not self.persistent or n in self.persistent)]
+        comps = []  # one [cap, ny+2, nx+2] zero-padded plane per component
+        for n in names:
+            arr = state.fields[n]
+            cols = [arr] if arr.ndim == 1 else [arr[:, a] for a in range(arr.shape[1])]
+            comps += [pad1(self.grid_view(c), (1, 1, 1, 1)) for c in cols]
+        vals = torch.stack(comps)                       # [F, cap, ny+2, nx+2]
+        dt = vals.dtype
+
+        cnt = torch.zeros((ny, nx), dtype=torch.int32, device=dev)
+        iota_k = torch.arange(cap, dtype=torch.int32, device=dev).reshape(cap, 1, 1)
+        outs = torch.zeros((len(comps), cap, ny, nx), dtype=dt, device=dev)
+        for off in self.stencil:
+            member = sl(keyg, off) == idx                # [cap, ny, nx]
+            sv = sl(vals, off)                           # [F, cap, ny, nx]
+            mi = member.to(torch.int32)
+            rank = cnt + torch.cumsum(mi, dim=0, dtype=torch.int32) - mi
+            # one-hot placement, as the reference's k-loop: at most one
+            # selected source per destination slot, so the sum is exact
+            contrib = torch.zeros_like(outs)
+            for k in range(cap):
+                sel = ((iota_k == rank[k]) & member[k]).to(dt)  # [cap_s, ny, nx]
+                contrib = contrib + sel[None] * sv[:, k][:, None]
+            outs = outs + contrib
+            cnt = cnt + mi.sum(dim=0, dtype=torch.int32)
+
+        placed = torch.clamp(cnt, max=cap)
+        dropped = ((cnt - placed).sum() + (key < C).sum()
+                   - cnt.sum()).to(torch.int32)
+        act_g = iota_k < placed                          # [cap, ny, nx]
+
+        fields = {}
+        i = 0
+        for n in names:
+            arr = state.fields[n]
+            if arr.ndim == 1:
+                fields[n] = self.to_flat(outs[i])
+                i += 1
+            else:
+                d = arr.shape[1]
+                fields[n] = torch.stack([self.to_flat(outs[i + a])
+                                         for a in range(d)], dim=-1)
+                i += d
+        for n, arr in state.fields.items():
+            if n not in fields and n != "_xref":
+                fields[n] = arr if _is_bookkeeping(n) else torch.zeros_like(arr)
+        fields["_xref"] = fields["x"].clone()
+        new_active = self.to_flat(act_g.to(torch.int32)) > 0
+        return ParticleState(fields=fields, active=new_active), dropped
