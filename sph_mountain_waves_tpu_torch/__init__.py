@@ -6,10 +6,16 @@ bucket-slot state layout and its configs, so every module's counterpart is
 found under the same path and states compare slot for slot. Plain tensor
 code is PyTorch; the pair sweeps that the reference wrote as Pallas TPU
 kernels are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on first
-use, each with a plain PyTorch twin that CPU tensors take.
+use, each with a plain PyTorch twin that CPU tensors take. Entry points
+(``ParticleSystem.freeze``, each scheme's ``run``) run on the card unless
+the caller asks for the CPU.
 
-Ported so far: the 2-D WCSPH mountain-wave flagship
-(``models.wcsph_perturbed_witch`` on the bucket layout).
+Ported so far, all on the 2-D bucket layout: the WCSPH mountain-wave
+flagship (``models.wcsph_perturbed_witch``) and the three pressure–entropy
+(Hopkins) schemes (``models.hopkins_perturbed_witch``,
+``models.full_hopkins_perturbed_witch``, ``models.hopkins_total_witch`` with
+``utils.packing.hydrostatic_packing``), on four pair sweeps: density,
+momentum, the Hopkins pressure root and the Hopkins momentum.
 """
 import torch
 

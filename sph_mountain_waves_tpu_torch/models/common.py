@@ -13,7 +13,21 @@ import torch
 
 from ..structs import ParticleState
 
-__all__ = ["frame_runner", "masked_mean", "masked_max", "masked_sum"]
+__all__ = ["frame_runner", "masked_mean", "masked_max", "masked_sum",
+           "check_sweep_route"]
+
+
+def check_sweep_route(cfg, state: ParticleState) -> None:
+    """Refuse a CUDA state with ``cfg.use_pallas`` off. The steps always
+    call the sweep wrappers, which launch the CUDA kernels on CUDA tensors
+    and take the plain twins on CPU tensors; the port has no XLA-style pair
+    path to fall back to, and the twins are test oracles, never a card
+    path."""
+    if not cfg.use_pallas and state.active.device.type == "cuda":
+        raise ValueError(
+            "use_pallas=False on a CUDA state: the port's only pair path on "
+            "the card is its CUDA kernels (the plain twins are test oracles "
+            "and run on CPU tensors only); set use_pallas=True")
 
 
 def frame_runner(step_fn: Callable[[ParticleState], ParticleState],

@@ -7,9 +7,13 @@ perturbation P′ = c²ρ′; buoyancy −g ρ′/ρ; Rayleigh sponge; momentum 
 symmetric pressure gradient on P′ + Monaghan artificial viscosity; modified
 Verlet (kick, drift, rebuild, density, EOS, momentum, kick).
 
-The two pair sums are the sweeps of ``ops/pair_sweeps.py``: with
-``cfg.use_pallas`` the wrappers (CUDA kernels on CUDA tensors), otherwise the
-plain PyTorch twins.
+The two pair sums are the sweeps of ``ops/pair_sweeps.py``, called through
+their wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU
+tensors. A CUDA state with ``cfg.use_pallas`` off is refused
+(``check_sweep_route``).
+
+``_run_witch_scheme`` is the run skeleton that every mountain-wave scheme's
+``run`` goes through.
 """
 from __future__ import annotations
 
@@ -17,11 +21,9 @@ import numpy as np
 import torch
 
 from ..ops.apply import apply_unary
-from ..ops.pair_sweeps import (
-    density_pass, density_pass_plain, momentum_pass, momentum_pass_plain,
-)
+from ..ops.pair_sweeps import density_pass, momentum_pass
 from ..structs import ParticleState, ParticleSystem
-from .common import frame_runner
+from .common import check_sweep_route, frame_runner
 from .witch_common import (
     FLUID, WitchConfig, background_density_t, background_pot_temperature_t,
     make_witch_system, rayleigh_damping, velocity_diagnostics,
@@ -87,17 +89,13 @@ def make_step(cfg: WitchConfig, engine):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v),
                 "Dv": torch.zeros_like(u.Dv)}
 
-    if cfg.use_pallas:
-        density, momentum = density_pass, momentum_pass
-    else:
-        density, momentum = density_pass_plain, momentum_pass_plain
-
     def step(state: ParticleState) -> ParticleState:
+        check_sweep_route(cfg, state)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
         state, _ = engine.rebuild(state)
 
-        rho = density(engine, state, cfg)
+        rho = density_pass(engine, state, cfg)
         state = state.replace(rho=torch.where(state.active, rho, 0.0))
         state = apply_unary(state, finalize_density)
         state = apply_unary(state, update_smoothing)
@@ -108,7 +106,7 @@ def make_step(cfg: WitchConfig, engine):
             state = apply_unary(state, find_temperature)
             state = apply_unary(state, find_pot_temp)
 
-        dv0, dv1 = momentum(engine, state, cfg)
+        dv0, dv1 = momentum_pass(engine, state, cfg)
         Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
         state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
         return apply_unary(state, accelerate)
@@ -138,23 +136,37 @@ def make_finalize(cfg: WitchConfig):
 
 
 def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
-        verbose: bool = False, device="cpu"):
+        verbose: bool = False, device="cuda"):
     """The reference main loop: frames every t_end/n_frames with avg/max
-    velocity diagnostics, on ``device``. Returns the time series, the final
-    state and the system. Output files (``out_path``), checkpoints and
-    live plots need the I/O slice, which is not ported yet."""
+    velocity diagnostics, on ``device`` (the card unless the caller asks for
+    the CPU). Returns the time series, the final state and the system."""
+    return _run_witch_scheme(
+        cfg, make_system, make_step, out_path, verbose,
+        finalize=make_finalize(cfg) if cfg.lazy_diagnostics else None,
+        device=device)
+
+
+def _run_witch_scheme(cfg, make_system_fn, make_step_fn, out_path=None,
+                      verbose=False, setup=None, finalize=None,
+                      device="cuda"):
+    """Shared main() skeleton of the mountain-wave schemes: build, freeze on
+    ``device``, ``setup(cfg, engine, state)`` (e.g. a packing) if given, then
+    frames of ``make_step_fn``'s steps with ``finalize`` (lazy diagnostics)
+    after each, and the avg/max velocity time series. Output files
+    (``out_path``), checkpoints, resume and live plots need the I/O slice,
+    which is not ported yet: asking for them raises."""
     if out_path is not None or cfg.checkpoint_every or cfg.resume or cfg.live_plot:
         raise NotImplementedError(
             "PVD/CSV output, checkpoints and live plots are not ported yet")
-    sys = make_system(cfg)
+    sys = make_system_fn(cfg)
     state = sys.freeze(device=device)
-    step = make_step(cfg, sys.engine)
+    if setup is not None:
+        state = setup(cfg, sys.engine, state)
+    step = make_step_fn(cfg, sys.engine)
 
     n_steps = int(round(cfg.t_end / cfg.dt))
     steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
-    run_frame = frame_runner(
-        step, steps_per_frame,
-        finalize=make_finalize(cfg) if cfg.lazy_diagnostics else None)
+    run_frame = frame_runner(step, steps_per_frame, finalize=finalize)
 
     ts, u_avgs, u_maxs = [], [], []
     k = 0

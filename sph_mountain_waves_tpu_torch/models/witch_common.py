@@ -62,8 +62,9 @@ class WitchConfig:
     # neighbor engine: only layout="bucket" is ported
     layout: str = "flat"
     skin: float = 0.0
-    # run the two pair sweeps through their CUDA kernels (on CUDA tensors);
-    # False runs the plain PyTorch twins everywhere
+    # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
+    # take the plain twins either way); a CUDA state with False is refused,
+    # since the port has no XLA-style pair path
     use_pallas: bool = False
     # T/θ materialize once per frame (make_finalize) instead of every step
     lazy_diagnostics: bool = False
@@ -71,7 +72,7 @@ class WitchConfig:
     lattice_cells: bool = False
     # bucket-capacity override (None: measured occupancy + headroom)
     bucket_cap: int | None = None
-    # approximate reciprocals for the three momentum-body divides
+    # approximate reciprocals for the momentum-body divides
     fast_math: bool = False
     # checkpoint/resume, frame import and live plots are not ported yet
     checkpoint_every: int = 0
@@ -150,6 +151,11 @@ def background_pot_temperature(cfg: WitchConfig, y):
     return cfg.T_bg * ((cfg.T_bg * cfg.R_gas * cfg.rho0) / P_bg) ** (2.0 / 7.0)
 
 
+def background_entropy(cfg: WitchConfig, y):
+    """A_bg = P_bg/ρ_bg^γ, NumPy (the full Hopkins scheme's build time)."""
+    return background_pressure(cfg, y) / background_density(cfg, y) ** cfg.gamma
+
+
 def background_density_t(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:
     """Torch twin of ``background_density``, in y's dtype."""
     return cfg.rho0 * torch.exp(-y * cfg.g / (cfg.R_mass * cfg.T_bg))
@@ -162,6 +168,11 @@ def background_pressure_t(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:
 def background_pot_temperature_t(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:
     P_bg = background_pressure_t(cfg, y)
     return cfg.T_bg * ((cfg.T_bg * cfg.R_gas * cfg.rho0) / P_bg) ** (2.0 / 7.0)
+
+
+def background_entropy_t(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:
+    """Torch twin of ``background_entropy``."""
+    return background_pressure_t(cfg, y) / background_density_t(cfg, y) ** cfg.gamma
 
 
 def witch_profile(cfg: WitchConfig, x):

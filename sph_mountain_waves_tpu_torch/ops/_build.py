@@ -36,6 +36,13 @@ SIGNATURES = {
         # 10 planes, kmax, 2 outs, cap, nx, ny, h2, dw, eps, -alpha, beta,
         # fast_math, stream
         "momentum_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5 + [_I, _P], _I),
+        # occ, x0, x1, h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, stream
+        "pressure_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
+        # 13 planes (the last two null without the split), kmax, 2 outs, cap,
+        # nx, ny, h2, dw, eps, -alpha, beta, background_split, fast_math,
+        # stream
+        "hopkins_momentum_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 5
+                                   + [_I, _I, _P], _I),
     },
 }
 

@@ -1,10 +1,13 @@
-"""Pair sweeps of the mountain-wave flagship: density and momentum.
+"""Pair sweeps of the 2-D mountain-wave schemes: density, momentum, the
+Hopkins pressure root and the Hopkins momentum.
 
-Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` the
-flagship runs: the pair-sweep harness (``make_pair_kernel_fn`` with
-``_make_pair_kernel``, the one ``pl.pallas_call``), its trip bound
-``row_kmax``, ``weighted_w_pass(ker_h="p")``/``density_pass`` (one function
-here, its only use on the slice) and the 2-D ``momentum_pass``.
+Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` that the
+WCSPH flagship and the three Hopkins schemes run: the pair-sweep harness
+(``make_pair_kernel_fn`` with ``_make_pair_kernel``, the one
+``pl.pallas_call``), its trip bound ``row_kmax``,
+``weighted_w_pass(ker_h="p")``/``density_pass``, the 2-D ``momentum_pass``,
+``weighted_w_pass(ker_h="sym")``/``pressure_pass`` and
+``hopkins_momentum_pass`` (``background_split`` on and off).
 
 Every sweep reads f32 planes in the bucket layout ``[cap, C+1]`` (an
 occupancy plane plus per-particle fields) and writes one ``[cap, C+1]`` plane
@@ -18,17 +21,18 @@ accumulator, as the Pallas kernel does, so reruns are bitwise identical.
 Each sweep has two implementations:
 
 * a CUDA C++ kernel for sm_90a (``csrc/pair_sweep.cu``), launched by the
-  wrapper (``density_pass``/``momentum_pass``) for CUDA tensors, which counts
-  its launches in ``<wrapper>.launches``;
-* a plain PyTorch twin (``density_pass_plain``/``momentum_pass_plain``) with
-  the Pallas body's math, vectorised over shifted views of the zero-padded
-  ``[cap, ny+2, nx+2]`` grid. The wrapper takes it for CPU tensors only.
+  wrapper (``density_pass``, ``momentum_pass``, ``pressure_pass``,
+  ``hopkins_momentum_pass``) for CUDA tensors, which counts its launches in
+  ``<wrapper>.launches``;
+* a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
+  vectorised over shifted views of the zero-padded ``[cap, ny+2, nx+2]``
+  grid. The wrapper takes it for CPU tensors only.
 
 What bounds the kernel on an H100: per occupied p slot it reads the q slots
 of 9 cells up to the row's band occupancy (about 9·kmax slots) of 5
-(density) or 10 (momentum) f32 fields. Neighbouring threads share most of
-those q reads, so they hit L1/L2; memory traffic and occupancy bound the
-sweep, not FLOPs.
+(density, pressure), 10 (momentum) or 11/13 (Hopkins momentum) f32 fields.
+Neighbouring threads share most of those q reads, so they hit L1/L2; memory
+traffic and occupancy bound the sweep, not FLOPs.
 """
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ from ..structs import ParticleState
 from . import _build
 
 __all__ = ["row_kmax", "density_pass", "density_pass_plain",
-           "momentum_pass", "momentum_pass_plain"]
+           "momentum_pass", "momentum_pass_plain", "pressure_pass",
+           "pressure_pass_plain", "hopkins_momentum_pass",
+           "hopkins_momentum_pass_plain"]
 
 
 def row_kmax(engine, state: ParticleState):
@@ -112,6 +118,39 @@ def _momentum_inputs(engine, state: ParticleState, cfg):
     return planes, pad_vals
 
 
+def _pressure_inputs(engine, state: ParticleState, cfg):
+    """Planes (occ, x0, x1, h, w = m·A^{1/γ}); h pads with its floor."""
+    f = state.fields
+    h = torch.clamp(f["h"], min=_hfloor(engine))
+    w = f["m"] * f["A"] ** (1.0 / cfg.gamma)
+    planes = [_plane(engine, a) for a in (
+        state.active, f["x"][:, 0], f["x"][:, 1], h, w)]
+    return planes, [0.0] * 3 + [_hfloor(engine), 0.0]
+
+
+def _hopkins_inputs(engine, state: ParticleState, cfg, background_split: bool):
+    """Planes (occ, x0, x1, h, m, v0, v1, ρ_f, c, A^{1/γ}, P_e) and, with the
+    background split, (A_bg^{1/γ}, P_bg,e), where P_e = max(P, P_floor)^(1−2/γ):
+    every per-particle power hoisted out of the pair body. Each is finite on
+    an empty slot (A = 0 gives 0, P = 0 gives P_floor^(1−2/γ)); h pads with
+    its floor."""
+    f = state.fields
+    expfac = 1.0 - 2.0 / cfg.gamma
+    rho_f = torch.clamp(f["rho"], min=cfg.rho_floor)
+    cs = torch.sqrt(torch.clamp(cfg.gamma * f["P"] / rho_f, min=0.0))
+    hoisted = [f["m"], f["v"][:, 0], f["v"][:, 1], rho_f, cs,
+               f["A"] ** (1.0 / cfg.gamma),
+               torch.clamp(f["P"], min=cfg.P_floor) ** expfac]
+    if background_split:
+        hoisted += [f["A_bg"] ** (1.0 / cfg.gamma),
+                    torch.clamp(f["P_bg"], min=cfg.P_floor) ** expfac]
+    h = torch.clamp(f["h"], min=_hfloor(engine))
+    planes = [_plane(engine, a) for a in [
+        state.active, f["x"][:, 0], f["x"][:, 1], h] + hoisted]
+    pad_vals = [0.0] * 3 + [_hfloor(engine)] + [0.0] * len(hoisted)
+    return planes, pad_vals
+
+
 # ------------------------------------------------------------ plain twins
 
 def _density_body(p, q, r2, maskf):
@@ -151,6 +190,57 @@ def _momentum_body(cfg):
         mu_ij = div(h_ij * dot, r2 + eps * h_ij * h_ij)
         pi_ij = div(-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij, rho_ij)
         s = -mq * ker * (Ap + Aq + (dot < 0.0).to(torch.float32) * pi_ij)
+        return [s * dx[0], s * dx[1]]
+
+    return body
+
+
+def _pressure_body(p, q, r2, maskf):
+    """Σ w_q·W₂(h̄, r), h̄ = ½(h_p+h_q), with the exact divides of
+    ``wendland2`` (fields occ, x0, x1, h, w)."""
+    r = torch.sqrt(r2)
+    hk = 0.5 * (p[3] + q[3])
+    x = r / hk
+    t = torch.clamp(1.0 - x, min=0.0)
+    t2 = t * t
+    ker = C_W2 * (t2 * t2) * (1.0 + 4.0 * x) / (hk * hk)
+    return [maskf * q[4] * ker]
+
+
+def _hopkins_body(cfg, background_split: bool):
+    """Two-kernel P^(1−2/γ) gradient (minus its background form with the
+    split) plus Monaghan viscosity, term for term the Pallas Hopkins body
+    (fields occ, x0, x1, h, m, v0, v1, ρ_f, c, A^{1/γ}, P_e[, A_bg^{1/γ},
+    P_bg,e])."""
+    alpha, beta, eps = cfg.alpha, cfg.beta, cfg.eps
+    DW = _rdw_const(2)
+    div = _div_fn(cfg)
+
+    def body(p, q, r2, maskf):
+        hp, hq, mq = p[3], q[3], q[4]
+        r = torch.sqrt(r2)
+
+        def rdw(h):
+            hinv = div(1.0, h)
+            t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+            hinv2 = hinv * hinv
+            return DW * t * t * t * (hinv2 * hinv2)
+
+        ker_i = rdw(hp)
+        ker_j = rdw(hq)
+        s = -mq * p[9] * q[9] * (p[10] * ker_i + q[10] * ker_j)
+        if background_split:
+            s = s + mq * p[11] * q[11] * (p[12] * ker_i + q[12] * ker_j)
+        dx = [p[1] - q[1], p[2] - q[2]]
+        dv = [p[5] - q[5], p[6] - q[6]]
+        dot = dx[0] * dv[0] + dx[1] * dv[1]
+        h_ij = 0.5 * (hp + hq)
+        ker = rdw(h_ij)
+        c_ij = 0.5 * (p[8] + q[8])
+        rho_ij = 0.5 * (p[7] + q[7])
+        mu_ij = div(h_ij * dot, r2 + eps * h_ij * h_ij)
+        pi_ij = div(-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij, rho_ij)
+        s = s + (dot < 0.0).to(torch.float32) * (-mq) * pi_ij * ker
         return [s * dx[0], s * dx[1]]
 
     return body
@@ -205,16 +295,39 @@ def momentum_pass_plain(engine, state: ParticleState, cfg):
                         2, self_pair=False)
 
 
+def pressure_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``pressure_pass``."""
+    planes, pad_vals = _pressure_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes, pad_vals, band, _pressure_body, 1,
+                          self_pair=cfg.self_density)
+    return out
+
+
+def hopkins_momentum_pass_plain(engine, state: ParticleState, cfg,
+                                background_split: bool):
+    """Plain twin of ``hopkins_momentum_pass``: the per-axis Dv pair sums."""
+    planes, pad_vals = _hopkins_inputs(engine, state, cfg, background_split)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _hopkins_body(cfg, background_split), 2,
+                        self_pair=False)
+
+
 # ----------------------------------------------------------- CUDA kernels
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer; None is a null pointer (an input the
+    kernel does not read)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _check_planes(engine, planes, band):
     shape = (engine.cap, engine.num_cells + 1)
     dev = planes[0].device
     for pl in planes:
+        if pl is None:
+            continue
         if (pl.device != dev or pl.dtype != torch.float32
                 or tuple(pl.shape) != shape or not pl.is_contiguous()):
             raise ValueError(f"sweep input must be contiguous f32 {shape} "
@@ -255,6 +368,16 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"pair sweeps run on cuda or cpu tensors, not {t.device}")
 
 
+def _momentum_scalars(cfg):
+    """(−C of rDW, ε, −α, β) of the momentum bodies."""
+    return [ctypes.c_float(_rdw_const(2)), ctypes.c_float(cfg.eps),
+            ctypes.c_float(-cfg.alpha), ctypes.c_float(cfg.beta)]
+
+
+def _fast(cfg) -> int:
+    return int(bool(getattr(cfg, "fast_math", False)))
+
+
 def density_pass(engine, state: ParticleState, cfg):
     """ρ_p = Σ m_q·W₂(h_p, r) over the stencil, plus the self term per
     ``cfg.self_density``, as a flat [slots] tensor. Replaces
@@ -280,13 +403,51 @@ def momentum_pass(engine, state: ParticleState, cfg):
         return momentum_pass_plain(engine, state, cfg)
     planes, _ = _momentum_inputs(engine, state, cfg)
     band, _ = row_kmax(engine, state)
-    scalars = [ctypes.c_float(_rdw_const(2)), ctypes.c_float(cfg.eps),
-               ctypes.c_float(-cfg.alpha), ctypes.c_float(cfg.beta),
-               int(bool(getattr(cfg, "fast_math", False)))]
-    outs = _launch("momentum_sweep", engine, planes, band, 2, scalars)
+    outs = _launch("momentum_sweep", engine, planes, band, 2,
+                   _momentum_scalars(cfg) + [_fast(cfg)])
     momentum_pass.launches += 1
+    return outs
+
+
+def pressure_pass(engine, state: ParticleState, cfg):
+    """Hopkins smoothed-pressure root P̄_p = Σ m_q·A_q^{1/γ}·W₂(½(h_p+h_q), r)
+    plus the self term per ``cfg.self_density``, as a flat [slots] tensor.
+    Replaces ``weighted_w_pass(ker_h="sym")``/``pressure_pass`` of
+    pallas_pairs.py (exact divides: the reference has no fast_math form of
+    it). CUDA tensors launch the kernel (counted in
+    ``pressure_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return pressure_pass_plain(engine, state, cfg)
+    planes, _ = _pressure_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    (out,) = _launch("pressure_sweep", engine, planes, band, 1,
+                     [int(bool(cfg.self_density)), ctypes.c_float(C_W2)])
+    pressure_pass.launches += 1
+    return out
+
+
+def hopkins_momentum_pass(engine, state: ParticleState, cfg,
+                          background_split: bool):
+    """Hopkins two-kernel P^(1−2/γ) gradient + Monaghan viscosity: the
+    per-axis Dv pair sums as two flat [slots] tensors. ``background_split``
+    subtracts the same form on the background state (full_hopkins); without
+    it the total form (hopkins_total). Replaces ``hopkins_momentum_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``hopkins_momentum_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return hopkins_momentum_pass_plain(engine, state, cfg,
+                                           background_split)
+    planes, _ = _hopkins_inputs(engine, state, cfg, background_split)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("hopkins_momentum_sweep", engine,
+                   planes if background_split else planes + [None, None],
+                   band, 2, _momentum_scalars(cfg)
+                   + [int(bool(background_split)), _fast(cfg)])
+    hopkins_momentum_pass.launches += 1
     return outs
 
 
 density_pass.launches = 0
 momentum_pass.launches = 0
+pressure_pass.launches = 0
+hopkins_momentum_pass.launches = 0

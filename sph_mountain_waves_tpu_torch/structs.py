@@ -5,7 +5,7 @@ tensor per field plus an ``active`` mask, all on one device; updates build a
 new state (``replace``) and never write into the old one. ``ParticleSystem``
 is the host-side container: particles accumulate in NumPy, and ``freeze``
 places them in the bucket-slot layout of a ``NeighborEngine`` and moves them
-to the requested device.
+to the requested device (CUDA unless the caller asks for the CPU).
 
 Only the bucket layout is ported: the flat layout (arbitrary row order,
 sorted at every rebuild) belongs to a later slice.
@@ -137,10 +137,12 @@ class ParticleSystem:
         return out
 
     # --------------------------------------------------------------- freeze
-    def freeze(self, device="cpu", **engine_opts) -> ParticleState:
-        """Place the built particles in their bucket slots on ``device`` and
-        return the ``ParticleState``; the ``NeighborEngine`` is stored as
-        ``self.engine``.
+    def freeze(self, device="cuda", **engine_opts) -> ParticleState:
+        """Place the built particles in their bucket slots on ``device`` (the
+        card unless the caller asks for the CPU) and return the
+        ``ParticleState``; the ``NeighborEngine`` is stored as ``self.engine``.
+        Asking for CUDA where there is no CUDA device raises; there is no
+        fallback to the CPU.
 
         engine_opts : forwarded to NeighborEngine.create (layout, skin, cells,
             persistent, cap: the bucket capacity, default measured occupancy
@@ -148,6 +150,11 @@ class ParticleSystem:
         """
         from .ops.neighbors import NeighborEngine  # avoid import cycle
 
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"freeze(device={str(device)!r}) needs a CUDA device and none "
+                "is available; pass device='cpu' to run on the CPU")
         host = self.host_fields()
         n = len(host["x"])
         opts = {**self.freeze_opts, **engine_opts}
@@ -162,7 +169,7 @@ class ParticleSystem:
         self.field_specs.setdefault("_xref", (self.dim,))
         if n > engine.slots:
             raise ValueError(f"{n} particles exceed {engine.slots} slots")
-        return self._freeze_bucket(engine, host, n, torch.device(device))
+        return self._freeze_bucket(engine, host, n, device)
 
     def _freeze_bucket(self, engine, host: dict, n: int,
                        device: torch.device) -> ParticleState:

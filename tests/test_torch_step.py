@@ -97,9 +97,9 @@ def test_run_small():
     cfg = TCfg(n_rows=8, dtype="float32", self_density=True, layout="bucket",
                skin=0.15, lattice_cells=True, use_pallas=True,
                lazy_diagnostics=True, t_end=1.0, n_frames=2)
-    out = tw.run(cfg)
+    out = tw.run(cfg, device="cpu")
     assert len(out["t"]) == 2
     assert np.all(np.isfinite(out["u_max"])) and out["u_max"][-1] < 5.0
     assert int(out["state"].n) == out["system"].n_built
     with pytest.raises(NotImplementedError):
-        tw.run(cfg, out_path="unused")
+        tw.run(cfg, out_path="unused", device="cpu")
