@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port: the WCSPH mountain-wave flagship and
-the three pressure–entropy (Hopkins) schemes.
+"""GPU smoke run of the PyTorch port: the WCSPH mountain-wave flagship, the
+three pressure–entropy (Hopkins) schemes, the entropy-based (Pavelka) scheme
+and the file output of ``run``.
 
 Drives ``sph_mountain_waves_tpu_torch`` (never JAX) on one CUDA card at the
 bench configuration (2-D mountain wave, n_rows=246: N=978,463 particles,
 f32, bucket layout, lattice cells, skin 0.15, self_density, fast_math)
 through the entry points a user calls: make_system -> freeze -> make_step ->
-frame_runner -> velocity_diagnostics (and, for hopkins_total, its packing
-setup).
+frame_runner -> velocity_diagnostics (and, for hopkins_total and Pavelka,
+their packing set-ups), and ``run(cfg, out_path=...)`` at a small size.
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -29,7 +30,18 @@ Phases, each printing one or more lines:
  11. hopkins_total: its hydrostatic packing at full size, then 1 warm-up and
      1 timed frame;
  12. hopkins_perturbed: 1 frame of 100 steps;
- 13. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
+ 13. the Pavelka kernels (continuity with both diffusion forms, fused
+     momentum + entropy) and the packing's gradient sweep against their
+     twins at full size on a live Pavelka state, fast_math off and on; reruns
+     bitwise equal;
+ 14. 8 small Pavelka steps, card against CPU twins;
+ 15. the Pavelka main path: its set-up (Colagrossi packing, 100 steps, then
+     the initial passes) at full size, then 1 warm-up and 2 timed frames of
+     100 steps, with max h over the cell width and over the cutoff;
+ 16. ``run(cfg, out_path=..., device="cuda")`` of the flagship at n_rows=10
+     with a checkpoint every frame: the file set, the last frame read back,
+     and a resumed run against the uninterrupted one, bit for bit;
+ 17. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
      twin over 5) beside its bound.
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
@@ -38,17 +50,20 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
-             the timed frames) and 10 full Hopkins steps (from the built
-             state), with the device time per step
+             the timed frames), 10 full Hopkins steps (from the built state)
+             and 10 Pavelka steps (from the packed state), with the device
+             time per step
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import re
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 N_ROWS = 246
@@ -56,10 +71,13 @@ EXPECT = {"n": 978_463, "lims": (1792, 144), "cap": 8}
 STEPS_PER_FRAME = 100
 RTOL, ATOL = 1e-5, 1e-6
 KERNELS = ("density_sweep", "momentum_sweep", "pressure_sweep",
-           "hopkins_momentum_sweep")
+           "hopkins_momentum_sweep", "pavelka_mass_sweep",
+           "pavelka_momentum_entropy_sweep", "gamma_grad_sweep")
 SOURCE = "sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu"
 REPLACES = {k: f"sph_mountain_waves_tpu/ops/pallas_pairs.py:{line}"
-            for k, line in zip(KERNELS, (715, 751, 722, 806))}
+            for k, line in zip(KERNELS, (715, 751, 722, 806, 1323, 1373))}
+# not a Pallas kernel in the reference: the packing's XLA pair sum
+REPLACES["gamma_grad_sweep"] = "sph_mountain_waves_tpu/utils/packing.py:160"
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -69,11 +87,17 @@ F32_OPS_PER_S = 67e12
 # csrc/pair_sweep.cu: 5 for the distance, the rest for the body and the
 # accumulation. The Hopkins momentum without the split does 7 fewer.
 OPS_PER_PAIR = {"density_sweep": 5 + 14, "momentum_sweep": 5 + 42,
-                "pressure_sweep": 5 + 17, "hopkins_momentum_sweep": 5 + 76}
+                "pressure_sweep": 5 + 17, "hopkins_momentum_sweep": 5 + 76,
+                "pavelka_mass_sweep": 5 + 28,
+                "pavelka_momentum_entropy_sweep": 5 + 56,
+                "gamma_grad_sweep": 5 + 15}
 HOPKINS_SPLIT_OPS = 7
 # planes in (occupancy included) and out, each [cap, C+1] f32
 PLANES = {"density_sweep": (5, 1), "momentum_sweep": (10, 2),
-          "pressure_sweep": (5, 1), "hopkins_momentum_sweep": (13, 2)}
+          "pressure_sweep": (5, 1), "hopkins_momentum_sweep": (13, 2),
+          "pavelka_mass_sweep": (9, 1),
+          "pavelka_momentum_entropy_sweep": (12, 3),
+          "gamma_grad_sweep": (4, 2)}
 
 
 def say(phase, msg):
@@ -138,12 +162,13 @@ def ptxas_report(log):
 
 
 class Counters:
-    """The four sweep wrappers' launch counters."""
+    """The sweep wrappers' launch counters."""
 
     def __init__(self, ps):
         self.wrappers = dict(zip(KERNELS, (
             ps.density_pass, ps.momentum_pass, ps.pressure_pass,
-            ps.hopkins_momentum_pass)))
+            ps.hopkins_momentum_pass, ps.pavelka_mass_pass,
+            ps.pavelka_momentum_entropy_pass, ps.gamma_grad_pass)))
 
     def reset(self):
         for w in self.wrappers.values():
@@ -276,13 +301,33 @@ def perturbed(state, dev):
         h=torch.where(act, state.fields["h"] * (1 + dh), 0.0))
 
 
-def kernel_vs_twin(label, kern, rerun, twin, fast):
-    """Kernel outputs against the twin's: the gate with exact divides, 1e-3
-    of max |out| with fast_math; reruns bitwise. Returns (err, scale)."""
+def frame_equals_state(points, data, state, variables):
+    """True when a frame read back by ``read_vtp`` holds exactly the state's
+    active rows (VTP stores float64 copies, vectors padded to 3)."""
+    import numpy as np
+    act = state.active.cpu().numpy()
+
+    def rows(name):
+        return state.fields[name].cpu().numpy()[act].astype(np.float64)
+
+    x = rows("x")
+    ok = np.array_equal(points[:, :x.shape[1]], x)
+    for name in variables:
+        want = rows(name)
+        got = data[name] if want.ndim == 1 else data[name][:, :want.shape[1]]
+        ok = ok and np.array_equal(got, want)
+    return ok
+
+
+def kernel_vs_twin(label, kern, rerun, twin, fast, scaled=False):
+    """Kernel outputs against the twin's: the gate with exact divides (with
+    ``scaled``, atol times each output's largest |value|: sums that cancel),
+    1e-3 of max |out| with fast_math; reruns bitwise. Returns (err, scale)."""
     import torch
     if not all(torch.equal(a, b) for a, b in zip(kern, rerun)):
         raise AssertionError(f"{label}: kernel reruns differ")
-    e = [compare(f"{label}[{a}]", k, t, gate=not fast)
+    e = [compare(f"{label}[{a}]", k, t, gate=not fast,
+                 atol=ATOL * (t.abs().max().item() if scaled else 1.0))
          for a, (k, t) in enumerate(zip(kern, twin))]
     err, scale = max(x[0] for x in e), max(x[1] for x in e)
     if fast and not err <= 1e-3 * scale:
@@ -303,9 +348,11 @@ def main(profile: bool) -> None:
     say(1, f"torch {torch.__version__} cuda {torch.version.cuda} on "
            f"{torch.cuda.get_device_name(0)} ({card})")
 
+    from sph_mountain_waves_tpu_torch import io as port_io
     from sph_mountain_waves_tpu_torch.models import (
         full_hopkins_perturbed_witch as fh, hopkins_perturbed_witch as hp,
-        hopkins_total_witch as ht, wcsph_perturbed_witch as w,
+        hopkins_total_witch as ht, pavelka_total_witch as pv,
+        wcsph_perturbed_witch as w,
     )
     from sph_mountain_waves_tpu_torch.models.common import frame_runner
     from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig
@@ -470,8 +517,9 @@ def main(profile: bool) -> None:
                             STEPS_PER_FRAME)(hp_state)
     torch.cuda.synchronize()
     hp_counts = counters.read()
-    want = {"density_sweep": STEPS_PER_FRAME, "momentum_sweep": STEPS_PER_FRAME,
-            "pressure_sweep": STEPS_PER_FRAME, "hopkins_momentum_sweep": 0}
+    want = {k: 0 for k in KERNELS}
+    want.update(density_sweep=STEPS_PER_FRAME, momentum_sweep=STEPS_PER_FRAME,
+                pressure_sweep=STEPS_PER_FRAME)
     if hp_counts != want or not all_finite(hp_state) or int(hp_state.n) != n:
         raise AssertionError(f"hopkins_perturbed: counts {hp_counts}, finite "
                              f"{all_finite(hp_state)}, active {int(hp_state.n)}")
@@ -481,7 +529,147 @@ def main(profile: bool) -> None:
             f"{ {k: v for k, v in hp_counts.items() if v} }")
     del hp_state, hp_sys
 
-    # 13: kernel and twin times on prepared inputs, beside their bounds
+    # 13: the Pavelka kernels and the packing's gradient sweep against their
+    # twins on a live full-width Pavelka state (one step in, v and h
+    # perturbed). The sums cancel (Dv_y is about +g against terms of
+    # hundreds), so the gate's atol is scaled by each output's largest |value|.
+    pcfg = pv.PavelkaConfig(**dataclasses.asdict(dataclasses.replace(
+        cfg, lazy_diagnostics=False)))
+    pv_sys, pv_state0, build_s = build_full(pv, pcfg, dev)
+    e13 = pv_sys.engine
+    say(13, f"Pavelka system built in {build_s:.2f} s")
+    st = perturbed(pv.make_step(pcfg, e13)(pv_state0), dev)
+    for fixed in (True, False):
+        for fm in (False, True):
+            c = dataclasses.replace(pcfg, fixed_diffusion=fixed, fast_math=fm)
+            err, scale = errs[f"pmass_fx{int(fixed)}_fm{int(fm)}"] = kernel_vs_twin(
+                f"pavelka mass fixed_diffusion={fixed} fast_math={fm}",
+                [ps.pavelka_mass_pass(e13, st, c)],
+                [ps.pavelka_mass_pass(e13, st, c)],
+                [ps.pavelka_mass_pass_plain(e13, st, c)], fm, scaled=True)
+            say(13, f"pavelka mass kernel vs twin, fixed_diffusion={fixed} "
+                    f"fast_math={fm}: max abs err {err:.3e} (max |Drho| "
+                    f"{scale:.4e}, rel {err / scale:.3e})"
+                    + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
+                    + ", rerun bitwise equal")
+    for fm in (False, True):
+        c = dataclasses.replace(pcfg, fast_math=fm)
+        kern = ps.pavelka_momentum_entropy_pass(e13, st, c)
+        rerun = ps.pavelka_momentum_entropy_pass(e13, st, c)
+        twin = ps.pavelka_momentum_entropy_pass_plain(e13, st, c)
+        err_dv, scale_dv = kernel_vs_twin(
+            f"pavelka momentum fast_math={fm}", kern[:2], rerun[:2], twin[:2],
+            fm, scaled=True)
+        err_ds, scale_ds = kernel_vs_twin(
+            f"pavelka entropy fast_math={fm}", kern[2:], rerun[2:], twin[2:],
+            fm, scaled=True)
+        errs[f"pmoment_fm{int(fm)}"] = (max(err_dv, err_ds), scale_dv)
+        say(13, f"pavelka momentum + entropy kernel vs twin, fast_math={fm}: "
+                f"Dv max abs err {err_dv:.3e} (max |Dv| {scale_dv:.4f}, rel "
+                f"{err_dv / scale_dv:.3e}); dS max abs err {err_ds:.3e} (max "
+                f"|dS| {scale_ds:.4e}, rel {err_ds / scale_ds:.3e})"
+                + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
+                + ", rerun bitwise equal")
+    V0 = float((st.fields["m"][st.active] / st.fields["rho"][st.active]).mean())
+    errs["gamma"] = kernel_vs_twin(
+        "gamma_grad", ps.gamma_grad_pass(e13, st, V0),
+        ps.gamma_grad_pass(e13, st, V0), ps.gamma_grad_pass_plain(e13, st, V0),
+        fast=False, scaled=True)
+    say(13, f"gamma_grad kernel vs twin (V0 {V0:.4e}, h varying): max abs err "
+            f"{errs['gamma'][0]:.3e} (max |gGamma| {errs['gamma'][1]:.4e}), "
+            f"gate rtol {RTOL} atol {ATOL} x max, rerun bitwise equal")
+    del st
+
+    # 14: 8 small Pavelka steps, card against CPU twins
+    gk, gc, rel, nk = small_steps(pv, pcfg, dev)
+    say(14, f"pavelka_total_witch, n_rows=10, 8 steps: card u_avg/u_max {gk} "
+            f"vs cpu twins {gc} (rel {rel:.2e}), active {nk} == {nk}")
+
+    # 15: the Pavelka main path: its set-up (Colagrossi packing + initial
+    # passes), then frames. The rescatters of the set-up are counted with
+    # the opt-in bookkeeping field, which is dropped before the frames.
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counted = pv_state0.replace(_rescatter_count=torch.zeros(
+        pv_state0.capacity, dtype=torch.float32, device=dev))
+    packed, info = pv.setup(pcfg, e13, counted, return_info=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_counts = counters.read()
+    setup_rescatters = int(packed.fields["_rescatter_count"].sum())
+    packed = type(packed)(fields={k: v for k, v in packed.fields.items()
+                                  if k != "_rescatter_count"},
+                          active=packed.active)
+    want = {k: 0 for k in KERNELS}
+    want.update(gamma_grad_sweep=info["steps"] + 1, pavelka_mass_sweep=1,
+                pavelka_momentum_entropy_sweep=1)
+    if (setup_counts != want or not all_finite(packed)
+            or int(packed.n) != n):
+        raise AssertionError(f"pavelka set-up: counts {setup_counts}, expected "
+                             f"{want}; finite {all_finite(packed)}; active "
+                             f"{int(packed.n)}/{n}")
+    say(15, f"pavelka set-up: Colagrossi packing {info['steps']} steps, "
+            f"|gGamma| {info['res_g0']:.6e} -> {info['res_g']:.6e}, |v| "
+            f"{info['res_v']:.4e}; with the initial passes {setup_s:.2f} s; "
+            f"rescatters {setup_rescatters}; active {int(packed.n)}; launches "
+            f"{ {k: v for k, v in setup_counts.items() if v} } ({card})")
+    del pv_state0, counted
+    pv_frame = frame_runner(pv.make_step(pcfg, e13), STEPS_PER_FRAME)
+    pv_state, pv_ms, pv_counts, _, _ = drive(
+        15, "pavelka main path", counters, pv_frame, packed, 2,
+        {"pavelka_mass_sweep": steps, "pavelka_momentum_entropy_sweep": steps},
+        card, n)
+    h_act = pv_state.fields["h"][pv_state.active]
+    say(15, f"pavelka after {steps} steps: active {int(pv_state.n)} of {n}; "
+            f"max h / cell width {float(h_act.max()) / min(e13.cell_size):.4f}, "
+            f"max h / pair cutoff {float(h_act.max()) / e13.h:.4f}, min h / h0 "
+            f"{float(h_act.min()) / pcfg.h0:.4f} (the sweeps cut every pair at "
+            f"the engine's cutoff h0, which no cell is narrower than); "
+            f"rescatters in the {steps} steps: "
+            f"{rescatters(pv_frame, packed, 3)}")
+    if int(pv_state.n) != n:
+        raise AssertionError(f"pavelka: active {int(pv_state.n)}/{n}")
+    if profile:
+        profile_steps(15, "pavelka", pv.make_step(pcfg, e13), packed)
+    del packed
+
+    # 16: run(out_path=...) on the card at a small size: the file set, the
+    # last frame read back, and a resumed run against the uninterrupted one
+    small = dataclasses.replace(cfg, n_rows=10, t_end=1.0, n_frames=2,
+                                checkpoint_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole_dir, part_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "part")
+        whole = w.run(small, out_path=whole_dir, device=dev)
+        files = sorted(os.listdir(whole_dir))
+        if files != ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+                     "frame2.vtp", "result.pvd"]:
+            raise AssertionError(f"run(out_path) wrote {files}")
+        points, data = port_io.read_vtp(os.path.join(whole_dir, "frame2.vtp"))
+        final = whole["state"]
+        if not frame_equals_state(points, data, final, w.EXPORT_VARS):
+            raise AssertionError("frame2.vtp differs from the final state")
+        w.run(dataclasses.replace(small, t_end=0.5, n_frames=1),
+              out_path=part_dir, device=dev)
+        resumed = w.run(dataclasses.replace(
+            small, resume=os.path.join(part_dir, "checkpoint.npz")),
+            out_path=part_dir, device=dev)
+        differing = [k for k, v in final.fields.items()
+                     if not torch.equal(resumed["state"].fields[k], v)]
+        same_files = all(
+            open(os.path.join(part_dir, f), "rb").read()
+            == open(os.path.join(whole_dir, f), "rb").read()
+            for f in files if f != "checkpoint.npz")
+        if (differing or not same_files
+                or not torch.equal(resumed["state"].active, final.active)):
+            raise AssertionError(f"resumed run differs: fields {differing}, "
+                                 f"files equal {same_files}")
+        say(16, f"run(out_path) on the card, n_rows=10: wrote {files}; "
+                f"frame2.vtp read back equal to the {len(points)} active rows; "
+                f"resumed run equals the uninterrupted one bit for bit "
+                f"(state, frames and data.csv)")
+
+    # 17: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
         """(kernel launch, twin call, pair-count call) on planes prepared
         once from state s."""
@@ -498,6 +686,20 @@ def main(profile: bool) -> None:
             planes, pads = ps._pressure_inputs(e, s, c)
             args, body, n_out, self_pair = ([1, ps.ctypes.c_float(ps.C_W2)],
                                             ps._pressure_body, 1, True)
+        elif kernel == "pavelka_mass_sweep":
+            planes, pads = ps._pavelka_mass_inputs(e, s, c)
+            args, body, n_out, self_pair = (
+                ps._pavelka_mass_scalars(c), ps._pavelka_mass_body(c), 1, False)
+        elif kernel == "pavelka_momentum_entropy_sweep":
+            planes, pads = ps._pavelka_momentum_entropy_inputs(e, s, c)
+            args, body, n_out, self_pair = (
+                ps._pavelka_momentum_entropy_scalars(c),
+                ps._pavelka_momentum_entropy_body(c), 3, False)
+        elif kernel == "gamma_grad_sweep":
+            planes, pads = ps._gamma_grad_inputs(e, s)
+            coef = V0 * ps._rdw_const(2)
+            args, body, n_out, self_pair = (
+                [ps.ctypes.c_float(coef)], ps._gamma_grad_body(V0), 2, True)
         else:
             split = kernel.endswith("split")
             planes, pads = ps._hopkins_inputs(e, s, c, split)
@@ -523,8 +725,12 @@ def main(profile: bool) -> None:
                          ("momentum_sweep", eng, flag_state),
                          ("pressure_sweep", e8, fh_state),
                          ("hopkins_momentum_sweep split", e8, fh_state),
-                         ("hopkins_momentum_sweep total", e11, ht_state)):
-        launch, twin, count = prepared(kernel, e, s, cfg)
+                         ("hopkins_momentum_sweep total", e11, ht_state),
+                         ("pavelka_mass_sweep", e13, pv_state),
+                         ("pavelka_momentum_entropy_sweep", e13, pv_state),
+                         ("gamma_grad_sweep", e13, pv_state)):
+        launch, twin, count = prepared(kernel, e, s,
+                                       pcfg if e is e13 else cfg)
         km, pm = cuda_ms(launch, 50), cuda_ms(twin, 5)
         pairs = int(count()[0].double().sum().item())
         name = kernel.split()[0]
@@ -538,7 +744,7 @@ def main(profile: bool) -> None:
         timing[kernel] = {"ms": km, "plain_ms": pm,
                           "bound_ms": max(bytes_ms, ops_ms),
                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        say(13, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
+        say(17, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
                 f"{timing[kernel]['bound_ms'] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB "
                 f"-> {bytes_ms * 1e3:.1f} us; {pairs} pairs x "
                 f"{ops // max(pairs, 1)} ops -> {ops_ms * 1e3:.1f} us), "
@@ -547,12 +753,19 @@ def main(profile: bool) -> None:
     launches = {"density_sweep": flag_counts["density_sweep"],
                 "momentum_sweep": flag_counts["momentum_sweep"],
                 "pressure_sweep": fh_counts["pressure_sweep"],
-                "hopkins_momentum_sweep": fh_counts["hopkins_momentum_sweep"]}
+                "hopkins_momentum_sweep": fh_counts["hopkins_momentum_sweep"],
+                "pavelka_mass_sweep": pv_counts["pavelka_mass_sweep"],
+                "pavelka_momentum_entropy_sweep":
+                    pv_counts["pavelka_momentum_entropy_sweep"],
+                "gamma_grad_sweep": setup_counts["gamma_grad_sweep"]}
     err_of = {"density_sweep": errs["density"][0],
               "momentum_sweep": errs["momentum_fm1"][0],
               "pressure_sweep": errs["pressure"][0],
               "hopkins_momentum_sweep": max(errs["hopkins_s1_fm1"][0],
-                                            errs["hopkins_s0_fm1"][0])}
+                                            errs["hopkins_s0_fm1"][0]),
+              "pavelka_mass_sweep": errs["pmass_fx1_fm1"][0],
+              "pavelka_momentum_entropy_sweep": errs["pmoment_fm1"][0],
+              "gamma_grad_sweep": errs["gamma"][0]}
     timed_as = {"hopkins_momentum_sweep": "hopkins_momentum_sweep split"}
     print(card, flush=True)
     print(json.dumps({"kernels": [

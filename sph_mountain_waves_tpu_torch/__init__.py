@@ -11,11 +11,16 @@ use, each with a plain PyTorch twin that CPU tensors take. Entry points
 the caller asks for the CPU.
 
 Ported so far, all on the 2-D bucket layout: the WCSPH mountain-wave
-flagship (``models.wcsph_perturbed_witch``) and the three pressure–entropy
+flagship (``models.wcsph_perturbed_witch``), the three pressure–entropy
 (Hopkins) schemes (``models.hopkins_perturbed_witch``,
 ``models.full_hopkins_perturbed_witch``, ``models.hopkins_total_witch`` with
-``utils.packing.hydrostatic_packing``), on four pair sweeps: density,
-momentum, the Hopkins pressure root and the Hopkins momentum.
+``utils.packing.hydrostatic_packing``) and the entropy-based (Pavelka)
+scheme (``models.pavelka_total_witch`` with
+``utils.packing.colagrossi_packing``), on seven pair sweeps: density,
+momentum, the Hopkins pressure root and momentum, the Pavelka continuity
+and fused momentum + entropy sweeps and the packing's ∇Γ sum; and the file
+output of every scheme's ``run`` (``io``: PVD/VTP frames and ``data.csv``;
+``utils.checkpoint``: bitwise checkpoint and resume).
 """
 import torch
 
@@ -32,5 +37,9 @@ from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: 
 from .ops.neighbors import NeighborEngine, Neighbors  # noqa: E402
 from .ops.apply import apply_unary  # noqa: E402
 from .interop import state_from_numpy, state_to_numpy  # noqa: E402
+from .io import (  # noqa: E402
+    DataStorage, new_pvd_file, save_pvd_file, save_frame, import_particles,
+    read_vtp,
+)
 
 __version__ = "0.1.0"

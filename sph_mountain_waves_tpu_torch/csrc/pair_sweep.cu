@@ -1,12 +1,16 @@
 // Pair sweeps of the 2-D bucket layout: density, momentum, the Hopkins
-// pressure root and the Hopkins momentum.
+// pressure root and momentum, the Pavelka continuity and fused momentum +
+// entropy sweeps, and the Colagrossi packing's gradient sum.
 //
 // Replaces the Pallas pair-sweep harness of
 // sph_mountain_waves_tpu/ops/pallas_pairs.py (make_pair_kernel_fn /
 // _make_pair_kernel, the one pl.pallas_call) with the bodies of
 // weighted_w_pass(ker_h="p")/density_pass, momentum_pass (2-D),
-// weighted_w_pass(ker_h="sym")/pressure_pass and hopkins_momentum_pass
-// (background_split on and off).
+// weighted_w_pass(ker_h="sym")/pressure_pass, hopkins_momentum_pass
+// (background_split on and off), pavelka_mass_pass and
+// pavelka_momentum_entropy_pass. gamma_grad_sweep has no Pallas counterpart:
+// it is the pair sum of utils/packing.py::colagrossi_packing (find_gGamma),
+// which the reference leaves to XLA.
 //
 // Layout: every field is an f32 plane [cap, C+1], slot (k, c) at k*(C+1)+c,
 // C = nx*ny cells row-major with x minor, column C the trash column. Plane 0
@@ -24,14 +28,17 @@
 // atomics, one store per output).
 //
 // Built with --fmad=false so that no multiply-add is contracted: each
-// operation rounds as in the twin. fast_math replaces the momentum divides
-// (three in momentum, five in the Hopkins momentum) by a multiply with
-// rcp.approx.ftz.f32; the pressure root keeps its exact divides, as the
-// reference's does.
+// operation rounds as in the twin. fast_math replaces the divides of the
+// momentum bodies (three in momentum, five in the Hopkins momentum, five in
+// the fused Pavelka sweep) and of the Pavelka continuity (one, or two with
+// the kernel-less diffusion) by a multiply with rcp.approx.ftz.f32; the
+// pressure root and the packing's gradient keep their exact divides, as the
+// reference's do.
 //
-// What bounds it on an H100: per occupied p slot about 9*kmax q slots of 5
-// (density, pressure), 10 (momentum) or 11/13 (Hopkins momentum) f32 fields
-// are read; neighbouring threads share them, so most reads hit L1/L2. Memory
+// What bounds it on an H100: per occupied p slot about 9*kmax q slots of 4
+// (packing gradient), 5 (density, pressure), 9 (Pavelka continuity), 10
+// (momentum), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
+// read; neighbouring threads share them, so most reads hit L1/L2. Memory
 // traffic and occupancy bound the sweep, not FLOPs.
 
 #include <cuda_runtime.h>
@@ -210,6 +217,121 @@ struct Hopkins {
   }
 };
 
+// Pavelka continuity: Drho_p = sum_q rho_p ker (x_pq . v_pq) + fl_p fl_q diff,
+// ker = wq_q rDW(h_ij, r), with diff = 2 nu (rho_p - rho_q) ker (FIXED, the
+// Molteni-Colagrossi form) or the reference's kernel-less
+// (2 nu / rho_p)(rho_p - rho_q); fields: occ, x0, x1, h, v0, v1, rho_f,
+// wq = m/rho_f, fl = [type == FLUID].
+template <bool FAST, bool FIXED>
+struct PavelkaMass {
+  static constexpr int NIN = 9;
+  static constexpr int NOUT = 1;
+  struct Params {
+    float dw;      // -140/pi
+    float two_nu;  // 2 nu
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float hq = f.in[3][qi];
+    const float v0q = f.in[4][qi];
+    const float v1q = f.in[5][qi];
+    const float rhoq = f.in[6][qi];
+    const float wq = f.in[7][qi];
+    const float flq = f.in[8][qi];
+    const float r = sqrtf(r2);
+    const float h_ij = 0.5f * (p[3] + hq);
+    const float hinv = pdiv<FAST>(1.0f, h_ij);
+    const float t = fmaxf(1.0f - r * hinv, 0.0f);
+    const float hinv2 = hinv * hinv;
+    const float ker = wq * prm.dw * t * t * t * (hinv2 * hinv2);
+    const float dot = d0 * (p[4] - v0q) + d1 * (p[5] - v1q);
+    const float conv = p[6] * ker * dot;
+    float diff;
+    if constexpr (FIXED) {
+      diff = prm.two_nu * (p[6] - rhoq) * ker;
+    } else {
+      diff = pdiv<FAST>(prm.two_nu, p[6]) * (p[6] - rhoq);
+    }
+    tot[0] += conv + (p[8] * flq) * diff;
+  }
+};
+
+// Pavelka fused momentum + entropy production: with ker = wq_q rDW(h_ij, r)
+// and dot = x_pq . v_pq,
+//   Dv_p = sum_q (-rho_p ker (Pt_p + Pt_q)
+//                 + ((8 rho_p ker mu)/(rho_p rho_q)) dot
+//                   / (r^2 + 0.0025 (h_p + h_q)^2)) x_pq
+//   dS_p = sum_q ((-4 m_p m_q ker mu)/(T_p rho_q)) dot^2
+//                / (r^2 + 0.01 h_p h_q) dt fl_p fl_q
+// fields: occ, x0, x1, h, m, v0, v1, rho_f, wq = m/rho_f, Pt = P/rho_f^2,
+// T_f, fl = [type == FLUID]. rho_f and T_f are non-zero on every slot.
+template <bool FAST>
+struct PavelkaMomentumEntropy {
+  static constexpr int NIN = 12;
+  static constexpr int NOUT = 3;
+  struct Params {
+    float dw;  // -140/pi
+    float mu;
+    float dt;
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float hq = f.in[3][qi];
+    const float mq = f.in[4][qi];
+    const float v0q = f.in[5][qi];
+    const float v1q = f.in[6][qi];
+    const float rhoq = f.in[7][qi];
+    const float wq = f.in[8][qi];
+    const float ptq = f.in[9][qi];
+    const float flq = f.in[11][qi];
+    const float hp = p[3];
+    const float rhop = p[7];
+    const float r = sqrtf(r2);
+    const float h_ij = 0.5f * (hp + hq);
+    const float hinv = pdiv<FAST>(1.0f, h_ij);
+    const float t = fmaxf(1.0f - r * hinv, 0.0f);
+    const float hinv2 = hinv * hinv;
+    const float ker = wq * prm.dw * t * t * t * (hinv2 * hinv2);
+    const float dot = d0 * (p[5] - v0q) + d1 * (p[6] - v1q);
+    const float du = -rhop * ker * (p[9] + ptq);
+    const float hs = hp + hq;
+    const float visc = pdiv<FAST>(
+        pdiv<FAST>(rhop * 8.0f * ker * prm.mu, rhop * rhoq) * dot,
+        r2 + 0.0025f * (hs * hs));
+    const float s = du + visc;
+    const float ds = (pdiv<FAST>(
+        pdiv<FAST>(-4.0f * p[4] * mq * ker * prm.mu, p[10] * rhoq) * dot * dot,
+        r2 + 0.01f * hp * hq) * prm.dt) * (p[11] * flq);
+    tot[0] += s * d0;
+    tot[1] += s * d1;
+    tot[2] += ds;
+  }
+};
+
+// Colagrossi packing gradient: gGamma_p = sum_q coef t^3 / h_p^4 x_pq,
+// t = max(1 - r/h_p, 0), coef = V0 (-140/pi), exact divide; fields: occ, x0,
+// x1, h. Includes the self pair, whose term is exactly 0.
+struct GammaGrad {
+  static constexpr int NIN = 4;
+  static constexpr int NOUT = 2;
+  struct Params {
+    float coef;  // V0 * (-140/pi)
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    const float hinv = 1.0f / p[3];
+    const float t = fmaxf(1.0f - r * hinv, 0.0f);
+    const float hinv2 = hinv * hinv;
+    const float ker = prm.coef * t * t * t * (hinv2 * hinv2);
+    tot[0] += ker * d0;
+    tot[1] += ker * d1;
+  }
+};
+
 template <class Body, bool SELF>
 __global__ void __launch_bounds__(kBlock)
 pair_sweep(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -345,6 +467,51 @@ int hopkins_momentum_sweep(const float* occ, const float* x0, const float* x1,
   return fast_math
       ? launch<Hopkins<true, false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s)
       : launch<Hopkins<false, false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
+}
+
+int pavelka_mass_sweep(const float* occ, const float* x0, const float* x1,
+                       const float* h, const float* v0, const float* v1,
+                       const float* rho, const float* wq, const float* fluid,
+                       const int* kmax, float* drho, int cap, int nx, int ny,
+                       float h2, float dw, float two_nu, int fixed_diffusion,
+                       int fast_math, void* stream) {
+  Planes<9, 1> f{{occ, x0, x1, h, v0, v1, rho, wq, fluid}, {drho}};
+  const Layout g{cap, nx, ny, h2};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (fixed_diffusion) {
+    return fast_math
+        ? launch<PavelkaMass<true, true>, false>(f, kmax, g, {dw, two_nu}, s)
+        : launch<PavelkaMass<false, true>, false>(f, kmax, g, {dw, two_nu}, s);
+  }
+  return fast_math
+      ? launch<PavelkaMass<true, false>, false>(f, kmax, g, {dw, two_nu}, s)
+      : launch<PavelkaMass<false, false>, false>(f, kmax, g, {dw, two_nu}, s);
+}
+
+int pavelka_momentum_entropy_sweep(
+    const float* occ, const float* x0, const float* x1, const float* h,
+    const float* m, const float* v0, const float* v1, const float* rho,
+    const float* wq, const float* pterm, const float* temp,
+    const float* fluid, const int* kmax, float* dv0, float* dv1, float* ds,
+    int cap, int nx, int ny, float h2, float dw, float mu, float dt,
+    int fast_math, void* stream) {
+  const Layout g{cap, nx, ny, h2};
+  auto s = static_cast<cudaStream_t>(stream);
+  Planes<12, 3> f{{occ, x0, x1, h, m, v0, v1, rho, wq, pterm, temp, fluid},
+                  {dv0, dv1, ds}};
+  return fast_math
+      ? launch<PavelkaMomentumEntropy<true>, false>(f, kmax, g, {dw, mu, dt}, s)
+      : launch<PavelkaMomentumEntropy<false>, false>(f, kmax, g, {dw, mu, dt}, s);
+}
+
+int gamma_grad_sweep(const float* occ, const float* x0, const float* x1,
+                     const float* h, const int* kmax, float* g0, float* g1,
+                     int cap, int nx, int ny, float h2, float coef,
+                     void* stream) {
+  Planes<GammaGrad::NIN, GammaGrad::NOUT> f{{occ, x0, x1, h}, {g0, g1}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<GammaGrad, true>(f, kmax, g, {coef},
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

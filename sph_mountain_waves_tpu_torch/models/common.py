@@ -1,12 +1,12 @@
 """Shared model scaffolding: frame loops and masked observables.
 
-Port of ``sph_mountain_waves_tpu/models/common.py`` (without checkpointing,
-which waits for the I/O slice). PyTorch runs eagerly, so a frame is a Python
-loop over steps; the reference's donated ``lax.scan`` has no counterpart yet
-(a CUDA graph of the step is later work).
+Port of ``sph_mountain_waves_tpu/models/common.py``. PyTorch runs eagerly,
+so a frame is a Python loop over steps; the reference's donated ``lax.scan``
+has no counterpart yet (a CUDA graph of the step is later work).
 """
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
@@ -14,7 +14,35 @@ import torch
 from ..structs import ParticleState
 
 __all__ = ["frame_runner", "masked_mean", "masked_max", "masked_sum",
-           "check_sweep_route"]
+           "check_sweep_route", "maybe_resume", "maybe_checkpoint"]
+
+
+def maybe_resume(cfg, state: ParticleState):
+    """The cfg-driven checkpoint contract: if ``cfg.resume`` names a
+    checkpoint, return its bitwise-restored state (on ``state``'s device) and
+    its saved step counter; otherwise ``(state, 0)``. Callers skip their
+    set-up hooks when the returned step is non-zero: the checkpoint already
+    holds their effect."""
+    if not cfg.resume:
+        return state, 0
+    from ..utils.checkpoint import load_checkpoint
+    state, meta = load_checkpoint(cfg.resume, device=state.active.device)
+    return state, int(meta["extra"].get("step", 0))
+
+
+def maybe_checkpoint(cfg, out, state: ParticleState, engine, k, t, frame, *,
+                     last: bool = False) -> None:
+    """Overwrite ``<out.path>/checkpoint.npz`` (atomically) every
+    ``cfg.checkpoint_every`` frames, and always on the run's final frame
+    (``last=True``) so that a run shorter than the cadence still leaves a
+    resume point. No-op without an output directory or with the feature
+    off."""
+    every = cfg.checkpoint_every
+    if not (every and out and (last or frame % every == 0)):
+        return
+    from ..utils.checkpoint import save_checkpoint
+    save_checkpoint(os.path.join(out.path, "checkpoint.npz"), state,
+                    engine=engine, extra={"step": k, "t": t})
 
 
 def check_sweep_route(cfg, state: ParticleState) -> None:

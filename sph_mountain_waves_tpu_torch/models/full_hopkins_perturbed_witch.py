@@ -16,6 +16,7 @@ from . import hopkins_perturbed_witch as _hopkins
 from . import wcsph_perturbed_witch as _wcsph
 
 FIELDS = dict(_hopkins.FIELDS, A_bg=0)
+EXPORT_VARS = _wcsph.EXPORT_VARS
 
 
 def make_system(cfg: WitchConfig) -> ParticleSystem:
@@ -35,5 +36,5 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
         verbose: bool = False, device="cuda"):
     """Frames every t_end/n_frames with avg/max velocity diagnostics, on
     ``device`` (the card unless the caller asks for the CPU)."""
-    return _wcsph._run_witch_scheme(cfg, make_system, make_step, out_path,
-                                    verbose, device=device)
+    return _wcsph._run_witch_scheme(cfg, make_system, make_step, EXPORT_VARS,
+                                    out_path, verbose, device=device)

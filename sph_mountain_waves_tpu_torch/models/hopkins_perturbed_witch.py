@@ -30,6 +30,7 @@ from .witch_common import (
 from . import wcsph_perturbed_witch as _wcsph
 
 FIELDS = dict(_wcsph.FIELDS, A=0)
+EXPORT_VARS = _wcsph.EXPORT_VARS
 
 
 def make_system(cfg: WitchConfig) -> ParticleSystem:
@@ -127,5 +128,5 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
         verbose: bool = False, device="cuda"):
     """Frames every t_end/n_frames with avg/max velocity diagnostics, on
     ``device`` (the card unless the caller asks for the CPU)."""
-    return _wcsph._run_witch_scheme(cfg, make_system, make_step, out_path,
-                                    verbose, device=device)
+    return _wcsph._run_witch_scheme(cfg, make_system, make_step, EXPORT_VARS,
+                                    out_path, verbose, device=device)

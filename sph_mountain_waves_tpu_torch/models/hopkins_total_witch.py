@@ -25,6 +25,7 @@ from . import wcsph_perturbed_witch as _wcsph
 
 FIELDS = {"h": 0, "x": 2, "m": 0, "v": 2, "Dv": 2, "rho": 0, "P": 0,
           "theta": 0, "T": 0, "type": 0, "A": 0}
+EXPORT_VARS = ("v", "rho", "P", "theta", "T", "type")
 
 
 def make_system(cfg: WitchConfig) -> ParticleSystem:
@@ -100,6 +101,7 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
     """Hydrostatic packing (unless ``packing=False``), then frames every
     t_end/n_frames with avg/max velocity diagnostics, on ``device`` (the
     card unless the caller asks for the CPU)."""
-    return _wcsph._run_witch_scheme(cfg, make_system, make_step, out_path,
-                                    verbose, setup=setup if packing else None,
+    return _wcsph._run_witch_scheme(cfg, make_system, make_step, EXPORT_VARS,
+                                    out_path, verbose,
+                                    setup=setup if packing else None,
                                     device=device)

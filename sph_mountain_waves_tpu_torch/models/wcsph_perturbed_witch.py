@@ -17,13 +17,17 @@ tensors. A CUDA state with ``cfg.use_pallas`` off is refused
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..ops.apply import apply_unary
 from ..ops.pair_sweeps import density_pass, momentum_pass
 from ..structs import ParticleState, ParticleSystem
-from .common import check_sweep_route, frame_runner
+from .common import (
+    check_sweep_route, frame_runner, maybe_checkpoint, maybe_resume,
+)
 from .witch_common import (
     FLUID, WitchConfig, background_density_t, background_pot_temperature_t,
     make_witch_system, rayleigh_damping, velocity_diagnostics,
@@ -34,6 +38,7 @@ FIELDS = {"h": 0, "x": 2, "m": 0, "v": 2, "Dv": 2,
           "P_bg": 0, "P_p": 0, "P": 0,
           "theta_bg": 0, "theta_p": 0, "theta": 0,
           "T_bg": 0, "T_p": 0, "T": 0, "type": 0}
+EXPORT_VARS = ("v", "rho", "P", "theta", "T", "type")
 
 
 def make_system(cfg: WitchConfig) -> ParticleSystem:
@@ -138,29 +143,37 @@ def make_finalize(cfg: WitchConfig):
 def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
         verbose: bool = False, device="cuda"):
     """The reference main loop: frames every t_end/n_frames with avg/max
-    velocity diagnostics, on ``device`` (the card unless the caller asks for
-    the CPU). Returns the time series, the final state and the system."""
+    velocity diagnostics and, with ``out_path``, the PVD output of
+    ``EXPORT_VARS`` and ``data.csv``; on ``device`` (the card unless the
+    caller asks for the CPU). Returns the time series, the final state and
+    the system."""
     return _run_witch_scheme(
-        cfg, make_system, make_step, out_path, verbose,
+        cfg, make_system, make_step, EXPORT_VARS, out_path, verbose,
         finalize=make_finalize(cfg) if cfg.lazy_diagnostics else None,
         device=device)
 
 
-def _run_witch_scheme(cfg, make_system_fn, make_step_fn, out_path=None,
-                      verbose=False, setup=None, finalize=None,
-                      device="cuda"):
+def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
+                      out_path=None, verbose=False, setup=None,
+                      finalize=None, device="cuda"):
     """Shared main() skeleton of the mountain-wave schemes: build, freeze on
-    ``device``, ``setup(cfg, engine, state)`` (e.g. a packing) if given, then
-    frames of ``make_step_fn``'s steps with ``finalize`` (lazy diagnostics)
-    after each, and the avg/max velocity time series. Output files
-    (``out_path``), checkpoints, resume and live plots need the I/O slice,
-    which is not ported yet: asking for them raises."""
-    if out_path is not None or cfg.checkpoint_every or cfg.resume or cfg.live_plot:
-        raise NotImplementedError(
-            "PVD/CSV output, checkpoints and live plots are not ported yet")
+    ``device``, resume from ``cfg.resume`` or else ``setup(cfg, engine,
+    state)`` (e.g. a packing) if given, then frames of ``make_step_fn``'s
+    steps with ``finalize`` (lazy diagnostics) after each, and the avg/max
+    velocity time series. With ``out_path``: ``frame<k>.vtp`` of
+    ``export_vars`` at t = 0 and after every frame, ``result.pvd``,
+    ``data.csv`` and, every ``cfg.checkpoint_every`` frames and on the last,
+    ``checkpoint.npz``. The terminal sparklines (``cfg.live_plot``) and the
+    velocities figure need ``utils/plots.py``, which is not ported: the
+    first raises, the second is not written."""
+    from ..io import new_pvd_file, save_csv, save_frame, save_pvd_file
+
+    if cfg.live_plot:
+        raise NotImplementedError("live plots (utils/plots.py) are not ported")
     sys = make_system_fn(cfg)
     state = sys.freeze(device=device)
-    if setup is not None:
+    state, k0 = maybe_resume(cfg, state)  # bitwise restart
+    if not k0 and setup is not None:
         state = setup(cfg, sys.engine, state)
     step = make_step_fn(cfg, sys.engine)
 
@@ -168,11 +181,16 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, out_path=None,
     steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
     run_frame = frame_runner(step, steps_per_frame, finalize=finalize)
 
+    out = new_pvd_file(out_path, resume=k0 > 0) if out_path else None
+    if out and not k0:
+        save_frame(out, state, *export_vars, time=0.0)
+
     ts, u_avgs, u_maxs = [], [], []
-    k = 0
+    k, frame = k0, 0
     while k < n_steps:
         state = run_frame(state)
         k += steps_per_frame
+        frame += 1
         t = k * cfg.dt
         u_avg, u_max = (float(v) for v in velocity_diagnostics(state))
         ts.append(t)
@@ -181,6 +199,15 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, out_path=None,
         if verbose:
             print(f"t = {t:.3f}  n = {int(state.n)}  "
                   f"u_avg = {u_avg:.4e}  u_max = {u_max:.4e}")
+        if out:
+            save_frame(out, state, *export_vars, time=t)
+        maybe_checkpoint(cfg, out, state, sys.engine, k, t, frame,
+                         last=k >= n_steps)
+    if out:
+        save_pvd_file(out)
+        save_csv(os.path.join(out.path, "data.csv"),
+                 {"t": ts, "u_avg": u_avgs, "u_max": u_maxs},
+                 merge_history=k0 > 0)
     sys.state = state
     return {"t": np.asarray(ts), "u_avg": np.asarray(u_avgs),
             "u_max": np.asarray(u_maxs), "state": state, "system": sys}

@@ -74,10 +74,16 @@ class WitchConfig:
     bucket_cap: int | None = None
     # approximate reciprocals for the momentum-body divides
     fast_math: bool = False
-    # checkpoint/resume, frame import and live plots are not ported yet
+    # write <out_path>/checkpoint.npz every this many frames (0: off) and
+    # on the last; resume: path of a checkpoint to continue from, bitwise
     checkpoint_every: int = 0
     resume: str = ""
+    # boot from a saved ParaView frame instead of the lattice: positions and
+    # the frame's fields from the file, every other field rebuilt from the
+    # hydrostatic background at the saved positions (approximate by
+    # construction; the bitwise restart is ``resume``)
     init_vtp: str = ""
+    # terminal sparklines per frame: needs utils/plots.py, not ported (raises)
     live_plot: bool = False
 
     @property
@@ -190,8 +196,6 @@ def make_witch_system(cfg: WitchConfig, fields: dict,
     """Domain + fence + mountain geometry and particle generation, with the
     hydrostatic isothermal initial state common to all schemes. ``fields``
     must include the scheme's per-particle variables."""
-    if cfg.init_vtp:
-        raise NotImplementedError("init_vtp needs the I/O slice (not ported)")
     grid = Grid(cfg.dr, "hexagonal")
     domain = Rectangle(-cfg.dom_length / 2.0, 0.0, cfg.dom_length / 2.0,
                        cfg.dom_height)
@@ -217,15 +221,22 @@ def make_witch_system(cfg: WitchConfig, fields: dict,
         b = (3.0 / 4.0) ** 0.25 * cfg.dr
         sys.freeze_opts["cells"] = (2.0 * a * (1.0 - 1e-6),
                                     2.0 * b * (1.0 - 1e-6))
-    generate_particles(sys, grid, domain - mountain,
-                       lambda xs: {"type": FLUID})
-    generate_particles(sys, grid, fence, lambda xs: {"type": WALL})
-    generate_particles(sys, grid, mountain, lambda xs: {"type": FLUID})
+    imported: set = set()
+    if cfg.init_vtp:
+        from ..io import import_particles, read_vtp
+        imported = set(read_vtp(cfg.init_vtp)[1])
+        import_particles(sys, cfg.init_vtp)
+    else:
+        generate_particles(sys, grid, domain - mountain,
+                           lambda xs: {"type": FLUID})
+        generate_particles(sys, grid, fence, lambda xs: {"type": WALL})
+        generate_particles(sys, grid, mountain, lambda xs: {"type": FLUID})
 
-    # hydrostatic isothermal init common to all schemes
+    # hydrostatic isothermal init common to all schemes; fields imported
+    # from a frame are left as loaded
     for chunk in sys._chunks:
         y = chunk["x"][:, 1]
-        if "h" in chunk:
+        if "h" in chunk and "h" not in imported:
             chunk["h"] = np.full_like(y, cfg.h0)
         rho_bg = background_density(cfg, y)
         for name, val in [
@@ -238,7 +249,7 @@ def make_witch_system(cfg: WitchConfig, fields: dict,
             ("T", np.full_like(y, cfg.T_bg)),
             ("m", rho_bg * cfg.dr**2),
         ]:
-            if name in chunk:
+            if name in chunk and name not in imported:
                 chunk[name] = val
     return sys
 

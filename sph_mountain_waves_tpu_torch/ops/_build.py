@@ -43,6 +43,16 @@ SIGNATURES = {
         # stream
         "hopkins_momentum_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 5
                                    + [_I, _I, _P], _I),
+        # 9 planes, kmax, out, cap, nx, ny, h2, dw, 2nu, fixed_diffusion,
+        # fast_math, stream
+        "pavelka_mass_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3
+                               + [_I, _I, _P], _I),
+        # 12 planes, kmax, 3 outs, cap, nx, ny, h2, dw, mu, dt, fast_math,
+        # stream
+        "pavelka_momentum_entropy_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 4
+                                           + [_I, _P], _I),
+        # occ, x0, x1, h, kmax, 2 outs, cap, nx, ny, h2, coef, stream
+        "gamma_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
     },
 }
 

@@ -1,13 +1,18 @@
 """Pair sweeps of the 2-D mountain-wave schemes: density, momentum, the
-Hopkins pressure root and the Hopkins momentum.
+Hopkins pressure root and momentum, the Pavelka continuity and fused
+momentum + entropy sweeps, and the Colagrossi packing's ∇Γ sum.
 
 Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` that the
-WCSPH flagship and the three Hopkins schemes run: the pair-sweep harness
-(``make_pair_kernel_fn`` with ``_make_pair_kernel``, the one
-``pl.pallas_call``), its trip bound ``row_kmax``,
+WCSPH flagship, the three Hopkins schemes and the Pavelka scheme run: the
+pair-sweep harness (``make_pair_kernel_fn`` with ``_make_pair_kernel``, the
+one ``pl.pallas_call``), its trip bound ``row_kmax``,
 ``weighted_w_pass(ker_h="p")``/``density_pass``, the 2-D ``momentum_pass``,
-``weighted_w_pass(ker_h="sym")``/``pressure_pass`` and
-``hopkins_momentum_pass`` (``background_split`` on and off).
+``weighted_w_pass(ker_h="sym")``/``pressure_pass``,
+``hopkins_momentum_pass`` (``background_split`` on and off),
+``pavelka_mass_pass`` and ``pavelka_momentum_entropy_pass``.
+``gamma_grad_pass`` has no Pallas counterpart: the reference's Colagrossi
+packing takes that sum as an XLA pair sum
+(``utils/packing.py::colagrossi_packing``, ``find_gGamma``).
 
 Every sweep reads f32 planes in the bucket layout ``[cap, C+1]`` (an
 occupancy plane plus per-particle fields) and writes one ``[cap, C+1]`` plane
@@ -22,15 +27,17 @@ Each sweep has two implementations:
 
 * a CUDA C++ kernel for sm_90a (``csrc/pair_sweep.cu``), launched by the
   wrapper (``density_pass``, ``momentum_pass``, ``pressure_pass``,
-  ``hopkins_momentum_pass``) for CUDA tensors, which counts its launches in
-  ``<wrapper>.launches``;
+  ``hopkins_momentum_pass``, ``pavelka_mass_pass``,
+  ``pavelka_momentum_entropy_pass``, ``gamma_grad_pass``) for CUDA tensors,
+  which counts its launches in ``<wrapper>.launches``;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
   vectorised over shifted views of the zero-padded ``[cap, ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
 
 What bounds the kernel on an H100: per occupied p slot it reads the q slots
-of 9 cells up to the row's band occupancy (about 9·kmax slots) of 5
-(density, pressure), 10 (momentum) or 11/13 (Hopkins momentum) f32 fields.
+of 9 cells up to the row's band occupancy (about 9·kmax slots) of 4 (∇Γ),
+5 (density, pressure), 9 (Pavelka continuity), 10 (momentum), 11/13 (Hopkins
+momentum) or 12 (Pavelka momentum + entropy) f32 fields.
 Neighbouring threads share most of those q reads, so they hit L1/L2; memory
 traffic and occupancy bound the sweep, not FLOPs.
 """
@@ -48,7 +55,10 @@ from . import _build
 __all__ = ["row_kmax", "density_pass", "density_pass_plain",
            "momentum_pass", "momentum_pass_plain", "pressure_pass",
            "pressure_pass_plain", "hopkins_momentum_pass",
-           "hopkins_momentum_pass_plain"]
+           "hopkins_momentum_pass_plain", "pavelka_mass_pass",
+           "pavelka_mass_pass_plain", "pavelka_momentum_entropy_pass",
+           "pavelka_momentum_entropy_pass_plain", "gamma_grad_pass",
+           "gamma_grad_pass_plain"]
 
 
 def row_kmax(engine, state: ParticleState):
@@ -151,6 +161,49 @@ def _hopkins_inputs(engine, state: ParticleState, cfg, background_split: bool):
     return planes, pad_vals
 
 
+def _pavelka_mass_inputs(engine, state: ParticleState, cfg):
+    """Planes (occ, x0, x1, h, v0, v1, ρ_f, wq = m/ρ_f, [type == FLUID]);
+    h pads with its floor."""
+    f = state.fields
+    rho_f = torch.clamp(f["rho"], min=cfg.rho_floor)
+    wq = f["m"] / rho_f
+    fluid = (f["type"] == 0.0).to(torch.float32)
+    h = torch.clamp(f["h"], min=_hfloor(engine))
+    planes = [_plane(engine, a) for a in (
+        state.active, f["x"][:, 0], f["x"][:, 1], h,
+        f["v"][:, 0], f["v"][:, 1], rho_f, wq, fluid)]
+    return planes, [0.0] * 3 + [_hfloor(engine)] + [0.0] * 5
+
+
+def _pavelka_momentum_entropy_inputs(engine, state: ParticleState, cfg):
+    """Planes (occ, x0, x1, h, m, v0, v1, ρ_f, wq = m/ρ_f, P/ρ_f²,
+    T_f = max(T, 1e-12), [type == FLUID]). ρ_f and T_f sit in the ρ_p·ρ_q and
+    T_p·ρ_q denominators, so they are non-zero on every slot and ρ pads with
+    its floor (0/0 is NaN even under the mask); h pads with its floor."""
+    f = state.fields
+    rho_f = torch.clamp(f["rho"], min=cfg.rho_floor)
+    wq = f["m"] / rho_f
+    Pterm = f["P"] / rho_f**2
+    T_f = torch.clamp(f["T"], min=1e-12)
+    fluid = (f["type"] == 0.0).to(torch.float32)
+    h = torch.clamp(f["h"], min=_hfloor(engine))
+    planes = [_plane(engine, a) for a in (
+        state.active, f["x"][:, 0], f["x"][:, 1], h, f["m"],
+        f["v"][:, 0], f["v"][:, 1], rho_f, wq, Pterm, T_f, fluid)]
+    pad_vals = ([0.0] * 3 + [_hfloor(engine)] + [0.0] * 3
+                + [cfg.rho_floor] + [0.0] * 4)
+    return planes, pad_vals
+
+
+def _gamma_grad_inputs(engine, state: ParticleState):
+    """Planes (occ, x0, x1, h); h pads with its floor."""
+    f = state.fields
+    h = torch.clamp(f["h"], min=_hfloor(engine))
+    planes = [_plane(engine, a) for a in (
+        state.active, f["x"][:, 0], f["x"][:, 1], h)]
+    return planes, [0.0] * 3 + [_hfloor(engine)]
+
+
 # ------------------------------------------------------------ plain twins
 
 def _density_body(p, q, r2, maskf):
@@ -246,6 +299,84 @@ def _hopkins_body(cfg, background_split: bool):
     return body
 
 
+def _pavelka_mass_body(cfg):
+    """δ-SPH continuity: ρ_p·ker·(x_pq·v_pq) plus the fluid–fluid density
+    diffusion, ker = wq_q·rDW(h̄, r); term for term the Pallas Pavelka mass
+    body (fields occ, x0, x1, h, v0, v1, ρ_f, wq, fluid)."""
+    DW = _rdw_const(2)
+    two_nu = 2.0 * cfg.nu
+    fixed = cfg.fixed_diffusion
+    div = _div_fn(cfg)
+
+    def body(p, q, r2, maskf):
+        rhop, rhoq = p[6], q[6]
+        r = torch.sqrt(r2)
+        h_ij = 0.5 * (p[3] + q[3])
+        hinv = div(1.0, h_ij)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        hinv2 = hinv * hinv
+        ker = q[7] * DW * t * t * t * (hinv2 * hinv2)
+        dot = (p[1] - q[1]) * (p[4] - q[4]) + (p[2] - q[2]) * (p[5] - q[5])
+        conv = rhop * ker * dot
+        if fixed:  # Molteni–Colagrossi
+            diff = two_nu * (rhop - rhoq) * ker
+        else:      # the reference's kernel-less form: diverges by design
+            # a tensor numerator: torch takes scalar / tensor as
+            # reciprocal times scalar, which rounds twice
+            diff = div(torch.full_like(rhop, two_nu), rhop) * (rhop - rhoq) * maskf
+        return [conv + (p[8] * q[8]) * diff]
+
+    return body
+
+
+def _pavelka_momentum_entropy_body(cfg):
+    """Pressure gradient + laminar viscosity (Dv) and the fluid–fluid
+    viscous entropy production with dt folded in (dS), sharing ker and
+    x_pq·v_pq; term for term the Pallas fused Pavelka body (fields occ, x0,
+    x1, h, m, v0, v1, ρ_f, wq, P/ρ_f², T_f, fluid)."""
+    DW = _rdw_const(2)
+    mu, dt = cfg.mu, cfg.dt
+    div = _div_fn(cfg)
+
+    def body(p, q, r2, maskf):
+        hp, hq = p[3], q[3]
+        rhop, rhoq = p[7], q[7]
+        r = torch.sqrt(r2)
+        h_ij = 0.5 * (hp + hq)
+        hinv = div(1.0, h_ij)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        hinv2 = hinv * hinv
+        ker = q[8] * DW * t * t * t * (hinv2 * hinv2)
+        dx = [p[1] - q[1], p[2] - q[2]]
+        dot = dx[0] * (p[5] - q[5]) + dx[1] * (p[6] - q[6])
+        du = -rhop * ker * (p[9] + q[9])
+        hs = hp + hq
+        visc = div(div(rhop * 8.0 * ker * mu, rhop * rhoq) * dot,
+                   r2 + 0.0025 * (hs * hs))
+        s = du + visc
+        dS = (div(div(-4.0 * p[4] * q[4] * ker * mu, p[10] * rhoq) * dot * dot,
+                  r2 + 0.01 * hp * hq) * dt) * (p[11] * q[11])
+        return [s * dx[0], s * dx[1], dS]
+
+    return body
+
+
+def _gamma_grad_body(V0: float):
+    """Σ V0·rDW(h_p, r)·x_pq with exact divides (fields occ, x0, x1, h). The
+    self pair contributes exactly 0 (x_pq = 0)."""
+    coef = V0 * _rdw_const(2)
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        hinv = 1.0 / p[3]
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        hinv2 = hinv * hinv
+        ker = coef * t * t * t * (hinv2 * hinv2)
+        return [ker * (p[1] - q[1]), ker * (p[2] - q[2])]
+
+    return body
+
+
 def _sweep_plain(engine, planes, pad_vals, band, body, n_out: int,
                  self_pair: bool):
     """The pair-sweep harness in plain PyTorch: p fields are the [cap, ny, nx]
@@ -312,6 +443,32 @@ def hopkins_momentum_pass_plain(engine, state: ParticleState, cfg,
     return _sweep_plain(engine, planes, pad_vals, band,
                         _hopkins_body(cfg, background_split), 2,
                         self_pair=False)
+
+
+def pavelka_mass_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``pavelka_mass_pass``."""
+    planes, pad_vals = _pavelka_mass_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes, pad_vals, band,
+                          _pavelka_mass_body(cfg), 1, self_pair=False)
+    return out
+
+
+def pavelka_momentum_entropy_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``pavelka_momentum_entropy_pass``: (Dv0, Dv1, dS)."""
+    planes, pad_vals = _pavelka_momentum_entropy_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _pavelka_momentum_entropy_body(cfg), 3,
+                        self_pair=False)
+
+
+def gamma_grad_pass_plain(engine, state: ParticleState, V0: float):
+    """Plain twin of ``gamma_grad_pass``: the two components of ∇Γ."""
+    planes, pad_vals = _gamma_grad_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band, _gamma_grad_body(V0),
+                        2, self_pair=True)
 
 
 # ----------------------------------------------------------- CUDA kernels
@@ -447,7 +604,72 @@ def hopkins_momentum_pass(engine, state: ParticleState, cfg,
     return outs
 
 
+def _pavelka_mass_scalars(cfg):
+    """(−C of rDW, 2ν, fixed_diffusion, fast_math) of the Pavelka mass body."""
+    return [ctypes.c_float(_rdw_const(2)), ctypes.c_float(2.0 * cfg.nu),
+            int(bool(cfg.fixed_diffusion)), _fast(cfg)]
+
+
+def _pavelka_momentum_entropy_scalars(cfg):
+    """(−C of rDW, μ, dt, fast_math) of the fused Pavelka body."""
+    return [ctypes.c_float(_rdw_const(2)), ctypes.c_float(cfg.mu),
+            ctypes.c_float(cfg.dt), _fast(cfg)]
+
+
+def pavelka_mass_pass(engine, state: ParticleState, cfg):
+    """δ-SPH continuity sweep: Drho = Σ ρ_p·(m_q/ρ_q)·rDW(h̄, r)·(x_pq·v_pq)
+    plus the fluid–fluid density diffusion (Molteni–Colagrossi with
+    ``cfg.fixed_diffusion``, else the reference-faithful kernel-less form),
+    as a flat [slots] tensor. Replaces ``pavelka_mass_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``pavelka_mass_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return pavelka_mass_pass_plain(engine, state, cfg)
+    planes, _ = _pavelka_mass_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    (out,) = _launch("pavelka_mass_sweep", engine, planes, band, 1,
+                     _pavelka_mass_scalars(cfg))
+    pavelka_mass_pass.launches += 1
+    return out
+
+
+def pavelka_momentum_entropy_pass(engine, state: ParticleState, cfg):
+    """Fused momentum + viscous entropy-production sweep: (Dv0, Dv1, dS) as
+    three flat [slots] tensors, dS with ``cfg.dt`` folded in. Replaces
+    ``pavelka_momentum_entropy_pass`` of pallas_pairs.py. CUDA tensors launch
+    the kernel (counted in ``pavelka_momentum_entropy_pass.launches``); CPU
+    tensors take the twin."""
+    if not _on_cuda(state.active):
+        return pavelka_momentum_entropy_pass_plain(engine, state, cfg)
+    planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("pavelka_momentum_entropy_sweep", engine, planes, band, 3,
+                   _pavelka_momentum_entropy_scalars(cfg))
+    pavelka_momentum_entropy_pass.launches += 1
+    return outs
+
+
+def gamma_grad_pass(engine, state: ParticleState, V0: float):
+    """The Colagrossi packing's unevenness gradient ∇Γ_p = Σ V0·rDW(h_p, r)·x_pq
+    over every occupied pair (self pair included, no FLUID gate), as two
+    flat [slots] tensors. An XLA pair sum in the reference
+    (``utils/packing.py``, ``find_gGamma``), a hand kernel here. CUDA tensors
+    launch it (counted in ``gamma_grad_pass.launches``); CPU tensors take
+    the twin."""
+    if not _on_cuda(state.active):
+        return gamma_grad_pass_plain(engine, state, V0)
+    planes, _ = _gamma_grad_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("gamma_grad_sweep", engine, planes, band, 2,
+                   [ctypes.c_float(V0 * _rdw_const(2))])
+    gamma_grad_pass.launches += 1
+    return outs
+
+
 density_pass.launches = 0
 momentum_pass.launches = 0
 pressure_pass.launches = 0
 hopkins_momentum_pass.launches = 0
+pavelka_mass_pass.launches = 0
+pavelka_momentum_entropy_pass.launches = 0
+gamma_grad_pass.launches = 0

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from sph_mountain_waves_tpu_torch.models import full_hopkins_perturbed_witch as fh
+from sph_mountain_waves_tpu_torch.models import pavelka_total_witch as pv
 from sph_mountain_waves_tpu_torch.models import wcsph_perturbed_witch as w
 from sph_mountain_waves_tpu_torch.models.common import frame_runner
 from sph_mountain_waves_tpu_torch.models.witch_common import (
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 BENCH = WitchConfig(n_rows=10, dtype="float32", self_density=True,
                     layout="bucket", skin=0.15, use_pallas=True,
                     lazy_diagnostics=True, lattice_cells=True, fast_math=True)
+PV_BENCH = pv.PavelkaConfig(**dataclasses.asdict(BENCH))
 
 
 @pytest.fixture
@@ -35,12 +37,12 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _live_state(device, module=w):
+def _live_state(device, module=w, cfg=BENCH):
     """The flagship (or another scheme) at n_rows=10 after one step, with v
     perturbed by a seeded ±1 m/s so that the viscosity term is live."""
-    sys_ = module.make_system(BENCH)
+    sys_ = module.make_system(cfg)
     state = sys_.freeze(device=device)
-    state = module.make_step(BENCH, sys_.engine)(state)
+    state = module.make_step(cfg, sys_.engine)(state)
     gen = torch.Generator(device=device).manual_seed(0)
     dv = torch.rand(state.fields["v"].shape, generator=gen, device=device) * 2 - 1
     return sys_.engine, state.replace(
@@ -142,14 +144,91 @@ def test_full_hopkins_kernel_steps_match_cpu_twins(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("module", [w, fh], ids=["wcsph", "full_hopkins"])
+@pytest.mark.parametrize("module", [w, fh, pv],
+                         ids=["wcsph", "full_hopkins", "pavelka"])
 def test_use_pallas_off_is_refused_on_the_card(card, module):
     """A CUDA state with use_pallas=False raises instead of running the
     plain twins on the card, and launches nothing."""
-    cfg = dataclasses.replace(BENCH, use_pallas=False)
+    cfg = dataclasses.replace(PV_BENCH if module is pv else BENCH,
+                              use_pallas=False)
     sys_ = module.make_system(cfg)
     state = sys_.freeze(device=card)
-    before = (ps.density_pass.launches, ps.pressure_pass.launches)
+    wrappers = (ps.density_pass, ps.pressure_pass, ps.pavelka_mass_pass)
+    before = [wr.launches for wr in wrappers]
     with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
         module.make_step(cfg, sys_.engine)(state)
-    assert (ps.density_pass.launches, ps.pressure_pass.launches) == before
+    assert [wr.launches for wr in wrappers] == before
+
+
+def _held_to_twin(got, rerun, ref, fast_math):
+    """Reruns bitwise equal; exact divides at the gate rtol 1e-5 / atol 1e-6
+    × the output's largest |value| (the sums cancel), fast_math within 1e-3
+    of it."""
+    for g, g2, r in zip(got, rerun, ref):
+        assert torch.equal(g, g2)
+        assert torch.isfinite(g).all()
+        scale = float(r.abs().max())
+        if fast_math:
+            assert (g - r).abs().max() <= 1e-3 * scale
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+@pytest.mark.parametrize("fixed", [True, False], ids=["fixed", "faithful"])
+def test_pavelka_mass_kernel_matches_twin(card, fixed, fast_math):
+    eng, st = _live_state(card, pv, PV_BENCH)
+    cfg = dataclasses.replace(PV_BENCH, fixed_diffusion=fixed,
+                              fast_math=fast_math)
+    before = ps.pavelka_mass_pass.launches
+    got = ps.pavelka_mass_pass(eng, st, cfg)
+    assert ps.pavelka_mass_pass.launches == before + 1
+    _held_to_twin([got], [ps.pavelka_mass_pass(eng, st, cfg)],
+                  [ps.pavelka_mass_pass_plain(eng, st, cfg)], fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_pavelka_momentum_entropy_kernel_matches_twin(card, fast_math):
+    eng, st = _live_state(card, pv, PV_BENCH)
+    cfg = dataclasses.replace(PV_BENCH, fast_math=fast_math)
+    before = ps.pavelka_momentum_entropy_pass.launches
+    got = ps.pavelka_momentum_entropy_pass(eng, st, cfg)
+    assert ps.pavelka_momentum_entropy_pass.launches == before + 1
+    assert len(got) == 3 and float(got[2].abs().max()) > 0.0
+    _held_to_twin(got, ps.pavelka_momentum_entropy_pass(eng, st, cfg),
+                  ps.pavelka_momentum_entropy_pass_plain(eng, st, cfg),
+                  fast_math)
+
+
+@pytest.mark.cuda
+def test_gamma_grad_kernel_matches_twin(card):
+    """The Colagrossi packing's ∇Γ sweep, on a state whose h varies."""
+    eng, st = _live_state(card, pv, PV_BENCH)
+    V0 = 6.0e6
+    before = ps.gamma_grad_pass.launches
+    got = ps.gamma_grad_pass(eng, st, V0)
+    assert ps.gamma_grad_pass.launches == before + 1
+    _held_to_twin(got, ps.gamma_grad_pass(eng, st, V0),
+                  ps.gamma_grad_pass_plain(eng, st, V0), False)
+
+
+@pytest.mark.cuda
+def test_pavelka_kernel_steps_match_cpu_twins(card):
+    """The Colagrossi packing (10 steps) and 8 Pavelka steps with the
+    kernels on the card against the plain twins on the CPU: u_avg/u_max
+    within rel 1e-5, equal active counts."""
+    from sph_mountain_waves_tpu_torch.utils.packing import colagrossi_packing
+    out = {}
+    cfg = dataclasses.replace(PV_BENCH, fast_math=False)
+    for label, device in (("card", card), ("cpu", torch.device("cpu"))):
+        sys_ = pv.make_system(cfg)
+        state = sys_.freeze(device=device)
+        state = colagrossi_packing(cfg, sys_.engine, state, max_steps=10)
+        state = frame_runner(pv.make_step(cfg, sys_.engine), 8)(state)
+        out[label] = ([float(v) for v in velocity_diagnostics(state)],
+                      int(state.n))
+    assert out["card"][1] == out["cpu"][1]
+    for a, b in zip(out["card"][0], out["cpu"][0]):
+        assert a == pytest.approx(b, rel=1e-5)

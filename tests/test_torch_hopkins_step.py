@@ -11,6 +11,8 @@ level changes the rounding, far inside the gate).
 Also: the packing from one frozen state on both sides, ``run`` on the CPU,
 and the entry points' default device (the card).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -111,8 +113,8 @@ def test_packing_matches_jax():
 
 def test_run_on_cpu():
     """``run(..., device="cpu")`` drives two short frames of the full
-    Hopkins scheme, keeps every particle and stays near rest; an output path
-    is refused until the I/O slice is ported."""
+    Hopkins scheme, keeps every particle and stays near rest; live plots
+    (``utils/plots.py``, not ported) are refused."""
     cfg = TCfg(n_rows=8, dtype="float32", self_density=True, layout="bucket",
                skin=0.15, lattice_cells=True, use_pallas=True, t_end=1.0,
                n_frames=2)
@@ -120,8 +122,8 @@ def test_run_on_cpu():
     assert len(out["t"]) == 2
     assert np.all(np.isfinite(out["u_max"])) and out["u_max"][-1] < 5.0
     assert int(out["state"].n) == out["system"].n_built
-    with pytest.raises(NotImplementedError):
-        tfh.run(cfg, out_path="unused", device="cpu")
+    with pytest.raises(NotImplementedError, match="live plots"):
+        tfh.run(dataclasses.replace(cfg, live_plot=True), device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

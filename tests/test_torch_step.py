@@ -6,6 +6,8 @@ the sweeps take their plain twins) against 8 jitted steps of the JAX
 reference holds to its Pallas path at rel 1e-5, tests/test_pallas.py).
 """
 import jax
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -93,7 +95,7 @@ def test_finalize_matches_jax(stepped):
 
 def test_run_small():
     """``run`` drives frames end to end and keeps the static atmosphere
-    near rest; an output path is refused until the I/O slice is ported."""
+    near rest; live plots (``utils/plots.py``, not ported) are refused."""
     cfg = TCfg(n_rows=8, dtype="float32", self_density=True, layout="bucket",
                skin=0.15, lattice_cells=True, use_pallas=True,
                lazy_diagnostics=True, t_end=1.0, n_frames=2)
@@ -101,5 +103,5 @@ def test_run_small():
     assert len(out["t"]) == 2
     assert np.all(np.isfinite(out["u_max"])) and out["u_max"][-1] < 5.0
     assert int(out["state"].n) == out["system"].n_built
-    with pytest.raises(NotImplementedError):
-        tw.run(cfg, out_path="unused", device="cpu")
+    with pytest.raises(NotImplementedError, match="live plots"):
+        tw.run(dataclasses.replace(cfg, live_plot=True), device="cpu")
