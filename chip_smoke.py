@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: the WCSPH mountain-wave flagship, the
-three pressure–entropy (Hopkins) schemes, the entropy-based (Pavelka) scheme
-and the file output of ``run``.
+three pressure–entropy (Hopkins) schemes, the entropy-based (Pavelka) scheme,
+the file output of ``run``, the 3-D mountain wave (``witch3d``) and the two
+dam breaks (``collapse_dry``, ``collapse3d``).
 
 Drives ``sph_mountain_waves_tpu_torch`` (never JAX) on one CUDA card at the
 bench configuration (2-D mountain wave, n_rows=246: N=978,463 particles,
 f32, bucket layout, lattice cells, skin 0.15, self_density, fast_math)
 through the entry points a user calls: make_system -> freeze -> make_step ->
 frame_runner -> velocity_diagnostics (and, for hopkins_total and Pavelka,
-their packing set-ups), and ``run(cfg, out_path=...)`` at a small size.
+their packing set-ups), and ``run(cfg, out_path=...)`` at a small size;
+then the 3-D path at the stretch size (``witch3d.stretch_config(bucket_cap=8)``:
+N=3,247,157, grid 384 x 56 x 32, 27-cell stencil) and the dam breaks at the
+reference's sizes (``collapse_dry`` dr=0.014, ``collapse3d`` dr=5e-3, cap 40).
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -41,7 +45,22 @@ Phases, each printing one or more lines:
  16. ``run(cfg, out_path=..., device="cuda")`` of the flagship at n_rows=10
      with a checkpoint every frame: the file set, the last frame read back,
      and a resumed run against the uninterrupted one, bit for bit;
- 17. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
+ 17. witch3d build at the stretch size with shape checks, host build
+     seconds and peak device memory;
+ 18. a forced 3-D rescatter of the frozen state (27 offsets), which must be
+     the identity, with its time and peak memory;
+ 19. the 3-D density and momentum kernels against their twins at full width
+     on a live state (fast_math off and on); reruns bitwise equal;
+ 20. witch3d: its set-up (4 mass-renormalisation iterations; the summed
+     density's median over the background within 1e-3 of 1), 6 tiny steps
+     card against CPU twins, then the main path: 1 warm-up and 2 timed frames
+     of 20 steps;
+ 21. the dam-break continuity and force kernels, 2-D and 3-D, against their
+     twins on live collapse_dry and collapse3d states at full size;
+ 22. 8 small steps of each dam break, card against CPU twins;
+ 23. the dam-break main paths: 1 warm-up and 1 timed frame of 100 steps
+     (collapse_dry after init_forces), with the energy;
+ 24. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
      twin over 5) beside its bound.
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
@@ -51,8 +70,8 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
-             and 10 Pavelka steps (from the packed state), with the device
-             time per step
+             10 Pavelka steps (from the packed state) and 10 witch3d steps,
+             with the device time per step
 """
 from __future__ import annotations
 
@@ -70,34 +89,52 @@ N_ROWS = 246
 EXPECT = {"n": 978_463, "lims": (1792, 144), "cap": 8}
 STEPS_PER_FRAME = 100
 RTOL, ATOL = 1e-5, 1e-6
+# the exported kernels; a "_3d" name shares its wrapper (and so its launch
+# counter) with the 2-D form
 KERNELS = ("density_sweep", "momentum_sweep", "pressure_sweep",
            "hopkins_momentum_sweep", "pavelka_mass_sweep",
-           "pavelka_momentum_entropy_sweep", "gamma_grad_sweep")
+           "pavelka_momentum_entropy_sweep", "gamma_grad_sweep",
+           "density_sweep_3d", "momentum_sweep_3d", "dambreak_mass_sweep",
+           "dambreak_force_sweep", "dambreak_mass_sweep_3d",
+           "dambreak_force_sweep_3d")
+COUNTED = tuple(k for k in KERNELS if not k.endswith("_3d"))
 SOURCE = "sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu"
 REPLACES = {k: f"sph_mountain_waves_tpu/ops/pallas_pairs.py:{line}"
-            for k, line in zip(KERNELS, (715, 751, 722, 806, 1323, 1373))}
+            for k, line in zip(KERNELS, (715, 751, 722, 806, 1323, 1373, 0,
+                                         715, 751, 884, 913, 884, 913))}
 # not a Pallas kernel in the reference: the packing's XLA pair sum
 REPLACES["gamma_grad_sweep"] = "sph_mountain_waves_tpu/utils/packing.py:160"
+W3D_EXPECT = {"n": 3_247_157, "lims": (384, 56, 32), "cap": 8}
+W3D_STEPS_PER_FRAME = 20
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Arithmetic operations per pair inside the cutoff (each +, -, *, /, sqrt
-# and max one; compares and selects not counted), read off the bodies in
-# csrc/pair_sweep.cu: 5 for the distance, the rest for the body and the
-# accumulation. The Hopkins momentum without the split does 7 fewer.
-OPS_PER_PAIR = {"density_sweep": 5 + 14, "momentum_sweep": 5 + 42,
-                "pressure_sweep": 5 + 17, "hopkins_momentum_sweep": 5 + 76,
-                "pavelka_mass_sweep": 5 + 28,
-                "pavelka_momentum_entropy_sweep": 5 + 56,
-                "gamma_grad_sweep": 5 + 15}
+# Arithmetic operations (each +, -, *, /, sqrt and max one; compares and
+# selects not counted), read off csrc/pair_sweep.cu. Every candidate (an
+# occupied q slot in one of the 9 or 27 stencil cells of an occupied p slot)
+# costs the distance: 5 operations in 2-D, 8 in 3-D. Every pair inside the
+# cutoff costs the body and the accumulation besides. The Hopkins momentum
+# without the split does 7 fewer.
+DIST_OPS = {2: 5, 3: 8}
+BODY_OPS = {"density_sweep": 14, "momentum_sweep": 42,
+            "pressure_sweep": 17, "hopkins_momentum_sweep": 76,
+            "pavelka_mass_sweep": 28,
+            "pavelka_momentum_entropy_sweep": 56,
+            "gamma_grad_sweep": 15,
+            "density_sweep_3d": 15, "momentum_sweep_3d": 48,
+            "dambreak_mass_sweep": 17, "dambreak_force_sweep": 22,
+            "dambreak_mass_sweep_3d": 20, "dambreak_force_sweep_3d": 27}
 HOPKINS_SPLIT_OPS = 7
 # planes in (occupancy included) and out, each [cap, C+1] f32
 PLANES = {"density_sweep": (5, 1), "momentum_sweep": (10, 2),
           "pressure_sweep": (5, 1), "hopkins_momentum_sweep": (13, 2),
           "pavelka_mass_sweep": (9, 1),
           "pavelka_momentum_entropy_sweep": (12, 3),
-          "gamma_grad_sweep": (4, 2)}
+          "gamma_grad_sweep": (4, 2),
+          "density_sweep_3d": (6, 1), "momentum_sweep_3d": (12, 3),
+          "dambreak_mass_sweep": (6, 1), "dambreak_force_sweep": (7, 2),
+          "dambreak_mass_sweep_3d": (8, 1), "dambreak_force_sweep_3d": (9, 3)}
 
 
 def say(phase, msg):
@@ -154,8 +191,9 @@ def ptxas_report(log):
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
         # void <unnamed>::pair_sweep<<unnamed>::Hopkins<(bool)1, (bool)0>,
-        # (bool)0>(...) -> pair_sweep<Hopkins<1, 0>, 0>
-        tidy = [re.sub(r"<unnamed>::|\(anonymous namespace\)::|\(bool\)|^void ",
+        # (bool)0>(...) -> pair_sweep<Hopkins<1, 0>, 0>; DamMass<(int)3> ->
+        # DamMass<3>
+        tidy = [re.sub(r"<unnamed>::|\(anonymous namespace\)::|\((?:bool|int)\)|^void ",
                        "", d).split("(")[0] for d in names]
         rows = [(t or n, r) for t, (n, r) in zip(tidy, rows)]
     return rows
@@ -165,10 +203,11 @@ class Counters:
     """The sweep wrappers' launch counters."""
 
     def __init__(self, ps):
-        self.wrappers = dict(zip(KERNELS, (
+        self.wrappers = dict(zip(COUNTED, (
             ps.density_pass, ps.momentum_pass, ps.pressure_pass,
             ps.hopkins_momentum_pass, ps.pavelka_mass_pass,
-            ps.pavelka_momentum_entropy_pass, ps.gamma_grad_pass)))
+            ps.pavelka_momentum_entropy_pass, ps.gamma_grad_pass,
+            ps.dambreak_mass_pass, ps.dambreak_force_pass)))
 
     def reset(self):
         for w in self.wrappers.values():
@@ -184,11 +223,14 @@ def all_finite(state):
                for t in state.fields.values())
 
 
-def drive(phase, label, counters, run_frame, state, n_timed, expect, card, n):
+def drive(phase, label, counters, run_frame, state, n_timed, expect, card, n,
+          steps_per_frame=None):
     """The main path of one scheme: counters set to 0, 1 warm-up frame and
-    ``n_timed`` timed frames, counters read. Raises unless each kernel was
-    launched exactly ``expect[kernel]`` times (0 for the others) and every
+    ``n_timed`` timed frames of ``steps_per_frame`` steps (default
+    STEPS_PER_FRAME), counters read. Raises unless each wrapper launched its
+    kernel exactly ``expect[kernel]`` times (0 for the others) and every
     value is finite. Returns (state, ms/step, counts, u_avg, u_max)."""
+    steps_per_frame = steps_per_frame or STEPS_PER_FRAME
     import torch
     from sph_mountain_waves_tpu_torch.models.witch_common import (
         velocity_diagnostics,
@@ -206,15 +248,15 @@ def drive(phase, label, counters, run_frame, state, n_timed, expect, card, n):
         u_avg, u_max = (float(v) for v in velocity_diagnostics(state))
         frame_s.append(time.perf_counter() - t0)
     counts = counters.read()
-    want = {k: expect.get(k, 0) for k in KERNELS}
+    want = {k: expect.get(k, 0) for k in COUNTED}
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, expected {want}")
     if not all_finite(state):
         raise AssertionError(f"{label}: non-finite values")
-    ms = 1e3 * sum(frame_s) / (n_timed * STEPS_PER_FRAME)
+    ms = 1e3 * sum(frame_s) / (n_timed * steps_per_frame)
     say(phase, f"{label}: warm-up frame {warm_s:.2f} s; {n_timed} x "
-               f"{STEPS_PER_FRAME} steps in {sum(frame_s):.3f} s = {ms:.3f} "
-               f"ms/step = {n * n_timed * STEPS_PER_FRAME / sum(frame_s):.4e} "
+               f"{steps_per_frame} steps in {sum(frame_s):.3f} s = {ms:.3f} "
+               f"ms/step = {n * n_timed * steps_per_frame / sum(frame_s):.4e} "
                f"particle-steps/s at N={n} ({card}); u_avg {u_avg:.4e} "
                f"u_max {u_max:.4e} m/s; active {int(state.n)}; launches "
                f"{ {k: v for k, v in counts.items() if v} }")
@@ -350,12 +392,15 @@ def main(profile: bool) -> None:
 
     from sph_mountain_waves_tpu_torch import io as port_io
     from sph_mountain_waves_tpu_torch.models import (
+        collapse3d as c3, collapse_dry as cd,
         full_hopkins_perturbed_witch as fh, hopkins_perturbed_witch as hp,
         hopkins_total_witch as ht, pavelka_total_witch as pv,
-        wcsph_perturbed_witch as w,
+        wcsph_perturbed_witch as w, witch3d as w3,
     )
     from sph_mountain_waves_tpu_torch.models.common import frame_runner
-    from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig
+    from sph_mountain_waves_tpu_torch.models.witch_common import (
+        WitchConfig, velocity_diagnostics,
+    )
     from sph_mountain_waves_tpu_torch.ops import _build
     from sph_mountain_waves_tpu_torch.ops import pair_sweeps as ps
     from sph_mountain_waves_tpu_torch.utils.packing import hydrostatic_packing
@@ -517,7 +562,7 @@ def main(profile: bool) -> None:
                             STEPS_PER_FRAME)(hp_state)
     torch.cuda.synchronize()
     hp_counts = counters.read()
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in COUNTED}
     want.update(density_sweep=STEPS_PER_FRAME, momentum_sweep=STEPS_PER_FRAME,
                 pressure_sweep=STEPS_PER_FRAME)
     if hp_counts != want or not all_finite(hp_state) or int(hp_state.n) != n:
@@ -601,7 +646,7 @@ def main(profile: bool) -> None:
     packed = type(packed)(fields={k: v for k, v in packed.fields.items()
                                   if k != "_rescatter_count"},
                           active=packed.active)
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in COUNTED}
     want.update(gamma_grad_sweep=info["steps"] + 1, pavelka_mass_sweep=1,
                 pavelka_momentum_entropy_sweep=1)
     if (setup_counts != want or not all_finite(packed)
@@ -669,19 +714,259 @@ def main(profile: bool) -> None:
                 f"resumed run equals the uninterrupted one bit for bit "
                 f"(state, frames and data.csv)")
 
-    # 17: kernel and twin times on prepared inputs, beside their bounds
+    # 17: witch3d at the stretch size
+    torch.cuda.reset_peak_memory_stats()
+    wcfg = w3.stretch_config(bucket_cap=8, lazy_diagnostics=True,
+                             fast_math=True)
+    t0 = time.perf_counter()
+    w3_sys = w3.make_system(wcfg)
+    w3_state0 = w3_sys.freeze(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    e17 = w3_sys.engine
+    n3 = w3_sys.n_built
+    occ_max = int(e17.resident(w3_state0.active)[:, :-1].sum(dim=0).max())
+    got = {"n": n3, "lims": e17.lims, "cap": e17.cap}
+    if got != W3D_EXPECT or int(w3_state0.n) != n3 or occ_max != 8:
+        raise AssertionError(f"witch3d: shapes {got}, active "
+                             f"{int(w3_state0.n)}, max occupancy {occ_max}; "
+                             f"expected {W3D_EXPECT}, occupancy 8")
+    say(17, f"witch3d built in {build_s:.2f} s (host): N={n3} lims={e17.lims} "
+            f"cap={e17.cap} slots={e17.slots} max occupancy {occ_max}, 0 "
+            f"dropped; h={e17.h:.1f} m dt={wcfg.dt:.4e} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 18: a forced 3-D rescatter (27 offsets) must be the identity
+    for label, e in (("all fields", dataclasses.replace(e17, persistent=())),
+                     ("persistent", e17)):
+        torch.cuda.reset_peak_memory_stats()
+        out, dropped = e._stencil_rescatter(w3_state0)
+        names = e.persistent or tuple(w3_state0.fields)
+        bad = [k for k in names
+               if not torch.equal(out.fields[k], w3_state0.fields[k])]
+        if (int(dropped) != 0 or bad
+                or not torch.equal(out.active, w3_state0.active)):
+            raise AssertionError(f"3-D rescatter ({label}) not the identity: "
+                                 f"dropped={int(dropped)} differing={bad}")
+        del out
+        ms = cuda_ms(lambda: e._stencil_rescatter(w3_state0), 1)
+        say(18, f"forced 3-D rescatter ({label}): identical, 0 dropped; "
+                f"{ms:.1f} ms per rescatter, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    # 19: the 3-D kernels against their twins at full width on a live state
+    st = perturbed(w3.make_step(wcfg, e17)(w3_state0), dev)
+    errs["density_3d"] = kernel_vs_twin(
+        "density 3-D", [ps.density_pass(e17, st, wcfg)],
+        [ps.density_pass(e17, st, wcfg)], [ps.density_pass_plain(e17, st, wcfg)],
+        fast=False, scaled=True)
+    say(19, f"3-D density kernel vs twin: max abs err "
+            f"{errs['density_3d'][0]:.3e} (max |rho| {errs['density_3d'][1]:.4f}), "
+            f"gate rtol {RTOL} atol {ATOL} x max, rerun bitwise equal")
+    for fm in (False, True):
+        c = dataclasses.replace(wcfg, fast_math=fm)
+        err, scale = errs[f"momentum_3d_fm{int(fm)}"] = kernel_vs_twin(
+            f"momentum 3-D fast_math={fm}", ps.momentum_pass(e17, st, c),
+            ps.momentum_pass(e17, st, c), ps.momentum_pass_plain(e17, st, c),
+            fm, scaled=True)
+        say(19, f"3-D momentum kernel vs twin, fast_math={fm}: max abs err "
+                f"{err:.3e} (max |Dv| {scale:.4e}, rel {err / scale:.3e})"
+                + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
+                + ", rerun bitwise equal")
+    del st
+
+    # 20: witch3d set-up and main path
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w3_ready = w3.setup(wcfg, e17, w3_state0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    w3_setup_counts = counters.read()
+    want = {k: 0 for k in COUNTED}
+    want.update(density_sweep=wcfg.renorm_iters)
+    rho_sum = ps.density_pass(e17, w3_ready, wcfg)[w3_ready.active]
+    ratio = float((rho_sum / w3_ready.fields["rho_bg"][w3_ready.active]).median())
+    if (w3_setup_counts != want or abs(ratio - 1.0) > 1e-3
+            or not all_finite(w3_ready) or int(w3_ready.n) != n3):
+        raise AssertionError(f"witch3d set-up: counts {w3_setup_counts}, median "
+                             f"rho/rho_bg {ratio}, active {int(w3_ready.n)}")
+    say(20, f"witch3d set-up: {wcfg.renorm_iters} renormalisation iterations "
+            f"(on the 3-D density kernel) in {setup_s:.2f} s; median summed "
+            f"rho / rho_bg {ratio:.6f}; active {int(w3_ready.n)} ({card})")
+    del w3_state0, rho_sum
+    tiny = dict(n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3, eta=1.2,
+                skin=0.15, renorm_iters=2, bucket_cap=None, fast_math=False)
+    diag = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        tcfg = dataclasses.replace(wcfg, **tiny)
+        tsys = w3.make_system(tcfg)
+        ts_ = tsys.freeze(device=where)
+        ts_ = w3.setup(tcfg, tsys.engine, ts_)
+        ts_ = frame_runner(w3.make_step(tcfg, tsys.engine), 6)(ts_)
+        diag[label] = ([float(v) for v in velocity_diagnostics(ts_)], int(ts_.n))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(diag["card"][0], diag["cpu"][0]))
+    if diag["card"][1] != diag["cpu"][1] or rel > 1e-5:
+        raise AssertionError(f"witch3d small-input steps disagree: {diag}")
+    say(20, f"witch3d n_rows=6, set-up + 6 steps: card u_avg/u_max "
+            f"{diag['card'][0]} vs cpu twins {diag['cpu'][0]} (rel {rel:.2e}), "
+            f"active {diag['card'][1]} == {diag['cpu'][1]}")
+    w3_step = w3.make_step(wcfg, e17)
+    w3_frame = frame_runner(w3_step, W3D_STEPS_PER_FRAME,
+                            finalize=w3.make_finalize(wcfg))
+    w3_steps = 3 * W3D_STEPS_PER_FRAME
+    w3_state, w3_ms, w3_counts, _, u_max = drive(
+        20, "witch3d main path", counters, w3_frame, w3_ready, 2,
+        {"density_sweep": w3_steps, "momentum_sweep": w3_steps}, card, n3,
+        steps_per_frame=W3D_STEPS_PER_FRAME)
+    if int(w3_state.n) != n3 or not u_max < 0.01 * wcfg.c:
+        raise AssertionError(f"witch3d: active {int(w3_state.n)}/{n3}, u_max "
+                             f"{u_max} against c = {wcfg.c:.1f}")
+    say(20, f"rescatters in the {w3_steps} witch3d steps: "
+            f"{rescatters(w3_frame, w3_ready, 3)}; peak device memory so far "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_steps(20, "witch3d", w3_step, w3_state)
+    del w3_ready
+
+    # 21: the dam-break kernels against their twins on live states at the
+    # reference's sizes (collapse_dry: the dam_break bench cell)
+    dams = {"collapse_dry": (cd, cd.Config(dr=0.014, dtype="float32",
+                                           layout="bucket", skin=0.15,
+                                           use_pallas=True)),
+            "collapse3d": (c3, c3.Config(dtype="float32", layout="bucket",
+                                         skin=0.15, use_pallas=True))}
+    dam_sys, dam_state0 = {}, {}
+    for name, (module, dcfg) in dams.items():
+        suffix = "_3d" if module is c3 else ""
+        t0 = time.perf_counter()
+        dsys = module.make_system(dcfg)
+        ds = dsys.freeze(device=dev)
+        build_s = time.perf_counter() - t0
+        de = dsys.engine
+        dam_sys[name], dam_state0[name] = dsys, ds
+        say(21, f"{name} built in {build_s:.2f} s: N={dsys.n_built} "
+                f"lims={de.lims} cap={de.cap} slots={de.slots} h={de.h} "
+                f"dt={dcfg.dt:.3e} s")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        act = ds.active
+        st = ds.replace(
+            v=torch.where(act[:, None], torch.rand(
+                ds.fields["v"].shape, generator=gen, device=dev) * 2 - 1, 0.0),
+            rho=torch.where(act, ds.fields["rho"] * (0.99 + 0.02 * torch.rand(
+                act.shape, generator=gen, device=dev)), 0.0),
+            P=torch.where(act, torch.rand(act.shape, generator=gen,
+                                          device=dev) * 5e3, 0.0))
+        err, scale = errs["dambreak_mass_sweep" + suffix] = kernel_vs_twin(
+            f"{name} continuity", [ps.dambreak_mass_pass(de, st, dcfg)],
+            [ps.dambreak_mass_pass(de, st, dcfg)],
+            [ps.dambreak_mass_pass_plain(de, st, dcfg)], False, scaled=True)
+        say(21, f"{name} continuity kernel vs twin: max abs err {err:.3e} "
+                f"(max |Drho| {scale:.4e}, rel {err / scale:.3e}), gate rtol "
+                f"{RTOL} atol {ATOL} x max, rerun bitwise equal")
+        kern = ps.dambreak_force_pass(de, st, dcfg)
+        err, scale = errs["dambreak_force_sweep" + suffix] = kernel_vs_twin(
+            f"{name} force", kern, ps.dambreak_force_pass(de, st, dcfg),
+            ps.dambreak_force_pass_plain(de, st, dcfg), False, scaled=True)
+        wall = act & (st.fields["type"] == 1.0)
+        if not all(bool((k[wall] == 0.0).all()) for k in kern):
+            raise AssertionError(f"{name}: force on WALL slots is not zero")
+        say(21, f"{name} force kernel vs twin: max abs err {err:.3e} (max "
+                f"|Dv| {scale:.4e}, rel {err / scale:.3e}), gate rtol {RTOL} "
+                f"atol {ATOL} x max, rerun bitwise equal; {int(wall.sum())} "
+                f"WALL slots exactly 0")
+        del st, kern
+
+    # 22: 8 small steps of each dam break, card against CPU twins
+    def dam_steps(module, dcfg, where, n_steps):
+        dsys = module.make_system(dcfg)
+        ds = dsys.freeze(device=where)
+        step = module.make_step(dcfg, dsys.engine)
+        if module is cd:
+            step, init_forces = step
+            ds = init_forces(ds)
+        ds = frame_runner(step, n_steps)(ds)
+        speed = ds.fields["v"][ds.active].abs()
+        return [float(speed.mean()), float(speed.max())], int(ds.n)
+
+    for name, module, small in (
+            ("collapse_dry", cd, dataclasses.replace(
+                dams["collapse_dry"][1], dr=0.08, skin=0.2)),
+            ("collapse3d", c3, dataclasses.replace(
+                dams["collapse3d"][1], dr=2e-2, skin=0.2))):
+        gk, nk = dam_steps(module, small, dev, 8)
+        gc, nc = dam_steps(module, small, torch.device("cpu"), 8)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gk, gc))
+        if nk != nc or rel > 1e-5:
+            raise AssertionError(f"{name}: small-input steps disagree: card "
+                                 f"{gk} n={nk}, cpu {gc} n={nc}")
+        say(22, f"{name}, dr={small.dr}, 8 steps: card mean/max |v| {gk} vs "
+                f"cpu twins {gc} (rel {rel:.2e}), active {nk} == {nc}")
+
+    # 23: the dam-break main paths
+    dam_counts, dam_state, dam_ms = {}, {}, {}
+    for name, (module, dcfg) in dams.items():
+        de, ds, nd = dam_sys[name].engine, dam_state0[name], dam_sys[name].n_built
+        step = module.make_step(dcfg, de)
+        counters.reset()
+        if module is cd:
+            step, init_forces = step
+            ds = init_forces(ds)
+            init_counts = counters.read()
+            if init_counts != {**{k: 0 for k in COUNTED},
+                               "dambreak_force_sweep": 1}:
+                raise AssertionError(f"init_forces: counts {init_counts}")
+
+        def energy(s_):
+            if module is cd:
+                return float(cd.get_globals(dcfg, s_)[2])
+            return float(c3.energy(dcfg, s_))
+
+        e0 = energy(ds)
+        dframe = frame_runner(step, STEPS_PER_FRAME)
+        dam_state[name], dam_ms[name], dam_counts[name], _, u_max = drive(
+            23, f"{name} main path", counters, dframe, ds, 1,
+            {"dambreak_mass_sweep": 2 * STEPS_PER_FRAME,
+             "dambreak_force_sweep": 2 * STEPS_PER_FRAME}, card, nd)
+        e1 = energy(dam_state[name])
+        if int(dam_state[name].n) != nd or not u_max < dcfg.c:
+            raise AssertionError(f"{name}: active {int(dam_state[name].n)}/"
+                                 f"{nd}, u_max {u_max}")
+        say(23, f"{name}: E {e0:.6e} -> {e1:.6e} J after "
+                f"{2 * STEPS_PER_FRAME} steps (rel "
+                f"{abs(e1 / e0 - 1):.2e}); rescatters in them: "
+                f"{rescatters(dframe, ds, 2)}")
+    del dam_state0
+
+    # 24: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
         """(kernel launch, twin call, pair-count call) on planes prepared
         once from state s."""
         band, _ = ps.row_kmax(e, s)
-        if kernel == "density_sweep":
+        d = e.dim
+        f32 = ps.ctypes.c_float
+        if kernel in ("density_sweep", "density_sweep_3d"):
             planes, pads = ps._density_inputs(e, s, s.fields["m"])
-            args, body, n_out, self_pair = ([1, ps.ctypes.c_float(ps.C_W2)],
-                                            ps._density_body, 1, True)
-        elif kernel == "momentum_sweep":
+            args, body, n_out, self_pair = (
+                [1, f32(ps.C_W2 if d == 2 else ps.C_W3)],
+                ps._density_body(d), 1, True)
+        elif kernel in ("momentum_sweep", "momentum_sweep_3d"):
             planes, pads = ps._momentum_inputs(e, s, c)
             args, body, n_out, self_pair = (
-                ps._momentum_scalars(c) + [1], ps._momentum_body(c), 2, False)
+                ps._momentum_scalars(c, d) + [1], ps._momentum_body(c, d), d,
+                False)
+        elif kernel.startswith("dambreak_mass_sweep"):
+            planes, pads = ps._dambreak_mass_inputs(e, s)
+            kc, hinv = ps._dambreak_consts(c, d)
+            args, body, n_out, self_pair = (
+                [f32(kc), f32(hinv), f32(2.0 * c.nu)],
+                ps._dambreak_mass_body(c, d), 1, False)
+        elif kernel.startswith("dambreak_force_sweep"):
+            planes, pads = ps._dambreak_force_inputs(e, s)
+            kc, hinv = ps._dambreak_consts(c, d)
+            args, body, n_out, self_pair = (
+                [f32(kc), f32(hinv), f32(2.0 * c.mu / c.rho0**2)],
+                ps._dambreak_force_body(c, d), d, False)
         elif kernel == "pressure_sweep":
             planes, pads = ps._pressure_inputs(e, s, c)
             args, body, n_out, self_pair = ([1, ps.ctypes.c_float(ps.C_W2)],
@@ -714,40 +999,68 @@ def main(profile: bool) -> None:
                     lambda: ps._sweep_plain(e, planes, pads, band,
                                             lambda p, q, r2, m: [m], 1,
                                             self_pair))
-        return (lambda: ps._launch(kernel, e, planes, band, n_out, args),
+        # the exported name without "_3d": _launch appends it by engine.dim
+        return (lambda: ps._launch(kernel.removesuffix("_3d"), e, planes, band,
+                                   n_out, args),
                 lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
                                         self_pair),
                 lambda: ps._sweep_plain(e, planes, pads, band,
                                         lambda p, q, r2, m: [m], 1, self_pair))
 
+    def candidates(e, s, self_pair):
+        """Occupied q slots in the stencil cells of every occupied p slot:
+        the distance tests this state needs (q = p left out unless the sweep
+        includes the self pair)."""
+        counts = e.grid_view(s.active).sum(dim=0).double()
+        padded = torch.nn.functional.pad(counts, (1, 1) * e.dim)
+        around = torch.zeros_like(counts)
+        for off in e.stencil:
+            around += padded[tuple(slice(1 + o, 1 + o + n) for o, n in
+                                   zip(reversed(off), counts.shape))]
+        total = int((counts * around).sum().item())
+        return total if self_pair else total - int(counts.sum().item())
+
     timing = {}
-    for kernel, e, s in (("density_sweep", eng, flag_state),
-                         ("momentum_sweep", eng, flag_state),
-                         ("pressure_sweep", e8, fh_state),
-                         ("hopkins_momentum_sweep split", e8, fh_state),
-                         ("hopkins_momentum_sweep total", e11, ht_state),
-                         ("pavelka_mass_sweep", e13, pv_state),
-                         ("pavelka_momentum_entropy_sweep", e13, pv_state),
-                         ("gamma_grad_sweep", e13, pv_state)):
-        launch, twin, count = prepared(kernel, e, s,
-                                       pcfg if e is e13 else cfg)
+    dry_cfg, c3_cfg = dams["collapse_dry"][1], dams["collapse3d"][1]
+    dry_e, c3_e = dam_sys["collapse_dry"].engine, dam_sys["collapse3d"].engine
+    for kernel, e, s, c in (
+            ("density_sweep", eng, flag_state, cfg),
+            ("momentum_sweep", eng, flag_state, cfg),
+            ("pressure_sweep", e8, fh_state, cfg),
+            ("hopkins_momentum_sweep split", e8, fh_state, cfg),
+            ("hopkins_momentum_sweep total", e11, ht_state, cfg),
+            ("pavelka_mass_sweep", e13, pv_state, pcfg),
+            ("pavelka_momentum_entropy_sweep", e13, pv_state, pcfg),
+            ("gamma_grad_sweep", e13, pv_state, pcfg),
+            ("density_sweep_3d", e17, w3_state, wcfg),
+            ("momentum_sweep_3d", e17, w3_state, wcfg),
+            ("dambreak_mass_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
+            ("dambreak_force_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
+            ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
+            ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg)):
+        launch, twin, count = prepared(kernel, e, s, c)
         km, pm = cuda_ms(launch, 50), cuda_ms(twin, 5)
         pairs = int(count()[0].double().sum().item())
         name = kernel.split()[0]
+        tested = candidates(e, s, name in ("density_sweep", "pressure_sweep",
+                                           "gamma_grad_sweep",
+                                           "density_sweep_3d"))
         n_in, n_out = PLANES[name]
         if kernel.endswith("total"):
             n_in -= 2
-        ops = pairs * (OPS_PER_PAIR[name]
-                       - (HOPKINS_SPLIT_OPS if kernel.endswith("total") else 0))
-        nbytes = (n_in + n_out) * e.slots * 4 + e.lims[1] * 4
+        body_ops = BODY_OPS[name] - (HOPKINS_SPLIT_OPS
+                                     if kernel.endswith("total") else 0)
+        ops = tested * DIST_OPS[e.dim] + pairs * body_ops
+        nbytes = (n_in + n_out) * e.slots * 4 + e.num_cells // e.lims[0] * 4
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
         timing[kernel] = {"ms": km, "plain_ms": pm,
                           "bound_ms": max(bytes_ms, ops_ms),
                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        say(17, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
+        say(24, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
                 f"{timing[kernel]['bound_ms'] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB "
-                f"-> {bytes_ms * 1e3:.1f} us; {pairs} pairs x "
-                f"{ops // max(pairs, 1)} ops -> {ops_ms * 1e3:.1f} us), "
+                f"-> {bytes_ms * 1e3:.1f} us; {tested} candidates x "
+                f"{DIST_OPS[e.dim]} + {pairs} pairs x {body_ops} ops -> "
+                f"{ops_ms * 1e3:.1f} us), "
                 f"{100 * timing[kernel]['bound_ms'] / km:.1f} % of it ({card})")
 
     launches = {"density_sweep": flag_counts["density_sweep"],
@@ -757,7 +1070,17 @@ def main(profile: bool) -> None:
                 "pavelka_mass_sweep": pv_counts["pavelka_mass_sweep"],
                 "pavelka_momentum_entropy_sweep":
                     pv_counts["pavelka_momentum_entropy_sweep"],
-                "gamma_grad_sweep": setup_counts["gamma_grad_sweep"]}
+                "gamma_grad_sweep": setup_counts["gamma_grad_sweep"],
+                "density_sweep_3d": w3_counts["density_sweep"],
+                "momentum_sweep_3d": w3_counts["momentum_sweep"],
+                "dambreak_mass_sweep":
+                    dam_counts["collapse_dry"]["dambreak_mass_sweep"],
+                "dambreak_force_sweep":
+                    dam_counts["collapse_dry"]["dambreak_force_sweep"],
+                "dambreak_mass_sweep_3d":
+                    dam_counts["collapse3d"]["dambreak_mass_sweep"],
+                "dambreak_force_sweep_3d":
+                    dam_counts["collapse3d"]["dambreak_force_sweep"]}
     err_of = {"density_sweep": errs["density"][0],
               "momentum_sweep": errs["momentum_fm1"][0],
               "pressure_sweep": errs["pressure"][0],
@@ -765,7 +1088,10 @@ def main(profile: bool) -> None:
                                             errs["hopkins_s0_fm1"][0]),
               "pavelka_mass_sweep": errs["pmass_fx1_fm1"][0],
               "pavelka_momentum_entropy_sweep": errs["pmoment_fm1"][0],
-              "gamma_grad_sweep": errs["gamma"][0]}
+              "gamma_grad_sweep": errs["gamma"][0],
+              "density_sweep_3d": errs["density_3d"][0],
+              "momentum_sweep_3d": errs["momentum_3d_fm1"][0],
+              **{k: errs[k][0] for k in KERNELS if k.startswith("dambreak")}}
     timed_as = {"hopkins_momentum_sweep": "hopkins_momentum_sweep split"}
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -10,16 +10,19 @@ use, each with a plain PyTorch twin that CPU tensors take. Entry points
 (``ParticleSystem.freeze``, each scheme's ``run``) run on the card unless
 the caller asks for the CPU.
 
-Ported so far, all on the 2-D bucket layout: the WCSPH mountain-wave
-flagship (``models.wcsph_perturbed_witch``), the three pressure–entropy
-(Hopkins) schemes (``models.hopkins_perturbed_witch``,
+Ported so far, all on the float32 bucket layout. In 2-D: the WCSPH
+mountain-wave flagship (``models.wcsph_perturbed_witch``), the three
+pressure–entropy (Hopkins) schemes (``models.hopkins_perturbed_witch``,
 ``models.full_hopkins_perturbed_witch``, ``models.hopkins_total_witch`` with
-``utils.packing.hydrostatic_packing``) and the entropy-based (Pavelka)
-scheme (``models.pavelka_total_witch`` with
-``utils.packing.colagrossi_packing``), on seven pair sweeps: density,
-momentum, the Hopkins pressure root and momentum, the Pavelka continuity
-and fused momentum + entropy sweeps and the packing's ∇Γ sum; and the file
-output of every scheme's ``run`` (``io``: PVD/VTP frames and ``data.csv``;
+``utils.packing.hydrostatic_packing``), the entropy-based (Pavelka) scheme
+(``models.pavelka_total_witch`` with ``utils.packing.colagrossi_packing``)
+and the dam break (``models.collapse_dry``). In 3-D, on the 27-cell stencil:
+the mountain wave (``models.witch3d``) and the dam break
+(``models.collapse3d``). They run on thirteen pair sweeps: density and
+momentum (2-D and 3-D), the Hopkins pressure root and momentum, the Pavelka
+continuity and fused momentum + entropy sweeps, the packing's ∇Γ sum and the
+dam-break continuity and force (2-D and 3-D); and every scheme's ``run``
+writes its files (``io``: PVD/VTP frames and ``data.csv``;
 ``utils.checkpoint``: bitwise checkpoint and resume).
 """
 import torch
@@ -31,8 +34,8 @@ torch.backends.cudnn.allow_tf32 = False
 from .geometry import (  # noqa: E402
     Shape, Box, Rectangle, Ball, BooleanUnion, BooleanDifference, Specification, BoundaryLayer, is_inside, boundarybox,
 )
-from .grids import Grid, Hexagrid, dimension, covering  # noqa: E402
-from .kernels import wendland2, rDwendland2  # noqa: E402
+from .grids import Grid, Hexagrid, CubicGrid, dimension, covering  # noqa: E402
+from .kernels import wendland2, rDwendland2, wendland3, rDwendland3  # noqa: E402
 from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
 from .ops.neighbors import NeighborEngine, Neighbors  # noqa: E402
 from .ops.apply import apply_unary  # noqa: E402

@@ -1,20 +1,24 @@
-// Pair sweeps of the 2-D bucket layout: density, momentum, the Hopkins
+// Pair sweeps of the bucket layout. 2-D: density, momentum, the Hopkins
 // pressure root and momentum, the Pavelka continuity and fused momentum +
-// entropy sweeps, and the Colagrossi packing's gradient sum.
+// entropy sweeps, the Colagrossi packing's gradient sum, and the dam-break
+// continuity and force. 3-D (27 stencil cells): density, momentum, and the
+// dam-break continuity and force.
 //
 // Replaces the Pallas pair-sweep harness of
 // sph_mountain_waves_tpu/ops/pallas_pairs.py (make_pair_kernel_fn /
 // _make_pair_kernel, the one pl.pallas_call) with the bodies of
-// weighted_w_pass(ker_h="p")/density_pass, momentum_pass (2-D),
+// weighted_w_pass(ker_h="p")/density_pass and momentum_pass (2-D and 3-D),
 // weighted_w_pass(ker_h="sym")/pressure_pass, hopkins_momentum_pass
-// (background_split on and off), pavelka_mass_pass and
-// pavelka_momentum_entropy_pass. gamma_grad_sweep has no Pallas counterpart:
+// (background_split on and off), pavelka_mass_pass,
+// pavelka_momentum_entropy_pass, and dambreak_mass_pass and
+// dambreak_force_pass (2-D and 3-D). gamma_grad_sweep has no Pallas counterpart:
 // it is the pair sum of utils/packing.py::colagrossi_packing (find_gGamma),
 // which the reference leaves to XLA.
 //
 // Layout: every field is an f32 plane [cap, C+1], slot (k, c) at k*(C+1)+c,
-// C = nx*ny cells row-major with x minor, column C the trash column. Plane 0
-// is the occupancy (1.0 = occupied). Every output is one [cap, C+1] plane.
+// C = nx*ny (2-D) or nx*ny*nz (3-D) cells with x minor and the last axis
+// major, column C the trash column. Plane 0 is the occupancy (1.0 =
+// occupied). Every output is one [cap, C+1] plane.
 //
 // Design: one thread per p slot (k, c), threads along c so that loads are
 // coalesced. An empty p slot (and the trash column) writes 0 and exits. An
@@ -25,7 +29,9 @@
 // checks, not pads. For each kq the 9 contributions are summed in registers
 // and then added to the accumulator: the Pallas kernel's order, so the plain
 // PyTorch twin agrees to rounding and reruns are bitwise identical (no
-// atomics, one store per output).
+// atomics, one store per output). The 3-D sweep (pair_sweep3) is the same
+// walk over grid rows (cy, cz), kmax[cz*ny + cy], and 27 cells: plane dk
+// outermost, then dj, then di, and r^2 = d0^2 + d1^2 + d2^2 in that order.
 //
 // Built with --fmad=false so that no multiply-add is contracted: each
 // operation rounds as in the twin. fast_math replaces the divides of the
@@ -39,7 +45,9 @@
 // (packing gradient), 5 (density, pressure), 9 (Pavelka continuity), 10
 // (momentum), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
 // read; neighbouring threads share them, so most reads hit L1/L2. Memory
-// traffic and occupancy bound the sweep, not FLOPs.
+// traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests
+// 27*kmax candidates for the few dozen pairs inside the cutoff, and the
+// distance tests weigh as much as the bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -332,6 +340,136 @@ struct GammaGrad {
   }
 };
 
+
+// 3-D density: rho_p = sum_q w_q W3(h_p, r); fields: occ, x0, x1, x2, 1/h, w.
+struct Density3 {
+  static constexpr int NIN = 6;
+  static constexpr int NOUT = 1;
+  struct Params {
+    float cw;  // 21/(2 pi)
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float wq = f.in[5][qi];
+    const float r = sqrtf(r2);
+    const float hinv = p[4];
+    const float x = r * hinv;
+    const float t = fmaxf(1.0f - x, 0.0f);
+    const float t2 = t * t;
+    const float hpow = hinv * hinv * hinv;
+    const float ker = prm.cw * t2 * t2 * (1.0f + 4.0f * x) * hpow;
+    tot[0] += wq * ker;
+  }
+};
+
+// 3-D momentum: the 2-D form on three axes with rDW3 = dw t^3 / h_ij^5;
+// fields: occ, x0, x1, x2, h, m, v0, v1, v2, rho_f, A=P'/rho^2, c.
+template <bool FAST>
+struct Momentum3 {
+  static constexpr int NIN = 12;
+  static constexpr int NOUT = 3;
+  struct Params {
+    float dw;      // -210/pi
+    float eps;
+    float nalpha;  // -alpha
+    float beta;
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float hq = f.in[4][qi];
+    const float mq = f.in[5][qi];
+    const float v0q = f.in[6][qi];
+    const float v1q = f.in[7][qi];
+    const float v2q = f.in[8][qi];
+    const float rhoq = f.in[9][qi];
+    const float aq = f.in[10][qi];
+    const float cq = f.in[11][qi];
+    const float r = sqrtf(r2);
+    const float h_ij = 0.5f * (p[4] + hq);
+    const float hinv = pdiv<FAST>(1.0f, h_ij);
+    const float t = fmaxf(1.0f - r * hinv, 0.0f);
+    const float hinv2 = hinv * hinv;
+    const float ker = prm.dw * t * t * t * (hinv2 * hinv2 * hinv);
+    const float dot = d[0] * (p[6] - v0q) + d[1] * (p[7] - v1q)
+                      + d[2] * (p[8] - v2q);
+    const float c_ij = 0.5f * (p[11] + cq);
+    const float rho_ij = 0.5f * (p[9] + rhoq);
+    const float mu = pdiv<FAST>(h_ij * dot, r2 + prm.eps * h_ij * h_ij);
+    const float pi = pdiv<FAST>(prm.nalpha * c_ij * mu + prm.beta * mu * mu, rho_ij);
+    const float s = -mq * ker * (p[10] + aq + (dot < 0.0f ? pi : 0.0f));
+    tot[0] += s * d[0];
+    tot[1] += s * d[1];
+    tot[2] += s * d[2];
+  }
+};
+
+// Dam-break continuity with fixed h: Drho_p = sum_q kc t^3 (x_pq . v_pq
+// + 2 nu (rho_p - rho_q)), t = max(1 - r/h, 0), kc = m (-C of rDW) / h^(D+2);
+// fields: occ, x[D], v[D], rho. No divide.
+template <int D>
+struct DamMass {
+  static constexpr int NIN = 2 + 2 * D;
+  static constexpr int NOUT = 1;
+  struct Params {
+    float kc;
+    float hinv;    // 1/h
+    float two_nu;  // 2 nu
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
+    const float ker = prm.kc * t * t * t;
+    float dot = d[0] * (p[1 + D] - f.in[1 + D][qi]);
+#pragma unroll
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[1 + D + a] - f.in[1 + D + a][qi]);
+    const float drho = p[1 + 2 * D] - f.in[1 + 2 * D][qi];
+    tot[0] += ker * (dot + prm.two_nu * drho);
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, f, qi, d, r2, prm, tot);
+  }
+};
+
+// Dam-break force with fixed h, on FLUID p only (a WALL p slot sums exact
+// zeros): Dv_p = sum_q -ker (Pt_p + Pt_q) x_pq + ker visc_c v_pq with
+// ker = kc (fl_p t)^3, Pt = P / max(rho, 1e-12)^2, visc_c = 2 mu / rho0^2;
+// fields: occ, x[D], v[D], Pt, fl = [type == FLUID].
+template <int D>
+struct DamForce {
+  static constexpr int NIN = 3 + 2 * D;
+  static constexpr int NOUT = D;
+  struct Params {
+    float kc;
+    float hinv;    // 1/h
+    float visc_c;  // 2 mu / rho0^2
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    const float t = fmaxf(1.0f - r * prm.hinv, 0.0f) * p[2 + 2 * D];
+    const float ker = prm.kc * t * t * t;
+    const float s = -ker * (p[1 + 2 * D] + f.in[1 + 2 * D][qi]);
+    const float w = ker * prm.visc_c;
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      tot[a] += s * d[a] + w * (p[1 + D + a] - f.in[1 + D + a][qi]);
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, f, qi, d, r2, prm, tot);
+  }
+};
+
 template <class Body, bool SELF>
 __global__ void __launch_bounds__(kBlock)
 pair_sweep(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -390,6 +528,88 @@ int launch(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   const int columns = g.nx * g.ny + 1;
   const dim3 grid((columns + kBlock - 1) / kBlock, g.cap);
   pair_sweep<Body, SELF><<<grid, kBlock, 0, stream>>>(f, kmax, g, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct Layout3 {
+  int cap;   // q/p ranks per cell
+  int nx;    // cells along x (minor)
+  int ny;    // cells along y
+  int nz;    // cells along z (major)
+  float h2;  // pair cutoff squared
+};
+
+// The 27-cell sweep: grid rows are (cy, cz), kmax is [nz*ny]. The dk loop is
+// kept rolled (9 inlined bodies instead of 27); the order of summation does
+// not depend on it.
+template <class Body, bool SELF>
+__global__ void __launch_bounds__(kBlock)
+pair_sweep3(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
+            Layout3 g, typename Body::Params prm) {
+  const int C = g.nx * g.ny * g.nz;
+  const int c = blockIdx.x * kBlock + threadIdx.x;
+  const int k = blockIdx.y;
+  if (c > C) return;
+  const int64_t ld = C + 1;
+  const int64_t ps = k * ld + c;
+  float acc[Body::NOUT];
+#pragma unroll
+  for (int o = 0; o < Body::NOUT; ++o) acc[o] = 0.0f;
+
+  if (c < C && f.in[0][ps] > 0.5f) {
+    float p[Body::NIN];
+#pragma unroll
+    for (int i = 0; i < Body::NIN; ++i) p[i] = f.in[i][ps];
+    const int row = c / g.nx;  // cz*ny + cy
+    const int cx = c - row * g.nx;
+    const int cz = row / g.ny;
+    const int cy = row - cz * g.ny;
+    const int kend = kmax[row];
+    for (int kq = 0; kq < kend; ++kq) {
+      float tot[Body::NOUT];
+#pragma unroll
+      for (int o = 0; o < Body::NOUT; ++o) tot[o] = 0.0f;
+#pragma unroll 1
+      for (int dk = -1; dk <= 1; ++dk) {
+        const int qz = cz + dk;
+        if (qz < 0 || qz >= g.nz) continue;
+#pragma unroll
+        for (int dj = -1; dj <= 1; ++dj) {
+          const int qy = cy + dj;
+          if (qy < 0 || qy >= g.ny) continue;
+#pragma unroll
+          for (int di = -1; di <= 1; ++di) {
+            const int qx = cx + di;
+            if (qx < 0 || qx >= g.nx) continue;
+            if (!SELF && di == 0 && dj == 0 && dk == 0 && kq == k) continue;
+            const int64_t qi =
+                kq * ld + ((int64_t)qz * g.ny + qy) * g.nx + qx;
+            if (!(f.in[0][qi] > 0.5f)) continue;
+            float d[3];
+            d[0] = p[1] - f.in[1][qi];
+            d[1] = p[2] - f.in[2][qi];
+            d[2] = p[3] - f.in[3][qi];
+            const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+            if (!(r2 <= g.h2)) continue;
+            Body::pair(p, f, qi, d, r2, prm, tot);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < Body::NOUT; ++o) acc[o] += tot[o];
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < Body::NOUT; ++o) f.out[o][ps] = acc[o];
+}
+
+template <class Body, bool SELF>
+int launch3(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
+            const Layout3& g, const typename Body::Params& prm,
+            cudaStream_t stream) {
+  const int columns = g.nx * g.ny * g.nz + 1;
+  const dim3 grid((columns + kBlock - 1) / kBlock, g.cap);
+  pair_sweep3<Body, SELF><<<grid, kBlock, 0, stream>>>(f, kmax, g, prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,6 +732,84 @@ int gamma_grad_sweep(const float* occ, const float* x0, const float* x1,
   const Layout g{cap, nx, ny, h2};
   return launch<GammaGrad, true>(f, kmax, g, {coef},
                                  static_cast<cudaStream_t>(stream));
+}
+
+// dam-break sweeps, 2-D: planes [cap, nx*ny+1], kmax int32 [ny]
+int dambreak_mass_sweep(const float* occ, const float* x0, const float* x1,
+                        const float* v0, const float* v1, const float* rho,
+                        const int* kmax, float* drho, int cap, int nx, int ny,
+                        float h2, float kc, float hinv, float two_nu,
+                        void* stream) {
+  Planes<6, 1> f{{occ, x0, x1, v0, v1, rho}, {drho}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<DamMass<2>, false>(f, kmax, g, {kc, hinv, two_nu},
+                                   static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_force_sweep(const float* occ, const float* x0, const float* x1,
+                         const float* v0, const float* v1, const float* pterm,
+                         const float* fluid, const int* kmax, float* dv0,
+                         float* dv1, int cap, int nx, int ny, float h2,
+                         float kc, float hinv, float visc_c, void* stream) {
+  Planes<7, 2> f{{occ, x0, x1, v0, v1, pterm, fluid}, {dv0, dv1}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<DamForce<2>, false>(f, kmax, g, {kc, hinv, visc_c},
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]
+int density_sweep_3d(const float* occ, const float* x0, const float* x1,
+                     const float* x2, const float* hinv, const float* w,
+                     const int* kmax, float* rho, int cap, int nx, int ny,
+                     int nz, float h2, int self_pair, float cw, void* stream) {
+  Planes<Density3::NIN, Density3::NOUT> f{{occ, x0, x1, x2, hinv, w}, {rho}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  const Density3::Params prm{cw};
+  auto s = static_cast<cudaStream_t>(stream);
+  return self_pair ? launch3<Density3, true>(f, kmax, g, prm, s)
+                   : launch3<Density3, false>(f, kmax, g, prm, s);
+}
+
+int momentum_sweep_3d(const float* occ, const float* x0, const float* x1,
+                      const float* x2, const float* h, const float* m,
+                      const float* v0, const float* v1, const float* v2,
+                      const float* rho, const float* aterm, const float* cs,
+                      const int* kmax, float* dv0, float* dv1, float* dv2,
+                      int cap, int nx, int ny, int nz, float h2, float dw,
+                      float eps, float nalpha, float beta, int fast_math,
+                      void* stream) {
+  Planes<12, 3> f{{occ, x0, x1, x2, h, m, v0, v1, v2, rho, aterm, cs},
+                  {dv0, dv1, dv2}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  auto s = static_cast<cudaStream_t>(stream);
+  return fast_math
+      ? launch3<Momentum3<true>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s)
+      : launch3<Momentum3<false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
+}
+
+int dambreak_mass_sweep_3d(const float* occ, const float* x0, const float* x1,
+                           const float* x2, const float* v0, const float* v1,
+                           const float* v2, const float* rho, const int* kmax,
+                           float* drho, int cap, int nx, int ny, int nz,
+                           float h2, float kc, float hinv, float two_nu,
+                           void* stream) {
+  Planes<8, 1> f{{occ, x0, x1, x2, v0, v1, v2, rho}, {drho}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  return launch3<DamMass<3>, false>(f, kmax, g, {kc, hinv, two_nu},
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_force_sweep_3d(const float* occ, const float* x0, const float* x1,
+                            const float* x2, const float* v0, const float* v1,
+                            const float* v2, const float* pterm,
+                            const float* fluid, const int* kmax, float* dv0,
+                            float* dv1, float* dv2, int cap, int nx, int ny,
+                            int nz, float h2, float kc, float hinv,
+                            float visc_c, void* stream) {
+  Planes<9, 3> f{{occ, x0, x1, x2, v0, v1, v2, pterm, fluid}, {dv0, dv1, dv2}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  return launch3<DamForce<3>, false>(f, kmax, g, {kc, hinv, visc_c},
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,9 @@
 """Implicit-CSG geometry (host side, NumPy).
 
-Port of ``sph_mountain_waves_tpu/geometry.py``, cut to the shapes the
-mountain-wave flagship builds: ``Box``/``Rectangle``, ``Ball`` (the probe
-disc of ``BoundaryLayer``), the ``+``/``-`` CSG operators (union and
-difference), ``Specification``
-and ``BoundaryLayer``. Geometry runs once at set-up on the host, so it stays
+Port of ``sph_mountain_waves_tpu/geometry.py``, cut to the shapes the ported
+schemes build, in 2-D and 3-D: ``Box``/``Rectangle``, ``Ball`` (the probe
+disc or ball of ``BoundaryLayer``), the ``+``/``-`` CSG operators (union and
+difference), ``Specification`` and ``BoundaryLayer``. Geometry runs once at set-up on the host, so it stays
 NumPy; it is a separate copy because importing the JAX package's module
 would import ``jax`` through that package's ``__init__``.
 

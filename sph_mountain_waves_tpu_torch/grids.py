@@ -1,7 +1,7 @@
 """Particle lattices (host side, NumPy).
 
-Port of ``sph_mountain_waves_tpu/grids.py``, cut to the hexagonal lattice the
-mountain-wave flagship uses. ``covering(grid, shape)`` returns all lattice
+Port of ``sph_mountain_waves_tpu/grids.py``, cut to the lattices the ported
+schemes use: hexagonal (2-D) and simple cubic (3-D). ``covering(grid, shape)`` returns all lattice
 points inside the shape as an ``[N, 3]`` array.
 """
 from __future__ import annotations
@@ -10,7 +10,7 @@ import numpy as np
 
 from .geometry import Shape, boundarybox
 
-__all__ = ["Grid", "Hexagrid", "dimension", "covering"]
+__all__ = ["Grid", "Hexagrid", "CubicGrid", "dimension", "covering"]
 
 
 class GridBase:
@@ -22,10 +22,12 @@ class GridBase:
 
 def Grid(dr: float, symm: str) -> GridBase:
     """Grid factory. ``symm`` is the symmetry name, with or without the
-    Julia ``:`` sigil; only the hexagonal lattice is ported so far."""
+    Julia ``:`` sigil; the hexagonal and cubic lattices are ported."""
     symm = str(symm).lstrip(":")
     if symm == "hexagonal":
         return Hexagrid(dr)
+    if symm == "cubic":
+        return CubicGrid(dr)
     raise NotImplementedError(f"grid type {symm!r} is not ported yet")
 
 
@@ -69,3 +71,26 @@ class Hexagrid(GridBase):
         x2 = J * self.b
         pts = np.stack([x1, x2, np.zeros_like(x1)], axis=-1)
         return _mask_points(pts.reshape(-1, 3), s)
+
+
+class CubicGrid(GridBase):
+    """Simple cubic lattice, spacing dr; covered plane by plane (z = k·dr)
+    to bound memory."""
+    dim = 3
+
+    def __init__(self, dr):
+        self.dr = float(dr)
+
+    def covering(self, s):
+        box, a = boundarybox(s), self.dr
+        ii = _irange(box.x1_min / a, box.x1_max / a)
+        jj = _irange(box.x2_min / a, box.x2_max / a)
+        kk = _irange(box.x3_min / a, box.x3_max / a)
+        I, J = np.meshgrid(ii, jj, indexing="ij")
+        xs = I.astype(np.float64).ravel() * a
+        ys = J.astype(np.float64).ravel() * a
+        chunks = [np.zeros((0, 3))]
+        for k in kk:
+            pts = np.stack([xs, ys, np.full_like(xs, k * a)], axis=-1)
+            chunks.append(_mask_points(pts, s))
+        return np.concatenate(chunks)

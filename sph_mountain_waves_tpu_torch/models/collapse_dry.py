@@ -1,0 +1,248 @@
+"""2-D WCSPH dam break ("water collapse", explicit scheme).
+
+Port of ``sph_mountain_waves_tpu/models/collapse_dry.py`` (the Violeau
+dam-break recomputation): continuity-equation density with δ-diffusion,
+linear EOS, symmetric pressure + viscous forces, two-half-drift
+pressure-stabilised Verlet, and the wavefront X / column height H / total
+energy E observables.
+
+The two pair sums of a step are ``dambreak_mass_pass`` and
+``dambreak_force_pass`` (``ops/pair_sweeps.py``), called through their
+wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors.
+Only the float32 bucket layout is ported: the config's defaults
+(``layout="flat"``, ``dtype="float64"``) are the reference's and raise here.
+The figures (``utils/plots.py``: ``plot_dambreak``, ``live_plot``) are not
+ported: ``live_plot=True`` raises and the figure is not written.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..geometry import BoundaryLayer, Rectangle, Specification
+from ..grids import Grid
+from ..ops.apply import apply_unary
+from ..ops.pair_sweeps import dambreak_force_pass, dambreak_mass_pass
+from ..structs import ParticleState, ParticleSystem, generate_particles
+from .common import (
+    check_sweep_route, frame_runner, masked_max, masked_sum, maybe_checkpoint,
+    maybe_resume,
+)
+
+FLUID = 0.0
+WALL = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # physical
+    dr: float = 1.5e-2
+    rho0: float = 1000.0
+    c: float = 50.0
+    g: float = -7.0          # gravity y-component
+    mu: float = 8.4e-4
+    nu: float = 1.0e-6
+    # geometrical
+    water_column_width: float = 1.0
+    water_column_height: float = 2.0
+    box_height: float = 3.0
+    box_width: float = 4.0
+    # temporal
+    t_end: float = 4.0
+    n_frames: int = 200
+    dtype: str = "float64"
+    # only layout="bucket" with dtype="float32" is ported
+    layout: str = "flat"
+    skin: float = 0.0
+    # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
+    # take the plain twins either way); a CUDA state with False is refused
+    use_pallas: bool = False
+    # write <out_path>/checkpoint.npz every this many frames (0: off) and on
+    # the last; resume: path of a checkpoint to continue from, bitwise
+    checkpoint_every: int = 0
+    # terminal sparklines per frame: needs utils/plots.py, not ported (raises)
+    live_plot: bool = False
+    resume: str = ""
+
+    @property
+    def h(self) -> float:
+        return 3.0 * self.dr
+
+    @property
+    def m(self) -> float:
+        return self.rho0 * self.dr**2
+
+    @property
+    def dt(self) -> float:
+        return 0.1 * self.h / self.c
+
+    @property
+    def wall_width(self) -> float:
+        return 2.5 * self.dr
+
+
+def check_ported(cfg) -> None:
+    """Refuse what the dam-break port does not cover yet."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: only float32 states are ported (the "
+            "float64 flat-layout path belongs to a later slice)")
+    if getattr(cfg, "live_plot", False):
+        raise NotImplementedError("live plots (utils/plots.py) are not ported")
+
+
+def make_system(cfg: Config) -> ParticleSystem:
+    """Geometry + hydrostatic init."""
+    check_ported(cfg)
+    grid = Grid(cfg.dr, "hexagonal")
+    box = Rectangle(0.0, 0.0, cfg.box_width, cfg.box_height)
+    fluid = Rectangle(0.0, 0.0, cfg.water_column_width, cfg.water_column_height)
+    walls = BoundaryLayer(box, grid, cfg.wall_width)
+    walls = Specification(walls, lambda x: x[..., 1] < cfg.box_height)  # no top lid
+
+    sys = ParticleSystem(
+        fields={"x": 2, "v": 2, "Dv": 2, "rho": 0, "Drho": 0, "P": 0, "type": 0},
+        domain=box + walls, h=cfg.h, dim=2, dtype=torch.float32)
+    sys.freeze_opts = {"layout": cfg.layout, "skin": cfg.skin}
+    generate_particles(sys, grid, fluid, lambda xs: {"type": FLUID})
+    generate_particles(sys, grid, walls, lambda xs: {"type": WALL})
+    # hydrostatic pressure/density init
+    for chunk in sys._chunks:
+        P = cfg.rho0 * cfg.g * (chunk["x"][:, 1] - cfg.water_column_height)
+        chunk["P"] = P
+        chunk["rho"] = cfg.rho0 + P / cfg.c**2
+    return sys
+
+
+def make_step(cfg: Config, engine):
+    """The Verlet step and the force bootstrap: ``(step, init_forces)``."""
+    if engine is None:
+        raise ValueError("make_step needs the system's engine: call "
+                         "sys.freeze() before make_step(cfg, sys.engine)")
+    dt, c, rho0, g = cfg.dt, cfg.c, cfg.rho0, cfg.g
+
+    def find_pressure(u):
+        rho = u.rho + u.Drho * dt
+        return {"rho": rho, "Drho": torch.zeros_like(rho),
+                "P": c**2 * (rho - rho0)}
+
+    def move(u):
+        # half drift + acceleration reset
+        fluid = (u.type == FLUID)[:, None]
+        return {"x": torch.where(fluid, u.x + 0.5 * dt * u.v, u.x),
+                "Dv": torch.zeros_like(u.Dv)}
+
+    def accelerate(u):
+        fluid = (u.type == FLUID)[:, None]
+        gvec = torch.zeros_like(u.v)
+        gvec[:, 1] = g
+        return {"v": torch.where(fluid, u.v + 0.5 * dt * (u.Dv + gvec), u.v)}
+
+    def mass(state):
+        drho = state.fields["Drho"] + dambreak_mass_pass(engine, state, cfg)
+        return state.replace(Drho=torch.where(state.active, drho, 0.0))
+
+    def force(state):
+        dv = state.fields["Dv"] + torch.stack(
+            dambreak_force_pass(engine, state, cfg), dim=-1)
+        return state.replace(Dv=torch.where(state.active[:, None], dv, 0.0))
+
+    def step(state: ParticleState) -> ParticleState:
+        check_sweep_route(cfg, state)
+        state = apply_unary(state, accelerate)
+        state = apply_unary(state, move)
+        state, _ = engine.rebuild(state)
+        state = mass(state)
+        state = apply_unary(state, find_pressure)
+        state = apply_unary(state, move)
+        state, _ = engine.rebuild(state)
+        state = force(state)
+        return apply_unary(state, accelerate)
+
+    def init_forces(state: ParticleState) -> ParticleState:
+        check_sweep_route(cfg, state)
+        state, _ = engine.rebuild(state)
+        return force(state)
+
+    return step, init_forces
+
+
+def get_globals(cfg: Config, state: ParticleState):
+    """(X, H, E) observables, as 0-d tensors."""
+    f = state.fields
+    act = state.active
+    fluid = act & (f["type"] == FLUID)
+    X = masked_max(f["x"][:, 0] / cfg.water_column_width, fluid)
+    col = fluid & (f["x"][:, 0] > cfg.h) & (f["x"][:, 0] < 2.0)
+    H = masked_max(f["x"][:, 1] / cfg.water_column_height, col)
+    kinetic = 0.5 * cfg.m * torch.sum(f["v"] ** 2, dim=-1)
+    potential = -cfg.m * cfg.g * f["x"][:, 1]
+    rho_ratio = torch.abs(f["rho"] / cfg.rho0)
+    internal = cfg.m * cfg.c**2 * (torch.log(rho_ratio) + cfg.rho0 / f["rho"] - 1.0)
+    E = masked_sum(kinetic + potential + internal, act)
+    return X, H, E
+
+
+def run(cfg: Config = Config(), out_path: str | None = None,
+        verbose: bool = False, device="cuda"):
+    """The full simulation on ``device`` (the card unless the caller asks for
+    the CPU). Returns the time series t (scaled by sqrt(−2g)), X, H, E, the
+    final state and the system. With ``out_path``: ``frame<k>.vtp`` of v, P
+    and type at t = 0 and after every frame, ``result.pvd``, ``data.csv``
+    and, every ``cfg.checkpoint_every`` frames and on the last,
+    ``checkpoint.npz``; the reference's figure is not written."""
+    from ..io import new_pvd_file, save_csv, save_frame, save_pvd_file
+
+    sys = make_system(cfg)
+    state = sys.freeze(device=device)
+    step, init_forces = make_step(cfg, sys.engine)
+
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
+    run_frame = frame_runner(step, steps_per_frame)
+
+    # bitwise restart; the checkpointed state is post-init_forces, so the
+    # half-kick bootstrap must not re-run on resume
+    state, k0 = maybe_resume(cfg, state)
+    if not k0:
+        state = init_forces(state)
+    out = new_pvd_file(out_path, resume=k0 > 0) if out_path else None
+
+    ts, Xs, Hs, Es = [], [], [], []
+
+    def record(t):
+        X, H, E = (float(v) for v in get_globals(cfg, state))
+        ts.append(t)
+        Xs.append(X)
+        Hs.append(H)
+        Es.append(E)
+        return X, H, E
+
+    if not k0:
+        record(0.0)
+        if out:
+            save_frame(out, state, "v", "P", "type", time=0.0)
+
+    k, frame = k0, 0
+    while k < n_steps:
+        state = run_frame(state)
+        k += steps_per_frame
+        frame += 1
+        t = k * cfg.dt
+        X, H, E = record(t * np.sqrt(-2.0 * cfg.g))
+        if verbose:
+            print(f"t = {t:.4f} s  X = {X:.3f}  H = {H:.3f}  E = {E:.6e}")
+        if out:
+            save_frame(out, state, "v", "P", "type", time=t)
+        maybe_checkpoint(cfg, out, state, sys.engine, k, t, frame,
+                         last=k >= n_steps)
+    if out:
+        save_pvd_file(out)
+        save_csv(os.path.join(out.path, "data.csv"),
+                 {"t": ts, "X": Xs, "H": Hs, "E": Es}, merge_history=k0 > 0)
+    sys.state = state
+    return {"t": np.asarray(ts), "X": np.asarray(Xs), "H": np.asarray(Hs),
+            "E": np.asarray(Es), "state": state, "system": sys}

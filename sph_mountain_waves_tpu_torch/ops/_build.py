@@ -53,6 +53,18 @@ SIGNATURES = {
                                            + [_I, _P], _I),
         # occ, x0, x1, h, kmax, 2 outs, cap, nx, ny, h2, coef, stream
         "gamma_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        # occ, x0, x1, v0, v1, rho, kmax, out, cap, nx, ny, h2, kc, 1/h, 2nu,
+        # stream
+        "dambreak_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # occ, x0, x1, v0, v1, P/rho^2, fluid, kmax, 2 outs, cap, nx, ny, h2,
+        # kc, 1/h, 2mu/rho0^2, stream
+        "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # the 3-D forms take x2 (and v2) planes, one more output for the
+        # vector sweeps, and nz after ny
+        "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P], _I),
+        "momentum_sweep_3d": ([_P] * 16 + [_I] * 4 + [_F] * 5 + [_I, _P], _I),
+        "dambreak_mass_sweep_3d": ([_P] * 10 + [_I] * 4 + [_F] * 4 + [_P], _I),
+        "dambreak_force_sweep_3d": ([_P] * 13 + [_I] * 4 + [_F] * 4 + [_P], _I),
     },
 }
 

@@ -3,18 +3,19 @@
 Port of the bucket subset of ``sph_mountain_waves_tpu/ops/neighbors.py``. The
 state rows ARE bucket slots: slot = rank*(C+1) + key, so a field viewed as
 ``[cap, C+1]`` is one plane per in-cell rank with the cells (x minor) along
-the columns and one trash column. Pair sweeps read the 9-cell stencil of a
-cell straight from that layout; nothing is gathered or sorted per step.
+the columns and one trash column. Pair sweeps read the 9-cell (2-D) or
+27-cell (3-D) stencil of a cell straight from that layout; nothing is
+gathered or sorted per step.
 
 ``rebuild`` checks how far particles drifted since the last rescatter and
 re-places them (the stencil rescatter) only past the skin budget. The
-rescatter is a windowed compaction over the 9 neighbour cells in plain
+rescatter is a windowed compaction over the 9 or 27 neighbour cells in plain
 PyTorch, with the reference's packing order (offset-major, then source slot)
 and the same dropped-row count, so states stay slot-for-slot comparable with
 the JAX package.
 
 Not ported yet: the flat layout, the sort rescatter (``rescatter_mode=
-"sort"``), the 3-D stencil and the sharded engine's ``count_cells``.
+"sort"``) and the sharded engine's ``count_cells``.
 """
 from __future__ import annotations
 
@@ -79,14 +80,15 @@ class NeighborEngine:
 
         Key arithmetic: with per-axis cell size L_a (default (1+skin)·h),
         phase_a = floor(min_a/L_a), lim_a = floor(max_a/L_a) − phase_a + 1,
-        then nx is rounded up to a multiple of 128 and ny to a multiple of 8
-        (the JAX package's layout, kept so states compare slot for slot).
+        then nx is rounded up to a multiple of 128 and ny (and nz) to
+        multiples of 8 (the JAX package's layout, kept so states compare
+        slot for slot).
         """
         if layout != "bucket":
             raise NotImplementedError(
                 f"layout={layout!r}: only the bucket layout is ported")
-        if dim != 2:
-            raise NotImplementedError("only the 2-D engine is ported")
+        if dim not in (2, 3):
+            raise ValueError(f"dim must be 2 or 3, got {dim}")
         if cells is None or len(cells) == 0:
             cells = (h * (1.0 + skin),) * dim
         cells = tuple(float(c) for c in cells)
@@ -102,15 +104,17 @@ class NeighborEngine:
             lims[a] = -(-lims[a] // 8) * 8
         if cap is None:
             cap = NeighborEngine._estimate_cap(positions, L, phase, lims, dim)
-        if 9 * cap > NeighborEngine._STENCIL_COST_MAX:
+        engine = NeighborEngine(dim=dim, h=float(h),
+                                phase=tuple(int(p) for p in phase),
+                                lims=tuple(int(l) for l in lims), cap=int(cap),
+                                dtype=dtype, mins=tuple(mins),
+                                maxs=tuple(maxs), skin=float(skin),
+                                cells=cells, persistent=tuple(persistent))
+        if len(engine.stencil) * engine.cap > NeighborEngine._STENCIL_COST_MAX:
             raise NotImplementedError(
-                f"cap {cap}: the sort rescatter it needs is not ported")
-        return NeighborEngine(dim=dim, h=float(h),
-                              phase=tuple(int(p) for p in phase),
-                              lims=tuple(int(l) for l in lims), cap=int(cap),
-                              dtype=dtype, mins=tuple(mins), maxs=tuple(maxs),
-                              skin=float(skin), cells=cells,
-                              persistent=tuple(persistent))
+                f"cap {cap} on {len(engine.stencil)} offsets: the sort "
+                "rescatter it needs is not ported")
+        return engine
 
     @staticmethod
     def _estimate_cap(positions, L, phase, lims, dim) -> int:
@@ -162,8 +166,17 @@ class NeighborEngine:
 
     @property
     def stencil(self) -> list:
-        """The 9 relative cell offsets (di, dj), dj-major."""
-        return [(di, dj) for dj in (-1, 0, 1) for di in (-1, 0, 1)]
+        """The 9 (2-D) or 27 (3-D) relative cell offsets (di, dj[, dk]),
+        the last axis outermost."""
+        if self.dim == 2:
+            return [(di, dj) for dj in (-1, 0, 1) for di in (-1, 0, 1)]
+        return [(di, dj, dk) for dk in (-1, 0, 1) for dj in (-1, 0, 1)
+                for di in (-1, 0, 1)]
+
+    @property
+    def grid_shape(self) -> tuple:
+        """The cell grid with x minor: (ny, nx) or (nz, ny, nx)."""
+        return tuple(reversed(self.lims))
 
     def flat_key(self, cell: torch.Tensor) -> torch.Tensor:
         """Flat cell index from per-axis coords [..., dim]."""
@@ -179,12 +192,14 @@ class NeighborEngine:
         return arr.reshape((self.cap, self.num_cells + 1) + tuple(arr.shape[1:]))
 
     def grid_view(self, arr: torch.Tensor) -> torch.Tensor:
-        """A flat scalar field [slots] as [cap, ny, nx] (trash column cut)."""
-        nx, ny = self.lims
-        return self.resident(arr)[:, : self.num_cells].reshape(self.cap, ny, nx)
+        """A flat scalar field [slots] as [cap, (nz,) ny, nx] (trash column
+        cut)."""
+        return self.resident(arr)[:, : self.num_cells].reshape(
+            (self.cap,) + self.grid_shape)
 
     def to_flat(self, g: torch.Tensor) -> torch.Tensor:
-        """[cap, ny, nx] back to flat [slots] with a zero trash column."""
+        """[cap, (nz,) ny, nx] back to flat [slots] with a zero trash
+        column."""
         flat = g.reshape(self.cap, self.num_cells)
         return torch.nn.functional.pad(flat, (0, 1)).reshape(self.slots)
 
@@ -243,49 +258,55 @@ class NeighborEngine:
         return self._stencil_compact(state, key)
 
     def _stencil_compact(self, state: ParticleState, key: torch.Tensor):
-        """Windowed compaction over the 9 neighbour cells. For every cell c
+        """Windowed compaction over the stencil's cells. For every cell c
         and stencil offset o (offset-major, then source slot), the slots of
         cell c+o whose new key is c are packed into c's slots in scan order.
         Particles that overflow ``cap``, or land farther than one cell away,
         are dropped and counted. ``key`` is the per-slot destination cell
         ([slots] int32; ``num_cells`` = remove)."""
         C, cap = self.num_cells, self.cap
-        nx, ny = self.lims
+        grid = self.grid_shape
         dev = key.device
-        pad1 = torch.nn.functional.pad
+        ones = (1,) * len(grid)
+
+        def pad1(a, value=0):
+            return torch.nn.functional.pad(a, (1, 1) * len(grid), value=value)
 
         def sl(padded, off):
-            # shifted[..., y, x] = a[..., y+dj, x+di] over the padded grid
-            di, dj = off
-            return padded[..., 1 + dj:1 + dj + ny, 1 + di:1 + di + nx]
+            # shifted[..., (z,) y, x] = a[..., (z+dk,) y+dj, x+di] over the
+            # padded grid; off = (di, dj[, dk]), the grid axes are reversed
+            idxs = tuple(slice(1 + o, 1 + o + n)
+                         for o, n in zip(reversed(off), grid))
+            return padded[(Ellipsis,) + idxs]
 
-        keyg = pad1(self.grid_view(key.to(torch.int32)), (1, 1, 1, 1), value=C)
-        idx = torch.arange(C, dtype=torch.int32, device=dev).reshape(ny, nx)
+        keyg = pad1(self.grid_view(key.to(torch.int32)), value=C)
+        idx = torch.arange(C, dtype=torch.int32, device=dev).reshape(grid)
 
         names = [n for n in state.fields
                  if n != "_xref" and not _is_bookkeeping(n)
                  and (not self.persistent or n in self.persistent)]
-        comps = []  # one [cap, ny+2, nx+2] zero-padded plane per component
+        comps = []  # one zero-padded [cap, *grid+2] plane per component
         for n in names:
             arr = state.fields[n]
             cols = [arr] if arr.ndim == 1 else [arr[:, a] for a in range(arr.shape[1])]
-            comps += [pad1(self.grid_view(c), (1, 1, 1, 1)) for c in cols]
-        vals = torch.stack(comps)                       # [F, cap, ny+2, nx+2]
+            comps += [pad1(self.grid_view(c)) for c in cols]
+        vals = torch.stack(comps)                       # [F, cap, *grid+2]
         dt = vals.dtype
 
-        cnt = torch.zeros((ny, nx), dtype=torch.int32, device=dev)
-        iota_k = torch.arange(cap, dtype=torch.int32, device=dev).reshape(cap, 1, 1)
-        outs = torch.zeros((len(comps), cap, ny, nx), dtype=dt, device=dev)
+        cnt = torch.zeros(grid, dtype=torch.int32, device=dev)
+        iota_k = torch.arange(cap, dtype=torch.int32,
+                              device=dev).reshape((cap,) + ones)
+        outs = torch.zeros((len(comps), cap) + grid, dtype=dt, device=dev)
         for off in self.stencil:
-            member = sl(keyg, off) == idx                # [cap, ny, nx]
-            sv = sl(vals, off)                           # [F, cap, ny, nx]
+            member = sl(keyg, off) == idx                # [cap, *grid]
+            sv = sl(vals, off)                           # [F, cap, *grid]
             mi = member.to(torch.int32)
             rank = cnt + torch.cumsum(mi, dim=0, dtype=torch.int32) - mi
             # one-hot placement, as the reference's k-loop: at most one
             # selected source per destination slot, so the sum is exact
             contrib = torch.zeros_like(outs)
             for k in range(cap):
-                sel = ((iota_k == rank[k]) & member[k]).to(dt)  # [cap_s, ny, nx]
+                sel = ((iota_k == rank[k]) & member[k]).to(dt)  # [cap_s, *grid]
                 contrib = contrib + sel[None] * sv[:, k][:, None]
             outs = outs + contrib
             cnt = cnt + mi.sum(dim=0, dtype=torch.int32)
@@ -293,7 +314,7 @@ class NeighborEngine:
         placed = torch.clamp(cnt, max=cap)
         dropped = ((cnt - placed).sum() + (key < C).sum()
                    - cnt.sum()).to(torch.int32)
-        act_g = iota_k < placed                          # [cap, ny, nx]
+        act_g = iota_k < placed                          # [cap, *grid]
 
         fields = {}
         i = 0

@@ -1,15 +1,18 @@
-"""Pair sweeps of the 2-D mountain-wave schemes: density, momentum, the
-Hopkins pressure root and momentum, the Pavelka continuity and fused
-momentum + entropy sweeps, and the Colagrossi packing's ∇Γ sum.
+"""Pair sweeps of the mountain-wave and dam-break schemes: density and
+momentum (2-D and 3-D), the Hopkins pressure root and momentum, the Pavelka
+continuity and fused momentum + entropy sweeps, the Colagrossi packing's ∇Γ
+sum, and the dam-break continuity and force (2-D and 3-D).
 
 Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` that the
-WCSPH flagship, the three Hopkins schemes and the Pavelka scheme run: the
-pair-sweep harness (``make_pair_kernel_fn`` with ``_make_pair_kernel``, the
-one ``pl.pallas_call``), its trip bound ``row_kmax``,
-``weighted_w_pass(ker_h="p")``/``density_pass``, the 2-D ``momentum_pass``,
-``weighted_w_pass(ker_h="sym")``/``pressure_pass``,
+WCSPH flagship and its 3-D form, the three Hopkins schemes, the Pavelka
+scheme and the two dam breaks run: the pair-sweep harness
+(``make_pair_kernel_fn`` with ``_make_pair_kernel``, the one
+``pl.pallas_call``) over 9 or 27 stencil cells, its trip bound ``row_kmax``,
+``weighted_w_pass(ker_h="p")``/``density_pass`` and ``momentum_pass`` in both
+dimensions, ``weighted_w_pass(ker_h="sym")``/``pressure_pass``,
 ``hopkins_momentum_pass`` (``background_split`` on and off),
-``pavelka_mass_pass`` and ``pavelka_momentum_entropy_pass``.
+``pavelka_mass_pass``, ``pavelka_momentum_entropy_pass``,
+``dambreak_mass_pass`` and ``dambreak_force_pass``.
 ``gamma_grad_pass`` has no Pallas counterpart: the reference's Colagrossi
 packing takes that sum as an XLA pair sum
 (``utils/packing.py::colagrossi_packing``, ``find_gGamma``).
@@ -18,20 +21,24 @@ Every sweep reads f32 planes in the bucket layout ``[cap, C+1]`` (an
 occupancy plane plus per-particle fields) and writes one ``[cap, C+1]`` plane
 per output, zero on empty slots and in the trash column. A pair (p, q) counts
 when both slots are occupied, q's cell is one of p's 9 stencil cells inside
-the grid, ``r² ≤ h²`` and, unless the sweep includes the self pair, q ≠ p.
-Sums are taken in a fixed order: for each q rank ``kq`` the 9 stencil
-contributions are summed (offsets dj-major) and then added to the
-accumulator, as the Pallas kernel does, so reruns are bitwise identical.
+the grid (27 in 3-D), ``r² ≤ h²`` and, unless the sweep includes the self
+pair, q ≠ p. Sums are taken in a fixed order: for each q rank ``kq`` the
+stencil's contributions are summed (the last axis' offset outermost: dj, or
+dk then dj in 3-D) and then added to the accumulator, as the Pallas kernel
+does, so reruns are bitwise identical.
 
 Each sweep has two implementations:
 
 * a CUDA C++ kernel for sm_90a (``csrc/pair_sweep.cu``), launched by the
   wrapper (``density_pass``, ``momentum_pass``, ``pressure_pass``,
   ``hopkins_momentum_pass``, ``pavelka_mass_pass``,
-  ``pavelka_momentum_entropy_pass``, ``gamma_grad_pass``) for CUDA tensors,
-  which counts its launches in ``<wrapper>.launches``;
+  ``pavelka_momentum_entropy_pass``, ``gamma_grad_pass``,
+  ``dambreak_mass_pass``, ``dambreak_force_pass``) for CUDA tensors, which
+  counts its launches in ``<wrapper>.launches``; ``density_pass``,
+  ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
+  kernel by ``engine.dim``;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
-  vectorised over shifted views of the zero-padded ``[cap, ny+2, nx+2]``
+  vectorised over shifted views of the padded ``[cap, (nz+2,) ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
 
 What bounds the kernel on an H100: per occupied p slot it reads the q slots
@@ -39,7 +46,9 @@ of 9 cells up to the row's band occupancy (about 9·kmax slots) of 4 (∇Γ),
 5 (density, pressure), 9 (Pavelka continuity), 10 (momentum), 11/13 (Hopkins
 momentum) or 12 (Pavelka momentum + entropy) f32 fields.
 Neighbouring threads share most of those q reads, so they hit L1/L2; memory
-traffic and occupancy bound the sweep, not FLOPs.
+traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests up
+to 27·kmax candidates (6 to 12 fields) for the few dozen pairs inside the
+cutoff, and the candidate tests are no longer negligible beside the bytes.
 """
 from __future__ import annotations
 
@@ -48,7 +57,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels import C_DW2, C_W2
+from ..kernels import C_DW2, C_DW3, C_W2, C_W3
 from ..structs import ParticleState
 from . import _build
 
@@ -58,19 +67,31 @@ __all__ = ["row_kmax", "density_pass", "density_pass_plain",
            "hopkins_momentum_pass_plain", "pavelka_mass_pass",
            "pavelka_mass_pass_plain", "pavelka_momentum_entropy_pass",
            "pavelka_momentum_entropy_pass_plain", "gamma_grad_pass",
-           "gamma_grad_pass_plain"]
+           "gamma_grad_pass_plain", "dambreak_mass_pass",
+           "dambreak_mass_pass_plain", "dambreak_force_pass",
+           "dambreak_force_pass_plain"]
 
 
 def row_kmax(engine, state: ParticleState):
     """(band_max, row_max): per-grid-row max bucket occupancy maxed over the
-    3-row stencil band (the q-slot trip bound) and for the row itself. Each
-    [ny] int32."""
-    nx, ny = engine.lims
-    per_cell = engine.grid_view(state.active).sum(dim=0)     # [ny, nx]
-    per_row = per_cell.amax(dim=1)                            # [ny]
-    padded = F.pad(per_row, (1, 1))
-    band = torch.maximum(torch.maximum(padded[:-2], padded[1:-1]), padded[2:])
-    return band.to(torch.int32), per_row.to(torch.int32)
+    stencil band (the q-slot trip bound: 3 rows in 2-D, the 3×3 (dj, dk)
+    neighbourhood of rows in 3-D) and for the row itself. Each [R] int32 with
+    R = ny (2-D) or ny·nz (3-D, z major)."""
+    per_cell = engine.grid_view(state.active).sum(dim=0)     # [(nz,) ny, nx]
+    per_row = per_cell.amax(dim=-1)                           # [(nz,) ny]
+    if engine.dim == 2:
+        padded = F.pad(per_row, (1, 1))
+        band = torch.maximum(torch.maximum(padded[:-2], padded[1:-1]),
+                             padded[2:])
+    else:
+        nz, ny = per_row.shape
+        padded = F.pad(per_row, (1, 1, 1, 1))
+        band = torch.zeros_like(per_row)
+        for dk in range(3):
+            for dj in range(3):
+                band = torch.maximum(band, padded[dk:dk + nz, dj:dj + ny])
+    return (band.reshape(-1).to(torch.int32),
+            per_row.reshape(-1).to(torch.int32))
 
 
 def _hfloor(engine) -> float:
@@ -79,10 +100,8 @@ def _hfloor(engine) -> float:
 
 
 def _rdw_const(dim: int) -> float:
-    # -C of rDwendland2 = (dw/dr)/r = -C·pos(1-r/h)^3 / h^4
-    if dim != 2:
-        raise NotImplementedError("only the 2-D momentum sweep is ported")
-    return -C_DW2
+    # -C of rDwendland{2,3} = (dw/dr)/r = -C·pos(1-r/h)^3 / h^(dim+2)
+    return -C_DW2 if dim == 2 else -C_DW3
 
 
 def _div_fn(cfg):
@@ -102,30 +121,65 @@ def _plane(engine, arr: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- inputs
 
+def _axes(engine, arr: torch.Tensor) -> list:
+    """The per-axis components of a vector field [slots, dim]."""
+    return [arr[:, a] for a in range(engine.dim)]
+
+
 def _density_inputs(engine, state: ParticleState, weight: torch.Tensor):
-    """Planes (occ, x0, x1, 1/h, weight) and their grid-edge pad values.
+    """Planes (occ, x[dim], 1/h, weight) and their grid-edge pad values.
     1/h is streamed so the body has no divide."""
     f = state.fields
     hinv = 1.0 / torch.clamp(f["h"], min=_hfloor(engine))
     planes = [_plane(engine, a) for a in (
-        state.active, f["x"][:, 0], f["x"][:, 1], hinv, weight)]
-    return planes, [0.0] * 5
+        [state.active] + _axes(engine, f["x"]) + [hinv, weight])]
+    return planes, [0.0] * len(planes)
 
 
 def _momentum_inputs(engine, state: ParticleState, cfg):
-    """Planes (occ, x0, x1, h, m, v0, v1, ρ_f, P′/ρ_f², c) with the per-particle
-    quantities hoisted: floored ρ, the pressure term and the sound speed.
-    h pads with its floor so that a pad never yields 1/0."""
+    """Planes (occ, x[dim], h, m, v[dim], ρ_f, P′/ρ_f², c) with the
+    per-particle quantities hoisted: floored ρ, the pressure term and the
+    sound speed. h pads with its floor so that a pad never yields 1/0."""
     f = state.fields
+    d = engine.dim
     rho_f = torch.clamp(f["rho"], min=cfg.rho_floor)
     Aterm = f["P_p"] / rho_f**2
     cs = torch.sqrt(torch.clamp(cfg.gamma * f["P"] / rho_f, min=0.0))
     h = torch.clamp(f["h"], min=_hfloor(engine))
     planes = [_plane(engine, a) for a in (
-        state.active, f["x"][:, 0], f["x"][:, 1], h, f["m"],
-        f["v"][:, 0], f["v"][:, 1], rho_f, Aterm, cs)]
-    pad_vals = [0.0] * 3 + [_hfloor(engine)] + [0.0] * 6
+        [state.active] + _axes(engine, f["x"]) + [h, f["m"]]
+        + _axes(engine, f["v"]) + [rho_f, Aterm, cs])]
+    pad_vals = [0.0] * (1 + d) + [_hfloor(engine)] + [0.0] * (4 + d)
     return planes, pad_vals
+
+
+def _dambreak_mass_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], v[dim], ρ); every pad is 0 (fixed h: no 1/h)."""
+    f = state.fields
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"])
+        + [f["rho"]])]
+    return planes, [0.0] * len(planes)
+
+
+def _dambreak_force_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], v[dim], P/max(ρ, 1e-12)², [type == FLUID]); the
+    floored ρ keeps the pressure term finite on empty slots."""
+    f = state.fields
+    rho_f = torch.clamp(f["rho"], min=1e-12)
+    Pterm = f["P"] / rho_f**2
+    fluid = (f["type"] == 0.0).to(torch.float32)
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"])
+        + [Pterm, fluid])]
+    return planes, [0.0] * len(planes)
+
+
+def _dambreak_consts(cfg, dim: int):
+    """(kc, 1/h) of the fixed-h dam-break bodies: m and the kernel's
+    normalisation folded into kc = m·(−C of rDW)/h^(dim+2), in double on the
+    host as the reference computes them."""
+    return cfg.m * _rdw_const(dim) / cfg.h ** (dim + 2), 1.0 / cfg.h
 
 
 def _pressure_inputs(engine, state: ParticleState, cfg):
@@ -206,44 +260,95 @@ def _gamma_grad_inputs(engine, state: ParticleState):
 
 # ------------------------------------------------------------ plain twins
 
-def _density_body(p, q, r2, maskf):
-    """Σ w_q·W₂(h_p, r) with 1/h_p streamed (fields occ, x0, x1, 1/h, w)."""
-    wq = q[4]
-    r = torch.sqrt(r2)
-    hinv = p[3]
-    x = r * hinv
-    t = torch.clamp(1.0 - x, min=0.0)
-    t2 = t * t
-    hpow = hinv * hinv
-    ker = C_W2 * t2 * t2 * (1.0 + 4.0 * x) * hpow
-    return [maskf * wq * ker]
+def _dot(dx: list, dv: list):
+    """x_pq·v_pq summed in axis order."""
+    dot = dx[0] * dv[0]
+    for a in range(1, len(dx)):
+        dot = dot + dx[a] * dv[a]
+    return dot
 
 
-def _momentum_body(cfg):
-    """Symmetric P′ gradient plus Monaghan viscosity (fields occ, x0, x1, h,
-    m, v0, v1, ρ_f, P′/ρ², c), term for term the Pallas momentum body."""
+def _density_body(d: int):
+    """Σ w_q·W_d(h_p, r) with 1/h_p streamed (fields occ, x[d], 1/h, w)."""
+    CW = C_W2 if d == 2 else C_W3
+
+    def body(p, q, r2, maskf):
+        wq = q[2 + d]
+        r = torch.sqrt(r2)
+        hinv = p[1 + d]
+        x = r * hinv
+        t = torch.clamp(1.0 - x, min=0.0)
+        t2 = t * t
+        hpow = hinv * hinv if d == 2 else hinv * hinv * hinv
+        ker = CW * t2 * t2 * (1.0 + 4.0 * x) * hpow
+        return [maskf * wq * ker]
+
+    return body
+
+
+def _momentum_body(cfg, d: int = 2):
+    """Symmetric P′ gradient plus Monaghan viscosity (fields occ, x[d], h,
+    m, v[d], ρ_f, P′/ρ², c), term for term the Pallas momentum body."""
     alpha, beta, eps = cfg.alpha, cfg.beta, cfg.eps
-    DW = _rdw_const(2)
+    DW = _rdw_const(d)
     div = _div_fn(cfg)
 
     def body(p, q, r2, maskf):
-        hp, rhop, Ap, cp = p[3], p[7], p[8], p[9]
-        mq, rhoq, Aq, cq = q[4], q[7], q[8], q[9]
+        hp, rhop, Ap, cp = p[1 + d], p[3 + 2 * d], p[4 + 2 * d], p[5 + 2 * d]
+        mq, rhoq, Aq, cq = q[2 + d], q[3 + 2 * d], q[4 + 2 * d], q[5 + 2 * d]
         r = torch.sqrt(r2)
-        h_ij = 0.5 * (hp + q[3])
+        h_ij = 0.5 * (hp + q[1 + d])
         hinv = div(1.0, h_ij)
         t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
         hinv2 = hinv * hinv
-        ker = DW * t * t * t * (hinv2 * hinv2)
-        dx = [p[1] - q[1], p[2] - q[2]]
-        dv = [p[5] - q[5], p[6] - q[6]]
-        dot = dx[0] * dv[0] + dx[1] * dv[1]
+        ker = DW * t * t * t * (hinv2 * hinv2 if d == 2
+                                else hinv2 * hinv2 * hinv)
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[3 + d + a] - q[3 + d + a] for a in range(d)]
+        dot = _dot(dx, dv)
         c_ij = 0.5 * (cp + cq)
         rho_ij = 0.5 * (rhop + rhoq)
         mu_ij = div(h_ij * dot, r2 + eps * h_ij * h_ij)
         pi_ij = div(-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij, rho_ij)
         s = -mq * ker * (Ap + Aq + (dot < 0.0).to(torch.float32) * pi_ij)
-        return [s * dx[0], s * dx[1]]
+        return [s * dx[a] for a in range(d)]
+
+    return body
+
+
+def _dambreak_mass_body(cfg, d: int):
+    """Fixed-h continuity Σ kc·t³·(x_pq·v_pq + 2ν(ρ_p − ρ_q)) (fields occ,
+    x[d], v[d], ρ), term for term the Pallas dam-break mass body."""
+    kc, hinv = _dambreak_consts(cfg, d)
+    two_nu = 2.0 * cfg.nu
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        ker = kc * t * t * t
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[1 + d + a] - q[1 + d + a] for a in range(d)]
+        drho = p[1 + 2 * d] - q[1 + 2 * d]
+        return [ker * (_dot(dx, dv) + two_nu * drho)]
+
+    return body
+
+
+def _dambreak_force_body(cfg, d: int):
+    """Fixed-h fluid-only force −ker·(Pt_p + Pt_q)·x_pq + ker·(2μ/ρ0²)·v_pq
+    with the p-side FLUID gate in t (fields occ, x[d], v[d], Pt, fluid), term
+    for term the Pallas dam-break force body."""
+    kc, hinv = _dambreak_consts(cfg, d)
+    visc_c = 2.0 * cfg.mu / cfg.rho0**2
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf * p[2 + 2 * d]
+        ker = kc * t * t * t
+        s = -ker * (p[1 + 2 * d] + q[1 + 2 * d])
+        w = ker * visc_c
+        return [s * (p[1 + a] - q[1 + a]) + w * (p[1 + d + a] - q[1 + d + a])
+                for a in range(d)]
 
     return body
 
@@ -377,43 +482,77 @@ def _gamma_grad_body(V0: float):
     return body
 
 
+def _occupied_box(occ: torch.Tensor):
+    """Per grid axis, the slice that spans the occupied cells of the
+    occupancy grid [cap, *grid]; None if no slot is occupied."""
+    cells = occ.sum(dim=0) > 0.5
+    if not bool(cells.any()):
+        return None
+    box = []
+    for ax in range(cells.ndim):
+        others = tuple(a for a in range(cells.ndim) if a != ax)
+        idx = torch.nonzero(cells.any(dim=others) if others else cells)
+        box.append(slice(int(idx.min()), int(idx.max()) + 1))
+    return tuple(box)
+
+
 def _sweep_plain(engine, planes, pad_vals, band, body, n_out: int,
                  self_pair: bool):
-    """The pair-sweep harness in plain PyTorch: p fields are the [cap, ny, nx]
-    grid, q fields at one rank ``kq`` and one stencil offset are a shifted
-    [ny, nx] view of the padded grid. Masked pairs contribute exactly zero,
-    because every hoisted input (and every pad) is finite."""
+    """The pair-sweep harness in plain PyTorch: p fields are the
+    [cap, (nz,) ny, nx] grid, q fields at one rank ``kq`` and one stencil
+    offset are a shifted [(nz,) ny, nx] view of the padded grid. Masked pairs
+    contribute exactly zero, because every hoisted input (and every pad) is
+    finite."""
     cap = engine.cap
-    nx, ny = engine.lims
+    full = engine.grid_shape
+    d = engine.dim
     C = engine.num_cells
     dev = planes[0].device
-    G = [pl[:, :C].reshape(cap, ny, nx) for pl in planes]
-    P = [F.pad(g, (1, 1, 1, 1), value=v) for g, v in zip(G, pad_vals)]
+    G = [pl[:, :C].reshape((cap,) + full) for pl in planes]
+    # work on the bounding box of the occupied cells only: cells outside it
+    # hold no p slot and, like the pads, no q slot (the grid is rounded up
+    # to multiples of 128 and 8 cells, so small systems fill little of it)
+    box = _occupied_box(G[0])
+    if box is None:
+        return [torch.zeros_like(planes[0]).reshape(-1) for _ in range(n_out)]
+    G = [g[(slice(None),) + box] for g in G]
+    grid = tuple(G[0].shape[1:])
+    P = [F.pad(g, (1, 1) * d, value=v) for g, v in zip(G, pad_vals)]
     occ_p = G[0] > 0.5
     hh = torch.tensor(engine.h * engine.h, dtype=torch.float32, device=dev)
-    k_ids = torch.arange(cap, device=dev).reshape(cap, 1, 1)
-    acc = [torch.zeros((cap, ny, nx), dtype=torch.float32, device=dev)
+    k_ids = torch.arange(cap, device=dev).reshape((cap,) + (1,) * d)
+    acc = [torch.zeros((cap,) + grid, dtype=torch.float32, device=dev)
            for _ in range(n_out)]
     # q ranks past the largest band occupancy are empty everywhere
     for kq in range(int(band.max())):
         tot = None
-        for di, dj in engine.stencil:
-            q = [Pf[kq, 1 + dj:1 + dj + ny, 1 + di:1 + di + nx] for Pf in P]
+        for off in engine.stencil:
+            window = (kq,) + tuple(slice(1 + o, 1 + o + n)
+                                   for o, n in zip(reversed(off), grid))
+            q = [Pf[window] for Pf in P]
             r2 = (G[1] - q[1]) ** 2 + (G[2] - q[2]) ** 2
+            if d == 3:
+                r2 = r2 + (G[3] - q[3]) ** 2
             mask = occ_p & (q[0] > 0.5) & (r2 <= hh)
-            if not self_pair and di == 0 and dj == 0:
+            if not self_pair and not any(off):
                 mask = mask & (k_ids != kq)
             contribs = body(G, q, r2, mask.to(torch.float32))
             tot = contribs if tot is None else [t + c for t, c in zip(tot, contribs)]
         acc = [a + t for a, t in zip(acc, tot)]
-    return [engine.to_flat(a) for a in acc]
+    outs = []
+    for a in acc:
+        whole = torch.zeros((cap,) + full, dtype=torch.float32, device=dev)
+        whole[(slice(None),) + box] = a
+        outs.append(engine.to_flat(whole))
+    return outs
 
 
 def density_pass_plain(engine, state: ParticleState, cfg):
     """Plain twin of ``density_pass``."""
     planes, pad_vals = _density_inputs(engine, state, state.fields["m"])
     band, _ = row_kmax(engine, state)
-    (out,) = _sweep_plain(engine, planes, pad_vals, band, _density_body, 1,
+    (out,) = _sweep_plain(engine, planes, pad_vals, band,
+                          _density_body(engine.dim), 1,
                           self_pair=cfg.self_density)
     return out
 
@@ -422,8 +561,28 @@ def momentum_pass_plain(engine, state: ParticleState, cfg):
     """Plain twin of ``momentum_pass``: the per-axis Dv pair sums."""
     planes, pad_vals = _momentum_inputs(engine, state, cfg)
     band, _ = row_kmax(engine, state)
-    return _sweep_plain(engine, planes, pad_vals, band, _momentum_body(cfg),
-                        2, self_pair=False)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _momentum_body(cfg, engine.dim), engine.dim,
+                        self_pair=False)
+
+
+def dambreak_mass_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``dambreak_mass_pass``."""
+    planes, pad_vals = _dambreak_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes, pad_vals, band,
+                          _dambreak_mass_body(cfg, engine.dim), 1,
+                          self_pair=False)
+    return out
+
+
+def dambreak_force_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``dambreak_force_pass``: the per-axis pair sums."""
+    planes, pad_vals = _dambreak_force_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _dambreak_force_body(cfg, engine.dim), engine.dim,
+                        self_pair=False)
 
 
 def pressure_pass_plain(engine, state: ParticleState, cfg):
@@ -490,25 +649,29 @@ def _check_planes(engine, planes, band):
             raise ValueError(f"sweep input must be contiguous f32 {shape} "
                              f"on {dev}, got {pl.dtype} {tuple(pl.shape)} "
                              f"on {pl.device}")
-    if band.device != dev or band.dtype != torch.int32 or band.numel() != engine.lims[1]:
-        raise ValueError("row bound must be int32 [ny] on the planes' device")
+    rows = engine.num_cells // engine.lims[0]
+    if band.device != dev or band.dtype != torch.int32 or band.numel() != rows:
+        raise ValueError(f"row bound must be int32 [{rows}] on the planes' "
+                         "device")
 
 
 def _launch(fn_name: str, engine, planes, band, n_out, scalars):
     """Launch one sweep of csrc/pair_sweep.cu on the current stream; raise if
-    the launch was refused."""
+    the launch was refused. A 3-D engine takes the ``<fn_name>_3d`` export,
+    which has nz after ny."""
     _check_planes(engine, planes, band)
     dev = planes[0].device
     band = band.contiguous()
     outs = [torch.empty((engine.cap, engine.num_cells + 1),
                         dtype=torch.float32, device=dev) for _ in range(n_out)]
     lib = _build.load("pair_sweep")
-    nx, ny = engine.lims
+    if engine.dim == 3:
+        fn_name += "_3d"
     h2 = ctypes.c_float(engine.h * engine.h)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     err = getattr(lib, fn_name)(*[_ptr(p) for p in planes], _ptr(band),
                                 *[_ptr(o) for o in outs],
-                                engine.cap, nx, ny, h2, *scalars, stream)
+                                engine.cap, *engine.lims, h2, *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: "
                            f"{lib.pair_sweep_error_string(err).decode()}")
@@ -525,9 +688,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"pair sweeps run on cuda or cpu tensors, not {t.device}")
 
 
-def _momentum_scalars(cfg):
+def _momentum_scalars(cfg, dim: int = 2):
     """(−C of rDW, ε, −α, β) of the momentum bodies."""
-    return [ctypes.c_float(_rdw_const(2)), ctypes.c_float(cfg.eps),
+    return [ctypes.c_float(_rdw_const(dim)), ctypes.c_float(cfg.eps),
             ctypes.c_float(-cfg.alpha), ctypes.c_float(cfg.beta)]
 
 
@@ -536,32 +699,33 @@ def _fast(cfg) -> int:
 
 
 def density_pass(engine, state: ParticleState, cfg):
-    """ρ_p = Σ m_q·W₂(h_p, r) over the stencil, plus the self term per
-    ``cfg.self_density``, as a flat [slots] tensor. Replaces
-    ``weighted_w_pass(ker_h="p")``/``density_pass`` of pallas_pairs.py. CUDA
-    tensors launch the kernel (counted in ``density_pass.launches``); CPU
-    tensors take the twin."""
+    """ρ_p = Σ m_q·W(h_p, r) over the stencil (W₂ on a 2-D engine, W₃ on a
+    3-D one), plus the self term per ``cfg.self_density``, as a flat [slots]
+    tensor. Replaces ``weighted_w_pass(ker_h="p")``/``density_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``density_pass.launches``); CPU tensors take the twin."""
     if not _on_cuda(state.active):
         return density_pass_plain(engine, state, cfg)
     planes, _ = _density_inputs(engine, state, state.fields["m"])
     band, _ = row_kmax(engine, state)
     (out,) = _launch("density_sweep", engine, planes, band, 1,
-                     [int(bool(cfg.self_density)), ctypes.c_float(C_W2)])
+                     [int(bool(cfg.self_density)),
+                      ctypes.c_float(C_W2 if engine.dim == 2 else C_W3)])
     density_pass.launches += 1
     return out
 
 
 def momentum_pass(engine, state: ParticleState, cfg):
     """Perturbation-pressure + Monaghan-viscosity momentum sweep: the
-    per-axis Dv pair sums as two flat [slots] tensors. Replaces
+    per-axis Dv pair sums as ``engine.dim`` flat [slots] tensors. Replaces
     ``momentum_pass`` of pallas_pairs.py. CUDA tensors launch the kernel
     (counted in ``momentum_pass.launches``); CPU tensors take the twin."""
     if not _on_cuda(state.active):
         return momentum_pass_plain(engine, state, cfg)
     planes, _ = _momentum_inputs(engine, state, cfg)
     band, _ = row_kmax(engine, state)
-    outs = _launch("momentum_sweep", engine, planes, band, 2,
-                   _momentum_scalars(cfg) + [_fast(cfg)])
+    outs = _launch("momentum_sweep", engine, planes, band, engine.dim,
+                   _momentum_scalars(cfg, engine.dim) + [_fast(cfg)])
     momentum_pass.launches += 1
     return outs
 
@@ -666,6 +830,42 @@ def gamma_grad_pass(engine, state: ParticleState, V0: float):
     return outs
 
 
+def dambreak_mass_pass(engine, state: ParticleState, cfg):
+    """Dam-break continuity with fixed h: Drho = Σ m·rDW(h, r)·(x_pq·v_pq +
+    2ν(ρ_p − ρ_q)) as a flat [slots] tensor, in 2-D (rDW₂) or 3-D (rDW₃) by
+    ``engine.dim``. Replaces ``dambreak_mass_pass`` of pallas_pairs.py. CUDA
+    tensors launch the kernel (counted in ``dambreak_mass_pass.launches``);
+    CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return dambreak_mass_pass_plain(engine, state, cfg)
+    planes, _ = _dambreak_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    kc, hinv = _dambreak_consts(cfg, engine.dim)
+    (out,) = _launch("dambreak_mass_sweep", engine, planes, band, 1,
+                     [ctypes.c_float(kc), ctypes.c_float(hinv),
+                      ctypes.c_float(2.0 * cfg.nu)])
+    dambreak_mass_pass.launches += 1
+    return out
+
+
+def dambreak_force_pass(engine, state: ParticleState, cfg):
+    """Dam-break fluid-only force with fixed h: −m·rDW·(P_p/ρ_p² + P_q/ρ_q²)·
+    x_pq + 2m·rDW·μ/ρ0²·v_pq on FLUID p slots (a WALL slot gets exact zeros),
+    as ``engine.dim`` flat [slots] tensors. Replaces ``dambreak_force_pass``
+    of pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``dambreak_force_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return dambreak_force_pass_plain(engine, state, cfg)
+    planes, _ = _dambreak_force_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    kc, hinv = _dambreak_consts(cfg, engine.dim)
+    outs = _launch("dambreak_force_sweep", engine, planes, band, engine.dim,
+                   [ctypes.c_float(kc), ctypes.c_float(hinv),
+                    ctypes.c_float(2.0 * cfg.mu / cfg.rho0**2)])
+    dambreak_force_pass.launches += 1
+    return outs
+
+
 density_pass.launches = 0
 momentum_pass.launches = 0
 pressure_pass.launches = 0
@@ -673,3 +873,5 @@ hopkins_momentum_pass.launches = 0
 pavelka_mass_pass.launches = 0
 pavelka_momentum_entropy_pass.launches = 0
 gamma_grad_pass.launches = 0
+dambreak_mass_pass.launches = 0
+dambreak_force_pass.launches = 0

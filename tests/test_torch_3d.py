@@ -1,0 +1,300 @@
+"""The port's 3-D path against the JAX package on the CPU: the 27-offset
+engine, the 3-D density and momentum sweeps and ``witch3d``.
+
+Size: the reference's own tiny 3-D system (tests/test_witch3d.py ``TINY``:
+n_rows=6, 60 km × 10 km × 26 km, 3 fence rows) with eta=1.2, float32, bucket
+layout, ``lattice_cells``, skin 0.15: N = 1,603, grid 128 × 8 × 8, cap 16.
+
+What is compared, and at which tolerance:
+
+* the frozen state slot for slot and bit for bit, also at n_rows=12 with
+  ``bucket_cap=8`` and one fence row (dr = 26000/12 is not exactly
+  representable: without the 1e-6 downward nudge of the cell width a fifth
+  of the rows would overflow);
+* a forced rescatter after a seeded drift of up to 0.6 cell widths, exact
+  against the reference's ``_stencil_rescatter`` over 27 offsets, dropped
+  count included, at cap 8 (full cells, so rows are really dropped);
+* ``row_kmax`` in 3-D, exact;
+* the 3-D density and momentum twins (exact divides and ``fast_math``)
+  against the reference's own pair bodies summed eagerly in the Pallas
+  harness's order (tests/torch_reference_harness.py; an interpret-mode 3-D
+  pass unrolls cap × 27 bodies and takes minutes). Gate: rtol 1e-5, atol =
+  1e-6 × the output's largest |value|;
+* ``renormalize_mass`` (2 iterations) and then 4 steps against the
+  reference's XLA path: m, h, ρ at rtol 1e-5, u_avg and u_max at rel 1e-5,
+  equal active counts. The reference runs in its default flat layout here:
+  its XLA bucket path evaluates every slot against 27·cap candidates
+  (131,088 slots × 432) and takes over a minute on one core, compile
+  included, the flat one seconds. Rows are then in cell order, not slot
+  order, so per-particle fields are matched by position (the set-up moves
+  nothing);
+* a 3-D state through the checkpoint (bit for bit, engine included) and a
+  ``.vtp`` frame (3-D positions and vectors).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sph_mountain_waves_tpu.ops.pallas_pairs as pp
+from sph_mountain_waves_tpu.models import witch3d as jw
+from sph_mountain_waves_tpu.models.witch_common import (
+    velocity_diagnostics as j_diag,
+)
+from sph_mountain_waves_tpu.structs import ParticleState as JState
+
+from sph_mountain_waves_tpu_torch.geometry import Box
+from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
+from sph_mountain_waves_tpu_torch.io import new_pvd_file, read_vtp, save_frame
+from sph_mountain_waves_tpu_torch.models import witch3d as tw
+from sph_mountain_waves_tpu_torch.models.common import frame_runner
+from sph_mountain_waves_tpu_torch.models.witch_common import (
+    velocity_diagnostics as t_diag,
+)
+from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
+from sph_mountain_waves_tpu_torch.utils.checkpoint import (
+    engine_from_meta, load_checkpoint, save_checkpoint,
+)
+from torch_reference_harness import reference_body_sweep
+
+torch.set_num_threads(1)
+
+TINY = dict(n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
+            self_density=True)
+SMALL = dict(TINY, eta=1.2, dtype="float32", layout="bucket",
+             lattice_cells=True, skin=0.15, use_pallas=True)
+RTOL, ATOL_REL = 1e-5, 1e-6
+N_STEPS = 4
+LEVEL0 = {"xla_backend_optimization_level": 0}
+
+
+def _to_np(jstate):
+    return ({k: np.asarray(v) for k, v in jstate.fields.items()},
+            np.asarray(jstate.active))
+
+
+def _assert_states_equal(tstate, jstate):
+    jf, ja = _to_np(jstate)
+    tf, ta = state_to_numpy(tstate)
+    assert sorted(jf) == sorted(tf)
+    np.testing.assert_array_equal(ta, ja)
+    for name in jf:
+        assert tf[name].dtype == jf[name].dtype, name
+        np.testing.assert_array_equal(tf[name], jf[name], err_msg=name)
+
+
+def _build(**over):
+    js = jw.make_system(jw.Witch3DConfig(**{**SMALL, **over}))
+    jstate = js.freeze()
+    ts = tw.make_system(tw.Witch3DConfig(**{**SMALL, **over}))
+    tstate = ts.freeze(device="cpu")
+    je, te = js.engine, ts.engine
+    assert (te.cap, te.lims, te.phase, te.cells) == (je.cap, je.lims, je.phase,
+                                                     je.cells)
+    return js, jstate, ts, tstate
+
+
+@pytest.fixture(scope="module")
+def built():
+    return _build()
+
+
+@pytest.fixture(scope="module")
+def built_cap8():
+    """n_rows=12 with ``bucket_cap=8`` and one fence row (grid 128 × 8 × 8):
+    every cell of the nudged 2·dr grid holds at most 8."""
+    return _build(n_rows=12, bucket_cap=8, bc_rows=1)
+
+
+@pytest.fixture(scope="module")
+def live(built):
+    """(JAX engine, JAX state, port engine, port state): the frozen state
+    with v ±1 m/s, h ±1 % and P′ ±50 Pa from a seeded NumPy generator."""
+    js, jstate, ts, _ = built
+    fields, active = _to_np(jstate)
+    rng = np.random.default_rng(0)
+    n = active.shape[0]
+    fields["v"] = np.where(active[:, None], rng.uniform(-1, 1, (n, 3)),
+                           0.0).astype(np.float32)
+    fields["h"] = np.where(active, fields["h"] * rng.uniform(0.99, 1.01, n),
+                           0.0).astype(np.float32)
+    fields["P_p"] = np.where(active, rng.uniform(-50.0, 50.0, n),
+                             0.0).astype(np.float32)
+    jlive = JState(fields={k: jnp.asarray(v) for k, v in fields.items()},
+                   active=jnp.asarray(active))
+    return js.engine, jlive, ts.engine, state_from_numpy(fields, active, "cpu")
+
+
+def _check(got, ref, active):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(ref).max())
+    assert np.all(got.numpy()[~active] == 0.0)
+    assert np.abs(ref).max() > 0.0
+
+
+def test_frozen_state_matches_jax(built):
+    js, jstate, ts, tstate = built
+    assert ts.engine.dim == 3 and ts.engine.lims == (128, 8, 8)
+    assert ts.engine.cap == 16 and len(ts.engine.stencil) == 27
+    assert ts.engine.stencil == js.engine.stencil
+    assert int(tstate.n) == 1603
+    _assert_states_equal(tstate, jstate)
+
+
+def test_frozen_state_matches_jax_at_cap_8(built_cap8):
+    _, jstate, ts, tstate = built_cap8
+    assert ts.engine.cap == 8
+    _assert_states_equal(tstate, jstate)
+    counts = ts.engine.resident(tstate.active)[:, :-1].sum(dim=0)
+    assert int(counts.max()) == 8
+    assert int(tstate.n) == ts.n_built
+
+
+def test_forced_rescatter_matches_jax_in_3d(built_cap8):
+    """A seeded drift past the budget on the full cap-8 cells: the port's
+    27-offset compaction against the reference's, slot for slot, and the
+    same rows dropped."""
+    js, jstate, ts, _ = built_cap8
+    fields, active = _to_np(jstate)
+    rng = np.random.default_rng(1)
+    L = np.asarray(js.engine.cell_size, dtype=np.float32)
+    drift = rng.uniform(-0.6, 0.6, fields["x"].shape).astype(np.float32) * L
+    fields["x"] = np.where(active[:, None], fields["x"] + drift,
+                           0.0).astype(np.float32)
+    fields["v"] = np.where(active[:, None],
+                           rng.uniform(-1, 1, fields["v"].shape),
+                           0.0).astype(np.float32)
+    jmoved = JState(fields={k: jnp.asarray(v) for k, v in fields.items()},
+                    active=jnp.asarray(active))
+    tmoved = state_from_numpy(fields, active, "cpu")
+    jnew, jdrop = js.engine._stencil_rescatter(jmoved)
+    tnew, tdrop = ts.engine._stencil_rescatter(tmoved)
+    assert int(tdrop) == int(jdrop) > 0
+    _assert_states_equal(tnew, jnew)
+    # and through rebuild: the drift is past the budget, so it rescatters
+    rebuilt, nbrs = ts.engine.rebuild(tmoved)
+    assert int(nbrs.overflow) == int(jdrop)
+    assert torch.equal(rebuilt.active, tnew.active)
+
+
+def test_row_kmax_matches_jax_in_3d(live):
+    je, jlive, te, tlive = live
+    band, row = tps.row_kmax(te, tlive)
+    jband, jrow = pp.row_kmax(je, jlive)
+    assert band.dtype == torch.int32 and band.shape == (8 * 8,)
+    np.testing.assert_array_equal(band.numpy(), np.asarray(jband))
+    np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
+    assert int(band.max()) == 8 and int(row.min()) == 0
+
+
+def test_density_twin_matches_reference_body_in_3d(live, monkeypatch):
+    je, jlive, te, tlive = live
+    (ref,), captured = reference_body_sweep(
+        pp.density_pass, je, jlive, jw.Witch3DConfig(**SMALL), monkeypatch)
+    assert captured["self_pair"] is True and len(captured["fields"]) == 5
+    before = tps.density_pass.launches
+    got = tps.density_pass(te, tlive, tw.Witch3DConfig(**SMALL))
+    assert tps.density_pass.launches == before  # CPU tensors: the twin
+    _check(got, ref, tlive.active.numpy())
+
+
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_momentum_twin_matches_reference_body_in_3d(live, fast_math,
+                                                    monkeypatch):
+    je, jlive, te, tlive = live
+    refs, captured = reference_body_sweep(
+        pp.momentum_pass, je, jlive,
+        jw.Witch3DConfig(**SMALL, fast_math=fast_math), monkeypatch)
+    assert captured["self_pair"] is False and len(captured["fields"]) == 11
+    before = tps.momentum_pass.launches
+    gots = tps.momentum_pass(te, tlive,
+                             tw.Witch3DConfig(**SMALL, fast_math=fast_math))
+    assert tps.momentum_pass.launches == before
+    assert len(gots) == len(refs) == 3
+    for got, ref in zip(gots, refs):
+        _check(got, ref, tlive.active.numpy())
+
+
+def test_setup_and_steps_match_jax(built):
+    _, _, ts, tstate = built
+    over = dict(renorm_iters=2)
+    jcfg = jw.Witch3DConfig(**{**SMALL, **over, "layout": "flat",
+                               "use_pallas": False})
+    js = jw.make_system(jcfg)
+    jstate = js.freeze()
+    jstate = jw.setup(jcfg, js.engine, jstate)
+    tcfg = tw.Witch3DConfig(**SMALL, **over)
+    tstate = tw.setup(tcfg, ts.engine, tstate)
+
+    jf, ja = _to_np(jstate)
+    tf, ta = state_to_numpy(tstate)
+    assert int(ta.sum()) == int(ja.sum()) == 1603
+    jorder = np.lexsort(jf["x"][ja].T)
+    torder = np.lexsort(tf["x"][ta].T)
+    np.testing.assert_array_equal(tf["x"][ta][torder], jf["x"][ja][jorder])
+    assert np.abs(tf["m"][ta] / (tf["rho"][ta] * tcfg.dr**3) - 1).max() > 0.01
+    for name in ("m", "h", "rho"):
+        np.testing.assert_allclose(tf[name][ta][torder], jf[name][ja][jorder],
+                                   rtol=1e-5, err_msg=name)
+
+    jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jstate).compile(
+        compiler_options=LEVEL0)
+    for _ in range(N_STEPS):
+        jstate = jstep(jstate)
+    tstate = frame_runner(tw.make_step(tcfg, ts.engine), N_STEPS)(tstate)
+    jd = [float(v) for v in j_diag(jstate)]
+    td = [float(v) for v in t_diag(tstate)]
+    assert np.all(np.isfinite(td)) and td[1] > 0.0
+    assert td[0] == pytest.approx(jd[0], rel=1e-5)
+    assert td[1] == pytest.approx(jd[1], rel=1e-5)
+    assert int(tstate.n) == int(jstate.n) == 1603
+
+
+def test_checkpoint_and_frame_round_trip_in_3d(built, tmp_path):
+    """A 3-D state through ``save_checkpoint``/``load_checkpoint`` bit for
+    bit, its engine back from the checkpoint's meta, and a ``.vtp`` frame
+    with 3-D positions and vectors read back exactly."""
+    _, _, ts, tstate = built
+    path = str(tmp_path / "checkpoint.npz")
+    save_checkpoint(path, tstate, engine=ts.engine, extra={"step": 3})
+    loaded, meta = load_checkpoint(path, device="cpu")
+    assert meta["extra"]["step"] == 3
+    assert torch.equal(loaded.active, tstate.active)
+    for name, ref in tstate.fields.items():
+        assert torch.equal(loaded.fields[name], ref), name
+    engine = engine_from_meta(meta, cells=ts.engine.cells,
+                              persistent=ts.engine.persistent)
+    assert engine == ts.engine and len(engine.stencil) == 27
+
+    out = new_pvd_file(str(tmp_path / "frames"))
+    save_frame(out, tstate, "v", "rho", time=0.0)
+    points, data = read_vtp(str(tmp_path / "frames" / "frame0.vtp"))
+    act = tstate.active.numpy()
+    x = tstate.fields["x"].numpy()[act].astype(np.float64)
+    assert points.shape == (1603, 3) and np.ptp(points[:, 2]) > 0.0
+    np.testing.assert_array_equal(points, x)
+    np.testing.assert_array_equal(
+        data["v"], tstate.fields["v"].numpy()[act].astype(np.float64))
+    np.testing.assert_array_equal(
+        data["rho"], tstate.fields["rho"].numpy()[act].astype(np.float64))
+
+
+@pytest.mark.parametrize("cap,accepted", [(40, True), (76, False)],
+                         ids=["cap40", "cap76"])
+def test_stencil_cost_rule_counts_27_offsets(cap, accepted):
+    """The reference keeps its stencil compaction while len(stencil)·cap ≤
+    2048: 27·40 = 1080 stays, 27·76 = 2052 would need the sort rescatter,
+    which is not ported."""
+    box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    if accepted:
+        engine = NeighborEngine.create(box, 0.1, 3, cap=cap)
+        assert engine.cap == cap and len(engine.stencil) * cap == 1080
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="sort rescatter it needs is not ported"):
+            NeighborEngine.create(box, 0.1, 3, cap=cap)
+    # in 2-D the same rule counts 9 offsets
+    NeighborEngine.create(box, 0.1, 2, cap=cap)

@@ -232,3 +232,164 @@ def test_pavelka_kernel_steps_match_cpu_twins(card):
     assert out["card"][1] == out["cpu"][1]
     for a, b in zip(out["card"][0], out["cpu"][0]):
         assert a == pytest.approx(b, rel=1e-5)
+
+
+# ------------------------------------------------ 3-D and dam-break kernels
+
+W3D = dict(n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
+           self_density=True, eta=1.2, dtype="float32", layout="bucket",
+           lattice_cells=True, skin=0.15, use_pallas=True, renorm_iters=2)
+DRY = dict(dr=0.08, dtype="float32", layout="bucket", skin=0.2,
+           use_pallas=True)
+C3D = dict(dr=2.0e-2, dtype="float32", layout="bucket", skin=0.2,
+           use_pallas=True)
+
+
+def _dam(name):
+    from sph_mountain_waves_tpu_torch.models import collapse3d, collapse_dry
+    return {"2d": (collapse_dry, DRY), "3d": (collapse3d, C3D)}[name]
+
+
+def _live_3d(device):
+    """witch3d at the tiny size with v ±1 m/s, h ±1 % and P′ ±50 Pa."""
+    from sph_mountain_waves_tpu_torch.models import witch3d as w3
+    cfg = w3.Witch3DConfig(**W3D)
+    sys_ = w3.make_system(cfg)
+    st = sys_.freeze(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    act = st.active
+    f = st.fields
+    return sys_.engine, cfg, st.replace(
+        v=torch.where(act[:, None], rand(f["v"].shape) * 2 - 1, 0.0),
+        h=torch.where(act, f["h"] * (0.99 + 0.02 * rand(act.shape)), 0.0),
+        P_p=torch.where(act, rand(act.shape) * 100 - 50, 0.0))
+
+
+def _live_dam(device, name):
+    """A dam-break system with v ±1 m/s, ρ ±1 % and P in 0–5 kPa."""
+    module, kw = _dam(name)
+    cfg = module.Config(**kw)
+    sys_ = module.make_system(cfg)
+    st = sys_.freeze(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    act = st.active
+    f = st.fields
+    return sys_.engine, cfg, st.replace(
+        v=torch.where(act[:, None], rand(f["v"].shape) * 2 - 1, 0.0),
+        rho=torch.where(act, f["rho"] * (0.99 + 0.02 * rand(act.shape)), 0.0),
+        P=torch.where(act, rand(act.shape) * 5e3, 0.0))
+
+
+@pytest.mark.cuda
+def test_density_kernel_matches_twin_in_3d(card):
+    eng, cfg, st = _live_3d(card)
+    before = ps.density_pass.launches
+    got = ps.density_pass(eng, st, cfg)
+    assert ps.density_pass.launches == before + 1
+    _held_to_twin([got], [ps.density_pass(eng, st, cfg)],
+                  [ps.density_pass_plain(eng, st, cfg)], False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_momentum_kernel_matches_twin_in_3d(card, fast_math):
+    eng, cfg, st = _live_3d(card)
+    cfg = dataclasses.replace(cfg, fast_math=fast_math)
+    before = ps.momentum_pass.launches
+    got = ps.momentum_pass(eng, st, cfg)
+    assert ps.momentum_pass.launches == before + 1 and len(got) == 3
+    _held_to_twin(got, ps.momentum_pass(eng, st, cfg),
+                  ps.momentum_pass_plain(eng, st, cfg), fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["2d", "3d"])
+def test_dambreak_mass_kernel_matches_twin(card, name):
+    eng, cfg, st = _live_dam(card, name)
+    before = ps.dambreak_mass_pass.launches
+    got = ps.dambreak_mass_pass(eng, st, cfg)
+    assert ps.dambreak_mass_pass.launches == before + 1
+    assert float(got.abs().max()) > 1.0
+    _held_to_twin([got], [ps.dambreak_mass_pass(eng, st, cfg)],
+                  [ps.dambreak_mass_pass_plain(eng, st, cfg)], False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["2d", "3d"])
+def test_dambreak_force_kernel_matches_twin(card, name):
+    eng, cfg, st = _live_dam(card, name)
+    before = ps.dambreak_force_pass.launches
+    got = ps.dambreak_force_pass(eng, st, cfg)
+    assert ps.dambreak_force_pass.launches == before + 1
+    assert len(got) == eng.dim
+    _held_to_twin(got, ps.dambreak_force_pass(eng, st, cfg),
+                  ps.dambreak_force_pass_plain(eng, st, cfg), False)
+    wall = st.active & (st.fields["type"] == 1.0)
+    assert all(bool((g[wall] == 0.0).all()) for g in got)
+
+
+def _new_path(name, device):
+    """(diagnostics, active count) of one new path after a few steps."""
+    from sph_mountain_waves_tpu_torch.models import witch3d as w3
+    if name == "witch3d":
+        cfg = w3.Witch3DConfig(**W3D)
+        sys_ = w3.make_system(cfg)
+        st = sys_.freeze(device=device)
+        st = w3.setup(cfg, sys_.engine, st)
+        st = frame_runner(w3.make_step(cfg, sys_.engine), 6)(st)
+        return [float(v) for v in velocity_diagnostics(st)], int(st.n)
+    module, kw = _dam("2d" if name == "collapse_dry" else "3d")
+    cfg = module.Config(**kw)
+    sys_ = module.make_system(cfg)
+    st = sys_.freeze(device=device)
+    step = module.make_step(cfg, sys_.engine)
+    if name == "collapse_dry":
+        step, init_forces = step
+        st = init_forces(st)
+    st = frame_runner(step, 6)(st)
+    speed = st.fields["v"][st.active].abs()
+    return [float(speed.mean()), float(speed.max())], int(st.n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["witch3d", "collapse_dry", "collapse3d"])
+def test_new_paths_kernel_steps_match_cpu_twins(card, name):
+    """Six steps of each new path (witch3d after its set-up, collapse_dry
+    after init_forces) with the kernels on the card against the plain twins
+    on the CPU: the velocity diagnostics within rel 1e-5, equal counts."""
+    got, n_card = _new_path(name, card)
+    ref, n_cpu = _new_path(name, torch.device("cpu"))
+    assert n_card == n_cpu
+    for a, b in zip(got, ref):
+        assert a == pytest.approx(b, rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["witch3d", "collapse_dry", "collapse3d"])
+def test_use_pallas_off_is_refused_on_the_card_by_the_new_paths(card, name):
+    from sph_mountain_waves_tpu_torch.models import witch3d as w3
+    if name == "witch3d":
+        module, cfg = w3, w3.Witch3DConfig(**{**W3D, "use_pallas": False})
+    else:
+        module, kw = _dam("2d" if name == "collapse_dry" else "3d")
+        cfg = module.Config(**{**kw, "use_pallas": False})
+    sys_ = module.make_system(cfg)
+    state = sys_.freeze(device=card)
+    step = module.make_step(cfg, sys_.engine)
+    calls = list(step) if isinstance(step, tuple) else [step]
+    if name == "witch3d":
+        calls.append(lambda s: w3.setup(cfg, sys_.engine, s))
+    wrappers = (ps.density_pass, ps.dambreak_mass_pass, ps.dambreak_force_pass)
+    before = [wr.launches for wr in wrappers]
+    for call in calls:
+        with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
+            call(state)
+    assert [wr.launches for wr in wrappers] == before

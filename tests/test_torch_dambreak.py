@@ -1,0 +1,257 @@
+"""The port's dam-break family against the JAX package on the CPU: the
+dam-break continuity and force sweeps in 2-D and 3-D, ``collapse_dry`` and
+``collapse3d``.
+
+Sizes (the reference's own Pallas-vs-XLA gates, tests/test_pallas.py):
+``collapse_dry`` at dr=0.08 (N = 587, grid 128 × 16, cap 24) and
+``collapse3d`` at dr=2e-2 (N = 4,636, grid 128 × 16 × 8, cap 40: 27·40 =
+1,080 candidate slots per particle), float32, bucket layout, skin 0.2.
+
+What is compared, and at which tolerance:
+
+* both frozen states slot for slot and bit for bit;
+* the continuity and force twins, 2-D and 3-D, against the reference's own
+  pair bodies summed eagerly in the Pallas harness's order
+  (tests/torch_reference_harness.py, which the flagship, Hopkins and Pavelka
+  files tie to real interpret-mode ``pallas_call``s; a dam-break pass of its
+  own would add 15 s of tracing). Inputs: the frozen state with v ±1 m/s,
+  ρ ±1 % and P in 0–5 kPa from a seeded NumPy generator. Gate: rtol 1e-5,
+  atol = 1e-6 × the output's largest |value| (the continuity sum cancels
+  like the Pavelka one); WALL p slots of the force are exactly zero;
+* ``init_forces`` + 6 steps of ``collapse_dry`` and 2 steps of ``collapse3d``
+  against the reference's XLA path: mean and max |v| and (2-D) X, H, E of
+  ``get_globals`` at rel 1e-5, equal active counts. The reference runs in
+  its default flat layout: its XLA bucket path evaluates every slot against
+  all 27·cap candidates (655,400 slots × 1,080 in 3-D: 14 s a step on one
+  core), the flat one only the particles. Two 3-D steps because the port's
+  CPU twins take 1.7 s a step at cap 40;
+* ``run(cfg, out_path=..., device="cpu")`` of ``collapse_dry``: the file set,
+  the columns of ``data.csv``, and a resumed run bit for bit equal to the
+  uninterrupted one;
+* every new entry point refuses to start without a card unless the caller
+  asks for the CPU, and refuses the reference's default flat/float64 config.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sph_mountain_waves_tpu.ops.pallas_pairs as pp
+from sph_mountain_waves_tpu.models import collapse3d as jc3, collapse_dry as jcd
+from sph_mountain_waves_tpu.structs import ParticleState as JState
+
+from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
+from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
+from sph_mountain_waves_tpu_torch.models import (
+    collapse3d as tc3, collapse_dry as tcd, witch3d as tw,
+)
+from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from torch_reference_harness import reference_body_sweep
+
+torch.set_num_threads(1)
+
+DRY = dict(dr=0.08, dtype="float32", layout="bucket", skin=0.2,
+           use_pallas=True, t_end=0.1)
+C3D = dict(dr=2.0e-2, dtype="float32", layout="bucket", skin=0.2,
+           use_pallas=True, t_end=0.05)
+MODELS = {"collapse_dry": (jcd, tcd, DRY), "collapse3d": (jc3, tc3, C3D)}
+RTOL, ATOL_REL = 1e-5, 1e-6
+LEVEL0 = {"xla_backend_optimization_level": 0}
+
+
+def _to_np(jstate):
+    return ({k: np.asarray(v) for k, v in jstate.fields.items()},
+            np.asarray(jstate.active))
+
+
+def _compiled(fn, *args):
+    return jax.jit(fn).lower(*args).compile(compiler_options=LEVEL0)
+
+
+@pytest.fixture(scope="module", params=list(MODELS))
+def built(request):
+    """(name, JAX system, its frozen state, port system, its frozen state)."""
+    jm, tm, kw = MODELS[request.param]
+    js = jm.make_system(jm.Config(**kw))
+    jstate = js.freeze()
+    ts = tm.make_system(tm.Config(**kw))
+    tstate = ts.freeze(device="cpu")
+    return request.param, js, jstate, ts, tstate
+
+
+@pytest.fixture(scope="module")
+def live(built):
+    """(name, JAX engine, JAX state, port engine, port state), perturbed."""
+    name, js, jstate, ts, _ = built
+    fields, active = _to_np(jstate)
+    rng = np.random.default_rng(0)
+    n, d = active.shape[0], ts.engine.dim
+    fields["v"] = np.where(active[:, None], rng.uniform(-1, 1, (n, d)),
+                           0.0).astype(np.float32)
+    fields["rho"] = np.where(active, fields["rho"] * rng.uniform(0.99, 1.01, n),
+                             0.0).astype(np.float32)
+    fields["P"] = np.where(active, rng.uniform(0.0, 5e3, n),
+                           0.0).astype(np.float32)
+    jlive = JState(fields={k: jnp.asarray(v) for k, v in fields.items()},
+                   active=jnp.asarray(active))
+    return (name, js.engine, jlive, ts.engine,
+            state_from_numpy(fields, active, "cpu"))
+
+
+def _check(got, ref, active):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(ref).max())
+    assert np.all(got.numpy()[~active] == 0.0)
+    assert np.abs(ref).max() > 1.0
+
+
+def test_frozen_state_matches_jax(built):
+    name, js, jstate, ts, tstate = built
+    je, te = js.engine, ts.engine
+    assert (te.cap, te.lims, te.phase, te.cells) == (je.cap, je.lims, je.phase,
+                                                     je.cells)
+    expect = {"collapse_dry": (2, 24, (128, 16), 587),
+              "collapse3d": (3, 40, (128, 16, 8), 4636)}[name]
+    assert (te.dim, te.cap, te.lims, int(tstate.n)) == expect
+    jf, ja = _to_np(jstate)
+    tf, ta = state_to_numpy(tstate)
+    assert sorted(jf) == sorted(tf)
+    np.testing.assert_array_equal(ta, ja)
+    for field in jf:
+        assert tf[field].dtype == jf[field].dtype, field
+        np.testing.assert_array_equal(tf[field], jf[field], err_msg=field)
+    if name == "collapse3d":  # the ParticleSystem default reaches every row
+        assert np.all(tf["rho"][ta] == 1000.0)
+
+
+def test_mass_twin_matches_reference(live, monkeypatch):
+    name, je, jlive, te, tlive = live
+    jm, tm, kw = MODELS[name]
+    jcfg, tcfg = jm.Config(**kw), tm.Config(**kw)
+    (ref,), captured = reference_body_sweep(pp.dambreak_mass_pass, je, jlive,
+                                            jcfg, monkeypatch)
+    assert captured["self_pair"] is False
+    assert len(captured["fields"]) == 1 + 2 * te.dim
+    before = tps.dambreak_mass_pass.launches
+    got = tps.dambreak_mass_pass(te, tlive, tcfg)
+    assert tps.dambreak_mass_pass.launches == before  # CPU tensors: the twin
+    _check(got, ref, tlive.active.numpy())
+
+
+def test_force_twin_matches_reference(live, monkeypatch):
+    name, je, jlive, te, tlive = live
+    jm, tm, kw = MODELS[name]
+    jcfg, tcfg = jm.Config(**kw), tm.Config(**kw)
+    refs, captured = reference_body_sweep(pp.dambreak_force_pass, je, jlive,
+                                          jcfg, monkeypatch)
+    assert len(captured["fields"]) == 2 + 2 * te.dim
+    before = tps.dambreak_force_pass.launches
+    gots = tps.dambreak_force_pass(te, tlive, tcfg)
+    assert tps.dambreak_force_pass.launches == before
+    assert len(gots) == len(refs) == te.dim
+    active = tlive.active.numpy()
+    wall = active & (tlive.fields["type"].numpy() == 1.0)
+    assert wall.sum() > 0
+    for got, ref in zip(gots, refs):
+        _check(got, ref, active)
+        assert np.all(got.numpy()[wall] == 0.0)  # the p-side FLUID gate
+
+
+def test_steps_match_jax(built):
+    name, _, _, ts, tstate = built
+    jm, tm, kw = MODELS[name]
+    n_steps = 6 if name == "collapse_dry" else 2
+    jcfg = jm.Config(**{**kw, "layout": "flat", "use_pallas": False})
+    tcfg = tm.Config(**kw)
+    js = jm.make_system(jcfg)
+    jstate = js.freeze()
+    if name == "collapse_dry":
+        jstep, jinit = jm.make_step(jcfg, js.engine)
+        jstate = _compiled(jinit, jstate)(jstate)
+        tstep, tinit = tm.make_step(tcfg, ts.engine)
+        tstate = tinit(tstate)
+        assert float(tstate.fields["Dv"].abs().max()) > 0.0
+    else:
+        jstep = jm.make_step(jcfg, js.engine)
+        tstep = tm.make_step(tcfg, ts.engine)
+    jstep = _compiled(jstep, jstate)
+    for _ in range(n_steps):
+        jstate = jstep(jstate)
+        tstate = tstep(tstate)
+    assert int(tstate.n) == int(jstate.n) == ts.n_built
+
+    def speeds(v, active):
+        v = np.abs(np.asarray(v)[np.asarray(active)])
+        return [float(v.mean()), float(v.max())]
+
+    jd = speeds(jstate.fields["v"], jstate.active)
+    td = speeds(tstate.fields["v"].numpy(), tstate.active.numpy())
+    assert np.all(np.isfinite(td)) and td[1] > 0.0
+    np.testing.assert_allclose(td, jd, rtol=1e-5)
+    if name == "collapse_dry":
+        jg = [float(v) for v in jm.get_globals(jcfg, jstate)]
+        tg = [float(v) for v in tm.get_globals(tcfg, tstate)]
+        np.testing.assert_allclose(tg, jg, rtol=1e-5)
+    else:
+        jf = jstate.fields
+        jE = float(jnp.sum(jnp.where(
+            jstate.active, 0.5 * jcfg.m * jnp.sum(jf["v"] ** 2, axis=-1)
+            - jcfg.m * jcfg.g * jf["x"][:, 2], 0.0)))
+        assert float(tm.energy(tcfg, tstate)) == pytest.approx(jE, rel=1e-5)
+
+
+def test_collapse_dry_run_writes_files_and_resumes_bitwise(tmp_path):
+    kw = dict(DRY, t_end=1.92e-3, n_frames=2, checkpoint_every=1)
+    cfg = tcd.Config(**kw)
+    steps_per_frame = int(round(cfg.t_end / cfg.n_frames / cfg.dt))
+    assert steps_per_frame == 2
+    whole = tcd.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
+    assert sorted(os.listdir(tmp_path / "whole")) == [
+        "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp", "frame2.vtp",
+        "result.pvd"]
+    csv = read_csv(str(tmp_path / "whole" / "data.csv"))
+    assert list(csv) == ["t", "X", "H", "E"] and len(csv["t"]) == 3
+    np.testing.assert_array_equal(csv["X"], whole["X"])
+    assert csv["t"][0] == 0.0 and np.all(np.isfinite(csv["E"]))
+    pts, data = read_vtp(str(tmp_path / "whole" / "frame2.vtp"))
+    assert len(pts) == 587 and sorted(data) == ["P", "type", "v"]
+
+    # stop after the first frame, then resume from its checkpoint
+    first = tcd.run(tcd.Config(**{**kw, "t_end": cfg.t_end / 2, "n_frames": 1}),
+                    out_path=str(tmp_path / "part"), device="cpu")
+    assert len(first["t"]) == 2
+    resumed = tcd.run(
+        tcd.Config(**kw, resume=str(tmp_path / "part" / "checkpoint.npz")),
+        out_path=str(tmp_path / "part"), device="cpu")
+    for name, ref in whole["state"].fields.items():
+        assert torch.equal(resumed["state"].fields[name], ref), name
+    assert torch.equal(resumed["state"].active, whole["state"].active)
+    assert resumed["E"][-1] == whole["E"][-1]
+    merged = read_csv(str(tmp_path / "part" / "data.csv"))
+    np.testing.assert_array_equal(merged["E"], whole["E"])
+
+
+@pytest.mark.parametrize("module", [tw, tcd, tc3],
+                         ids=["witch3d", "collapse_dry", "collapse3d"])
+def test_run_needs_a_card_unless_asked_for_the_cpu(module, monkeypatch):
+    """Without ``device=`` the entry points ask for CUDA; where there is
+    none they raise, and never run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {tw: lambda: tw.Witch3DConfig(
+               n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
+               dtype="float32", layout="bucket", use_pallas=True),
+           tcd: lambda: tcd.Config(**DRY),
+           tc3: lambda: tc3.Config(**C3D)}[module]()
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        module.run(cfg)
+    if module is not tw:
+        # the reference's defaults (flat layout, float64) are not ported
+        with pytest.raises(NotImplementedError, match="float32"):
+            module.make_system(module.Config())
+        with pytest.raises(NotImplementedError, match="bucket layout"):
+            module.make_system(module.Config(dtype="float32")).freeze(
+                device="cpu")

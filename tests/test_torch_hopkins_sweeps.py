@@ -17,8 +17,11 @@ term then moves an output by up to ~6e-6, so the end-to-end check takes
 atol = 1e-6 × the total form's max |Dv| (≈ 34 m/s² on this state), the
 scale of the terms both forms sum.
 
-Each reference pass is traced once per module and compiled at XLA backend
-optimisation level 0. The unrolled interpret-mode kernel otherwise spends
+Each kernel has one interpret-mode pass (pressure; the Hopkins momentum in
+its split form); the total form and fast_math are held against the
+reference's own pair body summed eagerly in the Pallas harness's order
+(tests/torch_reference_harness.py). Each interpret-mode pass is traced once
+per module and compiled at XLA backend optimisation level 0. The unrolled interpret-mode kernel otherwise spends
 more time in XLA's optimiser, whose rewrites also change the reference's
 rounding: at level 0 the reference and the twin agree bitwise when fed the
 same hoisted powers, at the default level they do not.
@@ -42,6 +45,7 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
     WitchConfig as TCfg, background_entropy, background_entropy_t,
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from torch_reference_harness import reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -96,15 +100,17 @@ def test_pressure_twin_matches_pallas(states):
     _check(got, ref, tstate.active.numpy())
 
 
-def _check_hopkins(states, jcfg, tcfg, split, ref):
+def _check_hopkins(states, jcfg, tcfg, split, ref, powers=None):
     """The sweep on the reference's hoisted powers at the gate, then the
-    wrapper end to end with atol scaled to the terms (module docstring)."""
+    wrapper end to end with atol scaled to the terms (module docstring).
+    ``powers``: the reference's hoisted power planes where the caller has
+    them; otherwise its hoisting is compiled here like the pass."""
     _, jstate, te, tstate = states
     active = tstate.active.numpy()
     g = jcfg.gamma
     expfac = 1.0 - 2.0 / g
 
-    def powers(state):  # the reference pass's hoisting, compiled alike
+    def hoisting(state):  # the reference pass's hoisting, compiled alike
         f = state.fields
         out = [f["A"] ** (1.0 / g), jnp.maximum(f["P"], jcfg.P_floor) ** expfac]
         if split:
@@ -112,9 +118,12 @@ def _check_hopkins(states, jcfg, tcfg, split, ref):
                     jnp.maximum(f["P_bg"], jcfg.P_floor) ** expfac]
         return out
 
+    if powers is None:
+        powers = _reference(hoisting, jstate)
     planes, pad_vals = tps._hopkins_inputs(te, tstate, tcfg, split)
-    planes[9:] = [te.resident(torch.from_numpy(a.copy())).contiguous()
-                  for a in _reference(powers, jstate)]
+    assert len(powers) == len(planes) - 9
+    planes[9:] = [te.resident(torch.from_numpy(np.array(a).reshape(-1))).contiguous()
+                  for a in powers]
     band, _ = tps.row_kmax(te, tstate)
     sweep = tps._sweep_plain(te, planes, pad_vals, band,
                              tps._hopkins_body(tcfg, split), 2,
@@ -127,30 +136,46 @@ def _check_hopkins(states, jcfg, tcfg, split, ref):
         _check(g_, r, active, atol=ATOL * scale)
 
 
+def _eager_reference(states, cfg, split, monkeypatch):
+    """The reference pass from its own pair body summed eagerly
+    (tests/torch_reference_harness.py), and its hoisted power planes (the
+    fields after x0, x1, h, m, v0, v1, ρ_f, c)."""
+    je, jstate, _, _ = states
+    ref, captured = reference_body_sweep(
+        pp.hopkins_momentum_pass, je, jstate, cfg, monkeypatch,
+        background_split=split)
+    assert captured["self_pair"] is False
+    return [np.asarray(r) for r in ref], captured["fields"][8:]
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["total", "split"])
-def test_hopkins_momentum_twin_matches_pallas(states, split):
+def test_hopkins_momentum_twin_matches_pallas(states, split, monkeypatch):
+    """The split form against the interpret-mode Pallas pass (the kernel's
+    one compiled trace); the total form, which is the same kernel with two
+    planes fewer, against the reference's pair body evaluated eagerly."""
     je, jstate, _, _ = states
     cfg = JCfg(**BENCH)
-    ref = _reference(lambda s: pp.hopkins_momentum_pass(
-        je, s, cfg, background_split=split, interpret=True), jstate)
-    _check_hopkins(states, cfg, TCfg(**BENCH), split, ref)
+    if split:
+        ref = _reference(lambda s: pp.hopkins_momentum_pass(
+            je, s, cfg, background_split=True, interpret=True), jstate)
+        _check_hopkins(states, cfg, TCfg(**BENCH), True, ref)
+    else:
+        ref, powers = _eager_reference(states, cfg, False, monkeypatch)
+        _check_hopkins(states, cfg, TCfg(**BENCH), False, ref, powers)
 
 
 def test_hopkins_momentum_fast_math_twin_matches_pallas(states, monkeypatch):
-    """fast_math, split on. The reference body multiplies by
-    ``pl.reciprocal(approx=True)``, whose documented interpret-mode value
-    is the exact reciprocal (``_div_fn``'s docstring) and which the port's
-    twin computes; the installed JAX's interpret lowering evaluates it in
-    bfloat16 instead (see tests/test_torch_sweeps.py). The reference body
-    therefore runs with the exact reciprocal it documents, at the unchanged
-    gate."""
-    je, jstate, _, _ = states
-    monkeypatch.setattr(pp, "_div_fn",
-                        lambda cfg, interpret: lambda a, b: a * (1.0 / b))
+    """fast_math, split on, against the reference's pair body evaluated
+    eagerly. The body multiplies by ``pl.reciprocal(approx=True)``, whose
+    documented interpret-mode value is the exact reciprocal (``_div_fn``'s
+    docstring) and which the port's twin computes; the installed JAX's
+    interpret lowering evaluates it in bfloat16 instead (see
+    tests/test_torch_sweeps.py). The reference body therefore runs with the
+    exact reciprocal it documents, at the unchanged gate."""
     cfg = JCfg(**BENCH, fast_math=True)
-    ref = _reference(lambda s: pp.hopkins_momentum_pass(
-        je, s, cfg, background_split=True, interpret=True), jstate)
-    _check_hopkins(states, cfg, TCfg(**BENCH, fast_math=True), True, ref)
+    ref, powers = _eager_reference(states, cfg, True, monkeypatch)
+    _check_hopkins(states, cfg, TCfg(**BENCH, fast_math=True), True, ref,
+                   powers)
 
 
 def test_hopkins_wrappers_take_twin_only_on_cpu(states):

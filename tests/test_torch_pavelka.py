@@ -19,9 +19,9 @@ What is compared, and at which tolerance:
   reference, Dv_y within 3.3e-8 of its largest |value|;
 * the variants that would need a second interpret-mode compile
   (``fixed_diffusion=False``, ``fast_math``) against the reference's own
-  pair *body*, captured from the reference pass and evaluated eagerly by a
-  small harness in this file (same mask, same summation order), at the same
-  gate. ``fixed_diffusion=False`` is held at this one pass only: the scheme
+  pair *body*, captured from the reference pass and evaluated eagerly by the
+  harness the port's test files share (tests/torch_reference_harness.py: same
+  mask, same summation order), at the same gate. ``fixed_diffusion=False`` is held at this one pass only: the scheme
   diverges with it by design. With ``fast_math`` the reference body runs
   with the exact reciprocal its ``_div_fn`` documents (the installed JAX
   evaluates ``pl.reciprocal(approx=True)`` in bfloat16 in interpret mode,
@@ -71,6 +71,7 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.utils.packing import colagrossi_packing
+from torch_reference_harness import reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -171,52 +172,6 @@ def test_momentum_entropy_twin_matches_pallas(live):
     assert np.abs(np.asarray(refs[2])).max() > 0.0  # entropy production is live
 
 
-def _reference_body_sweep(je, jlive, jcfg, pass_fn, monkeypatch):
-    """``pass_fn``'s hoisted fields and pair body, captured from the
-    reference pass, summed eagerly over the stencil as the Pallas harness
-    does: q ranks outermost, the 9 offsets (dj-major) summed before they
-    are added, mask = both occupied, r² ≤ h², q ≠ p."""
-    captured = {}
-
-    def record(engine, state, fields, body, n_out, self_pair, interpret=False,
-               pad_vals=None):
-        captured.update(fields=fields, body=body, n_out=n_out,
-                        self_pair=self_pair, pad_vals=pad_vals)
-        return [jnp.zeros(engine.slots)] * n_out
-
-    monkeypatch.setattr(pp, "_run_pair_kernel", record)
-    monkeypatch.setattr(pp, "_div_fn", lambda cfg, interpret: (
-        (lambda a, b: a * (1.0 / b)) if cfg.fast_math else (lambda a, b: a / b)))
-    pass_fn(je, jlive, jcfg)
-    assert captured["self_pair"] is False
-    cap, (nx, ny), C = je.cap, je.lims, je.num_cells
-    occ = np.asarray(je.resident(jlive.active), dtype=np.float32)
-    planes = [occ] + [np.asarray(f, dtype=np.float32) for f in captured["fields"]]
-    pads = [0.0] + list(captured["pad_vals"])
-    G = [p[:, :C].reshape(cap, ny, nx) for p in planes]
-    P = [np.pad(g, ((0, 0), (1, 1), (1, 1)), constant_values=v)
-         for g, v in zip(G, pads)]
-    hh = np.float32(je.h * je.h)
-    k_ids = np.arange(cap).reshape(cap, 1, 1)
-    kmax = int(occ[:, :C].sum(axis=0).max())
-    acc = [np.zeros((cap, ny, nx), np.float32) for _ in range(captured["n_out"])]
-    for kq in range(kmax):
-        tot = None
-        for dj in (-1, 0, 1):
-            for di in (-1, 0, 1):
-                q = [Pf[kq, 1 + dj:1 + dj + ny, 1 + di:1 + di + nx] for Pf in P]
-                r2 = (G[1] - q[1]) ** 2 + (G[2] - q[2]) ** 2
-                mask = (G[0] > 0.5) & (q[0] > 0.5) & (r2 <= hh)
-                if di == 0 and dj == 0:
-                    mask = mask & (k_ids != kq)
-                contribs = [np.asarray(c) for c in captured["body"](
-                    G, q, r2, mask.astype(np.float32))]
-                tot = contribs if tot is None else [
-                    t + c for t, c in zip(tot, contribs)]
-        acc = [a + t for a, t in zip(acc, tot)]
-    return [np.pad(a.reshape(cap, C), ((0, 0), (0, 1))).reshape(-1) for a in acc]
-
-
 @pytest.mark.parametrize("variant", ["mass-faithful-diffusion",
                                      "mass-fast_math",
                                      "momentum-entropy-fast_math"])
@@ -227,14 +182,14 @@ def test_sweep_variants_match_reference_body(live, variant, monkeypatch):
     jcfg = jpv.PavelkaConfig(**BENCH, **over)
     tcfg = tpv.PavelkaConfig(**BENCH, **over)
     if variant.startswith("mass"):
-        refs = _reference_body_sweep(je, jlive, jcfg, pp.pavelka_mass_pass,
-                                     monkeypatch)
+        refs, captured = reference_body_sweep(pp.pavelka_mass_pass, je, jlive,
+                                              jcfg, monkeypatch)
         gots = [tps.pavelka_mass_pass(te, tlive, tcfg)]
     else:
-        refs = _reference_body_sweep(je, jlive, jcfg,
-                                     pp.pavelka_momentum_entropy_pass,
-                                     monkeypatch)
+        refs, captured = reference_body_sweep(
+            pp.pavelka_momentum_entropy_pass, je, jlive, jcfg, monkeypatch)
         gots = tps.pavelka_momentum_entropy_pass(te, tlive, tcfg)
+    assert captured["self_pair"] is False
     assert len(gots) == len(refs)
     for got, ref in zip(gots, refs):
         _check(got, ref, tlive.active.numpy())

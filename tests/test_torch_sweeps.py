@@ -4,8 +4,11 @@ passes in interpret mode, on one seeded state fed to both sides.
 The state is the flagship at n_rows=10 (bench flags) with v perturbed by
 ±1 m/s, h by ±1 % and P′ by ±50 Pa, so every term of the momentum body is
 live. Gate: rtol 1e-5 / atol 1e-6, the reference's own pass gate
-(tests/test_pallas.py). Each interpret-mode pass runs once per module.
+(tests/test_pallas.py). Each kernel has one interpret-mode pass (density,
+momentum with exact divides); the fast_math momentum is held against the
+reference's pair body evaluated eagerly (tests/torch_reference_harness.py).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from sph_mountain_waves_tpu_torch.models import wcsph_perturbed_witch as tw
 from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig as TCfg
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.structs import ParticleState
+from torch_reference_harness import reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -59,10 +63,20 @@ def _active(state):
     return state.active.numpy()
 
 
+def _reference(pass_fn, jstate):
+    """``pass_fn(state)`` traced once, compiled at XLA backend optimisation
+    level 0 (the unrolled interpret-mode kernel otherwise spends most of
+    its time in XLA's optimiser) and run."""
+    compiled = jax.jit(pass_fn).lower(jstate).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    return compiled(jstate)
+
+
 def test_density_twin_matches_pallas(states):
     je, jstate, te, tstate = states
     cfg = JCfg(**BENCH)
-    ref = np.asarray(pp.density_pass(je, jstate, cfg, interpret=True))
+    ref = np.asarray(_reference(
+        lambda s: pp.density_pass(je, s, cfg, interpret=True), jstate))
     got = tps.density_pass(te, tstate, TCfg(**BENCH)).numpy()
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     assert np.all(got[~_active(tstate)] == 0.0)
@@ -70,21 +84,29 @@ def test_density_twin_matches_pallas(states):
 
 @pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
 def test_momentum_twin_matches_pallas(states, fast_math, monkeypatch):
-    """With fast_math the reference body multiplies by
-    ``pl.reciprocal(approx=True)``. Its documented interpret-mode value is
-    the exact reciprocal (``_div_fn``'s docstring), which is what the port's
-    twin computes; the installed JAX's interpret lowering instead evaluates
-    it in bfloat16 (jax/_src/pallas/primitives.py, _reciprocal_lowering_rule),
-    a 2^-8 relative error that moves Dv by ~1.4e-3 relative. The test
-    therefore runs the reference body with the exact reciprocal it
-    documents, at the unchanged gate."""
+    """Exact divides: the interpret-mode Pallas pass. fast_math: the
+    reference's own pair body, captured from its pass and summed eagerly in
+    the Pallas harness's order (tests/torch_reference_harness.py), which
+    saves a second interpret-mode trace of the same kernel. With fast_math
+    the reference body multiplies by ``pl.reciprocal(approx=True)``. Its
+    documented interpret-mode value is the exact reciprocal (``_div_fn``'s
+    docstring), which is what the port's twin computes; the installed JAX's
+    interpret lowering instead evaluates it in bfloat16
+    (jax/_src/pallas/primitives.py, _reciprocal_lowering_rule), a 2^-8
+    relative error that moves Dv by ~1.4e-3 relative. The reference body
+    therefore runs with the exact reciprocal it documents, at the unchanged
+    gate."""
     je, jstate, te, tstate = states
+    jcfg = JCfg(**BENCH, fast_math=fast_math)
     if fast_math:
-        monkeypatch.setattr(pp, "_div_fn",
-                            lambda cfg, interpret: lambda a, b: a * (1.0 / b))
-    ref = pp.momentum_pass(je, jstate, JCfg(**BENCH, fast_math=fast_math),
-                           interpret=True)
+        ref, captured = reference_body_sweep(pp.momentum_pass, je, jstate, jcfg,
+                                             monkeypatch)
+        assert captured["self_pair"] is False
+    else:
+        ref = _reference(
+            lambda s: pp.momentum_pass(je, s, jcfg, interpret=True), jstate)
     got = tps.momentum_pass(te, tstate, TCfg(**BENCH, fast_math=fast_math))
+    assert len(got) == len(ref) == 2
     for r, g in zip(ref, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
         assert np.all(g.numpy()[~_active(tstate)] == 0.0)
