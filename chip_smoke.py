@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: the WCSPH mountain-wave flagship, the
 three pressure–entropy (Hopkins) schemes, the entropy-based (Pavelka) scheme,
-the file output of ``run``, the 3-D mountain wave (``witch3d``) and the two
-dam breaks (``collapse_dry``, ``collapse3d``).
+the file output of ``run``, the 3-D mountain wave (``witch3d``), the two
+dam breaks (``collapse_dry``, ``collapse3d``) and the terrain family
+(``legacy_witch``: isothermal and adiabatic, flow and static).
 
 Drives ``sph_mountain_waves_tpu_torch`` (never JAX) on one CUDA card at the
 bench configuration (2-D mountain wave, n_rows=246: N=978,463 particles,
@@ -11,8 +12,12 @@ through the entry points a user calls: make_system -> freeze -> make_step ->
 frame_runner -> velocity_diagnostics (and, for hopkins_total and Pavelka,
 their packing set-ups), and ``run(cfg, out_path=...)`` at a small size;
 then the 3-D path at the stretch size (``witch3d.stretch_config(bucket_cap=8)``:
-N=3,247,157, grid 384 x 56 x 32, 27-cell stencil) and the dam breaks at the
-reference's sizes (``collapse_dry`` dr=0.014, ``collapse3d`` dr=5e-3, cap 40).
+N=3,247,157, grid 384 x 56 x 32, 27-cell stencil), the dam breaks at the
+reference's sizes (``collapse_dry`` dr=0.014, ``collapse3d`` dr=5e-3, cap 40)
+and the terrain baseline (``legacy_witch.terrain_baseline_config``: N=212,819,
+grid 256 x 72, cap 24, square lattice, inflow recycling with slot-targeted
+spawns under the stencil rescatter) with the other three terrain variants at
+their configs' default sizes.
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -60,8 +65,26 @@ Phases, each printing one or more lines:
  22. 8 small steps of each dam break, card against CPU twins;
  23. the dam-break main paths: 1 warm-up and 1 timed frame of 100 steps
      (collapse_dry after init_forces), with the energy;
- 24. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
-     twin over 5) beside its bound.
+ 24. the terrain baseline built as ``legacy_witch.run`` builds it, with
+     shape checks and host seconds; forced stencil and sort rescatters of the
+     frozen state (stencil: the identity; sort: equal to it slot for slot);
+ 25. the five terrain kernels and the adiabatic density (the density kernel
+     with the FLUID-gated weight) against their twins at full width: the
+     isothermal-flow pair on the baseline after 50 steps, the others on the
+     isothermal and adiabatic static configs' default sizes; exact divides,
+     fast_math, and the AV term; reruns bitwise equal;
+ 26. 8 small steps of each terrain variant, card against CPU twins;
+ 27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
+     the first inflow spawn event), with the spawn events, spawn_drops, the
+     INFLOW and active counts, drag/lift and the rescatters;
+ 28. one 100-step run (warm-up and timed halves) of each other terrain
+     variant at its default size, the adiabatic flow with the corrected
+     bundle (Rayleigh sponge, consistent entropy, OUTFLOW buffer, AV);
+ 29. ``legacy_witch.run(cfg, out_path=..., device="cuda")`` of a small flow
+     config through a spawn event, a checkpoint every frame: the file set,
+     the data.csv columns, and a resumed run bit for bit;
+ 30. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
+     twin over 5) beside its bound; the adiabatic density too.
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
 
@@ -70,13 +93,15 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
-             10 Pavelka steps (from the packed state) and 10 witch3d steps,
-             with the device time per step
+             10 Pavelka steps (from the packed state), 10 witch3d steps and
+             10 terrain steps (after its timed frames), with the device time
+             per step
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import os
 import shutil
@@ -96,12 +121,19 @@ KERNELS = ("density_sweep", "momentum_sweep", "pressure_sweep",
            "pavelka_momentum_entropy_sweep", "gamma_grad_sweep",
            "density_sweep_3d", "momentum_sweep_3d", "dambreak_mass_sweep",
            "dambreak_force_sweep", "dambreak_mass_sweep_3d",
-           "dambreak_force_sweep_3d")
-COUNTED = tuple(k for k in KERNELS if not k.endswith("_3d"))
+           "dambreak_force_sweep_3d", "legacy_mass_sweep",
+           "legacy_force_sweep", "iso_static_mass_sweep",
+           "iso_static_force_sweep", "adia_entropy_force_sweep")
+# the launch counters, one per wrapper (<kernel>_sweep -> <kernel>_pass): a
+# "_3d" kernel shares its wrapper with the 2-D form, and the adiabatic
+# density launches density_sweep through a wrapper (and counter) of its own
+COUNTED = tuple(k for k in KERNELS if not k.endswith("_3d")) + (
+    "adia_density_pass",)
 SOURCE = "sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu"
 REPLACES = {k: f"sph_mountain_waves_tpu/ops/pallas_pairs.py:{line}"
             for k, line in zip(KERNELS, (715, 751, 722, 806, 1323, 1373, 0,
-                                         715, 751, 884, 913, 884, 913))}
+                                         715, 751, 884, 913, 884, 913, 946,
+                                         973, 1023, 1055, 1126))}
 # not a Pallas kernel in the reference: the packing's XLA pair sum
 REPLACES["gamma_grad_sweep"] = "sph_mountain_waves_tpu/utils/packing.py:160"
 W3D_EXPECT = {"n": 3_247_157, "lims": (384, 56, 32), "cap": 8}
@@ -124,8 +156,14 @@ BODY_OPS = {"density_sweep": 14, "momentum_sweep": 42,
             "gamma_grad_sweep": 15,
             "density_sweep_3d": 15, "momentum_sweep_3d": 48,
             "dambreak_mass_sweep": 17, "dambreak_force_sweep": 22,
-            "dambreak_mass_sweep_3d": 20, "dambreak_force_sweep_3d": 27}
+            "dambreak_mass_sweep_3d": 20, "dambreak_force_sweep_3d": 27,
+            "legacy_mass_sweep": 15, "legacy_force_sweep": 27,
+            "iso_static_mass_sweep": 18, "iso_static_force_sweep": 34,
+            "adia_entropy_force_sweep": 35}
 HOPKINS_SPLIT_OPS = 7
+# the FLUID-gated Monaghan term of the legacy force bodies (av_alpha > 0),
+# 13 operations more; the terrain main path runs without it
+LEGACY_AV_OPS = 13
 # planes in (occupancy included) and out, each [cap, C+1] f32
 PLANES = {"density_sweep": (5, 1), "momentum_sweep": (10, 2),
           "pressure_sweep": (5, 1), "hopkins_momentum_sweep": (13, 2),
@@ -134,7 +172,14 @@ PLANES = {"density_sweep": (5, 1), "momentum_sweep": (10, 2),
           "gamma_grad_sweep": (4, 2),
           "density_sweep_3d": (6, 1), "momentum_sweep_3d": (12, 3),
           "dambreak_mass_sweep": (6, 1), "dambreak_force_sweep": (7, 2),
-          "dambreak_mass_sweep_3d": (8, 1), "dambreak_force_sweep_3d": (9, 3)}
+          "dambreak_mass_sweep_3d": (8, 1), "dambreak_force_sweep_3d": (9, 3),
+          "legacy_mass_sweep": (6, 1), "legacy_force_sweep": (8, 2),
+          "iso_static_mass_sweep": (7, 1), "iso_static_force_sweep": (9, 2),
+          "adia_entropy_force_sweep": (10, 3)}
+# the terrain baseline (legacy_witch.terrain_baseline_config), built as run()
+# builds it: capacity 1.3 N, stencil rescatter, slot-targeted spawns
+TERRAIN_EXPECT = {"n": 212_819, "lims": (256, 72), "cap": 24}
+TERRAIN_STEPS_PER_FRAME = 300
 
 
 def say(phase, msg):
@@ -203,11 +248,8 @@ class Counters:
     """The sweep wrappers' launch counters."""
 
     def __init__(self, ps):
-        self.wrappers = dict(zip(COUNTED, (
-            ps.density_pass, ps.momentum_pass, ps.pressure_pass,
-            ps.hopkins_momentum_pass, ps.pavelka_mass_pass,
-            ps.pavelka_momentum_entropy_pass, ps.gamma_grad_pass,
-            ps.dambreak_mass_pass, ps.dambreak_force_pass)))
+        self.wrappers = {k: getattr(ps, k.replace("_sweep", "_pass"))
+                         for k in COUNTED}
 
     def reset(self):
         for w in self.wrappers.values():
@@ -394,8 +436,8 @@ def main(profile: bool) -> None:
     from sph_mountain_waves_tpu_torch.models import (
         collapse3d as c3, collapse_dry as cd,
         full_hopkins_perturbed_witch as fh, hopkins_perturbed_witch as hp,
-        hopkins_total_witch as ht, pavelka_total_witch as pv,
-        wcsph_perturbed_witch as w, witch3d as w3,
+        hopkins_total_witch as ht, legacy_witch as lw,
+        pavelka_total_witch as pv, wcsph_perturbed_witch as w, witch3d as w3,
     )
     from sph_mountain_waves_tpu_torch.models.common import frame_runner
     from sph_mountain_waves_tpu_torch.models.witch_common import (
@@ -938,7 +980,216 @@ def main(profile: bool) -> None:
                 f"{rescatters(dframe, ds, 2)}")
     del dam_state0
 
-    # 24: kernel and twin times on prepared inputs, beside their bounds
+    # 24: the terrain baseline (the bench_all terrain_flow cell), built as
+    # run() builds it: capacity 1.3 N, stencil rescatter, slot-targeted
+    # spawns
+    tcfg = lw.terrain_baseline_config(use_pallas=True, fast_math=True)
+    t0 = time.perf_counter()
+    t_sys = lw.run_system(tcfg)
+    t_state0 = t_sys.freeze(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    e24 = t_sys.engine
+    nt = t_sys.n_built
+    got = {"n": nt, "lims": e24.lims, "cap": e24.cap}
+    if (got != TERRAIN_EXPECT or int(t_state0.n) != nt
+            or e24.effective_rescatter_mode != "stencil"):
+        raise AssertionError(f"terrain: shapes {got}, active "
+                             f"{int(t_state0.n)}, rescatter "
+                             f"{e24.effective_rescatter_mode}; "
+                             f"expected {TERRAIN_EXPECT}, stencil")
+    say(24, f"terrain baseline built in {build_s:.2f} s (host): N={nt} "
+            f"lims={e24.lims} cap={e24.cap} slots={e24.slots} h={e24.h:.2f} m "
+            f"cells {e24.cell_size[0]:.2f} m dt={tcfg.dt:.4e} s; rescatter "
+            f"{e24.effective_rescatter_mode}, spawn slot-targeted")
+    # every particle already sits in its slot: the stencil rescatter is the
+    # identity, and the sort rescatter places every row as it does
+    for label, e in (("all fields", dataclasses.replace(e24, persistent=())),
+                     ("persistent", e24)):
+        out, dropped = e._stencil_rescatter(t_state0)
+        by_sort, sort_dropped = e._full_rescatter(t_state0)
+        names = e.persistent or tuple(t_state0.fields)
+        bad = [k for k in names
+               if not torch.equal(out.fields[k], t_state0.fields[k])]
+        bad += [k for k in out.fields
+                if not torch.equal(out.fields[k], by_sort.fields[k])]
+        if (int(dropped) or int(sort_dropped) or bad
+                or not torch.equal(out.active, t_state0.active)
+                or not torch.equal(by_sort.active, t_state0.active)):
+            raise AssertionError(f"terrain rescatters ({label}): dropped "
+                                 f"{int(dropped)}/{int(sort_dropped)}, "
+                                 f"differing {bad}")
+        del out, by_sort
+        ms = cuda_ms(lambda: e._stencil_rescatter(t_state0), 3)
+        ms_sort = cuda_ms(lambda: e._full_rescatter(t_state0), 3)
+        say(24, f"forced rescatters ({label}): stencil identical, sort equal "
+                f"to it slot for slot, 0 dropped; stencil {ms:.2f} ms, sort "
+                f"{ms_sort:.2f} ms per rescatter ({card})")
+
+    # 25: the terrain kernels against their twins at full width on live
+    # states (v, h perturbed from a seeded generator): the isothermal-flow
+    # pair on the baseline after 50 steps, the others on their configs'
+    # default sizes after one step. The sums cancel (Dv_y is about +g against
+    # pressure terms), so the gate's atol is scaled by each output's
+    # largest |value|.
+    others = {
+        "isothermal static": lw.isothermal_static_config(
+            use_pallas=True, fast_math=True),
+        "adiabatic static": lw.adiabatic_static_config(
+            use_pallas=True, fast_math=True)}
+    base = lw.adiabatic_flow_config(use_pallas=True, fast_math=True)
+    others["adiabatic flow, corrected"] = dataclasses.replace(
+        base, true_rayleigh=True, consistent_entropy=True,
+        outflow_buffer=2 * base.h0, av_alpha=0.05)
+    other_sys, other_state0 = {}, {}
+    for label, ocfg in others.items():
+        osys = lw.run_system(ocfg)
+        other_sys[label], other_state0[label] = osys, osys.freeze(device=dev)
+        oe = osys.engine
+        say(25, f"{label} built: N={osys.n_built} lims={oe.lims} cap={oe.cap} "
+                f"slots={oe.slots} dt={ocfg.dt:.4e} s; rescatter "
+                f"{oe.effective_rescatter_mode}")
+    live = {"terrain": (e24, perturbed(
+        frame_runner(lw.make_step(tcfg, e24), 50)(t_state0), dev), tcfg)}
+    for label in ("isothermal static", "adiabatic static"):
+        oe = other_sys[label].engine
+        live[label] = (oe, perturbed(lw.make_step(others[label], oe)(
+            other_state0[label]), dev), others[label])
+    cases = (  # (errs key, live state, wrapper, twin, divides)
+        ("legacy_mass_sweep", "terrain", ps.legacy_mass_pass,
+         ps.legacy_mass_pass_plain, False),
+        ("legacy_force_sweep", "terrain", ps.legacy_force_pass,
+         ps.legacy_force_pass_plain, True),
+        ("iso_static_mass_sweep", "isothermal static", ps.iso_static_mass_pass,
+         ps.iso_static_mass_pass_plain, False),
+        ("iso_static_force_sweep", "isothermal static",
+         ps.iso_static_force_pass, ps.iso_static_force_pass_plain, True),
+        ("adia_density_pass", "adiabatic static", ps.adia_density_pass,
+         ps.adia_density_pass_plain, False),
+        ("adia_entropy_force_sweep", "adiabatic static",
+         ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
+    for key, where, kern, twin, divides in cases:
+        e, st, base_cfg = live[where]
+        variants = ((0.0, False), (0.0, True), (0.05, False)) if divides else (
+            (0.0, False),)
+        for av, fm in variants:
+            c = dataclasses.replace(base_cfg, av_alpha=av, fast_math=fm)
+            as_list = (lambda o: o if isinstance(o, list) else [o])
+            err, scale = kernel_vs_twin(
+                f"{key} av={av} fast_math={fm}", as_list(kern(e, st, c)),
+                as_list(kern(e, st, c)), as_list(twin(e, st, c)), fm,
+                scaled=True)
+            errs[f"{key}_av{int(av > 0)}_fm{int(fm)}"] = (err, scale)
+            say(25, f"{key} kernel vs twin on the {where} state, "
+                    f"av_alpha={av} fast_math={fm}: max abs err {err:.3e} "
+                    f"(max |out| {scale:.4e}, rel {err / scale:.3e})"
+                    + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
+                    + ", rerun bitwise equal")
+    del live
+
+    # 26: 8 small steps of each terrain variant, card against CPU twins
+    for label, small in (("isothermal flow", tcfg),
+                         *((k, v) for k, v in others.items())):
+        gk, gc, rel, nk = small_steps(lw, small, dev)
+        say(26, f"{label}, n_rows=10, 8 steps: card u_avg/u_max {gk} vs cpu "
+                f"twins {gc} (rel {rel:.2e}), active {nk} == {nk}")
+
+    # 27: the terrain main path, long enough to cross an inflow spawn event
+    # (the boot inflow column converts after ~380 steps); spawn events are
+    # counted by wrapping the module's add_new_particles
+    spawn_events = [0]
+    add_new_particles = lw.add_new_particles
+
+    def counted_add(*args, **kwargs):
+        spawn_events[0] += 1
+        return add_new_particles(*args, **kwargs)
+
+    t_step = lw.make_step(tcfg, e24)
+    t_frame = frame_runner(t_step, TERRAIN_STEPS_PER_FRAME)
+    t_steps = 3 * TERRAIN_STEPS_PER_FRAME
+    n_inflow0 = int(lw.inflow_reservoir(t_state0)["n_inflow"])
+    lw.add_new_particles = counted_add
+    try:
+        t_state, t_ms, t_counts, u_avg, u_max = drive(
+            27, "terrain main path", counters, t_frame, t_state0, 2,
+            {"legacy_mass_sweep": t_steps, "legacy_force_sweep": t_steps},
+            card, nt, steps_per_frame=TERRAIN_STEPS_PER_FRAME)
+    finally:
+        lw.add_new_particles = add_new_particles
+    res = lw.inflow_reservoir(t_state)
+    force = {k: float(v) for k, v in lw.mountain_force(t_state).items()}
+    if (spawn_events[0] < 1 or not all(map(math.isfinite, force.values()))
+            or not math.isfinite(u_max)):
+        raise AssertionError(f"terrain: spawn events {spawn_events[0]}, "
+                             f"force {force}, u_max {u_max}")
+    say(27, f"terrain after {t_steps} steps: {spawn_events[0]} spawn events, "
+            f"spawn_drops {int(res['spawn_drops'])}, INFLOW rows {n_inflow0} "
+            f"-> {int(res['n_inflow'])}, active {nt} -> {int(t_state.n)}; "
+            f"drag {force['drag']:.6e} N/m, lift {force['lift']:.6e} N/m; "
+            f"u_avg {u_avg:.4e} u_max {u_max:.4e} m/s; rescatters in the "
+            f"{t_steps} steps: {rescatters(t_frame, t_state0, 3)} ({card})")
+    if profile:
+        profile_steps(27, "terrain", t_step, t_state)
+
+    # 28: one frame of each other terrain variant at its config's default
+    # size (the adiabatic flow with the corrected bundle: Rayleigh sponge,
+    # consistent entropy, OUTFLOW buffer, AV)
+    other_state, other_counts = {}, {}
+    for label, ocfg in others.items():
+        o_frame = frame_runner(lw.make_step(ocfg, other_sys[label].engine), 50)
+        kernels = (("iso_static_mass_sweep", "iso_static_force_sweep")
+                   if not ocfg.adiabatic
+                   else ("adia_density_pass", "adia_entropy_force_sweep"))
+        other_state[label], _, other_counts[label], _, _ = drive(
+            28, label, counters, o_frame, other_state0[label], 1,
+            {k: 100 for k in kernels}, card, other_sys[label].n_built,
+            steps_per_frame=50)
+    del other_state0
+
+    # 29: run(out_path=...) of a small flow config on the card through a
+    # spawn event, a checkpoint every frame: the file set, the data.csv
+    # columns, and a resumed run against the uninterrupted one, bit for bit
+    small = lw.isothermal_flow_config(
+        n_rows=12, dom_length=51.9e3, h_m=2000.0, a=6e3, use_pallas=True,
+        fast_math=True, checkpoint_every=1, n_frames=2)
+    small = dataclasses.replace(small, t_end=24 * small.dt)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole_dir = os.path.join(tmp, "whole")
+        part_dir = os.path.join(tmp, "part")
+        whole = lw.run(small, out_path=whole_dir, device=dev)
+        files = sorted(os.listdir(whole_dir))
+        columns = list(port_io.read_csv(os.path.join(whole_dir, "data.csv")))
+        if (files != ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+                      "frame2.vtp", "result.pvd"]
+                or columns != ["t", "u_avg", "u_max", "drag", "lift",
+                               "n_inflow", "spawn_drops"]
+                or not int(whole["state"].n) > whole["system"].n_built):
+            raise AssertionError(f"terrain run(out_path) wrote {files}, "
+                                 f"columns {columns}, active "
+                                 f"{int(whole['state'].n)}")
+        lw.run(dataclasses.replace(small, t_end=small.t_end / 2, n_frames=1),
+               out_path=part_dir, device=dev)
+        resumed = lw.run(dataclasses.replace(
+            small, resume=os.path.join(part_dir, "checkpoint.npz")),
+            out_path=part_dir, device=dev)
+        final = whole["state"]
+        differing = [k for k, v in final.fields.items()
+                     if not torch.equal(resumed["state"].fields[k], v)]
+        same_files = all(
+            open(os.path.join(part_dir, f), "rb").read()
+            == open(os.path.join(whole_dir, f), "rb").read()
+            for f in files if f != "checkpoint.npz")
+        if (differing or not same_files
+                or not torch.equal(resumed["state"].active, final.active)):
+            raise AssertionError(f"terrain resumed run differs: fields "
+                                 f"{differing}, files equal {same_files}")
+        say(29, f"terrain run(out_path) on the card, n_rows=12, 24 steps: "
+                f"wrote {files}, data.csv {columns}; active "
+                f"{whole['system'].n_built} -> {int(final.n)} (a spawn "
+                f"event); resumed run equals the uninterrupted one bit for "
+                f"bit (state, frames and data.csv)")
+
+    # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
         """(kernel launch, twin call, pair-count call) on planes prepared
         once from state s."""
@@ -967,6 +1218,43 @@ def main(profile: bool) -> None:
             args, body, n_out, self_pair = (
                 [f32(kc), f32(hinv), f32(2.0 * c.mu / c.rho0**2)],
                 ps._dambreak_force_body(c, d), d, False)
+        elif kernel in ("legacy_mass_sweep", "iso_static_mass_sweep"):
+            adaptive = kernel.startswith("iso")
+            planes, pads = (ps._iso_static_mass_inputs(e, s) if adaptive
+                            else ps._legacy_mass_inputs(e, s))
+            args, body, n_out, self_pair = (
+                ps._legacy_mass_scalars(c, d, adaptive),
+                ps._legacy_mass_body(c, d, adaptive), 1, False)
+        elif kernel in ("legacy_force_sweep", "iso_static_force_sweep"):
+            adaptive = kernel.startswith("iso")
+            planes, pads = ps._legacy_force_inputs(e, s, c, adaptive)
+            args, body, n_out, self_pair = (
+                ps._legacy_force_scalars(c, d, adaptive),
+                ps._legacy_force_body(c, d, adaptive), d, False)
+            planes_k = ps._legacy_force_planes(planes, c)
+            return (lambda: ps._launch(kernel, e, planes_k, band, n_out, args),
+                    lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
+                                            self_pair),
+                    lambda: ps._sweep_plain(e, planes, pads, band,
+                                            lambda p, q, r2, m: [m], 1,
+                                            self_pair))
+        elif kernel == "adia_entropy_force_sweep":
+            planes, pads = ps._adia_entropy_force_inputs(e, s)
+            args, body, n_out, self_pair = (
+                ps._adia_entropy_force_scalars(c, d),
+                ps._adia_entropy_force_body(c, d), 1 + d, False)
+        elif kernel == "density_sweep adia":
+            planes, pads = ps._density_inputs(e, s,
+                                              ps._adia_density_weight(s, c))
+            args, body, n_out, self_pair = (
+                [1, f32(ps.C_W2)], ps._density_body(d), 1, True)
+            return (lambda: ps._launch("density_sweep", e, planes, band,
+                                       n_out, args),
+                    lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
+                                            self_pair),
+                    lambda: ps._sweep_plain(e, planes, pads, band,
+                                            lambda p, q, r2, m: [m], 1,
+                                            self_pair))
         elif kernel == "pressure_sweep":
             planes, pads = ps._pressure_inputs(e, s, c)
             args, body, n_out, self_pair = ([1, ps.ctypes.c_float(ps.C_W2)],
@@ -1021,6 +1309,8 @@ def main(profile: bool) -> None:
         return total if self_pair else total - int(counts.sum().item())
 
     timing = {}
+    ISO, ADIA = "isothermal static", "adiabatic static"
+    iso_e, adia_e = other_sys[ISO].engine, other_sys[ADIA].engine
     dry_cfg, c3_cfg = dams["collapse_dry"][1], dams["collapse3d"][1]
     dry_e, c3_e = dam_sys["collapse_dry"].engine, dam_sys["collapse3d"].engine
     for kernel, e, s, c in (
@@ -1037,7 +1327,14 @@ def main(profile: bool) -> None:
             ("dambreak_mass_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
             ("dambreak_force_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
             ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
-            ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg)):
+            ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
+            ("legacy_mass_sweep", e24, t_state, tcfg),
+            ("legacy_force_sweep", e24, t_state, tcfg),
+            ("iso_static_mass_sweep", iso_e, other_state[ISO], others[ISO]),
+            ("iso_static_force_sweep", iso_e, other_state[ISO], others[ISO]),
+            ("adia_entropy_force_sweep", adia_e, other_state[ADIA],
+             others[ADIA]),
+            ("density_sweep adia", adia_e, other_state[ADIA], others[ADIA])):
         launch, twin, count = prepared(kernel, e, s, c)
         km, pm = cuda_ms(launch, 50), cuda_ms(twin, 5)
         pairs = int(count()[0].double().sum().item())
@@ -1045,6 +1342,8 @@ def main(profile: bool) -> None:
         tested = candidates(e, s, name in ("density_sweep", "pressure_sweep",
                                            "gamma_grad_sweep",
                                            "density_sweep_3d"))
+        if c is not None and getattr(c, "av_alpha", 0.0):
+            raise AssertionError(f"{kernel}: timed with the AV term on")
         n_in, n_out = PLANES[name]
         if kernel.endswith("total"):
             n_in -= 2
@@ -1056,7 +1355,7 @@ def main(profile: bool) -> None:
         timing[kernel] = {"ms": km, "plain_ms": pm,
                           "bound_ms": max(bytes_ms, ops_ms),
                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        say(24, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
+        say(30, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
                 f"{timing[kernel]['bound_ms'] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB "
                 f"-> {bytes_ms * 1e3:.1f} us; {tested} candidates x "
                 f"{DIST_OPS[e.dim]} + {pairs} pairs x {body_ops} ops -> "
@@ -1080,7 +1379,15 @@ def main(profile: bool) -> None:
                 "dambreak_mass_sweep_3d":
                     dam_counts["collapse3d"]["dambreak_mass_sweep"],
                 "dambreak_force_sweep_3d":
-                    dam_counts["collapse3d"]["dambreak_force_sweep"]}
+                    dam_counts["collapse3d"]["dambreak_force_sweep"],
+                "legacy_mass_sweep": t_counts["legacy_mass_sweep"],
+                "legacy_force_sweep": t_counts["legacy_force_sweep"],
+                "iso_static_mass_sweep":
+                    other_counts[ISO]["iso_static_mass_sweep"],
+                "iso_static_force_sweep":
+                    other_counts[ISO]["iso_static_force_sweep"],
+                "adia_entropy_force_sweep":
+                    other_counts[ADIA]["adia_entropy_force_sweep"]}
     err_of = {"density_sweep": errs["density"][0],
               "momentum_sweep": errs["momentum_fm1"][0],
               "pressure_sweep": errs["pressure"][0],
@@ -1091,7 +1398,15 @@ def main(profile: bool) -> None:
               "gamma_grad_sweep": errs["gamma"][0],
               "density_sweep_3d": errs["density_3d"][0],
               "momentum_sweep_3d": errs["momentum_3d_fm1"][0],
-              **{k: errs[k][0] for k in KERNELS if k.startswith("dambreak")}}
+              **{k: errs[k][0] for k in KERNELS if k.startswith("dambreak")},
+              "legacy_mass_sweep": errs["legacy_mass_sweep_av0_fm0"][0],
+              "legacy_force_sweep": errs["legacy_force_sweep_av0_fm1"][0],
+              "iso_static_mass_sweep":
+                  errs["iso_static_mass_sweep_av0_fm0"][0],
+              "iso_static_force_sweep":
+                  errs["iso_static_force_sweep_av0_fm1"][0],
+              "adia_entropy_force_sweep":
+                  errs["adia_entropy_force_sweep_av0_fm1"][0]}
     timed_as = {"hopkins_momentum_sweep": "hopkins_momentum_sweep split"}
     print(card, flush=True)
     print(json.dumps({"kernels": [

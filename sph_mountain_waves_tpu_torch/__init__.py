@@ -18,10 +18,14 @@ pressure–entropy (Hopkins) schemes (``models.hopkins_perturbed_witch``,
 (``models.pavelka_total_witch`` with ``utils.packing.colagrossi_packing``)
 and the dam break (``models.collapse_dry``). In 3-D, on the 27-cell stencil:
 the mountain wave (``models.witch3d``) and the dam break
-(``models.collapse3d``). They run on thirteen pair sweeps: density and
-momentum (2-D and 3-D), the Hopkins pressure root and momentum, the Pavelka
-continuity and fused momentum + entropy sweeps, the packing's ∇Γ sum and the
-dam-break continuity and force (2-D and 3-D); and every scheme's ``run``
+(``models.collapse3d``). And the terrain family (``models.legacy_witch``:
+isothermal and adiabatic, static and flow, with inflow recycling and the
+sort rescatter). They run on eighteen pair sweeps: density and momentum (2-D
+and 3-D), the Hopkins pressure root and momentum, the Pavelka continuity and
+fused momentum + entropy sweeps, the packing's ∇Γ sum, the dam-break
+continuity and force (2-D and 3-D), the legacy continuity and force (fixed
+and per-particle h) and the fused adiabatic entropy + force sweep; and every
+scheme's ``run``
 writes its files (``io``: PVD/VTP frames and ``data.csv``;
 ``utils.checkpoint``: bitwise checkpoint and resume).
 """
@@ -34,10 +38,10 @@ torch.backends.cudnn.allow_tf32 = False
 from .geometry import (  # noqa: E402
     Shape, Box, Rectangle, Ball, BooleanUnion, BooleanDifference, Specification, BoundaryLayer, is_inside, boundarybox,
 )
-from .grids import Grid, Hexagrid, CubicGrid, dimension, covering  # noqa: E402
+from .grids import Grid, Squaregrid, Hexagrid, CubicGrid, dimension, covering  # noqa: E402
 from .kernels import wendland2, rDwendland2, wendland3, rDwendland3  # noqa: E402
 from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
-from .ops.neighbors import NeighborEngine, Neighbors  # noqa: E402
+from .ops.neighbors import NeighborEngine, Neighbors, sorted_slot_scatter  # noqa: E402
 from .ops.apply import apply_unary  # noqa: E402
 from .interop import state_from_numpy, state_to_numpy  # noqa: E402
 from .io import (  # noqa: E402

@@ -1,8 +1,10 @@
 // Pair sweeps of the bucket layout. 2-D: density, momentum, the Hopkins
 // pressure root and momentum, the Pavelka continuity and fused momentum +
-// entropy sweeps, the Colagrossi packing's gradient sum, and the dam-break
-// continuity and force. 3-D (27 stencil cells): density, momentum, and the
-// dam-break continuity and force.
+// entropy sweeps, the Colagrossi packing's gradient sum, the dam-break
+// continuity and force, and the legacy (terrain) continuity and force with
+// fixed or per-particle h and the fused adiabatic entropy + force sweep. 3-D
+// (27 stencil cells): density, momentum, and the dam-break continuity and
+// force.
 //
 // Replaces the Pallas pair-sweep harness of
 // sph_mountain_waves_tpu/ops/pallas_pairs.py (make_pair_kernel_fn /
@@ -10,8 +12,12 @@
 // weighted_w_pass(ker_h="p")/density_pass and momentum_pass (2-D and 3-D),
 // weighted_w_pass(ker_h="sym")/pressure_pass, hopkins_momentum_pass
 // (background_split on and off), pavelka_mass_pass,
-// pavelka_momentum_entropy_pass, and dambreak_mass_pass and
-// dambreak_force_pass (2-D and 3-D). gamma_grad_sweep has no Pallas counterpart:
+// pavelka_momentum_entropy_pass, dambreak_mass_pass and dambreak_force_pass
+// (2-D and 3-D), legacy_mass_pass, legacy_force_pass, iso_static_mass_pass,
+// iso_static_force_pass and adia_entropy_force_pass (templated on the
+// dimension, exported in 2-D only: the legacy schemes are 2-D;
+// adia_density_pass is density_sweep with a gated weight).
+// gamma_grad_sweep has no Pallas counterpart:
 // it is the pair sum of utils/packing.py::colagrossi_packing (find_gGamma),
 // which the reference leaves to XLA.
 //
@@ -39,11 +45,13 @@
 // the fused Pavelka sweep) and of the Pavelka continuity (one, or two with
 // the kernel-less diffusion) by a multiply with rcp.approx.ftz.f32; the
 // pressure root and the packing's gradient keep their exact divides, as the
-// reference's do.
+// reference's do. In the legacy force bodies fast_math takes the viscous
+// divide (and 1/h_p with per-particle h) to rcp.approx.
 //
 // What bounds it on an H100: per occupied p slot about 9*kmax q slots of 4
-// (packing gradient), 5 (density, pressure), 9 (Pavelka continuity), 10
-// (momentum), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
+// (packing gradient), 5 (density, pressure), 6/7 (legacy continuity), 8-10
+// (legacy force), 9 (Pavelka continuity), 10 (momentum, adiabatic entropy +
+// force), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
 // read; neighbouring threads share them, so most reads hit L1/L2. Memory
 // traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests
 // 27*kmax candidates for the few dozen pairs inside the cutoff, and the
@@ -470,6 +478,169 @@ struct DamForce {
   }
 };
 
+// Constants of the legacy (terrain) bodies, computed in double on the host
+// and rounded to f32; each body reads the ones it needs.
+struct LegacyParams {
+  float kc;      // fixed h0: (-C of rDW) / h0^(D+2); per-particle h: -C of rDW
+  float hinv;    // 1/h0 (fixed h0)
+  float eps_h2;  // 0.01 h0^2 (fixed h0)
+  float mu8;     // 8 mu
+  float nmu4dt;  // -4 mu dt (entropy production)
+  float nac;     // -alpha c_av (AV)
+  float two_av;  // 2 alpha (AV)
+  float h0;      // fixed h0 (AV)
+};
+
+// Legacy (terrain) continuity: Drho_p = sum_q ker (x_pq . v_pq) with
+//   fixed h0 (ADAPTIVE_H false): ker = kc t^3 m_q, t = max(1 - r/h0, 0),
+//     kc = (-C of rDW) / h0^(D+2); fields occ, x[D], v[D], m;
+//   per-particle h (ADAPTIVE_H true): ker = (dw t^3 / h_p^(D+2)) wq_q,
+//     t = max(1 - r/h_p, 0), 1/h_p streamed, wq = m / max(rho, 1e-12) (the
+//     caller multiplies the sum by rho_p); fields occ, x[D], 1/h, v[D], wq.
+// No divide.
+template <int D, bool ADAPTIVE_H>
+struct LegacyMass {
+  static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
+  static constexpr int NIN = VO + D + 1;
+  static constexpr int NOUT = 1;
+  using Params = LegacyParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    float ker;
+    if constexpr (ADAPTIVE_H) {
+      const float hinv = p[1 + D];
+      const float t = fmaxf(1.0f - r * hinv, 0.0f);
+      const float h2 = hinv * hinv;
+      ker = prm.kc * t * t * t * (D == 2 ? h2 * h2 : h2 * h2 * hinv);
+      ker = ker * f.in[VO + D][qi];
+    } else {
+      const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
+      ker = prm.kc * t * t * t * f.in[VO + D][qi];
+    }
+    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+#pragma unroll
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
+    tot[0] += ker * dot;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, f, qi, d, r2, prm, tot);
+  }
+};
+
+// Legacy (terrain) force: Dv_p = sum_q (s + w) x_pq with ker as in
+// LegacyMass (m_q for wq_q; per-particle h through 1/h_p = 1/h_p divided in
+// the body), dot = x_pq . v_pq and
+//   di = dot / (r^2 + 0.01 h0^2)              (fixed h0)
+//   di = dot / (r^2 + 0.0025 (h_p + h_q)^2)   (per-particle h)
+//   s  = -ker (Pt_p + Pt_q),  w = 8 mu ker ri_p ri_q di
+// and, with AV, the Monaghan term on approaching FLUID-FLUID pairs:
+//   mu_av = h0 di (fixed) or (h_p + h_q)/2 di,
+//   Pi = (-alpha c mu_av + 2 alpha mu_av^2) (ri_p + ri_q)/2,
+//   w -= fl_p fl_q [dot < 0] ker Pi.
+// Pt = P / max(rho, 1e-12)^2, ri = 1 / max(rho, 1e-12); fields occ, x[D],
+// (h,) v[D], m, Pt, ri (, fl = [type == FLUID] with AV).
+template <int D, bool ADAPTIVE_H, bool AV, bool FAST>
+struct LegacyForce {
+  static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
+  static constexpr int MO = VO + D;                      // m, Pt, ri, fl
+  static constexpr int NIN = MO + (AV ? 4 : 3);
+  static constexpr int NOUT = D;
+  using Params = LegacyParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    float ker, di, hpq = 0.0f;
+    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+#pragma unroll
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
+    if constexpr (ADAPTIVE_H) {
+      const float hp = p[1 + D];
+      const float hinv = pdiv<FAST>(1.0f, hp);
+      const float t = fmaxf(1.0f - r * hinv, 0.0f);
+      const float h2 = hinv * hinv;
+      ker = prm.kc * t * t * t * (D == 2 ? h2 * h2 : h2 * h2 * hinv);
+      ker = ker * f.in[MO][qi];
+      hpq = hp + f.in[1 + D][qi];
+      di = pdiv<FAST>(dot, r2 + 0.0025f * hpq * hpq);
+    } else {
+      const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
+      ker = prm.kc * t * t * t * f.in[MO][qi];
+      di = pdiv<FAST>(dot, r2 + prm.eps_h2);
+    }
+    const float riq = f.in[MO + 2][qi];
+    const float s = -ker * (p[MO + 1] + f.in[MO + 1][qi]);
+    float w = prm.mu8 * ker * p[MO + 2] * riq * di;
+    if constexpr (AV) {
+      const float both = p[MO + 3] * f.in[MO + 3][qi];
+      const float mu_av = (ADAPTIVE_H ? 0.5f * hpq : prm.h0) * di;
+      const float pi = (prm.nac * mu_av + prm.two_av * mu_av * mu_av) * 0.5f
+                       * (p[MO + 2] + riq);
+      w = w - both * (dot < 0.0f ? 1.0f : 0.0f) * ker * pi;
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a) tot[a] += (s + w) * d[a];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, f, qi, d, r2, prm, tot);
+  }
+};
+
+// Adiabatic legacy fused entropy production + force, fixed h0: with
+// kerq = kc t^3 m_q, rr = ri_p ri_q and di = dot / (r^2 + 0.01 h0^2),
+//   dS_p = sum_q -4 mu dt mTi_p kerq rr dot di fl_p fl_q
+//   Dv_p = sum_q (-kerq (Pt_p + Pt_q) + 8 mu kerq rr di [- AV term]) x_pq
+// (the force as LegacyForce, ungated but for the AV term); mTi =
+// m / max(T, 1e-30). Outputs (dS, Dv[D]); fields occ, x[D], v[D], m, Pt, ri,
+// fl, mTi.
+template <int D, bool AV, bool FAST>
+struct AdiaEntropyForce {
+  static constexpr int VO = 1 + D;  // first v plane
+  static constexpr int MO = VO + D; // m, Pt, ri, fl, mTi
+  static constexpr int NIN = MO + 5;
+  static constexpr int NOUT = 1 + D;
+  using Params = LegacyParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
+    const float kerq = prm.kc * t * t * t * f.in[MO][qi];
+    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+#pragma unroll
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
+    const float riq = f.in[MO + 2][qi];
+    const float rr = p[MO + 2] * riq;
+    const float di = pdiv<FAST>(dot, r2 + prm.eps_h2);
+    const float s = -kerq * (p[MO + 1] + f.in[MO + 1][qi]);
+    const float both = p[MO + 3] * f.in[MO + 3][qi];
+    float w = prm.mu8 * kerq * rr * di;
+    if constexpr (AV) {
+      const float mu_av = prm.h0 * di;
+      const float pi = (prm.nac * mu_av + prm.two_av * mu_av * mu_av) * 0.5f
+                       * (p[MO + 2] + riq);
+      w = w - both * (dot < 0.0f ? 1.0f : 0.0f) * kerq * pi;
+    }
+    tot[0] += prm.nmu4dt * p[MO + 4] * kerq * rr * dot * di * both;
+#pragma unroll
+    for (int a = 0; a < D; ++a) tot[1 + a] += (s + w) * d[a];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, f, qi, d, r2, prm, tot);
+  }
+};
+
 template <class Body, bool SELF>
 __global__ void __launch_bounds__(kBlock)
 pair_sweep(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -529,6 +700,30 @@ int launch(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   const dim3 grid((columns + kBlock - 1) / kBlock, g.cap);
   pair_sweep<Body, SELF><<<grid, kBlock, 0, stream>>>(f, kmax, g, prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The legacy force's exports: the input pointers in plane order (the FLUID
+// gate, last, only with AV) and the fast_math switch.
+template <bool ADAPTIVE_H, bool AV>
+int legacy_force_launch(const float* const* in, const int* kmax, float* dv0,
+                        float* dv1, const Layout& g, const LegacyParams& prm,
+                        int fast_math, cudaStream_t s) {
+  using Exact = LegacyForce<2, ADAPTIVE_H, AV, false>;
+  using Fast = LegacyForce<2, ADAPTIVE_H, AV, true>;
+  Planes<Exact::NIN, Exact::NOUT> f{};
+  for (int i = 0; i < Exact::NIN; ++i) f.in[i] = in[i];
+  f.out[0] = dv0;
+  f.out[1] = dv1;
+  return fast_math ? launch<Fast, false>(f, kmax, g, prm, s)
+                   : launch<Exact, false>(f, kmax, g, prm, s);
+}
+
+template <bool AV>
+int adia_launch(const Planes<10, 3>& f, const int* kmax, const Layout& g,
+                const LegacyParams& prm, int fast_math, cudaStream_t s) {
+  return fast_math
+      ? launch<AdiaEntropyForce<2, AV, true>, false>(f, kmax, g, prm, s)
+      : launch<AdiaEntropyForce<2, AV, false>, false>(f, kmax, g, prm, s);
 }
 
 struct Layout3 {
@@ -755,6 +950,86 @@ int dambreak_force_sweep(const float* occ, const float* x0, const float* x1,
   const Layout g{cap, nx, ny, h2};
   return launch<DamForce<2>, false>(f, kmax, g, {kc, hinv, visc_c},
                                     static_cast<cudaStream_t>(stream));
+}
+
+// legacy (terrain) sweeps, 2-D: planes [cap, nx*ny+1], kmax int32 [ny]
+int legacy_mass_sweep(const float* occ, const float* x0, const float* x1,
+                      const float* v0, const float* v1, const float* m,
+                      const int* kmax, float* drho, int cap, int nx, int ny,
+                      float h2, float kc, float hinv, void* stream) {
+  Planes<6, 1> f{{occ, x0, x1, v0, v1, m}, {drho}};
+  const Layout g{cap, nx, ny, h2};
+  const LegacyParams prm{kc, hinv, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return launch<LegacyMass<2, false>, false>(f, kmax, g, prm,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+int iso_static_mass_sweep(const float* occ, const float* x0, const float* x1,
+                          const float* hinv, const float* v0, const float* v1,
+                          const float* wq, const int* kmax, float* out,
+                          int cap, int nx, int ny, float h2, float dw,
+                          void* stream) {
+  Planes<7, 1> f{{occ, x0, x1, hinv, v0, v1, wq}, {out}};
+  const Layout g{cap, nx, ny, h2};
+  const LegacyParams prm{dw, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return launch<LegacyMass<2, true>, false>(f, kmax, g, prm,
+                                             static_cast<cudaStream_t>(stream));
+}
+
+// fluid is read only with av (it may be null otherwise)
+int legacy_force_sweep(const float* occ, const float* x0, const float* x1,
+                       const float* v0, const float* v1, const float* m,
+                       const float* pterm, const float* rinv,
+                       const float* fluid, const int* kmax, float* dv0,
+                       float* dv1, int cap, int nx, int ny, float h2, float kc,
+                       float hinv, float eps_h2, float mu8, float nac,
+                       float two_av, float h0, int av, int fast_math,
+                       void* stream) {
+  const float* in[] = {occ, x0, x1, v0, v1, m, pterm, rinv, fluid};
+  const Layout g{cap, nx, ny, h2};
+  const LegacyParams prm{kc, hinv, eps_h2, mu8, 0.0f, nac, two_av, h0};
+  auto s = static_cast<cudaStream_t>(stream);
+  return av ? legacy_force_launch<false, true>(in, kmax, dv0, dv1, g, prm,
+                                               fast_math, s)
+            : legacy_force_launch<false, false>(in, kmax, dv0, dv1, g, prm,
+                                                fast_math, s);
+}
+
+// fluid is read only with av (it may be null otherwise)
+int iso_static_force_sweep(const float* occ, const float* x0, const float* x1,
+                           const float* h, const float* v0, const float* v1,
+                           const float* m, const float* pterm,
+                           const float* rinv, const float* fluid,
+                           const int* kmax, float* dv0, float* dv1, int cap,
+                           int nx, int ny, float h2, float dw, float mu8,
+                           float nac, float two_av, int av, int fast_math,
+                           void* stream) {
+  const float* in[] = {occ, x0, x1, h, v0, v1, m, pterm, rinv, fluid};
+  const Layout g{cap, nx, ny, h2};
+  const LegacyParams prm{dw, 0.0f, 0.0f, mu8, 0.0f, nac, two_av, 0.0f};
+  auto s = static_cast<cudaStream_t>(stream);
+  return av ? legacy_force_launch<true, true>(in, kmax, dv0, dv1, g, prm,
+                                              fast_math, s)
+            : legacy_force_launch<true, false>(in, kmax, dv0, dv1, g, prm,
+                                               fast_math, s);
+}
+
+int adia_entropy_force_sweep(const float* occ, const float* x0,
+                             const float* x1, const float* v0, const float* v1,
+                             const float* m, const float* pterm,
+                             const float* rinv, const float* fluid,
+                             const float* mti, const int* kmax, float* ds,
+                             float* dv0, float* dv1, int cap, int nx, int ny,
+                             float h2, float kc, float hinv, float eps_h2,
+                             float mu8, float nmu4dt, float nac, float two_av,
+                             float h0, int av, int fast_math, void* stream) {
+  const Planes<10, 3> f{{occ, x0, x1, v0, v1, m, pterm, rinv, fluid, mti},
+                        {ds, dv0, dv1}};
+  const Layout g{cap, nx, ny, h2};
+  const LegacyParams prm{kc, hinv, eps_h2, mu8, nmu4dt, nac, two_av, h0};
+  auto s = static_cast<cudaStream_t>(stream);
+  return av ? adia_launch<true>(f, kmax, g, prm, fast_math, s)
+            : adia_launch<false>(f, kmax, g, prm, fast_math, s);
 }
 
 // 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]

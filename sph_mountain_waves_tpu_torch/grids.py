@@ -1,8 +1,9 @@
 """Particle lattices (host side, NumPy).
 
 Port of ``sph_mountain_waves_tpu/grids.py``, cut to the lattices the ported
-schemes use: hexagonal (2-D) and simple cubic (3-D). ``covering(grid, shape)`` returns all lattice
-points inside the shape as an ``[N, 3]`` array.
+schemes use: square and hexagonal (2-D) and simple cubic (3-D).
+``covering(grid, shape)`` returns all lattice points inside the shape as an
+``[N, 3]`` array.
 """
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import numpy as np
 
 from .geometry import Shape, boundarybox
 
-__all__ = ["Grid", "Hexagrid", "CubicGrid", "dimension", "covering"]
+__all__ = ["Grid", "Squaregrid", "Hexagrid", "CubicGrid", "dimension",
+           "covering"]
 
 
 class GridBase:
@@ -22,8 +24,11 @@ class GridBase:
 
 def Grid(dr: float, symm: str) -> GridBase:
     """Grid factory. ``symm`` is the symmetry name, with or without the
-    Julia ``:`` sigil; the hexagonal and cubic lattices are ported."""
+    Julia ``:`` sigil; the square, hexagonal and cubic lattices are
+    ported."""
     symm = str(symm).lstrip(":")
+    if symm == "square":
+        return Squaregrid(dr)
     if symm == "hexagonal":
         return Hexagrid(dr)
     if symm == "cubic":
@@ -49,6 +54,23 @@ def _mask_points(pts: np.ndarray, s: Shape) -> np.ndarray:
 
 def _irange(lo, hi):
     return np.arange(int(np.floor(lo)), int(np.ceil(hi)) + 1)
+
+
+class Squaregrid(GridBase):
+    """Square lattice, spacing dr."""
+    dim = 2
+
+    def __init__(self, dr):
+        self.dr = float(dr)
+
+    def covering(self, s):
+        rect = boundarybox(s)
+        ii = _irange(rect.x1_min / self.dr, rect.x1_max / self.dr)
+        jj = _irange(rect.x2_min / self.dr, rect.x2_max / self.dr)
+        I, J = np.meshgrid(ii, jj, indexing="ij")
+        pts = np.stack([I * self.dr, J * self.dr,
+                        np.zeros_like(I, dtype=np.float64)], axis=-1)
+        return _mask_points(pts.reshape(-1, 3), s)
 
 
 class Hexagrid(GridBase):

@@ -155,17 +155,20 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
 
 def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
                       out_path=None, verbose=False, setup=None,
-                      finalize=None, device="cuda"):
+                      finalize=None, device="cuda", extra_diag=None):
     """Shared main() skeleton of the mountain-wave schemes: build, freeze on
     ``device``, resume from ``cfg.resume`` or else ``setup(cfg, engine,
     state)`` (e.g. a packing) if given, then frames of ``make_step_fn``'s
     steps with ``finalize`` (lazy diagnostics) after each, and the avg/max
-    velocity time series. With ``out_path``: ``frame<k>.vtp`` of
-    ``export_vars`` at t = 0 and after every frame, ``result.pvd``,
-    ``data.csv`` and, every ``cfg.checkpoint_every`` frames and on the last,
-    ``checkpoint.npz``. The terminal sparklines (``cfg.live_plot``) and the
-    velocities figure need ``utils/plots.py``, which is not ported: the
-    first raises, the second is not written."""
+    velocity time series. ``extra_diag(state) -> {name: scalar}`` adds
+    per-frame observables (the terrain schemes' drag and lift, ...) to the
+    time series, ``data.csv`` (after t, u_avg, u_max, in the order it
+    returns them) and the returned dict. With ``out_path``:
+    ``frame<k>.vtp`` of ``export_vars`` at t = 0 and after every frame,
+    ``result.pvd``, ``data.csv`` and, every ``cfg.checkpoint_every`` frames
+    and on the last, ``checkpoint.npz``. The terminal sparklines
+    (``cfg.live_plot``) and the velocities figure need ``utils/plots.py``,
+    which is not ported: the first raises, the second is not written."""
     from ..io import new_pvd_file, save_csv, save_frame, save_pvd_file
 
     if cfg.live_plot:
@@ -186,6 +189,7 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
         save_frame(out, state, *export_vars, time=0.0)
 
     ts, u_avgs, u_maxs = [], [], []
+    extra_hist: dict = {}
     k, frame = k0, 0
     while k < n_steps:
         state = run_frame(state)
@@ -196,9 +200,15 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
         ts.append(t)
         u_avgs.append(u_avg)
         u_maxs.append(u_max)
+        extras = {}
+        if extra_diag is not None:
+            extras = {name: float(v) for name, v in extra_diag(state).items()}
+            for name, v in extras.items():
+                extra_hist.setdefault(name, []).append(v)
         if verbose:
+            tail = "".join(f"  {n} = {v:.4e}" for n, v in extras.items())
             print(f"t = {t:.3f}  n = {int(state.n)}  "
-                  f"u_avg = {u_avg:.4e}  u_max = {u_max:.4e}")
+                  f"u_avg = {u_avg:.4e}  u_max = {u_max:.4e}" + tail)
         if out:
             save_frame(out, state, *export_vars, time=t)
         maybe_checkpoint(cfg, out, state, sys.engine, k, t, frame,
@@ -206,8 +216,10 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
     if out:
         save_pvd_file(out)
         save_csv(os.path.join(out.path, "data.csv"),
-                 {"t": ts, "u_avg": u_avgs, "u_max": u_maxs},
+                 {"t": ts, "u_avg": u_avgs, "u_max": u_maxs, **extra_hist},
                  merge_history=k0 > 0)
     sys.state = state
     return {"t": np.asarray(ts), "u_avg": np.asarray(u_avgs),
-            "u_max": np.asarray(u_maxs), "state": state, "system": sys}
+            "u_max": np.asarray(u_maxs),
+            **{name: np.asarray(v) for name, v in extra_hist.items()},
+            "state": state, "system": sys}

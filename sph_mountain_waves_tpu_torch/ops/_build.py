@@ -59,6 +59,23 @@ SIGNATURES = {
         # occ, x0, x1, v0, v1, P/rho^2, fluid, kmax, 2 outs, cap, nx, ny, h2,
         # kc, 1/h, 2mu/rho0^2, stream
         "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # occ, x0, x1, v0, v1, m, kmax, out, cap, nx, ny, h2, kc, 1/h0, stream
+        "legacy_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, 1/h, v0, v1, m/rho, kmax, out, cap, nx, ny, h2, dw,
+        # stream
+        "iso_static_mass_sweep": ([_P] * 9 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        # 9 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2, kc,
+        # 1/h0, 0.01 h0^2, 8mu, -alpha c, 2 alpha, h0, av, fast_math, stream
+        "legacy_force_sweep": ([_P] * 12 + [_I] * 3 + [_F] * 8
+                               + [_I, _I, _P], _I),
+        # 10 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2,
+        # dw, 8mu, -alpha c, 2 alpha, av, fast_math, stream
+        "iso_static_force_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5
+                                   + [_I, _I, _P], _I),
+        # 10 planes, kmax, 3 outs, cap, nx, ny, h2, kc, 1/h0, 0.01 h0^2, 8mu,
+        # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, stream
+        "adia_entropy_force_sweep": ([_P] * 14 + [_I] * 3 + [_F] * 9
+                                     + [_I, _I, _P], _I),
         # the 3-D forms take x2 (and v2) planes, one more output for the
         # vector sweeps, and nz after ny
         "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P], _I),

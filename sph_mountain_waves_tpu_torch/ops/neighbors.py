@@ -8,14 +8,20 @@ the columns and one trash column. Pair sweeps read the 9-cell (2-D) or
 gathered or sorted per step.
 
 ``rebuild`` checks how far particles drifted since the last rescatter and
-re-places them (the stencil rescatter) only past the skin budget. The
-rescatter is a windowed compaction over the 9 or 27 neighbour cells in plain
-PyTorch, with the reference's packing order (offset-major, then source slot)
-and the same dropped-row count, so states stay slot-for-slot comparable with
-the JAX package.
+re-places them only past the skin budget, by one of two rescatters
+(``rescatter_mode``), both in plain PyTorch and both with the reference's
+slot layout and dropped-row count, so states stay slot-for-slot comparable
+with the JAX package:
 
-Not ported yet: the flat layout, the sort rescatter (``rescatter_mode=
-"sort"``) and the sharded engine's ``count_cells``.
+* "stencil": a windowed compaction over the 9 or 27 neighbour cells with the
+  reference's packing order (offset-major, then source slot). It assumes
+  every particle is at most one cell from its slot's cell;
+* "sort": ``sorted_slot_scatter``, a stable sort of every row by its cell key
+  and one scatter per field, valid for any row placement (spawns written
+  into arbitrary free slots). "stencil" degrades to it past
+  ``_STENCIL_COST_MAX`` offsets × cap.
+
+Not ported yet: the flat layout and the sharded engine's ``count_cells``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 
 from ..structs import ParticleState
 
-__all__ = ["NeighborEngine", "Neighbors"]
+__all__ = ["NeighborEngine", "Neighbors", "sorted_slot_scatter"]
 
 
 @dataclasses.dataclass
@@ -35,6 +41,39 @@ class Neighbors:
     is implied by the slot layout itself."""
     counts: torch.Tensor    # [C+1] int32 particles per cell (trash last)
     overflow: torch.Tensor  # [] int32 rows dropped at this rebuild
+
+
+def sorted_slot_scatter(key: torch.Tensor, fields: dict, C: int, cap: int,
+                        slots: int):
+    """Move ``fields`` (name → [n] or [n, d] tensor) into the bucket-slot
+    layout [slots] / [slots, d]: a stable sort of the rows by ``key`` (the
+    flat cell key, int32; C drops the row), then rank within the cell,
+    slot = rank·(C+1) + key, and one scatter per field. Rows whose cell
+    overflows ``cap`` are dropped and counted. Dropped rows are written to
+    an extra slot past the end that is trimmed, never indexed out of range.
+    Returns (fields in slot layout, active, overflow), the reference's
+    ``sorted_slot_scatter`` slot for slot."""
+    n = key.shape[0]
+    dev = key.device
+    key_s, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key_s, minlength=C + 1).to(torch.int32)
+    starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+    rank = (torch.arange(n, dtype=torch.int32, device=dev)
+            - starts[key_s.long()])
+    keep = (rank < cap) & (key_s < C)
+    slot = torch.where(keep, rank * (C + 1) + key_s,
+                       torch.full_like(key_s, slots)).long()
+    overflow = ((rank >= cap) & (key_s < C)).sum().to(torch.int32)
+
+    active = torch.zeros(slots + 1, dtype=torch.bool, device=dev)
+    active[slot] = True
+    moved = {}
+    for name, arr in fields.items():
+        buf = torch.zeros((slots + 1,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                          device=dev)
+        buf[slot] = arr[order]
+        moved[name] = buf[:slots]
+    return moved, active[:slots], overflow
 
 
 def _is_bookkeeping(name: str) -> bool:
@@ -64,10 +103,21 @@ class NeighborEngine:
     skin: float = 0.0
     cells: tuple = ()
     persistent: tuple = ()
+    # "stencil" (1-cell-local compaction) or "sort" (any row placement)
+    rescatter_mode: str = "stencil"
 
-    # largest stencil·cap for which the reference keeps the stencil
-    # compaction (it switches to its sort rescatter beyond, not ported)
+    # largest stencil·cap for which the stencil compaction is kept; past it
+    # the engine takes the sort rescatter, as the reference does
     _STENCIL_COST_MAX = 2048
+
+    @property
+    def effective_rescatter_mode(self) -> str:
+        """The rescatter ``rebuild`` runs: "stencil" degrades to "sort" past
+        ``_STENCIL_COST_MAX``."""
+        if (self.rescatter_mode == "stencil"
+                and len(self.stencil) * self.cap > self._STENCIL_COST_MAX):
+            return "sort"
+        return self.rescatter_mode
 
     # ------------------------------------------------------------- creation
     @staticmethod
@@ -75,7 +125,8 @@ class NeighborEngine:
                cap: int | None = None, dtype=torch.float32,
                layout: str = "bucket", skin: float = 0.0,
                cells: tuple | None = None,
-               persistent: tuple = ()) -> "NeighborEngine":
+               persistent: tuple = (),
+               rescatter_mode: str = "stencil") -> "NeighborEngine":
         """Build an engine for domain ``box`` and interaction radius h.
 
         Key arithmetic: with per-axis cell size L_a (default (1+skin)·h),
@@ -89,6 +140,9 @@ class NeighborEngine:
                 f"layout={layout!r}: only the bucket layout is ported")
         if dim not in (2, 3):
             raise ValueError(f"dim must be 2 or 3, got {dim}")
+        if rescatter_mode not in ("stencil", "sort"):
+            raise ValueError(f"rescatter_mode must be 'stencil' or 'sort', "
+                             f"got {rescatter_mode!r}")
         if cells is None or len(cells) == 0:
             cells = (h * (1.0 + skin),) * dim
         cells = tuple(float(c) for c in cells)
@@ -104,17 +158,13 @@ class NeighborEngine:
             lims[a] = -(-lims[a] // 8) * 8
         if cap is None:
             cap = NeighborEngine._estimate_cap(positions, L, phase, lims, dim)
-        engine = NeighborEngine(dim=dim, h=float(h),
-                                phase=tuple(int(p) for p in phase),
-                                lims=tuple(int(l) for l in lims), cap=int(cap),
-                                dtype=dtype, mins=tuple(mins),
-                                maxs=tuple(maxs), skin=float(skin),
-                                cells=cells, persistent=tuple(persistent))
-        if len(engine.stencil) * engine.cap > NeighborEngine._STENCIL_COST_MAX:
-            raise NotImplementedError(
-                f"cap {cap} on {len(engine.stencil)} offsets: the sort "
-                "rescatter it needs is not ported")
-        return engine
+        return NeighborEngine(dim=dim, h=float(h),
+                              phase=tuple(int(p) for p in phase),
+                              lims=tuple(int(l) for l in lims), cap=int(cap),
+                              dtype=dtype, mins=tuple(mins), maxs=tuple(maxs),
+                              skin=float(skin), cells=cells,
+                              persistent=tuple(persistent),
+                              rescatter_mode=rescatter_mode)
 
     @staticmethod
     def _estimate_cap(positions, L, phase, lims, dim) -> int:
@@ -204,29 +254,42 @@ class NeighborEngine:
         return torch.nn.functional.pad(flat, (0, 1)).reshape(self.slots)
 
     # ------------------------------------------------------------- rebuild
-    def rebuild(self, state: ParticleState) -> tuple[ParticleState, Neighbors]:
-        """Rescatter if some particle drifted past the skin budget, then
-        derive the neighbour structure from the slot layout.
-
-        The reference decides under ``lax.cond`` on the device; here ``need``
-        is read on the host, one sync per step. A device-side flag (and
-        graph capture of the step) is later work."""
+    def needs_rescatter(self, state: ParticleState) -> torch.Tensor:
+        """0-d bool tensor: some active particle drifted past the skin budget
+        since the last rescatter (a non-finite drift counts as past it)."""
         x = state.fields["x"]
         d2 = torch.sum((x - state.fields["_xref"]) ** 2, dim=-1)
         d2 = torch.nan_to_num(torch.where(state.active, d2, 0.0),
                               nan=float("inf"), posinf=float("inf"))
         budget = torch.tensor((0.5 * self.skin_slack) ** 2, dtype=x.dtype,
                               device=x.device)
-        need = torch.max(d2) > budget
-        if bool(need):
-            state, overflow = self._stencil_rescatter(state)
+        return torch.max(d2) > budget
+
+    def rebuild(self, state: ParticleState,
+                need: bool | None = None) -> tuple[ParticleState, Neighbors]:
+        """Rescatter if some particle drifted past the skin budget, then
+        derive the neighbour structure from the slot layout.
+
+        The reference decides under ``lax.cond`` on the device; here ``need``
+        is read on the host, one sync per step. A caller that has already
+        read ``needs_rescatter`` of a state with the same positions and
+        ``_xref`` passes it as ``need`` and saves that sync. A device-side
+        flag (and graph capture of the step) is later work."""
+        if need is None:
+            need = bool(self.needs_rescatter(state))
+        if need:
+            resc = (self._stencil_rescatter
+                    if self.effective_rescatter_mode == "stencil"
+                    else self._full_rescatter)
+            state, overflow = resc(state)
         else:
-            overflow = torch.zeros((), dtype=torch.int32, device=x.device)
+            overflow = torch.zeros((), dtype=torch.int32,
+                                   device=state.active.device)
         if "_rescatter_count" in state.fields:
             # opt-in cadence observable: one count per drift-triggered
             # rescatter, summable per frame on the host
             rc = state.fields["_rescatter_count"].clone()
-            rc[0] += need.to(rc.dtype)
+            rc[0] += float(need)
             state = state.replace(_rescatter_count=rc)
         counts = self.resident(state.active).sum(dim=0, dtype=torch.int32)
         return state, Neighbors(counts=counts, overflow=overflow)
@@ -250,6 +313,36 @@ class NeighborEngine:
         key = torch.where(active, self.flat_key(cell),
                           self.num_cells).to(torch.int32)
         return active, key
+
+    def _moved_fields(self, state: ParticleState) -> dict:
+        """The fields a rescatter moves: every field but ``_xref`` and the
+        bookkeeping ones, cut to ``persistent`` where it is set."""
+        return {n: arr for n, arr in state.fields.items()
+                if n != "_xref" and not _is_bookkeeping(n)
+                and (not self.persistent or n in self.persistent)}
+
+    @staticmethod
+    def _rescattered(state: ParticleState, moved: dict,
+                     active: torch.Tensor) -> ParticleState:
+        """The state after a rescatter: the moved fields, the bookkeeping
+        fields in place, every other field zeroed (the step recomputes it
+        before reading it) and ``_xref`` reset to the new positions."""
+        fields = {n: moved[n] if n in moved else
+                  arr if _is_bookkeeping(n) else torch.zeros_like(arr)
+                  for n, arr in state.fields.items() if n != "_xref"}
+        fields["_xref"] = fields["x"].clone()
+        return ParticleState(fields=fields, active=active)
+
+    def _full_rescatter(self, state: ParticleState):
+        """Re-place every active particle at its slot rank·(C+1) + key by
+        the sort move (``sorted_slot_scatter``), valid for any row placement.
+        Screened-out rows and rows past ``cap`` are dropped, the latter
+        counted. Returns (new_state, n_dropped)."""
+        _, key = self._screen_and_key(state)
+        moved, new_active, overflow = sorted_slot_scatter(
+            key, self._moved_fields(state), self.num_cells, self.cap,
+            self.slots)
+        return self._rescattered(state, moved, new_active), overflow
 
     def _stencil_rescatter(self, state: ParticleState):
         """1-cell-local rescatter: every active particle moves to the slot
@@ -282,12 +375,9 @@ class NeighborEngine:
         keyg = pad1(self.grid_view(key.to(torch.int32)), value=C)
         idx = torch.arange(C, dtype=torch.int32, device=dev).reshape(grid)
 
-        names = [n for n in state.fields
-                 if n != "_xref" and not _is_bookkeeping(n)
-                 and (not self.persistent or n in self.persistent)]
+        move = self._moved_fields(state)
         comps = []  # one zero-padded [cap, *grid+2] plane per component
-        for n in names:
-            arr = state.fields[n]
+        for arr in move.values():
             cols = [arr] if arr.ndim == 1 else [arr[:, a] for a in range(arr.shape[1])]
             comps += [pad1(self.grid_view(c)) for c in cols]
         vals = torch.stack(comps)                       # [F, cap, *grid+2]
@@ -316,21 +406,16 @@ class NeighborEngine:
                    - cnt.sum()).to(torch.int32)
         act_g = iota_k < placed                          # [cap, *grid]
 
-        fields = {}
+        moved = {}
         i = 0
-        for n in names:
-            arr = state.fields[n]
+        for n, arr in move.items():
             if arr.ndim == 1:
-                fields[n] = self.to_flat(outs[i])
+                moved[n] = self.to_flat(outs[i])
                 i += 1
             else:
                 d = arr.shape[1]
-                fields[n] = torch.stack([self.to_flat(outs[i + a])
-                                         for a in range(d)], dim=-1)
+                moved[n] = torch.stack([self.to_flat(outs[i + a])
+                                        for a in range(d)], dim=-1)
                 i += d
-        for n, arr in state.fields.items():
-            if n not in fields and n != "_xref":
-                fields[n] = arr if _is_bookkeeping(n) else torch.zeros_like(arr)
-        fields["_xref"] = fields["x"].clone()
         new_active = self.to_flat(act_g.to(torch.int32)) > 0
-        return ParticleState(fields=fields, active=new_active), dropped
+        return self._rescattered(state, moved, new_active), dropped

@@ -1,19 +1,25 @@
-"""Pair sweeps of the mountain-wave and dam-break schemes: density and
-momentum (2-D and 3-D), the Hopkins pressure root and momentum, the Pavelka
-continuity and fused momentum + entropy sweeps, the Colagrossi packing's ∇Γ
-sum, and the dam-break continuity and force (2-D and 3-D).
+"""Pair sweeps of the mountain-wave, dam-break and terrain schemes: density
+and momentum (2-D and 3-D), the Hopkins pressure root and momentum, the
+Pavelka continuity and fused momentum + entropy sweeps, the Colagrossi
+packing's ∇Γ sum, the dam-break continuity and force (2-D and 3-D), and the
+legacy (terrain) continuity and force with fixed or per-particle h, the
+adiabatic density and the fused adiabatic entropy + force sweep.
 
 Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` that the
 WCSPH flagship and its 3-D form, the three Hopkins schemes, the Pavelka
-scheme and the two dam breaks run: the pair-sweep harness
+scheme, the two dam breaks and the four legacy terrain schemes run: the
+pair-sweep harness
 (``make_pair_kernel_fn`` with ``_make_pair_kernel``, the one
 ``pl.pallas_call``) over 9 or 27 stencil cells, its trip bound ``row_kmax``,
 ``weighted_w_pass(ker_h="p")``/``density_pass`` and ``momentum_pass`` in both
 dimensions, ``weighted_w_pass(ker_h="sym")``/``pressure_pass``,
 ``hopkins_momentum_pass`` (``background_split`` on and off),
 ``pavelka_mass_pass``, ``pavelka_momentum_entropy_pass``,
-``dambreak_mass_pass`` and ``dambreak_force_pass``.
-``gamma_grad_pass`` has no Pallas counterpart: the reference's Colagrossi
+``dambreak_mass_pass``, ``dambreak_force_pass``, ``legacy_mass_pass``,
+``legacy_force_pass``, ``iso_static_mass_pass``, ``iso_static_force_pass``,
+``adia_density_pass`` (on the density kernel) and
+``adia_entropy_force_pass``. ``gamma_grad_pass`` has no Pallas counterpart:
+the reference's Colagrossi
 packing takes that sum as an XLA pair sum
 (``utils/packing.py::colagrossi_packing``, ``find_gGamma``).
 
@@ -33,8 +39,9 @@ Each sweep has two implementations:
   wrapper (``density_pass``, ``momentum_pass``, ``pressure_pass``,
   ``hopkins_momentum_pass``, ``pavelka_mass_pass``,
   ``pavelka_momentum_entropy_pass``, ``gamma_grad_pass``,
-  ``dambreak_mass_pass``, ``dambreak_force_pass``) for CUDA tensors, which
-  counts its launches in ``<wrapper>.launches``; ``density_pass``,
+  ``dambreak_mass_pass``, ``dambreak_force_pass`` and the six terrain
+  wrappers) for CUDA tensors, which counts its launches in
+  ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
@@ -43,8 +50,9 @@ Each sweep has two implementations:
 
 What bounds the kernel on an H100: per occupied p slot it reads the q slots
 of 9 cells up to the row's band occupancy (about 9·kmax slots) of 4 (∇Γ),
-5 (density, pressure), 9 (Pavelka continuity), 10 (momentum), 11/13 (Hopkins
-momentum) or 12 (Pavelka momentum + entropy) f32 fields.
+5 (density, pressure), 6/7 (legacy continuity), 8–10 (legacy force), 9
+(Pavelka continuity), 10 (momentum, adiabatic entropy + force), 11/13
+(Hopkins momentum) or 12 (Pavelka momentum + entropy) f32 fields.
 Neighbouring threads share most of those q reads, so they hit L1/L2; memory
 traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests up
 to 27·kmax candidates (6 to 12 fields) for the few dozen pairs inside the
@@ -53,6 +61,7 @@ cutoff, and the candidate tests are no longer negligible beside the bytes.
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +78,13 @@ __all__ = ["row_kmax", "density_pass", "density_pass_plain",
            "pavelka_momentum_entropy_pass_plain", "gamma_grad_pass",
            "gamma_grad_pass_plain", "dambreak_mass_pass",
            "dambreak_mass_pass_plain", "dambreak_force_pass",
-           "dambreak_force_pass_plain"]
+           "dambreak_force_pass_plain", "legacy_mass_pass",
+           "legacy_mass_pass_plain", "legacy_force_pass",
+           "legacy_force_pass_plain", "iso_static_mass_pass",
+           "iso_static_mass_pass_plain", "iso_static_force_pass",
+           "iso_static_force_pass_plain", "adia_density_pass",
+           "adia_density_pass_plain", "adia_entropy_force_pass",
+           "adia_entropy_force_pass_plain"]
 
 
 def row_kmax(engine, state: ParticleState):
@@ -180,6 +195,76 @@ def _dambreak_consts(cfg, dim: int):
     normalisation folded into kc = m·(−C of rDW)/h^(dim+2), in double on the
     host as the reference computes them."""
     return cfg.m * _rdw_const(dim) / cfg.h ** (dim + 2), 1.0 / cfg.h
+
+
+def _legacy_consts(cfg, dim: int):
+    """(kc, 1/h0) of the fixed-h0 legacy bodies: kc = (−C of rDW)/h0^(dim+2),
+    in double on the host as the reference computes them."""
+    return _rdw_const(dim) / cfg.h0 ** (dim + 2), 1.0 / cfg.h0
+
+
+def _legacy_mass_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], v[dim], m); every pad is 0."""
+    f = state.fields
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"])
+        + [f["m"]])]
+    return planes, [0.0] * len(planes)
+
+
+def _iso_static_mass_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], 1/h, v[dim], wq = m/max(ρ, 1e-12)), 1/h from h
+    clamped at its floor; every pad is 0, as the reference's."""
+    f = state.fields
+    hinv = 1.0 / torch.clamp(f["h"], min=_hfloor(engine))
+    wq = f["m"] / torch.clamp(f["rho"], min=1e-12)
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + [hinv]
+        + _axes(engine, f["v"]) + [wq])]
+    return planes, [0.0] * len(planes)
+
+
+def _legacy_force_inputs(engine, state: ParticleState, cfg, adaptive: bool):
+    """Planes (occ, x[dim], (h,) v[dim], m, P/ρ_f², 1/ρ_f (, [type ==
+    FLUID] with ``cfg.av_alpha``)), ρ_f = max(ρ, 1e-12): the pressure term
+    and 1/ρ hoisted per particle and finite on empty slots. With the
+    per-particle h (``adaptive``) h is clamped at its floor and pads with
+    it."""
+    f = state.fields
+    rho_f = torch.clamp(f["rho"], min=1e-12)
+    scalars = [f["m"], f["P"] / rho_f**2, 1.0 / rho_f]
+    if cfg.av_alpha:
+        scalars.append((f["type"] == 0.0).to(f["m"].dtype))
+    hs = [torch.clamp(f["h"], min=_hfloor(engine))] if adaptive else []
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + hs + _axes(engine, f["v"])
+        + scalars)]
+    pad_vals = ([0.0] * (1 + engine.dim) + [_hfloor(engine)] * len(hs)
+                + [0.0] * (engine.dim + len(scalars)))
+    return planes, pad_vals
+
+
+def _adia_entropy_force_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], v[dim], m, P/ρ_f², 1/ρ_f, [type == FLUID],
+    m/max(T, 1e-30)), ρ_f = max(ρ, 1e-12); every pad is 0."""
+    f = state.fields
+    rho_f = torch.clamp(f["rho"], min=1e-12)
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"])
+        + [f["m"], f["P"] / rho_f**2, 1.0 / rho_f,
+           (f["type"] == 0.0).to(f["m"].dtype),
+           f["m"] / torch.clamp(f["T"], min=1e-30)])]
+    return planes, [0.0] * len(planes)
+
+
+def _adia_density_weight(state: ParticleState, cfg):
+    """The adiabatic density's q weight: m on FLUID rows (the q-side gate),
+    or m on every row under the corrected open boundary
+    (``cfg.outflow_buffer``)."""
+    f = state.fields
+    if getattr(cfg, "outflow_buffer", 0.0):
+        return f["m"]
+    return f["m"] * (f["type"] == 0.0)
 
 
 def _pressure_inputs(engine, state: ParticleState, cfg):
@@ -349,6 +434,118 @@ def _dambreak_force_body(cfg, d: int):
         w = ker * visc_c
         return [s * (p[1 + a] - q[1 + a]) + w * (p[1 + d + a] - q[1 + d + a])
                 for a in range(d)]
+
+    return body
+
+
+def _legacy_mass_body(cfg, d: int, adaptive: bool):
+    """Legacy continuity Σ ker·(x_pq·v_pq): ker = kc·t³·m_q with fixed h0
+    (fields occ, x[d], v[d], m), or rDW(h_p, r)·wq_q with 1/h_p streamed
+    (fields occ, x[d], 1/h, v[d], wq); term for term the Pallas
+    ``legacy_mass_pass``/``iso_static_mass_pass`` bodies."""
+    DW = _rdw_const(d)
+    kc, hinv = _legacy_consts(cfg, d)
+    vo = 2 + d if adaptive else 1 + d
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        if adaptive:
+            hi = p[1 + d]
+            t = torch.clamp(1.0 - r * hi, min=0.0) * maskf
+            h2 = hi * hi
+            ker = DW * t * t * t * (h2 * h2 if d == 2 else h2 * h2 * hi)
+            ker = ker * q[vo + d]
+        else:
+            t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+            ker = kc * t * t * t * q[vo + d]
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[vo + a] - q[vo + a] for a in range(d)]
+        return [ker * _dot(dx, dv)]
+
+    return body
+
+
+def _legacy_av_pi(cfg, mu_av, ri_sum):
+    """The Monaghan Π of the legacy bodies, (−α·c·μ + 2α·μ²)·½(1/ρ_p+1/ρ_q)."""
+    av = cfg.av_alpha
+    return ((-av * cfg.c_av * mu_av + (2.0 * av) * mu_av * mu_av)
+            * 0.5 * ri_sum)
+
+
+def _legacy_force_body(cfg, d: int, adaptive: bool):
+    """Legacy pressure + 8μ viscous force (+ the FLUID-gated Monaghan term
+    with ``cfg.av_alpha``), fixed h0 or per-particle h (fields occ, x[d],
+    (h,) v[d], m, P/ρ², 1/ρ (, fluid)); term for term the Pallas
+    ``legacy_force_pass``/``iso_static_force_pass`` bodies."""
+    DW = _rdw_const(d)
+    kc, hinv = _legacy_consts(cfg, d)
+    eps_h2 = 0.01 * cfg.h0 * cfg.h0
+    mu8 = 8.0 * cfg.mu
+    av = cfg.av_alpha
+    div = _div_fn(cfg)
+    vo = 2 + d if adaptive else 1 + d
+    mo = vo + d  # m, P/ρ², 1/ρ, fluid
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[vo + a] - q[vo + a] for a in range(d)]
+        dot = _dot(dx, dv)
+        if adaptive:
+            hp = p[1 + d]
+            hi = div(1.0, hp)
+            t = torch.clamp(1.0 - r * hi, min=0.0) * maskf
+            h2 = hi * hi
+            ker = DW * t * t * t * (h2 * h2 if d == 2 else h2 * h2 * hi)
+            ker = ker * q[mo]
+            h_pq = hp + q[1 + d]
+            di = div(dot, r2 + 0.0025 * h_pq * h_pq)
+        else:
+            t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+            ker = kc * t * t * t * q[mo]
+            di = div(dot, r2 + eps_h2)
+        s = -ker * (p[mo + 1] + q[mo + 1])
+        w = mu8 * ker * p[mo + 2] * q[mo + 2] * di
+        if av:
+            both = p[mo + 3] * q[mo + 3]
+            mu_av = (0.5 * h_pq if adaptive else cfg.h0) * di
+            pi = _legacy_av_pi(cfg, mu_av, p[mo + 2] + q[mo + 2])
+            w = w - both * (dot < 0.0).to(torch.float32) * ker * pi
+        return [(s + w) * dx[a] for a in range(d)]
+
+    return body
+
+
+def _adia_entropy_force_body(cfg, d: int):
+    """Fused adiabatic entropy production (both-FLUID, dt folded in) and the
+    fixed-h0 legacy force sharing ker, x_pq·v_pq and 1/(r²+0.01h0²) (fields
+    occ, x[d], v[d], m, P/ρ², 1/ρ, fluid, m/T): outputs (dS, Dv[d]), term
+    for term the Pallas ``adia_entropy_force_pass`` body."""
+    kc, hinv = _legacy_consts(cfg, d)
+    eps_h2 = 0.01 * cfg.h0 * cfg.h0
+    mu8 = 8.0 * cfg.mu
+    mu4dt = 4.0 * cfg.mu * cfg.dt
+    av = cfg.av_alpha
+    div = _div_fn(cfg)
+    mo = 1 + 2 * d  # m, P/ρ², 1/ρ, fluid, m/T
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        kerq = kc * t * t * t * q[mo]
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[1 + d + a] - q[1 + d + a] for a in range(d)]
+        dot = _dot(dx, dv)
+        rr = p[mo + 2] * q[mo + 2]
+        di = div(dot, r2 + eps_h2)
+        s = -kerq * (p[mo + 1] + q[mo + 1])
+        both = p[mo + 3] * q[mo + 3]
+        w = mu8 * kerq * rr * di
+        if av:
+            pi = _legacy_av_pi(cfg, cfg.h0 * di, p[mo + 2] + q[mo + 2])
+            w = w - both * (dot < 0.0).to(torch.float32) * kerq * pi
+        dS = -mu4dt * p[mo + 4] * kerq * rr * dot * di * both
+        return [dS] + [(s + w) * dx[a] for a in range(d)]
 
     return body
 
@@ -583,6 +780,61 @@ def dambreak_force_pass_plain(engine, state: ParticleState, cfg):
     return _sweep_plain(engine, planes, pad_vals, band,
                         _dambreak_force_body(cfg, engine.dim), engine.dim,
                         self_pair=False)
+
+
+def legacy_mass_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``legacy_mass_pass``."""
+    planes, pad_vals = _legacy_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes, pad_vals, band,
+                          _legacy_mass_body(cfg, engine.dim, False), 1,
+                          self_pair=False)
+    return out
+
+
+def iso_static_mass_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``iso_static_mass_pass``."""
+    planes, pad_vals = _iso_static_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes, pad_vals, band,
+                          _legacy_mass_body(cfg, engine.dim, True), 1,
+                          self_pair=False)
+    return out
+
+
+def legacy_force_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``legacy_force_pass``: the per-axis Dv pair sums."""
+    planes, pad_vals = _legacy_force_inputs(engine, state, cfg, False)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _legacy_force_body(cfg, engine.dim, False), engine.dim,
+                        self_pair=False)
+
+
+def iso_static_force_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``iso_static_force_pass``: the per-axis Dv pair sums."""
+    planes, pad_vals = _legacy_force_inputs(engine, state, cfg, True)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _legacy_force_body(cfg, engine.dim, True), engine.dim,
+                        self_pair=False)
+
+
+def adia_entropy_force_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``adia_entropy_force_pass``: (dS, Dv0, Dv1)."""
+    planes, pad_vals = _adia_entropy_force_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _adia_entropy_force_body(cfg, engine.dim),
+                        1 + engine.dim, self_pair=False)
+
+
+def adia_density_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``adia_density_pass``: ``density_pass_plain`` with the
+    gated weight as the mass and the self pair."""
+    return density_pass_plain(
+        engine, state.replace(m=_adia_density_weight(state, cfg)),
+        types.SimpleNamespace(self_density=True))
 
 
 def pressure_pass_plain(engine, state: ParticleState, cfg):
@@ -866,6 +1118,153 @@ def dambreak_force_pass(engine, state: ParticleState, cfg):
     return outs
 
 
+def _legacy_mass_scalars(cfg, dim: int, adaptive: bool):
+    """(kc, 1/h0) of the fixed-h0 continuity, or the −C of rDW of the
+    per-particle-h one."""
+    if adaptive:
+        return [ctypes.c_float(_rdw_const(dim))]
+    kc, hinv = _legacy_consts(cfg, dim)
+    return [ctypes.c_float(kc), ctypes.c_float(hinv)]
+
+
+def _legacy_force_scalars(cfg, dim: int, adaptive: bool):
+    """The legacy force kernel's constants: (kc, 1/h0, 0.01·h0², 8μ, −α·c,
+    2α, h0) with fixed h0, (−C of rDW, 8μ, −α·c, 2α) with per-particle h;
+    then the AV and fast_math switches."""
+    av = cfg.av_alpha
+    shared = [ctypes.c_float(8.0 * cfg.mu),
+              ctypes.c_float(-av * cfg.c_av if av else 0.0),
+              ctypes.c_float(2.0 * av)]
+    switches = [int(bool(av)), _fast(cfg)]
+    if adaptive:
+        return [ctypes.c_float(_rdw_const(dim))] + shared + switches
+    kc, hinv = _legacy_consts(cfg, dim)
+    return ([ctypes.c_float(kc), ctypes.c_float(hinv),
+             ctypes.c_float(0.01 * cfg.h0 * cfg.h0)] + shared
+            + [ctypes.c_float(cfg.h0)] + switches)
+
+
+def _adia_entropy_force_scalars(cfg, dim: int):
+    """(kc, 1/h0, 0.01·h0², 8μ, −4μ·dt, −α·c, 2α, h0, AV, fast_math) of the
+    fused adiabatic body."""
+    av = cfg.av_alpha
+    kc, hinv = _legacy_consts(cfg, dim)
+    return [ctypes.c_float(kc), ctypes.c_float(hinv),
+            ctypes.c_float(0.01 * cfg.h0 * cfg.h0),
+            ctypes.c_float(8.0 * cfg.mu),
+            ctypes.c_float(-(4.0 * cfg.mu * cfg.dt)),
+            ctypes.c_float(-av * cfg.c_av if av else 0.0),
+            ctypes.c_float(2.0 * av), ctypes.c_float(cfg.h0), int(bool(av)),
+            _fast(cfg)]
+
+
+def _legacy_force_planes(planes, cfg):
+    """The force kernels' plane list: a null FLUID plane without AV."""
+    return planes if cfg.av_alpha else planes + [None]
+
+
+def legacy_mass_pass(engine, state: ParticleState, cfg):
+    """Isothermal-flow continuity with fixed h0: Drho = Σ m_q·rDW₂(h0, r)·
+    (x_pq·v_pq) as a flat [slots] tensor. Replaces ``legacy_mass_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``legacy_mass_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return legacy_mass_pass_plain(engine, state, cfg)
+    planes, _ = _legacy_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _launch("legacy_mass_sweep", engine, planes, band, 1,
+                     _legacy_mass_scalars(cfg, engine.dim, False))
+    legacy_mass_pass.launches += 1
+    return out
+
+
+def iso_static_mass_pass(engine, state: ParticleState, cfg):
+    """Isothermal-static continuity with per-particle h: Σ (m/ρ)_q·
+    rDW₂(h_p, r)·(x_pq·v_pq) as a flat [slots] tensor (the caller multiplies
+    by ρ_p). Replaces ``iso_static_mass_pass`` of pallas_pairs.py. CUDA
+    tensors launch the kernel (counted in ``iso_static_mass_pass.launches``);
+    CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return iso_static_mass_pass_plain(engine, state, cfg)
+    planes, _ = _iso_static_mass_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _launch("iso_static_mass_sweep", engine, planes, band, 1,
+                     _legacy_mass_scalars(cfg, engine.dim, True))
+    iso_static_mass_pass.launches += 1
+    return out
+
+
+def legacy_force_pass(engine, state: ParticleState, cfg):
+    """Legacy pressure + 8μ viscous force with fixed h0 (+ the FLUID-gated
+    Monaghan term with ``cfg.av_alpha``): the per-axis Dv pair sums as
+    ``engine.dim`` flat [slots] tensors. Replaces ``legacy_force_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``legacy_force_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return legacy_force_pass_plain(engine, state, cfg)
+    planes, _ = _legacy_force_inputs(engine, state, cfg, False)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("legacy_force_sweep", engine,
+                   _legacy_force_planes(planes, cfg), band, engine.dim,
+                   _legacy_force_scalars(cfg, engine.dim, False))
+    legacy_force_pass.launches += 1
+    return outs
+
+
+def iso_static_force_pass(engine, state: ParticleState, cfg):
+    """Legacy force with per-particle h (the viscous denominator r² +
+    0.0025(h_p+h_q)², the FLUID-gated Monaghan term with ``cfg.av_alpha``):
+    the per-axis Dv pair sums as ``engine.dim`` flat [slots] tensors.
+    Replaces ``iso_static_force_pass`` of pallas_pairs.py. CUDA tensors
+    launch the kernel (counted in ``iso_static_force_pass.launches``); CPU
+    tensors take the twin."""
+    if not _on_cuda(state.active):
+        return iso_static_force_pass_plain(engine, state, cfg)
+    planes, _ = _legacy_force_inputs(engine, state, cfg, True)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("iso_static_force_sweep", engine,
+                   _legacy_force_planes(planes, cfg), band, engine.dim,
+                   _legacy_force_scalars(cfg, engine.dim, True))
+    iso_static_force_pass.launches += 1
+    return outs
+
+
+def adia_entropy_force_pass(engine, state: ParticleState, cfg):
+    """Fused adiabatic entropy production + legacy force with fixed h0:
+    (dS, Dv0, Dv1) as three flat [slots] tensors, dS with ``cfg.dt`` folded
+    in and gated on FLUID–FLUID pairs. Replaces ``adia_entropy_force_pass``
+    of pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``adia_entropy_force_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return adia_entropy_force_pass_plain(engine, state, cfg)
+    planes, _ = _adia_entropy_force_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("adia_entropy_force_sweep", engine, planes, band,
+                   1 + engine.dim,
+                   _adia_entropy_force_scalars(cfg, engine.dim))
+    adia_entropy_force_pass.launches += 1
+    return outs
+
+
+def adia_density_pass(engine, state: ParticleState, cfg):
+    """Adiabatic density: Σ w_q·W₂(h_p, r) with the self term and the
+    q-side gate in the weight, w = m·[type == FLUID] (m under
+    ``cfg.outflow_buffer``), as a flat [slots] tensor; the p-side gate stays
+    with the caller. Replaces ``adia_density_pass`` of pallas_pairs.py on
+    the density kernel (``density_sweep``). CUDA tensors launch it (counted
+    in ``adia_density_pass.launches``, not in ``density_pass.launches``);
+    CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return adia_density_pass_plain(engine, state, cfg)
+    planes, _ = _density_inputs(engine, state,
+                                _adia_density_weight(state, cfg))
+    band, _ = row_kmax(engine, state)
+    (out,) = _launch("density_sweep", engine, planes, band, 1,
+                     [1, ctypes.c_float(C_W2 if engine.dim == 2 else C_W3)])
+    adia_density_pass.launches += 1
+    return out
+
+
 density_pass.launches = 0
 momentum_pass.launches = 0
 pressure_pass.launches = 0
@@ -875,3 +1274,9 @@ pavelka_momentum_entropy_pass.launches = 0
 gamma_grad_pass.launches = 0
 dambreak_mass_pass.launches = 0
 dambreak_force_pass.launches = 0
+legacy_mass_pass.launches = 0
+legacy_force_pass.launches = 0
+iso_static_mass_pass.launches = 0
+iso_static_force_pass.launches = 0
+adia_entropy_force_pass.launches = 0
+adia_density_pass.launches = 0

@@ -137,16 +137,21 @@ class ParticleSystem:
         return out
 
     # --------------------------------------------------------------- freeze
-    def freeze(self, device="cuda", **engine_opts) -> ParticleState:
+    def freeze(self, device="cuda", capacity: int | None = None,
+               **engine_opts) -> ParticleState:
         """Place the built particles in their bucket slots on ``device`` (the
         card unless the caller asks for the CPU) and return the
         ``ParticleState``; the ``NeighborEngine`` is stored as ``self.engine``.
         Asking for CUDA where there is no CUDA device raises; there is no
         fallback to the CPU.
 
+        capacity : the flat layout's spawn-pool size, taken (like the
+            ``freeze_opts`` entry of that name) and ignored: the bucket
+            layout's capacity is the engine's slot count.
         engine_opts : forwarded to NeighborEngine.create (layout, skin, cells,
-            persistent, cap: the bucket capacity, default measured occupancy
-            plus headroom); defaults come from ``self.freeze_opts``.
+            persistent, rescatter_mode, cap: the bucket capacity, default
+            measured occupancy plus headroom); defaults come from
+            ``self.freeze_opts``.
         """
         from .ops.neighbors import NeighborEngine  # avoid import cycle
 
@@ -158,6 +163,7 @@ class ParticleSystem:
         host = self.host_fields()
         n = len(host["x"])
         opts = {**self.freeze_opts, **engine_opts}
+        opts.pop("capacity", None)
         engine = NeighborEngine.create(
             box=self.domain, h=self.h, dim=self.dim,
             positions=host["x"] if n else None, dtype=self.dtype, **opts)

@@ -286,15 +286,14 @@ def test_checkpoint_and_frame_round_trip_in_3d(built, tmp_path):
                          ids=["cap40", "cap76"])
 def test_stencil_cost_rule_counts_27_offsets(cap, accepted):
     """The reference keeps its stencil compaction while len(stencil)·cap ≤
-    2048: 27·40 = 1080 stays, 27·76 = 2052 would need the sort rescatter,
-    which is not ported."""
+    2048: 27·40 = 1080 stays, 27·76 = 2052 takes the sort rescatter (in 2-D
+    the same rule counts 9 offsets: 9·76 = 684 stays)."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    engine = NeighborEngine.create(box, 0.1, 3, cap=cap)
+    assert engine.cap == cap and engine.rescatter_mode == "stencil"
+    assert engine.effective_rescatter_mode == (
+        "stencil" if accepted else "sort")
     if accepted:
-        engine = NeighborEngine.create(box, 0.1, 3, cap=cap)
-        assert engine.cap == cap and len(engine.stencil) * cap == 1080
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="sort rescatter it needs is not ported"):
-            NeighborEngine.create(box, 0.1, 3, cap=cap)
-    # in 2-D the same rule counts 9 offsets
-    NeighborEngine.create(box, 0.1, 2, cap=cap)
+        assert len(engine.stencil) * cap == 1080
+    in_2d = NeighborEngine.create(box, 0.1, 2, cap=cap)
+    assert in_2d.effective_rescatter_mode == "stencil"

@@ -393,3 +393,96 @@ def test_use_pallas_off_is_refused_on_the_card_by_the_new_paths(card, name):
         with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
             call(state)
     assert [wr.launches for wr in wrappers] == before
+
+
+TERRAIN = dict(n_rows=14, dom_length=40e3, h_m=2000.0, a=6e3,
+               dtype="float32", layout="bucket", skin=0.15, use_pallas=True)
+LEGACY = {  # wrapper: (config factory, twin)
+    "legacy_mass": ("isothermal_flow_config", ps.legacy_mass_pass_plain),
+    "legacy_force": ("isothermal_flow_config", ps.legacy_force_pass_plain),
+    "iso_static_mass": ("isothermal_static_config",
+                        ps.iso_static_mass_pass_plain),
+    "iso_static_force": ("isothermal_static_config",
+                         ps.iso_static_force_pass_plain),
+    "adia_density": ("adiabatic_static_config", ps.adia_density_pass_plain),
+    "adia_entropy_force": ("adiabatic_flow_config",
+                           ps.adia_entropy_force_pass_plain),
+}
+
+
+def _terrain_live(factory, device, **kw):
+    """A terrain variant at n_rows=14 after one step, v ±1 m/s and ρ, h, T
+    ±1 % from a seeded generator: (engine, state, config)."""
+    from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+    cfg = getattr(lw, factory)(**{**TERRAIN, **kw})
+    sys_ = lw.make_system(cfg)
+    st = sys_.freeze(device=device)
+    st = lw.make_step(cfg, sys_.engine)(st)
+    gen = torch.Generator(device=device).manual_seed(0)
+    act = st.active
+
+    def jitter(name, amp):
+        r = torch.rand(st.fields[name].shape, generator=gen, device=device)
+        return torch.where(act, st.fields[name] * (1 + amp * (2 * r - 1)), 0.0)
+
+    dv = torch.rand(st.fields["v"].shape, generator=gen, device=device) * 2 - 1
+    return sys_.engine, st.replace(
+        v=torch.where(act[:, None], st.fields["v"] + dv, 0.0),
+        rho=jitter("rho", 0.01), h=jitter("h", 0.01), T=jitter("T", 0.01)), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("av,fast_math", [(0.0, False), (0.05, False),
+                                          (0.05, True)],
+                         ids=["exact", "av", "av_fast_math"])
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_terrain_kernel_matches_twin(card, name, av, fast_math):
+    """The five terrain kernels and the adiabatic density (the density
+    kernel with the FLUID-gated weight): exact divides within rtol 1e-5 /
+    atol 1e-6 × max of the twin, fast_math within 1e-3 of max; reruns
+    bitwise; each launch counted by its own wrapper."""
+    factory, twin = LEGACY[name]
+    eng, st, cfg = _terrain_live(factory, card, av_alpha=av,
+                                 fast_math=fast_math)
+    wrapper = getattr(ps, f"{name}_pass")
+    before = wrapper.launches
+    got = wrapper(eng, st, cfg)
+    assert wrapper.launches == before + 1
+    got = got if isinstance(got, list) else [got]
+    rerun = wrapper(eng, st, cfg)
+    rerun = rerun if isinstance(rerun, list) else [rerun]
+    ref = twin(eng, st, cfg)
+    ref = ref if isinstance(ref, list) else [ref]
+    assert len(got) == len(ref)
+    _held_to_twin(got, rerun, ref, fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory,extra", [
+    ("isothermal_flow_config", {}), ("isothermal_static_config", {}),
+    ("adiabatic_static_config", {}),
+    ("adiabatic_flow_config", dict(true_rayleigh=True, consistent_entropy=True,
+                                   outflow_buffer=2 * 1.8 * (26e3 / 14),
+                                   av_alpha=0.05))],
+    ids=["iso_flow", "iso_static", "adia_static", "adia_flow_corrected"])
+def test_terrain_kernel_steps_match_cpu_twins(card, factory, extra):
+    """8 steps of each terrain variant, kernels on the card against the
+    twins on the CPU: u_avg/u_max within rel 1e-5, equal active counts; and
+    ``use_pallas=False`` refused on the card."""
+    from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+    out = {}
+    for device in (card, torch.device("cpu")):
+        cfg = getattr(lw, factory)(**{**TERRAIN, **extra})
+        sys_ = lw.make_system(cfg)
+        state = sys_.freeze(device=device)
+        state = frame_runner(lw.make_step(cfg, sys_.engine), 8)(state)
+        out[device.type] = ([float(v) for v in velocity_diagnostics(state)],
+                            int(state.n))
+    assert out["cuda"][1] == out["cpu"][1]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert a == pytest.approx(b, rel=1e-5)
+    cfg = getattr(lw, factory)(**{**TERRAIN, **extra, "use_pallas": False})
+    sys_ = lw.make_system(cfg)
+    state = sys_.freeze(device=card)
+    with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
+        lw.make_step(cfg, sys_.engine)(state)

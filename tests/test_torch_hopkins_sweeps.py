@@ -1,5 +1,5 @@
 """The port's Hopkins sweeps (plain twins on the CPU) against the JAX Pallas
-passes in interpret mode, on one seeded state fed to both sides.
+passes' own pair bodies, on one seeded state fed to both sides.
 
 The state is the full Hopkins scheme at n_rows=10 (flagship flags; it
 carries A and A_bg) with v perturbed by ±1 m/s, h by ±1 % and P by ±1 %, so
@@ -17,16 +17,16 @@ term then moves an output by up to ~6e-6, so the end-to-end check takes
 atol = 1e-6 × the total form's max |Dv| (≈ 34 m/s² on this state), the
 scale of the terms both forms sum.
 
-Each kernel has one interpret-mode pass (pressure; the Hopkins momentum in
-its split form); the total form and fast_math are held against the
-reference's own pair body summed eagerly in the Pallas harness's order
-(tests/torch_reference_harness.py). Each interpret-mode pass is traced once
-per module and compiled at XLA backend optimisation level 0. The unrolled interpret-mode kernel otherwise spends
-more time in XLA's optimiser, whose rewrites also change the reference's
-rounding: at level 0 the reference and the twin agree bitwise when fed the
-same hoisted powers, at the default level they do not.
+Every form (pressure; the Hopkins momentum split and total, exact and
+fast_math) is held against the reference's own pair body summed eagerly in
+the Pallas harness's order (tests/torch_reference_harness.py, which
+tests/test_torch_sweeps.py ties to real interpret-mode ``pallas_call``s of
+the flagship's density and momentum passes). An interpret-mode pass of its
+own per kernel cost 7 s (pressure) and 26 s (Hopkins momentum) of tracing
+and compiling here; the eager body is the same code with the same mask and
+order of summation, and agrees bitwise with the twin when fed the same
+hoisted powers.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,47 +79,26 @@ def states():
     return je, jstate, te, state_from_numpy(fields, active, "cpu")
 
 
-def _reference(pass_fn, jstate):
-    """``pass_fn(state)`` traced once, compiled at backend level 0, run."""
-    compiled = jax.jit(pass_fn).lower(jstate).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
-    return jax.tree_util.tree_map(np.asarray, compiled(jstate))
-
-
 def _check(got, ref, active, atol=ATOL):
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=atol)
     assert np.all(got.numpy()[~active] == 0.0)
 
 
-def test_pressure_twin_matches_pallas(states):
+def test_pressure_twin_matches_pallas(states, monkeypatch):
     je, jstate, te, tstate = states
-    cfg = JCfg(**BENCH)
-    ref = _reference(lambda s: pp.pressure_pass(je, s, cfg, interpret=True),
-                     jstate)
+    (ref,), captured = reference_body_sweep(pp.pressure_pass, je, jstate,
+                                            JCfg(**BENCH), monkeypatch)
+    assert captured["self_pair"] is True  # self_density
     got = tps.pressure_pass(te, tstate, TCfg(**BENCH))
-    _check(got, ref, tstate.active.numpy())
+    _check(got, np.asarray(ref), tstate.active.numpy())
 
 
-def _check_hopkins(states, jcfg, tcfg, split, ref, powers=None):
-    """The sweep on the reference's hoisted powers at the gate, then the
-    wrapper end to end with atol scaled to the terms (module docstring).
-    ``powers``: the reference's hoisted power planes where the caller has
-    them; otherwise its hoisting is compiled here like the pass."""
+def _check_hopkins(states, jcfg, tcfg, split, ref, powers):
+    """The sweep on the reference's hoisted power planes ``powers`` at the
+    gate, then the wrapper end to end with atol scaled to the terms (module
+    docstring)."""
     _, jstate, te, tstate = states
     active = tstate.active.numpy()
-    g = jcfg.gamma
-    expfac = 1.0 - 2.0 / g
-
-    def hoisting(state):  # the reference pass's hoisting, compiled alike
-        f = state.fields
-        out = [f["A"] ** (1.0 / g), jnp.maximum(f["P"], jcfg.P_floor) ** expfac]
-        if split:
-            out += [f["A_bg"] ** (1.0 / g),
-                    jnp.maximum(f["P_bg"], jcfg.P_floor) ** expfac]
-        return out
-
-    if powers is None:
-        powers = _reference(hoisting, jstate)
     planes, pad_vals = tps._hopkins_inputs(te, tstate, tcfg, split)
     assert len(powers) == len(planes) - 9
     planes[9:] = [te.resident(torch.from_numpy(np.array(a).reshape(-1))).contiguous()
@@ -150,18 +129,11 @@ def _eager_reference(states, cfg, split, monkeypatch):
 
 @pytest.mark.parametrize("split", [False, True], ids=["total", "split"])
 def test_hopkins_momentum_twin_matches_pallas(states, split, monkeypatch):
-    """The split form against the interpret-mode Pallas pass (the kernel's
-    one compiled trace); the total form, which is the same kernel with two
-    planes fewer, against the reference's pair body evaluated eagerly."""
-    je, jstate, _, _ = states
+    """The split and the total form (the same kernel with two planes fewer)
+    against the reference's pair body evaluated eagerly."""
     cfg = JCfg(**BENCH)
-    if split:
-        ref = _reference(lambda s: pp.hopkins_momentum_pass(
-            je, s, cfg, background_split=True, interpret=True), jstate)
-        _check_hopkins(states, cfg, TCfg(**BENCH), True, ref)
-    else:
-        ref, powers = _eager_reference(states, cfg, False, monkeypatch)
-        _check_hopkins(states, cfg, TCfg(**BENCH), False, ref, powers)
+    ref, powers = _eager_reference(states, cfg, split, monkeypatch)
+    _check_hopkins(states, cfg, TCfg(**BENCH), split, ref, powers)
 
 
 def test_hopkins_momentum_fast_math_twin_matches_pallas(states, monkeypatch):

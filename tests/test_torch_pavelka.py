@@ -5,23 +5,25 @@ What is compared, and at which tolerance:
 
 * the frozen state, slot for slot and bit for bit (S included: it is built
   with NumPy on both sides);
-* the two sweeps' plain twins against ONE interpret-mode Pallas pass each
-  (continuity with ``fixed_diffusion=True``, the fused momentum + entropy
-  sweep with exact divides), on one seeded state with v, h, ρ, P and T
-  perturbed so that every term is live. Gate: the reference's pass gate
+* the two sweeps' plain twins (continuity with ``fixed_diffusion=True``,
+  the fused momentum + entropy sweep with exact divides) against the
+  reference passes' own pair bodies summed eagerly in the Pallas harness's
+  order (tests/torch_reference_harness.py, which tests/test_torch_sweeps.py
+  ties to real interpret-mode ``pallas_call``s; an interpret-mode pass of
+  each Pavelka kernel cost 10 s and 20 s of tracing and compiling here), on
+  one seeded state with v, h, ρ, P and T perturbed so that every term is
+  live. Gate: the reference's pass gate
   rtol 1e-5 (tests/test_pallas.py), with atol = 1e-6 × the output's largest
   |value|. The continuity sum and the momentum sum cancel (Σ ker·x·v and
   the pressure gradient against its neighbours), so an absolute error is
   measured against the size of the sum, not of each slot; PyTorch's CPU
   ``sqrt`` is also not the correctly rounded one on every input (about
   0.7 % of f32 values are one ulp off), which can move single terms by a
-  few ulp. Measured on this state: Drho, Dv_x and dS bitwise equal to the
-  reference, Dv_y within 3.3e-8 of its largest |value|;
-* the variants that would need a second interpret-mode compile
-  (``fixed_diffusion=False``, ``fast_math``) against the reference's own
-  pair *body*, captured from the reference pass and evaluated eagerly by the
-  harness the port's test files share (tests/torch_reference_harness.py: same
-  mask, same summation order), at the same gate. ``fixed_diffusion=False`` is held at this one pass only: the scheme
+  few ulp. Measured on this state: Drho, Dv and dS bitwise equal to the
+  reference body;
+* the variants (``fixed_diffusion=False``, ``fast_math``) against the same
+  eager evaluation of the reference's pair *body*, at the same gate.
+  ``fixed_diffusion=False`` is held at this one pass only: the scheme
   diverges with it by design. With ``fast_math`` the reference body runs
   with the exact reciprocal its ``_div_fn`` documents (the installed JAX
   evaluates ``pl.reciprocal(approx=True)`` in bfloat16 in interpret mode,
@@ -145,11 +147,12 @@ def test_frozen_state_matches_jax(built):
     assert np.abs(tf["S"]).max() > 0.0
 
 
-def test_mass_twin_matches_pallas(live):
+def test_mass_twin_matches_pallas(live, monkeypatch):
     je, jlive, te, tlive = live
     jcfg = jpv.PavelkaConfig(**BENCH)
-    ref = _compiled(lambda s: pp.pavelka_mass_pass(je, s, jcfg, interpret=True),
-                    jlive)(jlive)
+    (ref,), captured = reference_body_sweep(pp.pavelka_mass_pass, je, jlive,
+                                            jcfg, monkeypatch)
+    assert captured["self_pair"] is False
     before = tps.pavelka_mass_pass.launches
     got = tps.pavelka_mass_pass(te, tlive, tpv.PavelkaConfig(**BENCH))
     assert tps.pavelka_mass_pass.launches == before  # CPU tensors: the twin
@@ -157,11 +160,12 @@ def test_mass_twin_matches_pallas(live):
     assert np.abs(np.asarray(ref)).max() > 1e-3
 
 
-def test_momentum_entropy_twin_matches_pallas(live):
+def test_momentum_entropy_twin_matches_pallas(live, monkeypatch):
     je, jlive, te, tlive = live
     jcfg = jpv.PavelkaConfig(**BENCH)
-    refs = _compiled(lambda s: pp.pavelka_momentum_entropy_pass(
-        je, s, jcfg, interpret=True), jlive)(jlive)
+    refs, captured = reference_body_sweep(pp.pavelka_momentum_entropy_pass,
+                                          je, jlive, jcfg, monkeypatch)
+    assert captured["self_pair"] is False
     before = tps.pavelka_momentum_entropy_pass.launches
     gots = tps.pavelka_momentum_entropy_pass(te, tlive,
                                              tpv.PavelkaConfig(**BENCH))

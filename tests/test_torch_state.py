@@ -67,6 +67,7 @@ def test_package_does_not_import_jax():
             "import sph_mountain_waves_tpu_torch.models.witch3d\n"
             "import sph_mountain_waves_tpu_torch.models.collapse_dry\n"
             "import sph_mountain_waves_tpu_torch.models.collapse3d\n"
+            "import sph_mountain_waves_tpu_torch.models.legacy_witch\n"
             "import sph_mountain_waves_tpu_torch.ops.pair_sweeps\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sph_mountain_waves_tpu'))\n"
