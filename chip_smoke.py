@@ -3,7 +3,9 @@
 three pressure–entropy (Hopkins) schemes, the entropy-based (Pavelka) scheme,
 the file output of ``run``, the 3-D mountain wave (``witch3d``), the two
 dam breaks (``collapse_dry``, ``collapse3d``) and the terrain family
-(``legacy_witch``: isothermal and adiabatic, flow and static).
+(``legacy_witch``: isothermal and adiabatic, flow and static), the ISPH
+mountain wave (``isph_witch``: matrix-free CG with the two-level multigrid
+preconditioner) and Rayleigh–Bénard convection (``rayleigh_benard``).
 
 Drives ``sph_mountain_waves_tpu_torch`` (never JAX) on one CUDA card at the
 bench configuration (2-D mountain wave, n_rows=246: N=978,463 particles,
@@ -17,7 +19,10 @@ reference's sizes (``collapse_dry`` dr=0.014, ``collapse3d`` dr=5e-3, cap 40)
 and the terrain baseline (``legacy_witch.terrain_baseline_config``: N=212,819,
 grid 256 x 72, cap 24, square lattice, inflow recycling with slot-targeted
 spawns under the stencil rescatter) with the other three terrain variants at
-their configs' default sizes.
+their configs' default sizes; then the ISPH baseline
+(``isph_witch.baseline_config()``: N=207,672, grid 896 x 72, cap 8, kicked)
+and the Rayleigh–Bénard baseline (``rayleigh_benard.baseline_config()``:
+N=53,621, grid 256 x 80, cap 16).
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -83,8 +88,27 @@ Phases, each printing one or more lines:
  29. ``legacy_witch.run(cfg, out_path=..., device="cuda")`` of a small flow
      config through a spawn event, a checkpoint every frame: the file set,
      the data.csv columns, and a resumed run bit for bit;
- 30. every kernel timed on prepared inputs (CUDA events, kernel over 50 runs,
-     twin over 5) beside its bound; the adiabatic density too.
+ 31. the ISPH baseline, kicked: build, shapes, the V-cycle's levels, the
+     coarse stencil's and one V-cycle's time; the three ISPH kernels
+     (divergence/viscous, CG matvec on the first solve's P, pressure
+     gradient) against their twins at full width, max abs err 0, reruns
+     bitwise; 2 small kicked steps card against CPU twins; the main path:
+     a warm-up frame of 5 steps and 20 timed steps with every launch
+     counted, cg_it per step (matvec launches = sum of (cg_it + 1)), the
+     last solve's cg_res, and over 2 more steps the kernel launches per CG
+     iteration (torch.profiler) and the host syncs per step (sync debug
+     mode);
+ 32. the Rayleigh–Bénard baseline: its fused continuity + conduction
+     kernel against the twin with conducting and adiabatic sidewalls, max
+     abs err 0, reruns bitwise; 6 small steps card against CPU twins; the
+     main path: a warm-up frame and 2 timed frames of 500 steps, KE and Nu;
+ 33. ``run(cfg, out_path=..., device="cuda")`` of both baselines at full
+     width, a checkpoint every frame: the file set, the data.csv columns and
+     a resumed run bit for bit;
+ 30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
+     over 50 runs, twin over 5) beside its bound; the adiabatic density
+     too; the ISPH matvec in its prepared form (one launch, no allocation),
+     beside one CSR sparse product of the same operator (``library_ms``).
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
 
@@ -93,9 +117,9 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
-             10 Pavelka steps (from the packed state), 10 witch3d steps and
-             10 terrain steps (after its timed frames), with the device time
-             per step
+             10 Pavelka steps (from the packed state), 10 witch3d steps,
+             10 terrain steps (after its timed frames), 10 ISPH steps and 10
+             Rayleigh–Bénard steps, with the device time per step
 """
 from __future__ import annotations
 
@@ -123,7 +147,9 @@ KERNELS = ("density_sweep", "momentum_sweep", "pressure_sweep",
            "dambreak_force_sweep", "dambreak_mass_sweep_3d",
            "dambreak_force_sweep_3d", "legacy_mass_sweep",
            "legacy_force_sweep", "iso_static_mass_sweep",
-           "iso_static_force_sweep", "adia_entropy_force_sweep")
+           "iso_static_force_sweep", "adia_entropy_force_sweep",
+           "isph_div_visc_sweep", "isph_matvec_sweep", "isph_grad_sweep",
+           "rb_mass_heat_sweep")
 # the launch counters, one per wrapper (<kernel>_sweep -> <kernel>_pass): a
 # "_3d" kernel shares its wrapper with the 2-D form, and the adiabatic
 # density launches density_sweep through a wrapper (and counter) of its own
@@ -133,7 +159,8 @@ SOURCE = "sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu"
 REPLACES = {k: f"sph_mountain_waves_tpu/ops/pallas_pairs.py:{line}"
             for k, line in zip(KERNELS, (715, 751, 722, 806, 1323, 1373, 0,
                                          715, 751, 884, 913, 884, 913, 946,
-                                         973, 1023, 1055, 1126))}
+                                         973, 1023, 1055, 1126, 1197, 1221,
+                                         1255, 1276))}
 # not a Pallas kernel in the reference: the packing's XLA pair sum
 REPLACES["gamma_grad_sweep"] = "sph_mountain_waves_tpu/utils/packing.py:160"
 W3D_EXPECT = {"n": 3_247_157, "lims": (384, 56, 32), "cap": 8}
@@ -159,7 +186,9 @@ BODY_OPS = {"density_sweep": 14, "momentum_sweep": 42,
             "dambreak_mass_sweep_3d": 20, "dambreak_force_sweep_3d": 27,
             "legacy_mass_sweep": 15, "legacy_force_sweep": 27,
             "iso_static_mass_sweep": 18, "iso_static_force_sweep": 34,
-            "adia_entropy_force_sweep": 35}
+            "adia_entropy_force_sweep": 35, "isph_div_visc_sweep": 24,
+            "isph_matvec_sweep": 12, "isph_grad_sweep": 16,
+            "rb_mass_heat_sweep": 19}
 HOPKINS_SPLIT_OPS = 7
 # the FLUID-gated Monaghan term of the legacy force bodies (av_alpha > 0),
 # 13 operations more; the terrain main path runs without it
@@ -175,11 +204,19 @@ PLANES = {"density_sweep": (5, 1), "momentum_sweep": (10, 2),
           "dambreak_mass_sweep_3d": (8, 1), "dambreak_force_sweep_3d": (9, 3),
           "legacy_mass_sweep": (6, 1), "legacy_force_sweep": (8, 2),
           "iso_static_mass_sweep": (7, 1), "iso_static_force_sweep": (9, 2),
-          "adia_entropy_force_sweep": (10, 3)}
+          "adia_entropy_force_sweep": (10, 3),
+          "isph_div_visc_sweep": (5, 5), "isph_matvec_sweep": (4, 1),
+          "isph_grad_sweep": (4, 2), "rb_mass_heat_sweep": (7, 2)}
 # the terrain baseline (legacy_witch.terrain_baseline_config), built as run()
 # builds it: capacity 1.3 N, stencil rescatter, slot-targeted spawns
 TERRAIN_EXPECT = {"n": 212_819, "lims": (256, 72), "cap": 24}
 TERRAIN_STEPS_PER_FRAME = 300
+# the ISPH baseline (isph_witch.baseline_config(), the bench_all isph_witch
+# cell) and the Rayleigh–Bénard baseline (the rayleigh_benard cell)
+ISPH_EXPECT = {"n": 207_672, "lims": (896, 72), "cap": 8}
+ISPH_WARM_STEPS, ISPH_TIMED_STEPS = 5, 20
+RB_EXPECT = {"n": 53_621, "lims": (256, 80), "cap": 16}
+RB_STEPS_PER_FRAME = 500
 
 
 def say(phase, msg):
@@ -417,6 +454,420 @@ def kernel_vs_twin(label, kern, rerun, twin, fast, scaled=False):
     if fast and not err <= 1e-3 * scale:
         raise AssertionError(f"{label}: fast_math error {err} vs scale {scale}")
     return err, scale
+
+
+def exact(label, kern, rerun, twin):
+    """``kernel_vs_twin`` with exact divides, and max abs err 0 besides: the
+    ISPH and Rayleigh–Bénard kernels equal their twins bit for bit."""
+    err, scale = kernel_vs_twin(label, kern, rerun, twin, fast=False,
+                                scaled=True)
+    if err != 0.0:
+        raise AssertionError(f"{label}: max abs err {err} against the twin, "
+                             "expected 0")
+    return err, scale
+
+
+def figures_written() -> bool:
+    """The runs write their figures only where matplotlib imports (a
+    missing matplotlib is a warning, not a failure)."""
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def check_run_files(label, files, data_files, figures):
+    """The file set of a run: its data files, and its figures where
+    matplotlib is installed."""
+    want = sorted(data_files + (figures if figures_written() else []))
+    if files != want:
+        raise AssertionError(f"{label} run(out_path) wrote {files}, "
+                             f"expected {want}")
+
+
+def same_outputs(dir_a, dir_b, files):
+    """True when every frame, result.pvd and data.csv are equal byte for
+    byte (the checkpoint and the figures are compared apart or not at all:
+    a figure carries its creation date)."""
+    return all(open(os.path.join(dir_a, f), "rb").read()
+               == open(os.path.join(dir_b, f), "rb").read()
+               for f in files if not f.endswith((".npz", ".pdf")))
+
+
+def kick(state, dev):
+    """v = 0.1·N(0, 1) on FLUID rows from NumPy's default_rng(3), as the
+    reference's ISPH gate kicks its state: every step then solves a real
+    pressure system."""
+    import numpy as np
+    import torch
+    f = state.fields
+    rng = np.random.default_rng(3)
+    v = torch.as_tensor(0.1 * rng.standard_normal(tuple(f["v"].shape)),
+                        dtype=f["v"].dtype, device=dev)
+    return state.replace(v=torch.where((f["type"] == 0.0)[:, None], v,
+                                       f["v"]))
+
+
+def isph_phase(dev, card, counters, errs, profile):
+    """Phase 31: the ISPH baseline. Returns (config, engine, final state,
+    launch counts of the main path, cg_it per step)."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    from sph_mountain_waves_tpu_torch.kernels import rDspline23
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.models.witch_common import (
+        velocity_diagnostics,
+    )
+    from sph_mountain_waves_tpu_torch.ops import mg
+    from sph_mountain_waves_tpu_torch.ops import pair_sweeps as ps
+
+    cfg = iw.baseline_config()
+    t0 = time.perf_counter()
+    system = iw.make_system(cfg)
+    state0 = kick(system.freeze(device=dev), dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    e = system.engine
+    n = system.n_built
+    got = {"n": n, "lims": e.lims, "cap": e.cap}
+    if got != ISPH_EXPECT or int(state0.n) != n:
+        raise AssertionError(f"isph: shapes {got}, active {int(state0.n)}; "
+                             f"expected {ISPH_EXPECT}")
+    step = iw.make_step(cfg, e)
+
+    # one step in: the live state, whose P is the first solve's solution
+    st = step(state0)
+    f = st.fields
+    h, vol = cfg.h0, cfg.dr ** 2
+    diag = torch.where(st.active, h**2 * f["L"] + torch.where(
+        f["type"] == 0.0, cfg.C_free * torch.clamp(f["lam"], min=0.0), 0.0),
+        0.0)
+
+    def offdiag_w(r):
+        return 2.0 * h**2 * vol * rDspline23(h, r)
+
+    W = mg.coarse_stencil_2d(e, st, offdiag_w, diag)
+    stencil_ms = cuda_ms(lambda: mg.coarse_stencil_2d(e, st, offdiag_w, diag),
+                         3)
+    vc = mg.GridVcycle(W)
+    rc = torch.ones(e.grid_shape, dtype=torch.float32, device=dev)
+    vcycle_ms = cuda_ms(lambda: vc.apply(rc), 10)
+    levels = " -> ".join(f"{a}x{b}" for a, b, _ in (t.shape for t in vc.Wts))
+    say(31, f"ISPH baseline built in {build_s:.2f} s (host): N={n} "
+            f"lims={e.lims} cap={e.cap} slots={e.slots} h0={cfg.h0:.2f} m "
+            f"dt={cfg.dt_isph:.4f} s; V-cycle {vc.n_levels} levels ({levels}); "
+            f"coarse stencil {stencil_ms:.3f} ms, one V-cycle {vcycle_ms:.3f} "
+            f"ms ({card})")
+
+    errs["isph_div_visc_sweep"] = exact(
+        "isph div/visc", ps.isph_div_visc_pass(e, st, cfg),
+        ps.isph_div_visc_pass(e, st, cfg),
+        ps.isph_div_visc_pass_plain(e, st, cfg))
+    errs["isph_grad_sweep"] = exact(
+        "isph grad", ps.isph_grad_pass(e, st, cfg), ps.isph_grad_pass(e, st, cfg),
+        ps.isph_grad_pass_plain(e, st, cfg))
+    mv = ps.isph_matvec_prepared(e, st, cfg)
+    errs["isph_matvec_sweep"] = exact(
+        "isph matvec", [mv(f["P"]).clone()], [mv(f["P"]).clone()],
+        [ps.isph_matvec_pass_plain(e, st, cfg, f["P"])])
+    for k, label in (("isph_div_visc_sweep", "div/visc (5 sums)"),
+                     ("isph_grad_sweep", "pressure gradient"),
+                     ("isph_matvec_sweep", "CG matvec on the first solve's P")):
+        say(31, f"ISPH {label} kernel vs twin at full width: max abs err "
+                f"{errs[k][0]:.1e} (max |out| {errs[k][1]:.4e}), rerun bitwise "
+                f"equal")
+    del st, W, mv
+
+    # 2 small kicked steps: kernels on the card against the CPU twins (the
+    # f32 CG's iterates depend on the reductions' order: the reference's
+    # Pallas-vs-XLA gate, rtol 2e-3)
+    small = dataclasses.replace(cfg, n_rows=10, lattice_cells=False, skin=0.2)
+    out = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sysm = iw.make_system(small)
+        s = kick(sysm.freeze(device=where), where)
+        s = frame_runner(iw.make_step(small, sysm.engine), 2)(s)
+        out[label] = ([float(v) for v in velocity_diagnostics(s)], int(s.n),
+                      int(s.fields["cg_it"][0]))
+    (gk, nk, ik), (gc, nc, ic) = out["card"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gk, gc))
+    if nk != nc or rel > 2e-3:
+        raise AssertionError(f"isph small steps disagree: card {out['card']}, "
+                             f"cpu {out['cpu']}")
+    say(31, f"n_rows=10 kicked, 2 steps: card u_avg/u_max {gk} (cg_it {ik}) vs "
+            f"cpu twins {gc} (cg_it {ic}), rel {rel:.2e}, active {nk} == {nc}")
+
+    # the main path, every launch counted from 0
+    mvc = ps.isph_matvec_pass
+    counters.reset()
+    its = []
+    st = state0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ISPH_WARM_STEPS):
+        before = mvc.launches
+        st = step(st)
+        its.append(int(st.fields["cg_it"][0]))
+        if mvc.launches - before != its[-1] + 1:
+            raise AssertionError(f"isph: {mvc.launches - before} matvec "
+                                 f"launches for cg_it {its[-1]}")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(ISPH_TIMED_STEPS):
+        before = mvc.launches
+        st = step(st)
+        its.append(mvc.launches - before - 1)
+    u_avg, u_max = (float(v) for v in velocity_diagnostics(st))
+    timed_s = time.perf_counter() - t0
+    counts = counters.read()
+    steps = ISPH_WARM_STEPS + ISPH_TIMED_STEPS
+    want = {k: 0 for k in COUNTED}
+    want.update(isph_div_visc_sweep=steps, isph_grad_sweep=steps,
+                isph_matvec_sweep=sum(i + 1 for i in its))
+    if counts != want:
+        raise AssertionError(f"isph main path: launch counts {counts}, "
+                             f"expected {want}")
+    cg_res = float(st.fields["cg_res"][0])
+    if (int(st.fields["cg_it"][0]) != its[-1] or not all_finite(st)
+            or int(st.n) != n or not u_max < cfg.v_char):
+        raise AssertionError(f"isph main path: cg_it {its}, finite "
+                             f"{all_finite(st)}, active {int(st.n)}/{n}, "
+                             f"u_max {u_max}")
+    ms = 1e3 * timed_s / ISPH_TIMED_STEPS
+    say(31, f"ISPH main path: warm-up {ISPH_WARM_STEPS} steps {warm_s:.2f} s; "
+            f"{ISPH_TIMED_STEPS} steps in {timed_s:.3f} s = {ms:.3f} ms/step "
+            f"= {n * ISPH_TIMED_STEPS / timed_s:.4e} particle-steps/s at N={n} "
+            f"({card}); cg_it per step {its} ({sum(its[ISPH_WARM_STEPS:]) / ISPH_TIMED_STEPS:.1f} "
+            f"a timed step); matvec launches {counts['isph_matvec_sweep']} = "
+            f"sum(cg_it + 1); last cg_res {cg_res:.3e}; u_avg {u_avg:.4e} "
+            f"u_max {u_max:.4e} m/s; active {int(st.n)}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+
+    # kernel launches per CG iteration (profiler) and host syncs per step
+    # (sync debug mode), each over 2 steps from the main path's state
+    before = mvc.launches
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s2 = step(step(st))
+        torch.cuda.synchronize()
+    prof_its = mvc.launches - before - 2
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA
+                  and not ev.key.startswith(("Memcpy", "Memset")))
+    before = mvc.launches
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            s2 = step(step(st))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync_its = mvc.launches - before - 2
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    del s2
+    say(31, f"ISPH launches: {kernels} device kernels in 2 steps with "
+            f"{prof_its} CG iterations = {kernels / max(prof_its, 1):.1f} per "
+            f"CG iteration; host syncs {syncs} in 2 steps with {sync_its} CG "
+            f"iterations = {syncs / 2:.1f} per step")
+    if profile:
+        profile_steps(31, "isph", step, st)
+    return cfg, e, st, counts, its
+
+
+def rb_phase(dev, card, counters, errs, profile):
+    """Phase 32: the Rayleigh–Bénard baseline. Returns (config, engine,
+    final state, launch counts of the main path)."""
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.ops import pair_sweeps as ps
+
+    def live(rcfg):
+        """(system, frozen state, one step in with v ± 0.01 seeded)."""
+        t0 = time.perf_counter()
+        system = rb.make_system(rcfg)
+        state0 = system.freeze(device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        st = rb.make_step(rcfg, system.engine)(state0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dv = (torch.rand(st.fields["v"].shape, generator=gen, device=dev)
+              - 0.5) * 0.02
+        st = st.replace(v=torch.where(st.active[:, None], st.fields["v"] + dv,
+                                      0.0))
+        return system, state0, st, build_s
+
+    cfg = rb.baseline_config()
+    system, state0, _, build_s = None, None, None, 0.0
+    for sidewalls in ("conducting", "adiabatic"):
+        rcfg = dataclasses.replace(cfg, sidewalls=sidewalls)
+        rsys, rstate0, st, b_s = live(rcfg)
+        e = rsys.engine
+        if sidewalls == "conducting":
+            system, state0, build_s = rsys, rstate0, b_s
+            got = {"n": rsys.n_built, "lims": e.lims, "cap": e.cap}
+            if got != RB_EXPECT or int(rstate0.n) != rsys.n_built:
+                raise AssertionError(f"rayleigh_benard: shapes {got}, active "
+                                     f"{int(rstate0.n)}; expected {RB_EXPECT}")
+        key = "rb_mass_heat_sweep" + ("" if sidewalls == "conducting"
+                                      else " adiabatic")
+        errs[key] = exact(f"rb {sidewalls}", ps.rb_mass_heat_pass(e, st, rcfg),
+                          ps.rb_mass_heat_pass(e, st, rcfg),
+                          ps.rb_mass_heat_pass_plain(e, st, rcfg))
+        n_adia = int((st.fields["type"] == rb.WALL_ADIA).sum())
+        say(32, f"Rayleigh–Bénard baseline ({sidewalls} sidewalls, "
+                f"{n_adia} zero-flux wall rows) built in {b_s:.2f} s: "
+                f"N={rsys.n_built} lims={e.lims} cap={e.cap} slots={e.slots} "
+                f"dt={rcfg.dt:.4e}; continuity + conduction kernel vs twin: "
+                f"max abs err {errs[key][0]:.1e} (max |out| {errs[key][1]:.4e}),"
+                f" rerun bitwise equal")
+        del st
+    e = system.engine
+    n = system.n_built
+
+    # 6 small steps, card against CPU twins
+    small = dataclasses.replace(cfg, n_rows=16, skin=0.2)
+    out = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sysm = rb.make_system(small)
+        s = sysm.freeze(device=where)
+        s = frame_runner(rb.make_step(small, sysm.engine), 6)(s)
+        speed = s.fields["v"][s.active].abs()
+        out[label] = ([float(speed.mean()), float(speed.max())], int(s.n))
+    (gk, nk), (gc, nc) = out["card"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gk, gc))
+    if nk != nc or rel > 1e-5:
+        raise AssertionError(f"rb small steps disagree: card {out['card']}, "
+                             f"cpu {out['cpu']}")
+    say(32, f"n_rows=16, 6 steps: card mean/max |v| {gk} vs cpu twins {gc} "
+            f"(rel {rel:.2e}), active {nk} == {nc}")
+
+    step = rb.make_step(cfg, e)
+    frame = frame_runner(step, RB_STEPS_PER_FRAME)
+    steps = 3 * RB_STEPS_PER_FRAME
+    st, ms, counts, _, u_max = drive(
+        32, "rayleigh_benard main path", counters, frame, state0, 2,
+        {"rb_mass_heat_sweep": steps, "dambreak_force_sweep": steps}, card, n,
+        steps_per_frame=RB_STEPS_PER_FRAME)
+    ke, nu = (float(v) for v in rb.diagnostics(cfg, st))
+    if int(st.n) != n or not u_max < cfg.c:
+        raise AssertionError(f"rayleigh_benard: active {int(st.n)}/{n}, u_max "
+                             f"{u_max}")
+    say(32, f"rayleigh_benard after {steps} steps (t = {steps * cfg.dt:.4f}): "
+            f"KE {ke:.6e} J, Nu {nu:.6f}; rescatters in the {steps} steps: "
+            f"{rescatters(frame, state0, 3)} ({card})")
+    if profile:
+        profile_steps(32, "rayleigh_benard", step, st)
+    return cfg, e, st, counts
+
+
+def full_runs_phase(dev):
+    """Phase 33: ``run(cfg, out_path=...)`` of the ISPH and Rayleigh–Bénard
+    baselines at full width, a checkpoint every frame, and a run stopped
+    after its first frame and resumed, against the uninterrupted one."""
+    import torch
+
+    from sph_mountain_waves_tpu_torch import io as port_io
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+
+    icfg = iw.baseline_config(n_frames=2, checkpoint_every=1)
+    rcfg = rb.baseline_config(n_frames=2, checkpoint_every=1)
+    for label, module, cfg, dt, data, figures, columns in (
+            ("isph_witch", iw, icfg, icfg.dt_isph,
+             ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+              "frame2.vtp", "result.pvd"], ["velocities.pdf"],
+             ["t", "u_avg", "u_max", "cg_it", "cg_res"]),
+            ("rayleigh_benard", rb, rcfg, rcfg.dt,
+             ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+              "result.pvd"], ["kinetic_energy.pdf", "nusselt.pdf"],
+             ["t", "KE", "Nu"])):
+        cfg = dataclasses.replace(cfg, t_end=4 * dt)
+        with tempfile.TemporaryDirectory() as tmp:
+            whole_dir = os.path.join(tmp, "whole")
+            part_dir = os.path.join(tmp, "part")
+            t0 = time.perf_counter()
+            whole = module.run(cfg, out_path=whole_dir, device=dev)
+            run_s = time.perf_counter() - t0
+            files = sorted(os.listdir(whole_dir))
+            check_run_files(label, files, data, figures)
+            csv = port_io.read_csv(os.path.join(whole_dir, "data.csv"))
+            final = whole["state"]
+            n = whole["system"].n_built
+            if (list(csv) != columns or len(csv["t"]) != 2
+                    or not all_finite(final) or int(final.n) != n):
+                raise AssertionError(f"{label} run: columns {list(csv)}, "
+                                     f"finite {all_finite(final)}, active "
+                                     f"{int(final.n)}/{n}")
+            module.run(dataclasses.replace(cfg, t_end=2 * dt, n_frames=1),
+                       out_path=part_dir, device=dev)
+            resumed = module.run(dataclasses.replace(
+                cfg, resume=os.path.join(part_dir, "checkpoint.npz")),
+                out_path=part_dir, device=dev)
+            differing = [k for k, v in final.fields.items()
+                         if not torch.equal(resumed["state"].fields[k], v)]
+            same = same_outputs(part_dir, whole_dir, files)
+            if (differing or not same
+                    or not torch.equal(resumed["state"].active, final.active)):
+                raise AssertionError(f"{label} resumed run differs: fields "
+                                     f"{differing}, files equal {same}")
+            tail = {k: float(v[-1]) for k, v in csv.items() if k != "t"}
+            say(33, f"{label} run(out_path) on the card at N={n}, 4 steps in "
+                    f"{run_s:.2f} s (build included): wrote {files}; last row "
+                    f"{tail}; resumed run equals the uninterrupted one bit for "
+                    f"bit (state, frames and data.csv)")
+
+
+def matvec_library(e, s, cfg):
+    """The ISPH matvec's operator, A_pq = rD(h0, r_pq) over the pairs within
+    the cutoff with q ≠ p, assembled once as a CSR matrix (the twin's pair
+    walk; not timed), then ``A @ P`` held against the kernel at rtol 1e-5
+    and timed: the one PyTorch call that computes the kernel's function.
+    Returns (ms, max abs err, nonzeros)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sph_mountain_waves_tpu_torch.ops import pair_sweeps as ps
+
+    cap, C, grid = e.cap, e.num_cells, e.grid_shape
+    dev = s.active.device
+    hinv, kw = ps._isph_consts(cfg)
+    occ = e.grid_view(s.active)
+    x0, x1 = (e.grid_view(s.fields["x"][:, a].contiguous()) for a in range(2))
+    sid = torch.arange(e.slots, device=dev).reshape(cap, C + 1)[:, :C]
+    sid = sid.reshape((cap,) + grid)
+    O, X0, X1 = (F.pad(a, (1, 1, 1, 1)) for a in (occ.float(), x0, x1))
+    S = F.pad(sid, (1, 1, 1, 1), value=-1)
+    hh = torch.tensor(e.h * e.h, dtype=torch.float32, device=dev)
+    ranks = torch.arange(cap, device=dev).reshape(cap, 1, 1)
+    rows, cols, vals = [], [], []
+    for kq in range(cap):
+        for off in e.stencil:
+            win = (kq,) + tuple(slice(1 + o, 1 + o + n)
+                                for o, n in zip(reversed(off), grid))
+            d0, d1 = x0 - X0[win], x1 - X1[win]
+            r2 = d0 * d0 + d1 * d1
+            m = occ & (O[win] > 0.5) & (r2 <= hh)
+            if not any(off):
+                m = m & (ranks != kq)
+            rows.append(sid[m])
+            cols.append(S[win].expand_as(sid)[m])
+            vals.append(ps._rd_spline23(hinv, kw, torch.sqrt(r2))[m])
+    A = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (e.slots, e.slots)).coalesce().to_sparse_csr()
+    P = s.fields["P"].contiguous()
+    kern = ps.isph_matvec_pass(e, s, cfg, P)
+    lib = A @ P
+    scale = kern.abs().max().item()
+    torch.testing.assert_close(lib, kern, rtol=1e-5, atol=1e-6 * scale,
+                               msg="CSR matvec against the kernel")
+    return cuda_ms(lambda: A @ P, 50), (lib - kern).abs().max().item(), \
+        A.values().numel()
 
 
 def main(profile: bool) -> None:
@@ -729,9 +1180,10 @@ def main(profile: bool) -> None:
         whole_dir, part_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "part")
         whole = w.run(small, out_path=whole_dir, device=dev)
         files = sorted(os.listdir(whole_dir))
-        if files != ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
-                     "frame2.vtp", "result.pvd"]:
-            raise AssertionError(f"run(out_path) wrote {files}")
+        check_run_files("flagship", files,
+                        ["checkpoint.npz", "data.csv", "frame0.vtp",
+                         "frame1.vtp", "frame2.vtp", "result.pvd"],
+                        ["velocities.pdf"])
         points, data = port_io.read_vtp(os.path.join(whole_dir, "frame2.vtp"))
         final = whole["state"]
         if not frame_equals_state(points, data, final, w.EXPORT_VARS):
@@ -743,10 +1195,7 @@ def main(profile: bool) -> None:
             out_path=part_dir, device=dev)
         differing = [k for k, v in final.fields.items()
                      if not torch.equal(resumed["state"].fields[k], v)]
-        same_files = all(
-            open(os.path.join(part_dir, f), "rb").read()
-            == open(os.path.join(whole_dir, f), "rb").read()
-            for f in files if f != "checkpoint.npz")
+        same_files = same_outputs(part_dir, whole_dir, files)
         if (differing or not same_files
                 or not torch.equal(resumed["state"].active, final.active)):
             raise AssertionError(f"resumed run differs: fields {differing}, "
@@ -1159,9 +1608,11 @@ def main(profile: bool) -> None:
         whole = lw.run(small, out_path=whole_dir, device=dev)
         files = sorted(os.listdir(whole_dir))
         columns = list(port_io.read_csv(os.path.join(whole_dir, "data.csv")))
-        if (files != ["checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
-                      "frame2.vtp", "result.pvd"]
-                or columns != ["t", "u_avg", "u_max", "drag", "lift",
+        check_run_files("terrain", files,
+                        ["checkpoint.npz", "data.csv", "frame0.vtp",
+                         "frame1.vtp", "frame2.vtp", "result.pvd"],
+                        ["velocities.pdf"])
+        if (columns != ["t", "u_avg", "u_max", "drag", "lift",
                                "n_inflow", "spawn_drops"]
                 or not int(whole["state"].n) > whole["system"].n_built):
             raise AssertionError(f"terrain run(out_path) wrote {files}, "
@@ -1175,10 +1626,7 @@ def main(profile: bool) -> None:
         final = whole["state"]
         differing = [k for k, v in final.fields.items()
                      if not torch.equal(resumed["state"].fields[k], v)]
-        same_files = all(
-            open(os.path.join(part_dir, f), "rb").read()
-            == open(os.path.join(whole_dir, f), "rb").read()
-            for f in files if f != "checkpoint.npz")
+        same_files = same_outputs(part_dir, whole_dir, files)
         if (differing or not same_files
                 or not torch.equal(resumed["state"].active, final.active)):
             raise AssertionError(f"terrain resumed run differs: fields "
@@ -1188,6 +1636,13 @@ def main(profile: bool) -> None:
                 f"{whole['system'].n_built} -> {int(final.n)} (a spawn "
                 f"event); resumed run equals the uninterrupted one bit for "
                 f"bit (state, frames and data.csv)")
+
+    # 31-33: the ISPH and Rayleigh–Bénard baselines (run before the timing
+    # phase, which times their kernels on their main paths' final states)
+    icfg, e31, i_state, i_counts, i_its = isph_phase(dev, card, counters, errs,
+                                                     profile)
+    rcfg, e32, r_state, r_counts = rb_phase(dev, card, counters, errs, profile)
+    full_runs_phase(dev)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
@@ -1255,6 +1710,34 @@ def main(profile: bool) -> None:
                     lambda: ps._sweep_plain(e, planes, pads, band,
                                             lambda p, q, r2, m: [m], 1,
                                             self_pair))
+        elif kernel == "isph_div_visc_sweep":
+            planes, pads = ps._isph_div_visc_inputs(e, s)
+            args, body, n_out, self_pair = (
+                ps._isph_scalars(c), ps._isph_div_visc_body(c, d), 5, False)
+        elif kernel == "isph_grad_sweep":
+            planes, pads = ps._isph_grad_inputs(e, s)
+            args, body, n_out, self_pair = (
+                ps._isph_scalars(c), ps._isph_grad_body(c, d), 2, False)
+        elif kernel == "isph_matvec_sweep":
+            # the main path's form: prepared once, one launch per call on the
+            # iterate (the first solve's P), no allocation
+            planes, pads = ps._isph_matvec_inputs(e, s)
+            it = s.fields["P"].contiguous()
+            mv = ps.isph_matvec_prepared(e, s, c)
+            body = ps._isph_matvec_body(c, d)
+            planes = planes + [ps._plane(e, it)]
+            return (lambda: mv(it),
+                    lambda: ps._sweep_plain(e, planes, pads, band, body, 1,
+                                            False),
+                    lambda: ps._sweep_plain(e, planes, pads, band,
+                                            lambda p, q, r2, m: [m], 1,
+                                            False))
+        elif kernel == "rb_mass_heat_sweep":
+            planes, pads = ps._rb_mass_heat_inputs(e, s, c)
+            kc, hinv, twokap = ps._rb_consts(c, d)
+            args, body, n_out, self_pair = (
+                [f32(kc), f32(hinv), f32(twokap)], ps._rb_mass_heat_body(c, d),
+                2, False)
         elif kernel == "pressure_sweep":
             planes, pads = ps._pressure_inputs(e, s, c)
             args, body, n_out, self_pair = ([1, ps.ctypes.c_float(ps.C_W2)],
@@ -1334,7 +1817,11 @@ def main(profile: bool) -> None:
             ("iso_static_force_sweep", iso_e, other_state[ISO], others[ISO]),
             ("adia_entropy_force_sweep", adia_e, other_state[ADIA],
              others[ADIA]),
-            ("density_sweep adia", adia_e, other_state[ADIA], others[ADIA])):
+            ("density_sweep adia", adia_e, other_state[ADIA], others[ADIA]),
+            ("isph_div_visc_sweep", e31, i_state, icfg),
+            ("isph_matvec_sweep", e31, i_state, icfg),
+            ("isph_grad_sweep", e31, i_state, icfg),
+            ("rb_mass_heat_sweep", e32, r_state, rcfg)):
         launch, twin, count = prepared(kernel, e, s, c)
         km, pm = cuda_ms(launch, 50), cuda_ms(twin, 5)
         pairs = int(count()[0].double().sum().item())
@@ -1362,6 +1849,22 @@ def main(profile: bool) -> None:
                 f"{ops_ms * 1e3:.1f} us), "
                 f"{100 * timing[kernel]['bound_ms'] / km:.1f} % of it ({card})")
 
+    # the ISPH matvec's one library counterpart: a CSR sparse product
+    lib_ms, lib_err, nnz = matvec_library(e31, i_state, icfg)
+    library_ms = {"isph_matvec_sweep": lib_ms}
+    say(30, f"isph_matvec_sweep library yardstick: CSR A @ P ({nnz} nonzeros, "
+            f"assembled once, not timed) {lib_ms:.4f} ms against the kernel's "
+            f"{timing['isph_matvec_sweep']['ms']:.4f} ms; max abs err "
+            f"{lib_err:.3e} (rtol 1e-5) ({card})")
+    steps31 = len(i_its)
+    say(30, f"launches per step on the main paths: isph_div_visc_sweep "
+            f"{i_counts['isph_div_visc_sweep'] / steps31:g}, isph_grad_sweep "
+            f"{i_counts['isph_grad_sweep'] / steps31:g}, isph_matvec_sweep "
+            f"{i_counts['isph_matvec_sweep'] / steps31:.2f} (mean cg_it + 1), "
+            f"rb_mass_heat_sweep and its dambreak_force_sweep "
+            f"{r_counts['rb_mass_heat_sweep'] / (3 * RB_STEPS_PER_FRAME):g} and "
+            f"{r_counts['dambreak_force_sweep'] / (3 * RB_STEPS_PER_FRAME):g}")
+
     launches = {"density_sweep": flag_counts["density_sweep"],
                 "momentum_sweep": flag_counts["momentum_sweep"],
                 "pressure_sweep": fh_counts["pressure_sweep"],
@@ -1387,7 +1890,11 @@ def main(profile: bool) -> None:
                 "iso_static_force_sweep":
                     other_counts[ISO]["iso_static_force_sweep"],
                 "adia_entropy_force_sweep":
-                    other_counts[ADIA]["adia_entropy_force_sweep"]}
+                    other_counts[ADIA]["adia_entropy_force_sweep"],
+                **{k: i_counts[k] for k in ("isph_div_visc_sweep",
+                                            "isph_matvec_sweep",
+                                            "isph_grad_sweep")},
+                "rb_mass_heat_sweep": r_counts["rb_mass_heat_sweep"]}
     err_of = {"density_sweep": errs["density"][0],
               "momentum_sweep": errs["momentum_fm1"][0],
               "pressure_sweep": errs["pressure"][0],
@@ -1406,13 +1913,19 @@ def main(profile: bool) -> None:
               "iso_static_force_sweep":
                   errs["iso_static_force_sweep_av0_fm1"][0],
               "adia_entropy_force_sweep":
-                  errs["adia_entropy_force_sweep_av0_fm1"][0]}
+                  errs["adia_entropy_force_sweep_av0_fm1"][0],
+              **{k: errs[k][0] for k in ("isph_div_visc_sweep",
+                                         "isph_matvec_sweep",
+                                         "isph_grad_sweep")},
+              "rb_mass_heat_sweep": max(
+                  errs["rb_mass_heat_sweep"][0],
+                  errs["rb_mass_heat_sweep adiabatic"][0])}
     timed_as = {"hopkins_momentum_sweep": "hopkins_momentum_sweep split"}
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": err_of[k],
-         **timing[timed_as.get(k, k)], "library_ms": None}
+         **timing[timed_as.get(k, k)], "library_ms": library_ms.get(k)}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 // pressure root and momentum, the Pavelka continuity and fused momentum +
 // entropy sweeps, the Colagrossi packing's gradient sum, the dam-break
 // continuity and force, and the legacy (terrain) continuity and force with
-// fixed or per-particle h and the fused adiabatic entropy + force sweep. 3-D
-// (27 stencil cells): density, momentum, and the dam-break continuity and
-// force.
+// fixed or per-particle h and the fused adiabatic entropy + force sweep, the
+// ISPH divergence/viscous sweep, CG matvec and pressure gradient, and the
+// Rayleigh-Benard continuity + conduction sweep. 3-D (27 stencil cells):
+// density, momentum, and the dam-break continuity and force.
 //
 // Replaces the Pallas pair-sweep harness of
 // sph_mountain_waves_tpu/ops/pallas_pairs.py (make_pair_kernel_fn /
@@ -16,7 +17,9 @@
 // (2-D and 3-D), legacy_mass_pass, legacy_force_pass, iso_static_mass_pass,
 // iso_static_force_pass and adia_entropy_force_pass (templated on the
 // dimension, exported in 2-D only: the legacy schemes are 2-D;
-// adia_density_pass is density_sweep with a gated weight).
+// adia_density_pass is density_sweep with a gated weight),
+// isph_div_visc_pass, isph_matvec_prepared/isph_matvec_pass, isph_grad_pass
+// and rb_mass_heat_pass (2-D: their only callers are 2-D).
 // gamma_grad_sweep has no Pallas counterpart:
 // it is the pair sum of utils/packing.py::colagrossi_packing (find_gGamma),
 // which the reference leaves to XLA.
@@ -44,15 +47,16 @@
 // momentum bodies (three in momentum, five in the Hopkins momentum, five in
 // the fused Pavelka sweep) and of the Pavelka continuity (one, or two with
 // the kernel-less diffusion) by a multiply with rcp.approx.ftz.f32; the
-// pressure root and the packing's gradient keep their exact divides, as the
-// reference's do. In the legacy force bodies fast_math takes the viscous
-// divide (and 1/h_p with per-particle h) to rcp.approx.
+// pressure root, the packing's gradient and the ISPH spline weight keep their
+// exact divides, as the reference's do. In the legacy force bodies fast_math
+// takes the viscous divide (and 1/h_p with per-particle h) to rcp.approx.
 //
 // What bounds it on an H100: per occupied p slot about 9*kmax q slots of 4
 // (packing gradient), 5 (density, pressure), 6/7 (legacy continuity), 8-10
 // (legacy force), 9 (Pavelka continuity), 10 (momentum, adiabatic entropy +
 // force), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
-// read; neighbouring threads share them, so most reads hit L1/L2. Memory
+// read (the ISPH matvec and gradient 4, the ISPH divergence 5, the
+// Rayleigh-Benard sweep 7); neighbouring threads share them, so most reads hit L1/L2. Memory
 // traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests
 // 27*kmax candidates for the few dozen pairs inside the cutoff, and the
 // distance tests weigh as much as the bytes.
@@ -641,6 +645,102 @@ struct AdiaEntropyForce {
   }
 };
 
+// Constants of the ISPH bodies (fixed h0), computed in double on the host
+// and rounded to f32.
+struct IsphParams {
+  float hinv;  // 1/h0
+  float kw;    // -C (1/h0)^8, C = 240/(7 pi): 1/h0^4 folded in
+};
+
+// (dw/dr)/r of the 2-D cubic spline at fixed h0:
+//   kw (x < 1/2 ? 2 - 3x : max(1 - x, 0)^2 / max(x, 1/2)),  x = r/h0,
+// with an exact IEEE divide (the reference has no fast_math form of it).
+__device__ __forceinline__ float rd_spline23(float r, const IsphParams& prm) {
+  const float x = r * prm.hinv;
+  const float inner = 2.0f - 3.0f * x;
+  const float tpos = fmaxf(1.0f - x, 0.0f);
+  const float outer = tpos * tpos / fmaxf(x, 0.5f);
+  return prm.kw * (x < 0.5f ? inner : outer);
+}
+
+// ISPH fused divergence/L/lambda + viscous sweep: the raw spline sums
+//   sum_q w (x_pq . v_pq, 1, r^2, v_pq[0], v_pq[1]),  w = rD(h0, r);
+// fields: occ, x0, x1, v0, v1. The caller applies the physics factors.
+struct IsphDivVisc {
+  static constexpr int NIN = 5;
+  static constexpr int NOUT = 5;
+  using Params = IsphParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float w = rd_spline23(sqrtf(r2), prm);
+    const float dv0 = p[3] - f.in[3][qi];
+    const float dv1 = p[4] - f.in[4][qi];
+    const float dot = d0 * dv0 + d1 * dv1;
+    tot[0] += w * dot;
+    tot[1] += w;
+    tot[2] += w * r2;
+    tot[3] += w * dv0;
+    tot[4] += w * dv1;
+  }
+};
+
+// ISPH CG matvec, off-diagonal part: sum_q rD(h0, r) v_q; fields: occ, x0,
+// x1 (prepared once per solve) and the iterate v (streamed per call).
+struct IsphMatvec {
+  static constexpr int NIN = 4;
+  static constexpr int NOUT = 1;
+  using Params = IsphParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    tot[0] += rd_spline23(sqrtf(r2), prm) * f.in[3][qi];
+  }
+};
+
+// ISPH pressure-correction gradient: per axis sum_q rD(h0, r) (P_p + P_q)
+// x_pq; fields: occ, x0, x1, P. The caller applies -vol/max(rho_bg, 1e-6).
+struct IsphGrad {
+  static constexpr int NIN = 4;
+  static constexpr int NOUT = 2;
+  using Params = IsphParams;
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float w = rd_spline23(sqrtf(r2), prm);
+    const float s = w * (p[3] + f.in[3][qi]);
+    tot[0] += s * d0;
+    tot[1] += s * d1;
+  }
+};
+
+// Rayleigh-Benard fused continuity + Cleary-Monaghan conduction, fixed h:
+//   Drho_p = sum_q kc t^3 (x_pq . v_pq)
+//   DT_p   = sum_q ((2 kappa ri_q) kc t^3) (T_p - T_q)
+// t = max(1 - r/h, 0), kc = m (-C of rDW2) / h^4, ri = 1/max(rho, 0.01 rho0)
+// (zero on zero-flux wall rows); fields: occ, x0, x1, v0, v1, T, ri. No
+// divide. The caller applies the p-side FLUID gate to DT.
+struct RbMassHeat {
+  static constexpr int NIN = 7;
+  static constexpr int NOUT = 2;
+  struct Params {
+    float kc;
+    float hinv;    // 1/h
+    float twokap;  // 2 kappa
+  };
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float r = sqrtf(r2);
+    const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
+    const float ker = prm.kc * t * t * t;
+    const float dot = d0 * (p[3] - f.in[3][qi]) + d1 * (p[4] - f.in[4][qi]);
+    const float dT = p[5] - f.in[5][qi];
+    tot[0] += ker * dot;
+    tot[1] += prm.twokap * f.in[6][qi] * ker * dT;
+  }
+};
+
 template <class Body, bool SELF>
 __global__ void __launch_bounds__(kBlock)
 pair_sweep(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1030,6 +1130,51 @@ int adia_entropy_force_sweep(const float* occ, const float* x0,
   auto s = static_cast<cudaStream_t>(stream);
   return av ? adia_launch<true>(f, kmax, g, prm, fast_math, s)
             : adia_launch<false>(f, kmax, g, prm, fast_math, s);
+}
+
+
+// ISPH and Rayleigh-Benard sweeps, 2-D: planes [cap, nx*ny+1], kmax int32
+// [ny]
+int isph_div_visc_sweep(const float* occ, const float* x0, const float* x1,
+                        const float* v0, const float* v1, const int* kmax,
+                        float* s_divv, float* s_l, float* s_lam, float* s_dv0,
+                        float* s_dv1, int cap, int nx, int ny, float h2,
+                        float hinv, float kw, void* stream) {
+  Planes<5, 5> f{{occ, x0, x1, v0, v1}, {s_divv, s_l, s_lam, s_dv0, s_dv1}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<IsphDivVisc, false>(f, kmax, g, {hinv, kw},
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int isph_matvec_sweep(const float* occ, const float* x0, const float* x1,
+                      const float* v, const int* kmax, float* out, int cap,
+                      int nx, int ny, float h2, float hinv, float kw,
+                      void* stream) {
+  Planes<4, 1> f{{occ, x0, x1, v}, {out}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<IsphMatvec, false>(f, kmax, g, {hinv, kw},
+                                   static_cast<cudaStream_t>(stream));
+}
+
+int isph_grad_sweep(const float* occ, const float* x0, const float* x1,
+                    const float* pres, const int* kmax, float* g0, float* g1,
+                    int cap, int nx, int ny, float h2, float hinv, float kw,
+                    void* stream) {
+  Planes<4, 2> f{{occ, x0, x1, pres}, {g0, g1}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<IsphGrad, false>(f, kmax, g, {hinv, kw},
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int rb_mass_heat_sweep(const float* occ, const float* x0, const float* x1,
+                       const float* v0, const float* v1, const float* temp,
+                       const float* rinv, const int* kmax, float* drho,
+                       float* dtemp, int cap, int nx, int ny, float h2,
+                       float kc, float hinv, float twokap, void* stream) {
+  Planes<7, 2> f{{occ, x0, x1, v0, v1, temp, rinv}, {drho, dtemp}};
+  const Layout g{cap, nx, ny, h2};
+  return launch<RbMassHeat, false>(f, kmax, g, {kc, hinv, twokap},
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]

@@ -11,8 +11,9 @@ The two pair sums of a step are ``dambreak_mass_pass`` and
 wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors.
 Only the float32 bucket layout is ported: the config's defaults
 (``layout="flat"``, ``dtype="float64"``) are the reference's and raise here.
-The figures (``utils/plots.py``: ``plot_dambreak``, ``live_plot``) are not
-ported: ``live_plot=True`` raises and the figure is not written.
+With an output directory ``run`` also writes ``plot_dambreak``'s figures
+(``utils/plots.py``); ``cfg.live_plot`` prints the X and H sparklines every
+frame.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ class Config:
     # write <out_path>/checkpoint.npz every this many frames (0: off) and on
     # the last; resume: path of a checkpoint to continue from, bitwise
     checkpoint_every: int = 0
-    # terminal sparklines per frame: needs utils/plots.py, not ported (raises)
+    # terminal sparklines of X and H every frame
     live_plot: bool = False
     resume: str = ""
 
@@ -90,8 +91,6 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: only float32 states are ported (the "
             "float64 flat-layout path belongs to a later slice)")
-    if getattr(cfg, "live_plot", False):
-        raise NotImplementedError("live plots (utils/plots.py) are not ported")
 
 
 def make_system(cfg: Config) -> ParticleSystem:
@@ -192,9 +191,12 @@ def run(cfg: Config = Config(), out_path: str | None = None,
     the CPU). Returns the time series t (scaled by sqrt(−2g)), X, H, E, the
     final state and the system. With ``out_path``: ``frame<k>.vtp`` of v, P
     and type at t = 0 and after every frame, ``result.pvd``, ``data.csv``
-    and, every ``cfg.checkpoint_every`` frames and on the last,
-    ``checkpoint.npz``; the reference's figure is not written."""
+    ``dambreak_X.pdf``/``dambreak_H.pdf`` against the digitised reference
+    curves and, every ``cfg.checkpoint_every`` frames and on the last,
+    ``checkpoint.npz``; with ``cfg.live_plot`` the X and H sparklines every
+    frame."""
     from ..io import new_pvd_file, save_csv, save_frame, save_pvd_file
+    from ..utils.plots import live_plot, plot_dambreak
 
     sys = make_system(cfg)
     state = sys.freeze(device=device)
@@ -235,6 +237,8 @@ def run(cfg: Config = Config(), out_path: str | None = None,
         X, H, E = record(t * np.sqrt(-2.0 * cfg.g))
         if verbose:
             print(f"t = {t:.4f} s  X = {X:.3f}  H = {H:.3f}  E = {E:.6e}")
+        if cfg.live_plot:
+            live_plot({"X": Xs, "H": Hs})
         if out:
             save_frame(out, state, "v", "P", "type", time=t)
         maybe_checkpoint(cfg, out, state, sys.engine, k, t, frame,
@@ -243,6 +247,7 @@ def run(cfg: Config = Config(), out_path: str | None = None,
         save_pvd_file(out)
         save_csv(os.path.join(out.path, "data.csv"),
                  {"t": ts, "X": Xs, "H": Hs, "E": Es}, merge_history=k0 > 0)
+        plot_dambreak(out.path, ts, Xs, Hs)
     sys.state = state
     return {"t": np.asarray(ts), "X": np.asarray(Xs), "H": np.asarray(Hs),
             "E": np.asarray(Es), "state": state, "system": sys}

@@ -26,7 +26,8 @@ baseline), ``iso_static_mass_pass`` and ``iso_static_force_pass``
 off is refused. Only the float32 bucket layout is ported: ``dtype="float64"``
 raises, and so does the config's default ``layout="flat"`` unless
 ``use_pallas`` is set (which takes the bucket layout, as in the reference).
-``live_plot=True`` raises; the velocities figure is not written.
+``run`` writes the velocities figure; ``live_plot=True`` prints the
+sparklines every frame.
 """
 from __future__ import annotations
 
@@ -87,7 +88,7 @@ class LegacyConfig:
     resume: str = ""
     # boot from a saved ParaView frame instead of the lattice
     init_vtp: str = ""
-    # terminal sparklines per frame: needs utils/plots.py, not ported (raises)
+    # terminal sparklines of the run's observables every frame
     live_plot: bool = False
     # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
     # take the plain twins either way); a CUDA state with False is refused.

@@ -144,7 +144,7 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
         verbose: bool = False, device="cuda"):
     """The reference main loop: frames every t_end/n_frames with avg/max
     velocity diagnostics and, with ``out_path``, the PVD output of
-    ``EXPORT_VARS`` and ``data.csv``; on ``device`` (the card unless the
+    ``EXPORT_VARS``, ``data.csv`` and ``velocities.pdf``; on ``device`` (the card unless the
     caller asks for the CPU). Returns the time series, the final state and
     the system."""
     return _run_witch_scheme(
@@ -155,7 +155,8 @@ def run(cfg: WitchConfig = WitchConfig(), out_path: str | None = None,
 
 def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
                       out_path=None, verbose=False, setup=None,
-                      finalize=None, device="cuda", extra_diag=None):
+                      finalize=None, device="cuda", extra_diag=None,
+                      timing=None):
     """Shared main() skeleton of the mountain-wave schemes: build, freeze on
     ``device``, resume from ``cfg.resume`` or else ``setup(cfg, engine,
     state)`` (e.g. a packing) if given, then frames of ``make_step_fn``'s
@@ -163,16 +164,16 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
     velocity time series. ``extra_diag(state) -> {name: scalar}`` adds
     per-frame observables (the terrain schemes' drag and lift, ...) to the
     time series, ``data.csv`` (after t, u_avg, u_max, in the order it
-    returns them) and the returned dict. With ``out_path``:
+    returns them) and the returned dict. ``timing`` = (dt, n_steps,
+    steps_per_frame) overrides the cadence derived from ``cfg.dt`` (the ISPH
+    scheme's own time step). With ``cfg.live_plot`` each frame prints the
+    sparklines of u_max and the extra observables. With ``out_path``:
     ``frame<k>.vtp`` of ``export_vars`` at t = 0 and after every frame,
-    ``result.pvd``, ``data.csv`` and, every ``cfg.checkpoint_every`` frames
-    and on the last, ``checkpoint.npz``. The terminal sparklines
-    (``cfg.live_plot``) and the velocities figure need ``utils/plots.py``,
-    which is not ported: the first raises, the second is not written."""
+    ``result.pvd``, ``data.csv``, ``velocities.pdf`` and, every
+    ``cfg.checkpoint_every`` frames and on the last, ``checkpoint.npz``."""
     from ..io import new_pvd_file, save_csv, save_frame, save_pvd_file
+    from ..utils.plots import live_plot, plot_velocities
 
-    if cfg.live_plot:
-        raise NotImplementedError("live plots (utils/plots.py) are not ported")
     sys = make_system_fn(cfg)
     state = sys.freeze(device=device)
     state, k0 = maybe_resume(cfg, state)  # bitwise restart
@@ -180,8 +181,12 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
         state = setup(cfg, sys.engine, state)
     step = make_step_fn(cfg, sys.engine)
 
-    n_steps = int(round(cfg.t_end / cfg.dt))
-    steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
+    if timing is None:
+        dt = cfg.dt
+        n_steps = int(round(cfg.t_end / dt))
+        steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / dt)))
+    else:
+        dt, n_steps, steps_per_frame = timing
     run_frame = frame_runner(step, steps_per_frame, finalize=finalize)
 
     out = new_pvd_file(out_path, resume=k0 > 0) if out_path else None
@@ -195,7 +200,7 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
         state = run_frame(state)
         k += steps_per_frame
         frame += 1
-        t = k * cfg.dt
+        t = k * dt
         u_avg, u_max = (float(v) for v in velocity_diagnostics(state))
         ts.append(t)
         u_avgs.append(u_avg)
@@ -209,6 +214,8 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
             tail = "".join(f"  {n} = {v:.4e}" for n, v in extras.items())
             print(f"t = {t:.3f}  n = {int(state.n)}  "
                   f"u_avg = {u_avg:.4e}  u_max = {u_max:.4e}" + tail)
+        if cfg.live_plot:
+            live_plot({"u_max": u_maxs, **extra_hist})
         if out:
             save_frame(out, state, *export_vars, time=t)
         maybe_checkpoint(cfg, out, state, sys.engine, k, t, frame,
@@ -218,6 +225,7 @@ def _run_witch_scheme(cfg, make_system_fn, make_step_fn, export_vars,
         save_csv(os.path.join(out.path, "data.csv"),
                  {"t": ts, "u_avg": u_avgs, "u_max": u_maxs, **extra_hist},
                  merge_history=k0 > 0)
+        plot_velocities(out.path, ts, u_avgs, u_maxs)
     sys.state = state
     return {"t": np.asarray(ts), "u_avg": np.asarray(u_avgs),
             "u_max": np.asarray(u_maxs),

@@ -83,7 +83,7 @@ class WitchConfig:
     # hydrostatic background at the saved positions (approximate by
     # construction; the bitwise restart is ``resume``)
     init_vtp: str = ""
-    # terminal sparklines per frame: needs utils/plots.py, not ported (raises)
+    # terminal sparklines of the run's observables every frame
     live_plot: bool = False
 
     @property

@@ -76,6 +76,15 @@ SIGNATURES = {
         # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, stream
         "adia_entropy_force_sweep": ([_P] * 14 + [_I] * 3 + [_F] * 9
                                      + [_I, _I, _P], _I),
+        # occ, x0, x1, v0, v1, kmax, 5 outs, cap, nx, ny, h2, 1/h0, kw, stream
+        "isph_div_visc_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, v, kmax, out, cap, nx, ny, h2, 1/h0, kw, stream
+        "isph_matvec_sweep": ([_P] * 6 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, P, kmax, 2 outs, cap, nx, ny, h2, 1/h0, kw, stream
+        "isph_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, v0, v1, T, 1/rho, kmax, 2 outs, cap, nx, ny, h2, kc,
+        # 1/h, 2 kappa, stream
+        "rb_mass_heat_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
         # the 3-D forms take x2 (and v2) planes, one more output for the
         # vector sweeps, and nz after ny
         "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P], _I),

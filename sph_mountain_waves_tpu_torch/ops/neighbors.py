@@ -21,6 +21,10 @@ with the JAX package:
   into arbitrary free slots). "stencil" degrades to it past
   ``_STENCIL_COST_MAX`` offsets × cap.
 
+``pad_resident``, ``slice_resident`` and ``shift_resident`` give the stencil
+shifts of a resident field as slices of one padded grid (the multigrid
+preconditioner's coarse stencil reads them).
+
 Not ported yet: the flat layout and the sharded engine's ``count_cells``.
 """
 from __future__ import annotations
@@ -252,6 +256,33 @@ class NeighborEngine:
         column."""
         flat = g.reshape(self.cap, self.num_cells)
         return torch.nn.functional.pad(flat, (0, 1)).reshape(self.slots)
+
+    def pad_resident(self, B: torch.Tensor) -> torch.Tensor:
+        """Zero-pad the cell grid of a resident field [cap, C+1(, ...)] once
+        (trash column cut): [cap, (nz+2,) ny+2, nx+2(, ...)]. Every stencil
+        shift is then a slice of it (``slice_resident``)."""
+        cap, rest = B.shape[0], tuple(B.shape[2:])
+        G = B[:, : self.num_cells].reshape((cap,) + self.grid_shape + rest)
+        # F.pad pads trailing dims first: skip the component dims, then
+        # one cell on each side of every grid axis
+        pad = (0, 0) * len(rest) + (1, 1) * self.dim
+        return torch.nn.functional.pad(G, pad)
+
+    def slice_resident(self, P: torch.Tensor, offset: tuple) -> torch.Tensor:
+        """Stencil view of a ``pad_resident`` array: out[:, c] =
+        B[:, c + offset] ([cap, C(, ...)], zeros past the grid's edges);
+        ``offset`` = (di, dj[, dk])."""
+        cap = P.shape[0]
+        rest = tuple(P.shape[1 + self.dim:])
+        idx = tuple(slice(1 + o, 1 + o + n)
+                    for o, n in zip(reversed(offset), self.grid_shape))
+        return P[(slice(None),) + idx].reshape((cap, self.num_cells) + rest)
+
+    def shift_resident(self, B: torch.Tensor, offset: tuple) -> torch.Tensor:
+        """Stencil shift of a resident field: B [cap, C+1, ...] ->
+        [cap, C, ...] with out[:, c] = B[:, c + offset] (zeros at the grid's
+        edges)."""
+        return self.slice_resident(self.pad_resident(B), offset)
 
     # ------------------------------------------------------------- rebuild
     def needs_rescatter(self, state: ParticleState) -> torch.Tensor:

@@ -1,14 +1,14 @@
-"""Pair sweeps of the mountain-wave, dam-break and terrain schemes: density
-and momentum (2-D and 3-D), the Hopkins pressure root and momentum, the
-Pavelka continuity and fused momentum + entropy sweeps, the Colagrossi
-packing's ∇Γ sum, the dam-break continuity and force (2-D and 3-D), and the
-legacy (terrain) continuity and force with fixed or per-particle h, the
-adiabatic density and the fused adiabatic entropy + force sweep.
+"""Pair sweeps of the mountain-wave, dam-break, terrain, ISPH and
+Rayleigh–Bénard schemes: density and momentum (2-D and 3-D), the Hopkins
+pressure root and momentum, the Pavelka continuity and fused momentum +
+entropy sweeps, the Colagrossi packing's ∇Γ sum, the dam-break continuity and
+force (2-D and 3-D), the legacy (terrain) continuity and force with fixed or
+per-particle h, the adiabatic density and the fused adiabatic entropy + force
+sweep, the ISPH divergence/viscous sweep, CG matvec and pressure gradient,
+and the Rayleigh–Bénard fused continuity + conduction sweep.
 
-Port of the slice of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` that the
-WCSPH flagship and its 3-D form, the three Hopkins schemes, the Pavelka
-scheme, the two dam breaks and the four legacy terrain schemes run: the
-pair-sweep harness
+Port of ``sph_mountain_waves_tpu/ops/pallas_pairs.py`` (every pass that
+reaches its ``pl.pallas_call``): the pair-sweep harness
 (``make_pair_kernel_fn`` with ``_make_pair_kernel``, the one
 ``pl.pallas_call``) over 9 or 27 stencil cells, its trip bound ``row_kmax``,
 ``weighted_w_pass(ker_h="p")``/``density_pass`` and ``momentum_pass`` in both
@@ -17,8 +17,10 @@ dimensions, ``weighted_w_pass(ker_h="sym")``/``pressure_pass``,
 ``pavelka_mass_pass``, ``pavelka_momentum_entropy_pass``,
 ``dambreak_mass_pass``, ``dambreak_force_pass``, ``legacy_mass_pass``,
 ``legacy_force_pass``, ``iso_static_mass_pass``, ``iso_static_force_pass``,
-``adia_density_pass`` (on the density kernel) and
-``adia_entropy_force_pass``. ``gamma_grad_pass`` has no Pallas counterpart:
+``adia_density_pass`` (on the density kernel), ``adia_entropy_force_pass``,
+``isph_div_visc_pass``, ``isph_matvec_prepared`` (prepared once per CG
+solve; ``isph_matvec_pass`` is its one-shot form), ``isph_grad_pass`` and
+``rb_mass_heat_pass``. ``gamma_grad_pass`` has no Pallas counterpart:
 the reference's Colagrossi
 packing takes that sum as an XLA pair sum
 (``utils/packing.py::colagrossi_packing``, ``find_gGamma``).
@@ -39,9 +41,9 @@ Each sweep has two implementations:
   wrapper (``density_pass``, ``momentum_pass``, ``pressure_pass``,
   ``hopkins_momentum_pass``, ``pavelka_mass_pass``,
   ``pavelka_momentum_entropy_pass``, ``gamma_grad_pass``,
-  ``dambreak_mass_pass``, ``dambreak_force_pass`` and the six terrain
-  wrappers) for CUDA tensors, which counts its launches in
-  ``<wrapper>.launches``; ``density_pass``,
+  ``dambreak_mass_pass``, ``dambreak_force_pass``, the six terrain
+  wrappers and the four ISPH/Rayleigh–Bénard ones) for CUDA tensors, which
+  counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
@@ -52,7 +54,9 @@ What bounds the kernel on an H100: per occupied p slot it reads the q slots
 of 9 cells up to the row's band occupancy (about 9·kmax slots) of 4 (∇Γ),
 5 (density, pressure), 6/7 (legacy continuity), 8–10 (legacy force), 9
 (Pavelka continuity), 10 (momentum, adiabatic entropy + force), 11/13
-(Hopkins momentum) or 12 (Pavelka momentum + entropy) f32 fields.
+(Hopkins momentum) or 12 (Pavelka momentum + entropy) f32 fields; the ISPH
+matvec reads 4 (its coordinates and the iterate), the ISPH gradient 4, the
+divergence/viscous sweep 5 and the Rayleigh–Bénard sweep 7.
 Neighbouring threads share most of those q reads, so they hit L1/L2; memory
 traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests up
 to 27·kmax candidates (6 to 12 fields) for the few dozen pairs inside the
@@ -66,7 +70,7 @@ import types
 import torch
 import torch.nn.functional as F
 
-from ..kernels import C_DW2, C_DW3, C_W2, C_W3
+from ..kernels import C_DSPLINE23, C_DW2, C_DW3, C_W2, C_W3
 from ..structs import ParticleState
 from . import _build
 
@@ -84,7 +88,11 @@ __all__ = ["row_kmax", "density_pass", "density_pass_plain",
            "iso_static_mass_pass_plain", "iso_static_force_pass",
            "iso_static_force_pass_plain", "adia_density_pass",
            "adia_density_pass_plain", "adia_entropy_force_pass",
-           "adia_entropy_force_pass_plain"]
+           "adia_entropy_force_pass_plain", "isph_div_visc_pass",
+           "isph_div_visc_pass_plain", "isph_matvec_prepared",
+           "isph_matvec_pass", "isph_matvec_pass_plain", "isph_grad_pass",
+           "isph_grad_pass_plain", "rb_mass_heat_pass",
+           "rb_mass_heat_pass_plain"]
 
 
 def row_kmax(engine, state: ParticleState):
@@ -341,6 +349,46 @@ def _gamma_grad_inputs(engine, state: ParticleState):
     planes = [_plane(engine, a) for a in (
         state.active, f["x"][:, 0], f["x"][:, 1], h)]
     return planes, [0.0] * 3 + [_hfloor(engine)]
+
+
+def _isph_div_visc_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], v[dim]); every pad is 0 (fixed h0: no 1/h)."""
+    f = state.fields
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"]))]
+    return planes, [0.0] * len(planes)
+
+
+def _isph_matvec_inputs(engine, state: ParticleState):
+    """The matvec's prepared planes (occ, x[dim]); the iterate is streamed
+    as the last plane at each call."""
+    f = state.fields
+    planes = [_plane(engine, a) for a in
+              [state.active] + _axes(engine, f["x"])]
+    return planes, [0.0] * (len(planes) + 1)
+
+
+def _isph_grad_inputs(engine, state: ParticleState):
+    """Planes (occ, x[dim], P); every pad is 0."""
+    f = state.fields
+    planes = [_plane(engine, a) for a in
+              [state.active] + _axes(engine, f["x"]) + [f["P"]]]
+    return planes, [0.0] * len(planes)
+
+
+def _rb_mass_heat_inputs(engine, state: ParticleState, cfg):
+    """Planes (occ, x[dim], v[dim], T, 1/max(ρ, 0.01ρ0)); every pad is 0.
+    The hoisted q weight 1/ρ is zero on ``WALL_ADIA`` rows under adiabatic
+    sidewalls (the q-side zero-flux gate) and finite on every slot."""
+    from ..models.rayleigh_benard import WALL_ADIA
+    f = state.fields
+    rinv = 1.0 / torch.clamp(f["rho"], min=0.01 * cfg.rho0)
+    if getattr(cfg, "sidewalls", "conducting") == "adiabatic":
+        rinv = torch.where(f["type"] == WALL_ADIA, 0.0, rinv)
+    planes = [_plane(engine, a) for a in (
+        [state.active] + _axes(engine, f["x"]) + _axes(engine, f["v"])
+        + [f["T"], rinv])]
+    return planes, [0.0] * len(planes)
 
 
 # ------------------------------------------------------------ plain twins
@@ -679,6 +727,87 @@ def _gamma_grad_body(V0: float):
     return body
 
 
+def _isph_consts(cfg):
+    """(1/h0, −C·(1/h0)⁸) of the cubic-spline weight, in double on the host
+    as the reference computes them (C = 240/(7π))."""
+    hinv = 1.0 / cfg.h0
+    h4 = hinv * hinv
+    return hinv, -C_DSPLINE23 * (h4 * h4)
+
+
+def _rd_spline23(hinv: float, kw: float, r):
+    """(dw/dr)/r of the 2-D cubic spline at fixed h0 (``kernels.rDspline23``
+    with 1/h0⁴ folded into kw): kw·(x < ½ ? 2 − 3x : (1−x)₊²/max(x, ½)),
+    x = r/h0, with an exact divide. The mask is left to the caller."""
+    x = r * hinv
+    inner = 2.0 - 3.0 * x
+    tpos = torch.clamp(1.0 - x, min=0.0)
+    outer = tpos * tpos / torch.clamp(x, min=0.5)
+    return kw * torch.where(x < 0.5, inner, outer)
+
+
+def _isph_div_visc_body(cfg, d: int):
+    """Raw spline sums Σ rD·(x_pq·v_pq, 1, r², v_pq[d]) (fields occ, x[d],
+    v[d]), term for term the Pallas ``isph_div_visc_pass`` body."""
+    hinv, kw = _isph_consts(cfg)
+
+    def body(p, q, r2, maskf):
+        w = maskf * _rd_spline23(hinv, kw, torch.sqrt(r2))
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[1 + d + a] - q[1 + d + a] for a in range(d)]
+        return [w * _dot(dx, dv), w, w * r2] + [w * dv[a] for a in range(d)]
+
+    return body
+
+
+def _isph_matvec_body(cfg, d: int):
+    """Σ rD(h0, r)·v_q (fields occ, x[d], v), the Pallas matvec body."""
+    hinv, kw = _isph_consts(cfg)
+
+    def body(p, q, r2, maskf):
+        return [maskf * _rd_spline23(hinv, kw, torch.sqrt(r2)) * q[1 + d]]
+
+    return body
+
+
+def _isph_grad_body(cfg, d: int):
+    """Per axis Σ rD·(P_p + P_q)·x_pq (fields occ, x[d], P), the Pallas
+    ``isph_grad_pass`` body."""
+    hinv, kw = _isph_consts(cfg)
+
+    def body(p, q, r2, maskf):
+        w = maskf * _rd_spline23(hinv, kw, torch.sqrt(r2))
+        s = w * (p[1 + d] + q[1 + d])
+        return [s * (p[1 + a] - q[1 + a]) for a in range(d)]
+
+    return body
+
+
+def _rb_consts(cfg, dim: int):
+    """(kc, 1/h, 2κ) of the fixed-h Rayleigh–Bénard body: kc = m·(−C of
+    rDW)/h^(dim+2), in double on the host as the reference computes them."""
+    return (cfg.m * _rdw_const(dim) / cfg.h ** (dim + 2), 1.0 / cfg.h,
+            2.0 * cfg.kappa)
+
+
+def _rb_mass_heat_body(cfg, d: int):
+    """Fused continuity kc·t³·(x_pq·v_pq) and Cleary–Monaghan conduction
+    2κ·(1/ρ)_q·kc·t³·(T_p − T_q) (fields occ, x[d], v[d], T, 1/ρ gated),
+    term for term the Pallas ``rb_mass_heat_pass`` body."""
+    kc, hinv, twokap = _rb_consts(cfg, d)
+
+    def body(p, q, r2, maskf):
+        r = torch.sqrt(r2)
+        t = torch.clamp(1.0 - r * hinv, min=0.0) * maskf
+        ker = kc * t * t * t
+        dx = [p[1 + a] - q[1 + a] for a in range(d)]
+        dv = [p[1 + d + a] - q[1 + d + a] for a in range(d)]
+        dT = p[1 + 2 * d] - q[1 + 2 * d]
+        return [ker * _dot(dx, dv), twokap * q[2 + 2 * d] * ker * dT]
+
+    return body
+
+
 def _occupied_box(occ: torch.Tensor):
     """Per grid axis, the slice that spans the occupied cells of the
     occupancy grid [cap, *grid]; None if no slot is occupied."""
@@ -693,13 +822,20 @@ def _occupied_box(occ: torch.Tensor):
     return tuple(box)
 
 
+# the largest [q ranks, cap, cells] block one plain stencil offset evaluates
+# at once (64 MiB per f32 temporary); the q ranks are split into chunks of it
+_PLAIN_BLOCK = 1 << 24
+
+
 def _sweep_plain(engine, planes, pad_vals, band, body, n_out: int,
                  self_pair: bool):
     """The pair-sweep harness in plain PyTorch: p fields are the
-    [cap, (nz,) ny, nx] grid, q fields at one rank ``kq`` and one stencil
-    offset are a shifted [(nz,) ny, nx] view of the padded grid. Masked pairs
-    contribute exactly zero, because every hoisted input (and every pad) is
-    finite."""
+    [1, cap, (nz,) ny, nx] grid, q fields at a block of ranks ``kq`` and one
+    stencil offset a shifted [ranks, 1, (nz,) ny, nx] view of the padded
+    grid. For each rank the offsets' contributions are summed first and the
+    ranks are then added to the accumulator one after another: the kernel's
+    order, element for element. Masked pairs contribute exactly zero,
+    because every hoisted input (and every pad) is finite."""
     cap = engine.cap
     full = engine.grid_shape
     d = engine.dim
@@ -715,27 +851,38 @@ def _sweep_plain(engine, planes, pad_vals, band, body, n_out: int,
     G = [g[(slice(None),) + box] for g in G]
     grid = tuple(G[0].shape[1:])
     P = [F.pad(g, (1, 1) * d, value=v) for g, v in zip(G, pad_vals)]
-    occ_p = G[0] > 0.5
+    Gp = [g.unsqueeze(0) for g in G]                      # [1, cap, *grid]
+    occ_p = Gp[0] > 0.5
     hh = torch.tensor(engine.h * engine.h, dtype=torch.float32, device=dev)
-    k_ids = torch.arange(cap, device=dev).reshape((cap,) + (1,) * d)
+    ranks = torch.arange(cap, device=dev)
+    other = (ranks[:, None] != ranks[None, :]).reshape((cap, cap) + (1,) * d)
     acc = [torch.zeros((cap,) + grid, dtype=torch.float32, device=dev)
            for _ in range(n_out)]
+    cells = 1
+    for n in grid:
+        cells *= n
     # q ranks past the largest band occupancy are empty everywhere
-    for kq in range(int(band.max())):
+    kend = int(band.max())
+    step = max(1, _PLAIN_BLOCK // (cap * cells))
+    for k0 in range(0, kend, step):
+        ks = slice(k0, min(k0 + step, kend))
+        shape = (ks.stop - ks.start, cap) + grid
         tot = None
         for off in engine.stencil:
-            window = (kq,) + tuple(slice(1 + o, 1 + o + n)
+            window = (ks,) + tuple(slice(1 + o, 1 + o + n)
                                    for o, n in zip(reversed(off), grid))
-            q = [Pf[window] for Pf in P]
-            r2 = (G[1] - q[1]) ** 2 + (G[2] - q[2]) ** 2
+            q = [Pf[window].unsqueeze(1) for Pf in P]     # [ranks, 1, *grid]
+            r2 = (Gp[1] - q[1]) ** 2 + (Gp[2] - q[2]) ** 2
             if d == 3:
-                r2 = r2 + (G[3] - q[3]) ** 2
+                r2 = r2 + (Gp[3] - q[3]) ** 2
             mask = occ_p & (q[0] > 0.5) & (r2 <= hh)
             if not self_pair and not any(off):
-                mask = mask & (k_ids != kq)
-            contribs = body(G, q, r2, mask.to(torch.float32))
+                mask = mask & other[ks]
+            contribs = [c.expand(shape) for c in
+                        body(Gp, q, r2, mask.to(torch.float32))]
             tot = contribs if tot is None else [t + c for t, c in zip(tot, contribs)]
-        acc = [a + t for a, t in zip(acc, tot)]
+        for j in range(shape[0]):
+            acc = [a + t[j] for a, t in zip(acc, tot)]
     outs = []
     for a in acc:
         whole = torch.zeros((cap,) + full, dtype=torch.float32, device=dev)
@@ -882,6 +1029,43 @@ def gamma_grad_pass_plain(engine, state: ParticleState, V0: float):
                         2, self_pair=True)
 
 
+def isph_div_visc_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``isph_div_visc_pass``: (S_divv, S_L, S_lam, S_dv[d])."""
+    planes, pad_vals = _isph_div_visc_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _isph_div_visc_body(cfg, engine.dim), 3 + engine.dim,
+                        self_pair=False)
+
+
+def isph_grad_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``isph_grad_pass``: the per-axis raw sums."""
+    planes, pad_vals = _isph_grad_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _isph_grad_body(cfg, engine.dim), engine.dim,
+                        self_pair=False)
+
+
+def isph_matvec_pass_plain(engine, state: ParticleState, cfg, v):
+    """Plain twin of ``isph_matvec_pass``: Σ_q rD(h0, r)·v_q."""
+    planes, pad_vals = _isph_matvec_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    (out,) = _sweep_plain(engine, planes + [_plane(engine, v)], pad_vals,
+                          band, _isph_matvec_body(cfg, engine.dim), 1,
+                          self_pair=False)
+    return out
+
+
+def rb_mass_heat_pass_plain(engine, state: ParticleState, cfg):
+    """Plain twin of ``rb_mass_heat_pass``: (Drho, DT)."""
+    planes, pad_vals = _rb_mass_heat_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    return _sweep_plain(engine, planes, pad_vals, band,
+                        _rb_mass_heat_body(cfg, engine.dim), 2,
+                        self_pair=False)
+
+
 # ----------------------------------------------------------- CUDA kernels
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -938,6 +1122,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"pair sweeps run on cuda or cpu tensors, not {t.device}")
+
+
+def _check_2d(engine, name: str) -> None:
+    """The ISPH and Rayleigh–Bénard kernels exist in 2-D only (no 3-D
+    caller)."""
+    if engine.dim != 2:
+        raise NotImplementedError(f"{name}: 2-D engines only")
 
 
 def _momentum_scalars(cfg, dim: int = 2):
@@ -1265,6 +1456,122 @@ def adia_density_pass(engine, state: ParticleState, cfg):
     return out
 
 
+def _isph_scalars(cfg):
+    """(1/h0, −C·(1/h0)⁸) as f32 kernel arguments."""
+    hinv, kw = _isph_consts(cfg)
+    return [ctypes.c_float(hinv), ctypes.c_float(kw)]
+
+
+def isph_div_visc_pass(engine, state: ParticleState, cfg):
+    """The ISPH step's fused divergence/L/λ + viscous sweep: the raw
+    cubic-spline sums Σ rD(h0, r)·(x_pq·v_pq, 1, r², v_pq[0], v_pq[1]) over
+    pairs without the self pair, as five flat [slots] tensors (the caller
+    applies the physics factors). Replaces ``isph_div_visc_pass`` of
+    pallas_pairs.py. CUDA tensors launch the kernel (counted in
+    ``isph_div_visc_pass.launches``); CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return isph_div_visc_pass_plain(engine, state, cfg)
+    _check_2d(engine, "isph_div_visc_pass")
+    planes, _ = _isph_div_visc_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("isph_div_visc_sweep", engine, planes, band, 5,
+                   _isph_scalars(cfg))
+    isph_div_visc_pass.launches += 1
+    return outs
+
+
+def isph_grad_pass(engine, state: ParticleState, cfg):
+    """The ISPH pressure-correction gradient: per axis Σ rD(h0, r)·(P_p +
+    P_q)·x_pq as two flat [slots] tensors (the caller applies
+    −vol/max(ρ_bg, 1e-6)). Replaces ``isph_grad_pass`` of pallas_pairs.py.
+    CUDA tensors launch the kernel (counted in ``isph_grad_pass.launches``);
+    CPU tensors take the twin."""
+    if not _on_cuda(state.active):
+        return isph_grad_pass_plain(engine, state, cfg)
+    _check_2d(engine, "isph_grad_pass")
+    planes, _ = _isph_grad_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    outs = _launch("isph_grad_sweep", engine, planes, band, 2,
+                   _isph_scalars(cfg))
+    isph_grad_pass.launches += 1
+    return outs
+
+
+def isph_matvec_prepared(engine, state: ParticleState, cfg):
+    """The CG matvec's off-diagonal sweep, prepared once per solve: returns
+    ``mv(v) = Σ_q rD(h0, r)·v_q`` (flat [slots]; the caller scales it by
+    2h0²·vol and adds the diagonal). Replaces ``isph_matvec_prepared`` of
+    pallas_pairs.py.
+
+    The occupancy and coordinate planes, the row bound and (on the card) the
+    output buffer are built here; each ``mv(v)`` is then one launch on the
+    resident view of ``v`` (a reshape, no copy), counted in
+    ``isph_matvec_pass.launches``, with no allocation. The tensor it returns
+    is that buffer: the next call overwrites it. CPU tensors take the twin
+    (``isph_matvec_pass_plain``) at every call."""
+    if not _on_cuda(state.active):
+        return lambda v: isph_matvec_pass_plain(engine, state, cfg, v)
+    _check_2d(engine, "isph_matvec_pass")
+    planes, _ = _isph_matvec_inputs(engine, state)
+    band, _ = row_kmax(engine, state)
+    _check_planes(engine, planes, band)
+    band = band.contiguous()
+    dev = planes[0].device
+    out = torch.empty(engine.slots, dtype=torch.float32, device=dev)
+    lib = _build.load("pair_sweep")
+    fn = lib.isph_matvec_sweep
+    head = [_ptr(p) for p in planes]
+    tail = [_ptr(band), _ptr(out), engine.cap, *engine.lims,
+            ctypes.c_float(engine.h * engine.h), *_isph_scalars(cfg)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    shape = (engine.slots,)
+
+    def mv(v):
+        if (v.device != dev or v.dtype != torch.float32
+                or tuple(v.shape) != shape or not v.is_contiguous()):
+            raise ValueError(f"matvec iterate must be contiguous f32 {shape} "
+                             f"on {dev}, got {v.dtype} {tuple(v.shape)} on "
+                             f"{v.device}")
+        err = fn(*head, _ptr(v), *tail, stream)
+        if err != 0:
+            raise RuntimeError("isph_matvec_sweep launch failed: "
+                               f"{lib.pair_sweep_error_string(err).decode()}")
+        isph_matvec_pass.launches += 1
+        return out
+
+    # the kernel reads the prepared planes and the row bound at every call:
+    # keep them alive for as long as mv is (the launches hold raw pointers)
+    mv.prepared = (planes, band)
+    return mv
+
+
+def isph_matvec_pass(engine, state: ParticleState, cfg, v):
+    """One-shot form of ``isph_matvec_prepared``."""
+    return isph_matvec_prepared(engine, state, cfg)(v)
+
+
+def rb_mass_heat_pass(engine, state: ParticleState, cfg):
+    """Rayleigh–Bénard continuity + Cleary–Monaghan conduction in one
+    sweep: Drho = Σ kc·t³·(x_pq·v_pq) and DT = Σ 2κ·(1/ρ)_q·kc·t³·(T_p −
+    T_q), t = max(1 − r/h, 0), kc = m·(−C of rDW₂)/h⁴, as two flat [slots]
+    tensors; 1/ρ_q is zero on ``WALL_ADIA`` rows under adiabatic sidewalls
+    and the caller applies the p-side FLUID gate to DT. Replaces
+    ``rb_mass_heat_pass`` of pallas_pairs.py. CUDA tensors launch the kernel
+    (counted in ``rb_mass_heat_pass.launches``); CPU tensors take the
+    twin."""
+    if not _on_cuda(state.active):
+        return rb_mass_heat_pass_plain(engine, state, cfg)
+    _check_2d(engine, "rb_mass_heat_pass")
+    planes, _ = _rb_mass_heat_inputs(engine, state, cfg)
+    band, _ = row_kmax(engine, state)
+    kc, hinv, twokap = _rb_consts(cfg, engine.dim)
+    outs = _launch("rb_mass_heat_sweep", engine, planes, band, 2,
+                   [ctypes.c_float(kc), ctypes.c_float(hinv),
+                    ctypes.c_float(twokap)])
+    rb_mass_heat_pass.launches += 1
+    return outs
+
+
 density_pass.launches = 0
 momentum_pass.launches = 0
 pressure_pass.launches = 0
@@ -1280,3 +1587,7 @@ iso_static_mass_pass.launches = 0
 iso_static_force_pass.launches = 0
 adia_entropy_force_pass.launches = 0
 adia_density_pass.launches = 0
+isph_div_visc_pass.launches = 0
+isph_matvec_pass.launches = 0
+isph_grad_pass.launches = 0
+rb_mass_heat_pass.launches = 0

@@ -57,7 +57,7 @@ from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
 from sph_mountain_waves_tpu_torch.utils.checkpoint import (
     engine_from_meta, load_checkpoint, save_checkpoint,
 )
-from torch_reference_harness import reference_body_sweep
+from torch_reference_harness import jit_at_level0, reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -218,8 +218,9 @@ def test_momentum_twin_matches_reference_body_in_3d(live, fast_math,
         _check(got, ref, tlive.active.numpy())
 
 
-def test_setup_and_steps_match_jax(built):
+def test_setup_and_steps_match_jax(built, monkeypatch):
     _, _, ts, tstate = built
+    jit_at_level0(monkeypatch)  # the reference set-up's own jax.jit
     over = dict(renorm_iters=2)
     jcfg = jw.Witch3DConfig(**{**SMALL, **over, "layout": "flat",
                                "use_pallas": False})

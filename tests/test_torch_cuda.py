@@ -1,4 +1,5 @@
-"""CUDA kernels of the port against their plain twins, on the card.
+"""CUDA kernels of the port against their plain twins, on the card, and the
+published Nusselt gates of Rayleigh–Bénard convection (``slow``).
 
 Marked ``cuda``: they skip without a CUDA device. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -486,3 +487,150 @@ def test_terrain_kernel_steps_match_cpu_twins(card, factory, extra):
     state = sys_.freeze(device=card)
     with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
         lw.make_step(cfg, sys_.engine)(state)
+
+
+ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2,
+            use_pallas=True)
+RB = dict(n_rows=16, dtype="float32", layout="bucket", skin=0.2,
+          use_pallas=True)
+
+
+def _kicked(state, device):
+    """v = 0.1·N(0, 1) on FLUID rows from a seeded generator: every ISPH
+    step then solves a real pressure system."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    v = 0.1 * torch.randn(state.fields["v"].shape, generator=gen)
+    return state.replace(v=torch.where(
+        (state.fields["type"] == 0.0)[:, None], v.to(device), state.fields["v"]))
+
+
+def _isph_live(device):
+    """The kicked ISPH state at n_rows=10 after one step (P is the first
+    solve's solution)."""
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    cfg = iw.ISPHWitchConfig(**ISPH)
+    sys_ = iw.make_system(cfg)
+    state = _kicked(sys_.freeze(device=device), device)
+    return cfg, sys_.engine, iw.make_step(cfg, sys_.engine)(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["div_visc", "grad", "matvec"])
+def test_isph_kernel_matches_twin_bitwise(card, name):
+    """Each ISPH kernel equals its twin bit for bit and counts one launch a
+    call; the prepared matvec one launch per call on the iterate."""
+    cfg, eng, st = _isph_live(card)
+    if name == "matvec":
+        mv = ps.isph_matvec_prepared(eng, st, cfg)
+        P = st.fields["P"]
+        before = ps.isph_matvec_pass.launches
+        got = [mv(P).clone()]
+        assert ps.isph_matvec_pass.launches == before + 1
+        rerun = [mv(P).clone()]
+        ref = [ps.isph_matvec_pass_plain(eng, st, cfg, P)]
+    else:
+        wrapper, twin = {"div_visc": (ps.isph_div_visc_pass,
+                                      ps.isph_div_visc_pass_plain),
+                         "grad": (ps.isph_grad_pass,
+                                  ps.isph_grad_pass_plain)}[name]
+        before = wrapper.launches
+        got = wrapper(eng, st, cfg)
+        assert wrapper.launches == before + 1
+        rerun, ref = wrapper(eng, st, cfg), twin(eng, st, cfg)
+    for g, g2, r in zip(got, rerun, ref):
+        assert torch.equal(g, g2) and torch.equal(g, r)
+        assert r.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sidewalls", ["conducting", "adiabatic"])
+def test_rb_kernel_matches_twin_bitwise(card, sidewalls):
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    cfg = rb.Config(**RB, sidewalls=sidewalls)
+    sys_ = rb.make_system(cfg)
+    st = sys_.freeze(device=card)
+    st = rb.make_step(cfg, sys_.engine)(st)
+    gen = torch.Generator(device=card).manual_seed(0)
+    dv = (torch.rand(st.fields["v"].shape, generator=gen, device=card) - 0.5)
+    st = st.replace(v=torch.where(st.active[:, None], 0.02 * dv, 0.0))
+    before = ps.rb_mass_heat_pass.launches
+    got = ps.rb_mass_heat_pass(sys_.engine, st, cfg)
+    assert ps.rb_mass_heat_pass.launches == before + 1
+    ref = ps.rb_mass_heat_pass_plain(sys_.engine, st, cfg)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r) and r.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["isph_witch", "rayleigh_benard"])
+def test_isph_rb_kernel_steps_match_cpu_twins(card, name):
+    """Kernel steps on the card against the twins on the CPU: 2 kicked ISPH
+    steps (mean/max |v| at rtol 2e-3, the reference's own gate: the f32 CG's
+    iterates depend on the reductions' order) and 6 Rayleigh–Bénard steps
+    (rel 1e-5); equal active counts."""
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    module, cfg, n_steps, rtol = {
+        "isph_witch": (iw, iw.ISPHWitchConfig(**ISPH), 2, 2e-3),
+        "rayleigh_benard": (rb, rb.Config(**RB), 6, 1e-5)}[name]
+    out = {}
+    for device in (card, torch.device("cpu")):
+        sys_ = module.make_system(cfg)
+        state = sys_.freeze(device=device)
+        if module is iw:
+            state = _kicked(state, device)
+        state = frame_runner(module.make_step(cfg, sys_.engine), n_steps)(state)
+        speed = state.fields["v"][state.active].abs()
+        out[device.type] = ([float(speed.mean()), float(speed.max())],
+                            int(state.n))
+    assert out["cuda"][1] == out["cpu"][1]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert a == pytest.approx(b, rel=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["isph_witch", "rayleigh_benard"])
+def test_use_pallas_off_is_refused_on_the_card_by_isph_and_rb(card, name):
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    module, cfg = {
+        "isph_witch": (iw, iw.ISPHWitchConfig(**{**ISPH, "use_pallas": False})),
+        "rayleigh_benard": (rb, rb.Config(**{**RB, "use_pallas": False}))}[name]
+    sys_ = module.make_system(cfg)
+    state = sys_.freeze(device=card)
+    wrappers = (ps.isph_div_visc_pass, ps.rb_mass_heat_pass)
+    before = [wr.launches for wr in wrappers]
+    with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
+        module.make_step(cfg, sys_.engine)(state)
+    assert [wr.launches for wr in wrappers] == before
+
+
+def _nusselt(Ra: float, t_end: float) -> float:
+    """The steady square-cavity Nusselt number: 48 rows, adiabatic
+    sidewalls, a strong seed (0.3), averaged over the last 8 of 20 frames;
+    the reference's published-value gates (tests/test_rayleigh_benard.py)
+    at the reference's settings, on the card."""
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    cfg = rb.Config(n_rows=48, aspect=1.0, Ra=Ra, sidewalls="adiabatic",
+                    seed_amp=0.3, t_end=t_end, n_frames=20, layout="bucket",
+                    skin=0.15, use_pallas=True)
+    out = rb.run(cfg, device="cuda")
+    nu = float(sum(out["Nu"][-8:]) / 8)
+    print(f"Nu(Ra={Ra:g}) = {nu:.6f} on {torch.cuda.get_device_name(0)}")
+    return nu
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_nusselt_ra1e4_published_value(card):
+    """Ouertatani et al. (2008): Nu = 2.158 at Ra = 1e4; within 13 %."""
+    nu = _nusselt(1e4, 60.0)
+    assert abs(nu / 2.158 - 1.0) < 0.13, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_nusselt_ra1e5_published_value(card):
+    """Ouertatani et al. (2008): Nu = 3.91 at Ra = 1e5; within 12 %."""
+    nu = _nusselt(1e5, 30.0)
+    assert abs(nu / 3.91 - 1.0) < 0.12, nu

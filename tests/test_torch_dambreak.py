@@ -211,8 +211,8 @@ def test_collapse_dry_run_writes_files_and_resumes_bitwise(tmp_path):
     assert steps_per_frame == 2
     whole = tcd.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
     assert sorted(os.listdir(tmp_path / "whole")) == [
-        "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp", "frame2.vtp",
-        "result.pvd"]
+        "checkpoint.npz", "dambreak_H.pdf", "dambreak_X.pdf", "data.csv",
+        "frame0.vtp", "frame1.vtp", "frame2.vtp", "result.pvd"]
     csv = read_csv(str(tmp_path / "whole" / "data.csv"))
     assert list(csv) == ["t", "X", "H", "E"] and len(csv["t"]) == 3
     np.testing.assert_array_equal(csv["X"], whole["X"])

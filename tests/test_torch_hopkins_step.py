@@ -11,8 +11,6 @@ level changes the rounding, far inside the gate).
 Also: the packing from one frozen state on both sides, ``run`` on the CPU,
 and the entry points' default device (the card).
 """
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -39,6 +37,7 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
     WitchConfig as TCfg, velocity_diagnostics as t_diag,
 )
 from sph_mountain_waves_tpu_torch.utils.packing import hydrostatic_packing
+from torch_reference_harness import jit_at_level0
 
 torch.set_num_threads(1)
 
@@ -78,13 +77,14 @@ def test_eight_steps_match_jax(scheme):
     assert int(tstate.n) == int(np.asarray(jstate.active).sum()) == 3514
 
 
-def test_packing_matches_jax():
+def test_packing_matches_jax(monkeypatch):
     """20 packing steps from the same frozen state. The step count is equal
     and err0 agrees within rtol 1e-5. The packing's sweeps round otherwise
     than the reference's XLA pair sums (module docstring of
     utils/packing.py); measured on this state: err 1.3e-7 relative apart,
     x 2.1e-9 m apart after a largest displacement of 3.7e-3 m, ρ 1.8e-7
     apart. Held at err rtol 1e-6, x atol 1e-6 m, ρ atol 1e-6."""
+    jit_at_level0(monkeypatch)  # the reference packing's own jax.jit
     jcfg, tcfg = JCfg(**BENCH), TCfg(**BENCH)
     jsys = jht.make_system(jcfg)
     jstate = jsys.freeze()
@@ -111,19 +111,18 @@ def test_packing_matches_jax():
                                   np.asarray(jpacked.active))
 
 
-def test_run_on_cpu():
+def test_run_on_cpu(capsys):
     """``run(..., device="cpu")`` drives two short frames of the full
-    Hopkins scheme, keeps every particle and stays near rest; live plots
-    (``utils/plots.py``, not ported) are refused."""
+    Hopkins scheme, keeps every particle and stays near rest; with
+    ``live_plot`` each frame prints the u_max sparkline."""
     cfg = TCfg(n_rows=8, dtype="float32", self_density=True, layout="bucket",
                skin=0.15, lattice_cells=True, use_pallas=True, t_end=1.0,
-               n_frames=2)
+               n_frames=2, live_plot=True)
     out = tfh.run(cfg, device="cpu")
     assert len(out["t"]) == 2
     assert np.all(np.isfinite(out["u_max"])) and out["u_max"][-1] < 5.0
     assert int(out["state"].n) == out["system"].n_built
-    with pytest.raises(NotImplementedError, match="live plots"):
-        tfh.run(dataclasses.replace(cfg, live_plot=True), device="cpu")
+    assert capsys.readouterr().out.count("u_max [") == 2
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

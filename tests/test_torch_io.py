@@ -196,16 +196,16 @@ def _short(module, **over):
 
 @pytest.mark.parametrize("scheme", list(SCHEMES))
 def test_run_writes_the_file_set(scheme, tmp_path):
-    """result.pvd, frame0..2.vtp, data.csv and checkpoint.npz; the last
-    frame read back equals the final state's active rows; the checkpoint
-    holds the final state and its step."""
+    """result.pvd, frame0..2.vtp, data.csv, checkpoint.npz and the
+    velocities figure; the last frame read back equals the final state's
+    active rows; the checkpoint holds the final state and its step."""
     module = SCHEMES[scheme]
     cfg = _short(module)
     kw = {"packing": False} if module in (tht, tpv) else {}
     out = module.run(cfg, out_path=str(tmp_path), device="cpu", **kw)
     assert sorted(os.listdir(tmp_path)) == [
         "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
-        "frame2.vtp", "result.pvd"]
+        "frame2.vtp", "result.pvd", "velocities.pdf"]
     points, data = tio.read_vtp(str(tmp_path / "frame2.vtp"))
     _assert_frame_equals_state(points, data, out["state"], module.EXPORT_VARS)
     csv = tio.read_csv(str(tmp_path / "data.csv"))

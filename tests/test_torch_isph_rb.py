@@ -1,0 +1,550 @@
+"""The port's ISPH mountain wave and Rayleigh–Bénard convection against the
+JAX package on the CPU: the cubic spline, the resident stencil shifts, the
+four new sweeps' twins, the multigrid preconditioner, the steps, the runs
+and the figures.
+
+Sizes (the reference's own Pallas-vs-XLA gates, tests/test_pallas.py):
+``ISPHWitchConfig(n_rows=10, layout="bucket", skin=0.2)`` in float32 (N =
+3,514, grid 128 × 16, cap 16), kicked with v = 0.1·N(0, 1) on FLUID rows
+from ``default_rng(3)``; ``rayleigh_benard.Config(n_rows=16, layout="bucket",
+skin=0.2)`` (N = 773). (Not ``isph_witch.baseline_config(n_rows=12)``: the
+reference's mg solve gives NaN on that state.)
+
+What is compared, and at which tolerance:
+
+* the twins of ``isph_div_visc_pass``, ``isph_grad_pass``,
+  ``isph_matvec_prepared`` (on a seeded iterate) and ``rb_mass_heat_pass``
+  (conducting and adiabatic sidewalls) against the reference's own pair
+  bodies summed eagerly in the Pallas harness's order
+  (tests/torch_reference_harness.py; the matvec through its
+  ``make_pair_kernel_fn`` capture): rtol 1e-5, atol 1e-6 × the output's
+  largest |value|;
+* ``coarse_stencil_2d`` on the kicked state and the V-cycle on the
+  reference's 12 × 20 model stencil (float64) against the reference's at
+  rtol 1e-5; the V-cycle's SPD gates as the reference's tests/test_mg.py
+  (symmetry < 1e-10, λ_min > 0, cond(M·A) < 12);
+* CG iterations of the first kicked step, mg and Jacobi, within ±10 % (or
+  ±2) of the reference's, and mg fewer than Jacobi;
+* 4 kicked ISPH steps against the reference's XLA bucket path (compiled once
+  at XLA optimisation level 0): mean and max |v| at rtol 2e-3, mean |P| at
+  rel 0.1 (the f32 CG stalls near rel_res 7e-3, so P is path-dependent),
+  equal active counts; 6 Rayleigh–Bénard steps against the reference's flat
+  XLA path (its bucket path costs three times the compile and agrees with
+  it to all printed digits): rtol 1e-4, atol 1e-8 on mean |v|, max |v|, mean
+  T and max |ρ − ρ0|, equal active counts;
+* ``run(cfg, out_path=..., device="cpu")`` of both: the file set, the
+  ``data.csv`` columns, the sparklines of ``live_plot`` and a resumed run bit
+  for bit equal to the uninterrupted one;
+* ``utils/plots.py``: the files ``tests/test_plots.py`` gates.
+"""
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sph_mountain_waves_tpu.ops.pallas_pairs as pp
+from sph_mountain_waves_tpu import kernels as jk
+from sph_mountain_waves_tpu.models import isph_witch as jiw
+from sph_mountain_waves_tpu.models import rayleigh_benard as jrb
+from sph_mountain_waves_tpu.ops import mg as jmg
+from sph_mountain_waves_tpu.ops.solvers import assemble_matvec, pcg as jpcg
+from sph_mountain_waves_tpu.structs import ParticleState as JState
+
+from sph_mountain_waves_tpu_torch import kernels as tk
+from sph_mountain_waves_tpu_torch.interop import state_from_numpy
+from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
+from sph_mountain_waves_tpu_torch.models import isph_witch as tiw
+from sph_mountain_waves_tpu_torch.models import rayleigh_benard as trb
+from sph_mountain_waves_tpu_torch.ops import mg as tmg
+from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from sph_mountain_waves_tpu_torch.utils import plots as tplots
+from torch_reference_harness import (
+    reference_body_sweep, reference_prepared_sweep,
+)
+
+torch.set_num_threads(1)
+
+ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2)
+RB = dict(n_rows=16, dtype="float32", layout="bucket", skin=0.2)
+RTOL, ATOL_REL = 1e-5, 1e-6
+LEVEL0 = {"xla_backend_optimization_level": 0}
+
+
+def _fields(jstate):
+    return ({k: np.asarray(v) for k, v in jstate.fields.items()},
+            np.asarray(jstate.active))
+
+
+def _jstate(fields, active):
+    return JState(fields={k: jnp.asarray(v) for k, v in fields.items()},
+                  active=jnp.asarray(active))
+
+
+def _check(got, ref, active):
+    ref = np.asarray(ref)
+    got = got.numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(ref).max())
+    assert np.all(got[~active] == 0.0)
+    assert np.abs(ref).max() > 0.0
+
+
+# ------------------------------------------------------------------ ISPH
+
+@pytest.fixture(scope="module")
+def isph():
+    """(JAX engine, port engine, kicked fields, active) from one build."""
+    jsys = jiw.make_system(jiw.ISPHWitchConfig(**ISPH, use_pallas=False))
+    fields, active = _fields(jsys.freeze())
+    rng = np.random.default_rng(3)
+    fluid = (fields["type"] == 0.0)[:, None]
+    fields["v"] = np.where(
+        fluid, 0.1 * rng.standard_normal(fields["v"].shape),
+        fields["v"]).astype(np.float32)
+    tsys = tiw.make_system(tiw.ISPHWitchConfig(**ISPH, use_pallas=True))
+    tsys.freeze(device="cpu")
+    je, te = jsys.engine, tsys.engine
+    assert (te.cap, te.lims, te.phase) == (je.cap, je.lims, je.phase)
+    assert (te.cap, te.lims, int(active.sum())) == (16, (128, 16), 3514)
+    return je, te, fields, active
+
+
+@pytest.fixture(scope="module")
+def isph_ref(isph):
+    """The reference's 4 kicked steps (XLA bucket path, mg): per-step
+    cg_it, the state after step 1 and after step 4."""
+    je, _, fields, active = isph
+    cfg = jiw.ISPHWitchConfig(**ISPH, use_pallas=False)
+    js = jiw.make_system(cfg)
+    js.freeze()
+    state = _jstate(fields, active)
+    step = jax.jit(jiw.make_step(cfg, js.engine)).lower(state).compile(
+        compiler_options=LEVEL0)
+    its, states = [], []
+    for _ in range(4):
+        state = step(state)
+        its.append(int(state.fields["cg_it"][0]))
+        states.append(state)
+    return js.engine, its, states
+
+
+@pytest.fixture(scope="module")
+def isph_port(isph):
+    """The port's 4 kicked steps on the CPU twins: per-step cg_it and the
+    final state."""
+    _, _, fields, active = isph
+    cfg = tiw.ISPHWitchConfig(**ISPH, use_pallas=True)
+    ts = tiw.make_system(cfg)
+    ts.freeze(device="cpu")
+    state = state_from_numpy(fields, active, "cpu")
+    step = tiw.make_step(cfg, ts.engine)
+    its = []
+    for _ in range(4):
+        state = step(state)
+        its.append(int(state.fields["cg_it"][0]))
+    return its, state
+
+
+def _isph_live(isph):
+    """The kicked state with a seeded pressure and a 1 % jitter of the
+    positions, both packages' states."""
+    je, te, fields, active = isph
+    fields = dict(fields)
+    rng = np.random.default_rng(5)
+    n = active.shape[0]
+    fields["P"] = np.where(active, rng.uniform(-50.0, 50.0, n),
+                           0.0).astype(np.float32)
+    jit = rng.uniform(-0.01, 0.01, fields["x"].shape) * (te.h / 1.8)
+    fields["x"] = np.where(active[:, None], fields["x"] + jit,
+                           0.0).astype(np.float32)
+    return (je, _jstate(fields, active), te,
+            state_from_numpy(fields, active, "cpu"))
+
+
+@pytest.mark.parametrize("name", ["div_visc", "grad", "matvec"])
+def test_isph_twin_matches_reference_body(isph, name, monkeypatch):
+    je, jst, te, tst = _isph_live(isph)
+    cfg = tiw.ISPHWitchConfig(**ISPH, use_pallas=True)
+    jcfg = jiw.ISPHWitchConfig(**ISPH, use_pallas=True)
+    active = tst.active.numpy()
+    if name == "matvec":
+        rng = np.random.default_rng(7)
+        v = np.where(active, rng.standard_normal(active.shape),
+                     0.0).astype(np.float32)
+        mv, captured = reference_prepared_sweep(pp.isph_matvec_prepared, je,
+                                                jst, jcfg, monkeypatch)
+        assert captured["n_dyn"] == 1 and len(captured["static"]) == 2
+        refs = [mv(jnp.asarray(v))]
+        before = tps.isph_matvec_pass.launches
+        mv_t = tps.isph_matvec_prepared(te, tst, cfg)
+        gots = [mv_t(torch.as_tensor(v))]
+        # the one-shot form is the prepared one
+        assert torch.equal(tps.isph_matvec_pass(te, tst, cfg,
+                                                torch.as_tensor(v)), gots[0])
+        assert tps.isph_matvec_pass.launches == before
+    else:
+        jpass, tpass = {"div_visc": (pp.isph_div_visc_pass,
+                                     tps.isph_div_visc_pass),
+                        "grad": (pp.isph_grad_pass, tps.isph_grad_pass)}[name]
+        refs, captured = reference_body_sweep(jpass, je, jst, jcfg,
+                                              monkeypatch)
+        counter = {"div_visc": tps.isph_div_visc_pass,
+                   "grad": tps.isph_grad_pass}[name]
+        before = counter.launches
+        gots = tpass(te, tst, cfg)
+        assert counter.launches == before  # CPU tensors: the twin
+    assert captured["self_pair"] is False
+    assert len(gots) == len(refs) == {"div_visc": 5, "grad": 2, "matvec": 1}[name]
+    for got, ref in zip(gots, refs):
+        _check(got, ref, active)
+
+
+def test_spline23_and_resident_shifts_match_jax(isph):
+    """The cubic spline family on both branches and the stencil shifts of
+    a resident field, against the reference's."""
+    r = np.linspace(0.0, 1.2, 97, dtype=np.float32)
+    for name in ("spline23", "Dspline23", "rDspline23"):
+        ref = np.asarray(getattr(jk, name)(0.9, jnp.asarray(r)))
+        got = getattr(tk, name)(0.9, torch.as_tensor(r)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6, err_msg=name)
+    je, te, fields, active = isph
+    for arr in (fields["x"].copy(), active.astype(np.float32)):
+        jB, tB = je.resident(jnp.asarray(arr)), te.resident(torch.as_tensor(arr))
+        for off in ((-1, 1), (1, 0), (0, 0)):
+            np.testing.assert_array_equal(te.shift_resident(tB, off).numpy(),
+                                          np.asarray(je.shift_resident(jB, off)))
+
+
+def test_coarse_stencil_matches_jax(isph):
+    """The Galerkin coarse stencil of the ISPH operator on the kicked state
+    (f32), with a seeded particle diagonal; and its hierarchy's levels."""
+    je, te, fields, active = isph
+    cfg = tiw.ISPHWitchConfig(**ISPH)
+    h, vol = cfg.h0, cfg.dr**2
+    rng = np.random.default_rng(0)
+    diag = np.where(active, rng.standard_normal(active.shape),
+                    0.0).astype(np.float32)
+    W_ref = np.asarray(jmg.coarse_stencil_2d(
+        je, _jstate(fields, active),
+        lambda r: 2.0 * h**2 * vol * jk.rDspline23(h, r), jnp.asarray(diag)))
+    W = tmg.coarse_stencil_2d(
+        te, state_from_numpy(fields, active, "cpu"),
+        lambda r: 2.0 * h**2 * vol * tk.rDspline23(h, r),
+        torch.as_tensor(diag))
+    assert W.shape == (3, 3, 16, 128) and W.dtype == torch.float32
+    scale = np.abs(W_ref).max()
+    np.testing.assert_allclose(W.numpy(), W_ref, rtol=RTOL,
+                               atol=ATOL_REL * scale)
+    # 16 × 128 → 8 × 64 → 4 × 32: coarsened while the short side exceeds 4
+    vc = tmg.GridVcycle(W)
+    assert [tuple(Wt.shape) for Wt in vc.Wts] == [(16, 128, 9), (8, 64, 9),
+                                                  (4, 32, 9)]
+
+
+def test_vcycle_symmetric_positive_definite():
+    """The reference's SPD gate on its 12 × 20 model stencil (5-point
+    Laplacian + mass term) in float64, and the V-cycle's output on a seeded
+    grid against the reference's at rtol 1e-5."""
+    ny, nx = 12, 20
+    W = np.zeros((3, 3, ny, nx))
+    W[1, 1] = 4.4
+    W[1, 0] = W[1, 2] = W[0, 1] = W[2, 1] = -1.0
+    vc = tmg.GridVcycle(torch.as_tensor(W))
+    Wt = tmg._taps_last(torch.as_tensor(W))
+    n = ny * nx
+    eye = torch.eye(n, dtype=torch.float64).reshape(n, ny, nx)
+    M = np.stack([vc.apply(e).numpy().ravel() for e in eye], axis=1)
+    A = np.stack([tmg._stencil_apply(Wt, e).numpy().ravel() for e in eye],
+                 axis=1)
+    assert np.abs(M - M.T).max() < 1e-10
+    assert np.linalg.eigvalsh(0.5 * (M + M.T)).min() > 0
+    cond = np.linalg.eigvalsh(M @ A)
+    assert cond.real.max() / cond.real.min() < 12.0
+    jvc = jmg.GridVcycle(jnp.asarray(W))
+    rng = np.random.default_rng(2)
+    u = rng.standard_normal((ny, nx))
+    np.testing.assert_allclose(vc.apply(torch.as_tensor(u)).numpy(),
+                               np.asarray(jvc.apply(jnp.asarray(u))),
+                               rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(
+        tmg._stencil_apply(Wt, torch.as_tensor(u)).numpy(),
+        np.asarray(jmg._stencil_apply(jnp.asarray(W), jnp.asarray(u))),
+        rtol=1e-12, atol=1e-12)
+
+
+def _reference_jacobi_iterations(isph, isph_ref):
+    """The reference's first kicked solve with the Jacobi preconditioner:
+    its own operator and ``pcg`` on the system of step 1 (x, L, λ and the
+    divergence are unchanged after the solve; x0 is the input's P). The
+    rebuild runs eagerly (compiling it would compile the rescatter it does
+    not take), the solve compiled."""
+    _, _, fields, active = isph
+    je, _, states = isph_ref
+    cfg = jiw.ISPHWitchConfig(**ISPH, use_pallas=False, precond="jacobi")
+    step = jiw.make_step(cfg, je)
+    offdiag = dict(zip(step.__code__.co_freevars,
+                       step.__closure__))["offdiag"].cell_contents
+    h, dt = cfg.h0, cfg.dt_isph
+    with jax.disable_jit():
+        state, nbrs = je.rebuild(states[0])
+
+    def solve(state, nbrs, x0):
+        f = state.fields
+        diag = h**2 * f["L"] + jnp.where(
+            f["type"] == 0.0, cfg.C_free * jnp.maximum(f["lam"], 0.0), 0.0)
+        mv_off = assemble_matvec(je, state, nbrs, offdiag, include_self=False)
+        diag_safe = jnp.where(jnp.abs(diag) > 1e-30, diag, 1.0)
+        b = jnp.where(state.active, -h**2 * f["div"] / dt, 0.0)
+        return jpcg(
+            lambda v: mv_off(v) + jnp.where(state.active, diag * v, 0.0), b,
+            x0=x0, M=lambda v: v / diag_safe, tol=cfg.cg_tol, atol=1e-18,
+            maxiter=cfg.cg_maxiter, return_info=True)[1]
+
+    x0 = jnp.asarray(fields["P"])
+    return int(jax.jit(solve)(state, nbrs, x0))
+
+
+def test_mg_and_jacobi_iteration_counts_match_jax(isph, isph_ref, isph_port):
+    """The first kicked solve: the port's mg and Jacobi iteration counts
+    each within ±10 % (or ±2) of the reference's, and mg fewer. The
+    symmetrized multiplicative form ("mg_mult") converges too, in no more
+    iterations than the additive one, to the Jacobi solve's mean |v| (rtol
+    2e-3)."""
+    _, _, fields, active = isph
+    port_mg, ref_mg = isph_port[0][0], isph_ref[1][0]
+    first = {}
+    for precond in ("jacobi", "mg_mult"):
+        cfg = tiw.ISPHWitchConfig(**ISPH, use_pallas=True, precond=precond)
+        ts = tiw.make_system(cfg)
+        ts.freeze(device="cpu")
+        first[precond] = tiw.make_step(cfg, ts.engine)(
+            state_from_numpy(fields, active, "cpu"))
+        assert float(first[precond].fields["cg_res"][0]) < 1e-4
+    port_jac = int(first["jacobi"].fields["cg_it"][0])
+    ref_jac = _reference_jacobi_iterations(isph, isph_ref)
+    for got, ref in ((port_mg, ref_mg), (port_jac, ref_jac)):
+        assert abs(got - ref) <= max(2, 0.1 * ref), (got, ref)
+    assert port_mg < port_jac and ref_mg < ref_jac
+    mult = first["mg_mult"]
+    assert int(mult.fields["cg_it"][0]) <= port_mg
+    v = [np.abs(first[k].fields["v"].numpy()[active]) for k in first]
+    np.testing.assert_allclose([x.mean() for x in v[1:]],
+                               [x.mean() for x in v[:1]], rtol=2e-3)
+
+
+def test_four_kicked_steps_match_jax(isph_ref, isph_port):
+    """The reference's own Pallas-vs-XLA gate: mean/max |v| at rtol 2e-3,
+    mean |P| at rel 0.1, equal active counts; the per-step iteration counts
+    within ±2."""
+    _, jits, jstates = isph_ref
+    tits, tstate = isph_port
+    jstate = jstates[-1]
+    ja = np.asarray(jstate.active)
+    ta = tstate.active.numpy()
+    assert int(ta.sum()) == int(ja.sum()) == 3514
+    jv = np.abs(np.asarray(jstate.fields["v"])[ja])
+    tv = np.abs(tstate.fields["v"].numpy()[ta])
+    tP = tstate.fields["P"].numpy()[ta]
+    assert np.isfinite(tv).all() and np.isfinite(tP).all()
+    np.testing.assert_allclose([tv.mean(), tv.max()], [jv.mean(), jv.max()],
+                               rtol=2e-3)
+    assert np.abs(tP).mean() == pytest.approx(
+        np.abs(np.asarray(jstate.fields["P"])[ja]).mean(), rel=0.1)
+    assert all(abs(t - j) <= 2 for t, j in zip(tits, jits)), (tits, jits)
+
+
+def test_isph_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
+    """Two frames of one step from rest with a checkpoint every frame, on a
+    60 km domain at n_rows=6 (N = 220); live plots print the sparklines; a
+    run stopped after one frame and resumed equals the uninterrupted one
+    bit for bit."""
+    cfg = tiw.ISPHWitchConfig(**{**ISPH, "n_rows": 6}, dom_length=60e3,
+                              bc_rows=3, use_pallas=True, n_frames=2,
+                              checkpoint_every=1, live_plot=True)
+    cfg = dataclasses.replace(cfg, t_end=2 * cfg.dt_isph)
+    whole = tiw.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
+    assert "cg_it [" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "whole")) == [
+        "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+        "frame2.vtp", "result.pvd", "velocities.pdf"]
+    csv = read_csv(str(tmp_path / "whole" / "data.csv"))
+    assert list(csv) == ["t", "u_avg", "u_max", "cg_it", "cg_res"]
+    np.testing.assert_array_equal(csv["cg_it"], whole["cg_it"])
+    assert np.all(csv["cg_it"] >= 1) and np.all(np.isfinite(csv["u_max"]))
+    pts, data = read_vtp(str(tmp_path / "whole" / "frame2.vtp"))
+    assert len(pts) == 220 and sorted(data) == ["P", "theta_p", "type", "v"]
+
+    half = dataclasses.replace(cfg, t_end=cfg.t_end / 2, n_frames=1,
+                               live_plot=False)
+    tiw.run(half, out_path=str(tmp_path / "part"), device="cpu")
+    resumed = tiw.run(dataclasses.replace(
+        cfg, live_plot=False,
+        resume=str(tmp_path / "part" / "checkpoint.npz")),
+        out_path=str(tmp_path / "part"), device="cpu")
+    for name, ref in whole["state"].fields.items():
+        assert torch.equal(resumed["state"].fields[name], ref), name
+    assert torch.equal(resumed["state"].active, whole["state"].active)
+    merged = read_csv(str(tmp_path / "part" / "data.csv"))
+    for name in csv:
+        np.testing.assert_array_equal(merged[name], csv[name], err_msg=name)
+
+
+# ------------------------------------------------------ Rayleigh–Bénard
+
+def _rb_live(sidewalls):
+    """The frozen cavity with v ±0.01, ρ ±1 % and T ±0.1 from a seeded
+    generator, both packages' states."""
+    jsys = jrb.make_system(jrb.Config(**RB, sidewalls=sidewalls))
+    fields, active = _fields(jsys.freeze())
+    tsys = trb.make_system(trb.Config(**RB, sidewalls=sidewalls))
+    tsys.freeze(device="cpu")
+    rng = np.random.default_rng(1)
+    n = active.shape[0]
+    fields["v"] = np.where(active[:, None], rng.uniform(-0.01, 0.01, (n, 2)),
+                           0.0).astype(np.float32)
+    fields["rho"] = np.where(active, fields["rho"] * rng.uniform(0.99, 1.01, n),
+                             0.0).astype(np.float32)
+    fields["T"] = np.where(active, fields["T"] + rng.uniform(-0.1, 0.1, n),
+                           0.0).astype(np.float32)
+    return (jsys.engine, _jstate(fields, active), tsys.engine,
+            state_from_numpy(fields, active, "cpu"))
+
+
+@pytest.mark.parametrize("sidewalls", ["conducting", "adiabatic"])
+def test_rb_twin_matches_reference_body(sidewalls, monkeypatch):
+    je, jst, te, tst = _rb_live(sidewalls)
+    jcfg = jrb.Config(**RB, sidewalls=sidewalls, use_pallas=True)
+    cfg = trb.Config(**RB, sidewalls=sidewalls, use_pallas=True)
+    assert (te.cap, te.lims) == (je.cap, je.lims) == (16, (128, 16))
+    refs, captured = reference_body_sweep(pp.rb_mass_heat_pass, je, jst, jcfg,
+                                          monkeypatch)
+    assert captured["self_pair"] is False and len(captured["fields"]) == 6
+    adia = tst.fields["type"].numpy() == trb.WALL_ADIA
+    assert adia.any() == (sidewalls == "adiabatic")
+    before = tps.rb_mass_heat_pass.launches
+    gots = tps.rb_mass_heat_pass(te, tst, cfg)
+    assert tps.rb_mass_heat_pass.launches == before
+    for got, ref in zip(gots, refs):
+        _check(got, ref, tst.active.numpy())
+
+
+def test_rb_six_steps_match_jax():
+    """The reference's gate (tests/test_pallas.py): rtol 1e-4, atol 1e-8 on
+    mean |v|, max |v|, mean T and max |ρ − ρ0|, equal active counts."""
+    jcfg = jrb.Config(**{**RB, "layout": "flat"})
+    js = jrb.make_system(jcfg)
+    jstate = js.freeze()
+    jstep = jax.jit(jrb.make_step(jcfg, js.engine)).lower(jstate).compile(
+        compiler_options=LEVEL0)
+    cfg = trb.Config(**RB, use_pallas=True)
+    ts = trb.make_system(cfg)
+    tstate = ts.freeze(device="cpu")
+    tstep = trb.make_step(cfg, ts.engine)
+    for _ in range(6):
+        jstate = jstep(jstate)
+        tstate = tstep(tstate)
+
+    def diag(v, T, rho, active):
+        v, T, rho = (np.asarray(a)[np.asarray(active)] for a in (v, T, rho))
+        return [np.abs(v).mean(), np.abs(v).max(), T.mean(),
+                np.abs(rho - cfg.rho0).max()], int(np.asarray(active).sum())
+
+    jd, jn = diag(*(jstate.fields[k] for k in ("v", "T", "rho")),
+                  jstate.active)
+    td, tn = diag(*(tstate.fields[k].numpy() for k in ("v", "T", "rho")),
+                  tstate.active.numpy())
+    assert tn == jn == ts.n_built == 773
+    assert np.all(np.isfinite(td)) and td[1] > 0.0
+    np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-8)
+    ke, nu = trb.diagnostics(cfg, tstate)
+    jke, jnu = jrb.diagnostics(jcfg, jstate)
+    np.testing.assert_allclose([float(ke), float(nu)], [float(jke), float(jnu)],
+                               rtol=1e-4, atol=1e-8)
+
+
+def test_rb_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
+    """Adiabatic sidewalls, two frames of three steps with a checkpoint
+    every frame; live plots print the sparklines; a resumed run equals the
+    uninterrupted one bit for bit."""
+    cfg = trb.Config(**RB, sidewalls="adiabatic", use_pallas=True,
+                     n_frames=2, checkpoint_every=1, live_plot=True)
+    cfg = dataclasses.replace(cfg, t_end=6 * cfg.dt)
+    whole = trb.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
+    assert "Nu [" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "whole")) == [
+        "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
+        "kinetic_energy.pdf", "nusselt.pdf", "result.pvd"]
+    csv = read_csv(str(tmp_path / "whole" / "data.csv"))
+    assert list(csv) == ["t", "KE", "Nu"] and len(csv["t"]) == 2
+    np.testing.assert_array_equal(csv["Nu"], whole["Nu"])
+    pts, data = read_vtp(str(tmp_path / "whole" / "frame1.vtp"))
+    assert len(pts) == 773 and sorted(data) == ["P", "T", "type", "v"]
+
+    half = dataclasses.replace(cfg, t_end=cfg.t_end / 2, n_frames=1,
+                               live_plot=False)
+    trb.run(half, out_path=str(tmp_path / "part"), device="cpu")
+    resumed = trb.run(dataclasses.replace(
+        cfg, live_plot=False,
+        resume=str(tmp_path / "part" / "checkpoint.npz")),
+        out_path=str(tmp_path / "part"), device="cpu")
+    for name, ref in whole["state"].fields.items():
+        assert torch.equal(resumed["state"].fields[name], ref), name
+    merged = read_csv(str(tmp_path / "part" / "data.csv"))
+    for name in csv:
+        np.testing.assert_array_equal(merged[name], csv[name], err_msg=name)
+
+
+def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
+    """Without ``device=`` ``run`` asks for CUDA and raises where there is
+    none; float64, the flat layout, RKPM conduction and a sharded engine
+    are refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for module, cfg in ((tiw, tiw.ISPHWitchConfig(**ISPH, use_pallas=True)),
+                        (trb, trb.Config(**RB, use_pallas=True))):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            module.run(cfg)
+        with pytest.raises(NotImplementedError, match="float32"):
+            module.make_system(dataclasses.replace(cfg, dtype="float64"))
+        with pytest.raises(NotImplementedError, match="bucket layout"):
+            module.make_system(dataclasses.replace(cfg, layout="flat")).freeze(
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="rkpm"):
+        trb.make_system(trb.Config(**RB, conduction="rkpm"))
+    sys_ = tiw.make_system(tiw.ISPHWitchConfig(**ISPH))
+    sys_.freeze(device="cpu")
+    sharded = type("Sharded", (), {"axis": "x"})()
+    with pytest.raises(NotImplementedError, match="distributed CG"):
+        tiw.make_step(tiw.ISPHWitchConfig(**ISPH), sharded)
+    assert tiw.baseline_config().n_rows == 110
+    assert trb.baseline_config().n_rows == 160
+
+
+# ----------------------------------------------------------------- plots
+
+def test_plot_files_written(tmp_path):
+    """The reference's tests/test_plots.py gates, on the port's module."""
+    t = np.linspace(0.0, 3.0, 20)
+    assert tplots.plot_dambreak(str(tmp_path), t, 1.0 + t, 1.0 - 0.2 * t)
+    assert tplots.plot_velocities(str(tmp_path), t, 0.1 * t, 0.3 * t)
+    assert tplots.plot_series(str(tmp_path / "e.pdf"), t, {"E": t ** 2},
+                              ylabel="energy")
+    s = np.linspace(0.0, 1.0, 30)
+    assert tplots.plot_cavity(str(tmp_path), s, s - 0.5, 0.2 * np.sin(s),
+                              Re=100.0)
+    for name in ("dambreak_X.pdf", "dambreak_H.pdf", "velocities.pdf",
+                 "e.pdf", "ldc-x2vy.pdf", "ldc-y2vx.pdf"):
+        p = tmp_path / name
+        assert p.exists() and p.stat().st_size > 500, name
+    line = tplots.ascii_series("u", [0.0, 1.0, 2.0])
+    assert line == "u [0, 2]: ▁▅█"
+
+
+def test_plot_dambreak_overlays_reference_points(tmp_path):
+    """The packaged digitised CSVs resolve by default (ref_dir=None)."""
+    t = np.linspace(0.0, 3.0, 5)
+    assert tplots.plot_dambreak(str(tmp_path), t, 1.0 + t, np.ones_like(t))
+    assert (tmp_path / "dambreak_X.pdf").stat().st_size > 500

@@ -6,8 +6,6 @@ the sweeps take their plain twins) against 8 jitted steps of the JAX
 reference holds to its Pallas path at rel 1e-5, tests/test_pallas.py).
 """
 import jax
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -38,7 +36,8 @@ def stepped():
     jcfg = JCfg(**BENCH, use_pallas=False)
     js = jw.make_system(jcfg)
     jstate = js.freeze()
-    jstep = jax.jit(jw.make_step(jcfg, js.engine))
+    jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jstate).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
     for _ in range(N_STEPS):
         jstate = jstep(jstate)
 
@@ -93,15 +92,14 @@ def test_finalize_matches_jax(stepped):
                                    atol=1e-6 * scale, err_msg=name)
 
 
-def test_run_small():
+def test_run_small(capsys):
     """``run`` drives frames end to end and keeps the static atmosphere
-    near rest; live plots (``utils/plots.py``, not ported) are refused."""
+    near rest; with ``live_plot`` each frame prints the u_max sparkline."""
     cfg = TCfg(n_rows=8, dtype="float32", self_density=True, layout="bucket",
                skin=0.15, lattice_cells=True, use_pallas=True,
-               lazy_diagnostics=True, t_end=1.0, n_frames=2)
+               lazy_diagnostics=True, t_end=1.0, n_frames=2, live_plot=True)
     out = tw.run(cfg, device="cpu")
     assert len(out["t"]) == 2
     assert np.all(np.isfinite(out["u_max"])) and out["u_max"][-1] < 5.0
     assert int(out["state"].n) == out["system"].n_built
-    with pytest.raises(NotImplementedError, match="live plots"):
-        tw.run(dataclasses.replace(cfg, live_plot=True), device="cpu")
+    assert capsys.readouterr().out.count("u_max [") == 2

@@ -4,9 +4,12 @@ passes in interpret mode, on one seeded state fed to both sides.
 The state is the flagship at n_rows=10 (bench flags) with v perturbed by
 ±1 m/s, h by ±1 % and P′ by ±50 Pa, so every term of the momentum body is
 live. Gate: rtol 1e-5 / atol 1e-6, the reference's own pass gate
-(tests/test_pallas.py). Each kernel has one interpret-mode pass (density,
-momentum with exact divides); the fast_math momentum is held against the
-reference's pair body evaluated eagerly (tests/torch_reference_harness.py).
+(tests/test_pallas.py). The density twin is held against the interpret-mode
+Pallas pass, the one real ``pallas_call`` of the port's tests: it ties the
+eager harness (tests/torch_reference_harness.py) to the Pallas kernel's
+summation order and masking. The momentum twin, with exact divides and with
+fast_math, is held against the reference's own pair body summed by that
+harness (an interpret-mode trace of the momentum kernel costs ~20 s).
 """
 import jax
 import jax.numpy as jnp
@@ -84,27 +87,23 @@ def test_density_twin_matches_pallas(states):
 
 @pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
 def test_momentum_twin_matches_pallas(states, fast_math, monkeypatch):
-    """Exact divides: the interpret-mode Pallas pass. fast_math: the
-    reference's own pair body, captured from its pass and summed eagerly in
-    the Pallas harness's order (tests/torch_reference_harness.py), which
-    saves a second interpret-mode trace of the same kernel. With fast_math
-    the reference body multiplies by ``pl.reciprocal(approx=True)``. Its
-    documented interpret-mode value is the exact reciprocal (``_div_fn``'s
-    docstring), which is what the port's twin computes; the installed JAX's
-    interpret lowering instead evaluates it in bfloat16
+    """The reference's own momentum pair body, captured from its pass and
+    summed eagerly in the Pallas harness's order
+    (tests/torch_reference_harness.py, tied to the Pallas kernel by the
+    density test's interpret-mode pass). With fast_math the reference body
+    multiplies by ``pl.reciprocal(approx=True)``. Its documented
+    interpret-mode value is the exact reciprocal (``_div_fn``'s docstring),
+    which is what the port's twin computes; the installed JAX's interpret
+    lowering instead evaluates it in bfloat16
     (jax/_src/pallas/primitives.py, _reciprocal_lowering_rule), a 2^-8
     relative error that moves Dv by ~1.4e-3 relative. The reference body
     therefore runs with the exact reciprocal it documents, at the unchanged
     gate."""
     je, jstate, te, tstate = states
     jcfg = JCfg(**BENCH, fast_math=fast_math)
-    if fast_math:
-        ref, captured = reference_body_sweep(pp.momentum_pass, je, jstate, jcfg,
-                                             monkeypatch)
-        assert captured["self_pair"] is False
-    else:
-        ref = _reference(
-            lambda s: pp.momentum_pass(je, s, jcfg, interpret=True), jstate)
+    ref, captured = reference_body_sweep(pp.momentum_pass, je, jstate, jcfg,
+                                         monkeypatch)
+    assert captured["self_pair"] is False
     got = tps.momentum_pass(te, tstate, TCfg(**BENCH, fast_math=fast_math))
     assert len(got) == len(ref) == 2
     for r, g in zip(ref, got):

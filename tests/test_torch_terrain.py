@@ -468,17 +468,20 @@ def test_lj_floor_helpers_match_jax(live):
     assert np.abs(acc).max() > 0.0  # some rows sit within r0 of the floor
 
 
-def test_flow_run_writes_files_and_resumes_bitwise(tmp_path):
+def test_flow_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
     """A flow config whose inflow column sits 50 m upstream of the edge, so
     that it converts and respawns within the run's 24 steps."""
     cfg = tlw.isothermal_flow_config(n_rows=12, dom_length=51.9e3,
                                      h_m=2000.0, a=6e3, use_pallas=True,
                                      checkpoint_every=1, n_frames=2)
     cfg = dataclasses.replace(cfg, t_end=24 * cfg.dt)
-    whole = tlw.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
+    whole = tlw.run(dataclasses.replace(cfg, live_plot=True),
+                    out_path=str(tmp_path / "whole"), device="cpu")
+    # live plots: the sparklines of u_max and the extra observables
+    assert capsys.readouterr().out.count("drag [") == 2
     assert sorted(os.listdir(tmp_path / "whole")) == [
         "checkpoint.npz", "data.csv", "frame0.vtp", "frame1.vtp",
-        "frame2.vtp", "result.pvd"]
+        "frame2.vtp", "result.pvd", "velocities.pdf"]
     csv = read_csv(str(tmp_path / "whole" / "data.csv"))
     assert list(csv) == ["t", "u_avg", "u_max", "drag", "lift", "n_inflow",
                          "spawn_drops"]
@@ -511,7 +514,7 @@ def test_flow_run_writes_files_and_resumes_bitwise(tmp_path):
 
 def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     """Without ``device=`` ``run`` asks for CUDA and raises where there is
-    none; float64, the flat layout and live plots are refused."""
+    none; float64 and the flat layout are refused."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = _configs("iso_flow")
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -521,5 +524,3 @@ def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="bucket layout"):
         tlw.make_system(tlw.isothermal_static_config(n_rows=14)).freeze(
             device="cpu")
-    with pytest.raises(NotImplementedError, match="live plots"):
-        tlw.run(dataclasses.replace(cfg, live_plot=True), device="cpu")

@@ -3,7 +3,9 @@ test files.
 
 ``reference_body_sweep`` captures a pass's hoisted fields and pair *body*
 from the JAX package (``pallas_pairs._run_pair_kernel`` is intercepted, so
-nothing is traced or compiled) and sums the body over the stencil the way
+nothing is traced or compiled; ``reference_prepared_sweep`` intercepts
+``pallas_pairs.make_pair_kernel_fn`` instead, for the ISPH matvec, which is
+prepared once and streams its iterate per call) and sums the body over the stencil the way
 the Pallas harness does: q ranks outermost; for each rank the 9 (2-D) or 27
 (3-D) offsets, the last axis' offset outermost, summed before they are added
 to the accumulator; mask = both slots occupied, r² ≤ h² and, unless the pass
@@ -17,10 +19,51 @@ With ``cfg.fast_math`` the reference body multiplies by
 exact reciprocal (``_div_fn``'s docstring), which is what the port's twins
 compute, so the body runs here with ``a * (1.0 / b)``.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 import sph_mountain_waves_tpu.ops.pallas_pairs as pp
+
+LEVEL0 = {"xla_backend_optimization_level": 0}
+
+
+def jit_at_level0(monkeypatch):
+    """For the rest of the test, ``jax.jit`` (as the reference's own code
+    calls it, e.g. inside its packings and set-ups) compiles at XLA backend
+    optimisation level 0: its optimiser dominates the compile of these
+    small programs, and a test runs each of them a few times at most. Each
+    jitted function compiles once per argument structure and shapes, as
+    ``jax.jit`` does; a call inside another trace, or with jit options,
+    takes the real ``jax.jit``."""
+    real_jit = jax.jit
+
+    def jit(fun=None, **options):
+        if fun is None:
+            return functools.partial(jit, **options)
+        if options:
+            return real_jit(fun, **options)
+        jitted = real_jit(fun)
+        compiled = {}
+
+        @functools.wraps(fun)
+        def call(*args, **kwargs):
+            leaves, tree = jax.tree_util.tree_flatten((args, kwargs))
+            if any(isinstance(x, jax.core.Tracer) for x in leaves):
+                return jitted(*args, **kwargs)  # inside another trace
+            key = (tree, tuple((np.shape(x), np.result_type(x))
+                               for x in leaves))
+            if key not in compiled:
+                compiled[key] = jitted.lower(*args, **kwargs).compile(
+                    compiler_options=LEVEL0)
+            return compiled[key](*args, **kwargs)
+
+        call.lower = jitted.lower
+        return call
+
+    monkeypatch.setattr(jax, "jit", jit)
 
 
 def capture_pass(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
@@ -43,15 +86,15 @@ def capture_pass(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
     return captured
 
 
-def reference_body_sweep(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
-    """The flat [slots] outputs of ``pass_fn``, from its own body summed
-    eagerly in the Pallas harness's order; also returns what was captured."""
-    cap_ = capture_pass(pass_fn, je, jstate, jcfg, monkeypatch, **kw)
+def _eager_sum(je, jstate, fields, pads, body, n_out, self_pair):
+    """The flat [slots] outputs of ``body`` over the hoisted resident
+    ``fields`` (without the occupancy), summed eagerly in the Pallas
+    harness's order."""
     cap, C, d = je.cap, je.num_cells, je.dim
     grid = tuple(reversed(je.lims))
     occ = np.asarray(je.resident(jstate.active), dtype=np.float32)
-    planes = [occ] + [np.asarray(f, dtype=np.float32) for f in cap_["fields"]]
-    pads = [0.0] + list(cap_["pad_vals"] or [0.0] * len(cap_["fields"]))
+    planes = [occ] + [np.asarray(f, dtype=np.float32) for f in fields]
+    pads = [0.0] + list(pads or [0.0] * len(fields))
     G = [p[:, :C].reshape((cap,) + grid) for p in planes]
     # only the bounding box of the occupied cells: outside it there is no p
     # slot and, as in the pads, no q slot
@@ -66,7 +109,7 @@ def reference_body_sweep(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
     hh = np.float32(je.h * je.h)
     k_ids = np.arange(cap).reshape((cap,) + (1,) * d)
     kmax = int(occ[:, :C].sum(axis=0).max())
-    acc = [np.zeros((cap,) + grid, np.float32) for _ in range(cap_["n_out"])]
+    acc = [np.zeros((cap,) + grid, np.float32) for _ in range(n_out)]
     for kq in range(kmax):
         tot = None
         for off in je.stencil:  # (di, dj[, dk]), the last axis outermost
@@ -77,12 +120,12 @@ def reference_body_sweep(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
             for a in range(2, 1 + d):
                 r2 = r2 + (G[a] - q[a]) ** 2
             mask = (G[0] > 0.5) & (q[0] > 0.5) & (r2 <= hh)
-            if not cap_["self_pair"] and not any(off):
+            if not self_pair and not any(off):
                 mask = mask & (k_ids != kq)
             # the body indexes q fields as q[i][None, :]: give it the shape
             # it broadcasts against by flattening the grid
             contribs = [np.asarray(c).reshape((cap,) + grid)
-                        for c in cap_["body"](
+                        for c in body(
                             [g.reshape(cap, -1) for g in G],
                             [x.reshape(-1) for x in q],
                             r2.reshape(cap, -1),
@@ -95,4 +138,41 @@ def reference_body_sweep(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
         whole = np.zeros((cap,) + full, np.float32)
         whole[(slice(None),) + box] = a
         outs.append(np.pad(whole.reshape(cap, C), ((0, 0), (0, 1))).reshape(-1))
+    return outs
+
+
+def reference_body_sweep(pass_fn, je, jstate, jcfg, monkeypatch, **kw):
+    """The flat [slots] outputs of ``pass_fn``, from its own body summed
+    eagerly in the Pallas harness's order; also returns what was captured."""
+    cap_ = capture_pass(pass_fn, je, jstate, jcfg, monkeypatch, **kw)
+    outs = _eager_sum(je, jstate, cap_["fields"], cap_["pad_vals"],
+                      cap_["body"], cap_["n_out"], cap_["self_pair"])
     return outs, cap_
+
+
+def reference_prepared_sweep(prepare_fn, je, jstate, jcfg, monkeypatch):
+    """For a pass prepared through ``pallas_pairs.make_pair_kernel_fn``
+    (static fields built once, dynamic fields streamed per call: the ISPH
+    CG matvec), ``prepare_fn(je, jstate, jcfg)`` with that harness replaced
+    by the eager sum: returns what ``prepare_fn`` returns (its calls then
+    sum the body eagerly over static + dynamic fields) and a dict of what
+    was captured (``static``, ``n_dyn``, ``body``, ``n_out``, ``self_pair``,
+    ``pad_vals``)."""
+    captured = {}
+
+    def record(engine, state, static_fields, n_dyn, pair_body, n_out,
+               self_pair, interpret=False, pad_vals=None):
+        captured.update(static=static_fields, n_dyn=n_dyn, body=pair_body,
+                        n_out=n_out, self_pair=self_pair, pad_vals=pad_vals)
+
+        def call(dyn_fields):
+            assert len(dyn_fields) == n_dyn
+            fields = list(static_fields) + list(dyn_fields)
+            return [jnp.asarray(o) for o in _eager_sum(
+                engine, state, fields, pad_vals, pair_body, n_out,
+                self_pair)]
+
+        return call
+
+    monkeypatch.setattr(pp, "make_pair_kernel_fn", record)
+    return prepare_fn(je, jstate, jcfg), captured
