@@ -27,7 +27,7 @@ N=53,621, grid 256 x 80, cap 16).
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
   2. build of the CUDA kernels from csrc/ (nvcc, sm_90a), with ptxas
-     registers and spills of every instantiation;
+     registers, spills and static shared memory of every instantiation;
   3. flagship build and shape checks;
   4. a forced rescatter of the frozen state, which must be the identity;
   5. the flagship's kernels against their plain PyTorch twins at full size
@@ -59,12 +59,16 @@ Phases, each printing one or more lines:
      seconds and peak device memory;
  18. a forced 3-D rescatter of the frozen state (27 offsets), which must be
      the identity, with its time and peak memory;
- 19. the 3-D density and momentum kernels against their twins at full width
-     on a live state (fast_math off and on); reruns bitwise equal;
+ 19. the 3-D density and momentum kernels (the tiled design) at full width
+     on a live state: the tile plan, bit for bit against the
+     one-thread-per-slot design they replaced (``_direct``), fast_math off
+     and on; bit for bit against their twins with fast_math
+     off, within 1e-3 of the output's max with it; reruns bitwise equal;
  20. witch3d: its set-up (4 mass-renormalisation iterations; the summed
      density's median over the background within 1e-3 of 1), 6 tiny steps
      card against CPU twins, then the main path: 1 warm-up and 2 timed frames
-     of 20 steps;
+     of 20 steps, and the device and wall time of 10 more steps under
+     torch.profiler, with the device's idle share of those steps;
  21. the dam-break continuity and force kernels, 2-D and 3-D, against their
      twins on live collapse_dry and collapse3d states at full size;
  22. 8 small steps of each dam break, card against CPU twins;
@@ -108,7 +112,9 @@ Phases, each printing one or more lines:
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound; the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
-     beside one CSR sparse product of the same operator (``library_ms``).
+     beside one CSR sparse product of the same operator (``library_ms``);
+     the 3-D density and momentum in turns with the design they replaced
+     (direct, tiled, tiled, direct), each beside its bound.
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
 
@@ -117,9 +123,10 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
-             10 Pavelka steps (from the packed state), 10 witch3d steps,
-             10 terrain steps (after its timed frames), 10 ISPH steps and 10
-             Rayleigh–Bénard steps, with the device time per step
+             10 Pavelka steps (from the packed state), 10 witch3d steps
+             (whose device time is printed in any case), 10 terrain steps
+             (after its timed frames), 10 ISPH steps and 10 Rayleigh–Bénard
+             steps, with the device time per step
 """
 from __future__ import annotations
 
@@ -252,9 +259,10 @@ def compare(name, got, ref, rtol=RTOL, atol=ATOL, gate=True):
 
 
 def ptxas_report(log):
-    """'kernel: N regs, S B spill stores, L B spill loads' per instantiation,
-    from nvcc's -Xptxas -v output (names demangled where a demangler is
-    installed)."""
+    """'kernel: N regs, S B spill stores, L B spill loads[, M B static
+    smem]' per instantiation, from nvcc's -Xptxas -v output (names demangled
+    where a demangler is installed). Dynamic shared memory (the tiled 3-D
+    sweep's stages) is the launch's, printed with its plan."""
     rows, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -265,7 +273,9 @@ def ptxas_report(log):
             spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            rows.append((name, f"{m.group(1)} regs, {spill}"))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append((name, f"{m.group(1)} regs, {spill}"
+                         + (f", {smem.group(1)} B static smem" if smem else "")))
             name, spill = None, ""
     filt = shutil.which("cu++filt") or shutil.which("c++filt")
     if filt and rows:
@@ -353,23 +363,32 @@ def rescatters(run_frame, state, n_frames):
     return int(s.fields["_rescatter_count"].sum())
 
 
-def profile_steps(phase, label, step, state, n_steps=10):
-    """torch.profiler table of n_steps steps, and the device time per step
-    (the CUDA kernels' self time, as the table's footer sums it)."""
+def profile_steps(phase, label, step, state, n_steps=10, table=True):
+    """torch.profiler table of n_steps steps (unless ``table`` is False),
+    the device time per step (the CUDA kernels' self time, as the table's
+    footer sums it), and the wall time per step of the same steps with the
+    device's idle share in them (the profiler's own host cost included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
     with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(n_steps):
             state = step(state)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA
                     and not e.is_user_annotation)
-    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
-    say(phase, f"{label} profile: device time {device_us / n_steps / 1e3:.3f} "
-               f"ms/step over {n_steps} steps")
+    if table:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    device_ms = device_us / n_steps / 1e3
+    say(phase, f"{label} profile: device time {device_ms:.3f} ms/step, wall "
+               f"{wall_ms:.3f} ms/step over the same {n_steps} steps under "
+               f"the profiler: device idle {100 * (1 - device_ms / wall_ms):.1f}"
+               " % of them")
 
 
 def build_full(module, cfg, dev):
@@ -1245,25 +1264,48 @@ def main(profile: bool) -> None:
                 f"{ms:.1f} ms per rescatter, peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
-    # 19: the 3-D kernels against their twins at full width on a live state
+    # 19: the 3-D kernels (the tiled design) at full width on a live state:
+    # bit for bit against the design they replaced and their twins
+    plans = {k: ps._tile_plan(e17, n) for k, n in ps._TILED_STAGED.items()}
+    say(19, f"tile plan at cap {e17.cap}: " + "; ".join(
+        f"{k} TX {p.tx}, block {p.block} = {p.tx * e17.cap} threads, "
+        f"{-(-e17.lims[0] // p.tx) * e17.lims[1] * e17.lims[2]} blocks, "
+        f"{p.smem_bytes} B dynamic smem" for k, p in plans.items()))
     st = perturbed(w3.make_step(wcfg, e17)(w3_state0), dev)
-    errs["density_3d"] = kernel_vs_twin(
-        "density 3-D", [ps.density_pass(e17, st, wcfg)],
-        [ps.density_pass(e17, st, wcfg)], [ps.density_pass_plain(e17, st, wcfg)],
-        fast=False, scaled=True)
-    say(19, f"3-D density kernel vs twin: max abs err "
-            f"{errs['density_3d'][0]:.3e} (max |rho| {errs['density_3d'][1]:.4f}), "
-            f"gate rtol {RTOL} atol {ATOL} x max, rerun bitwise equal")
+
+    def designs_equal(label, kernel, c, got):
+        others = {name: run() for name, run in
+                  ps.sweep3_yardsticks(kernel, e17, st, c).items()}
+        bad = [name for name, out in others.items()
+               if not all(torch.equal(a, b) for a, b in zip(got, out))]
+        if bad:
+            raise AssertionError(f"{label}: the wrapper's output differs from "
+                                 f"{bad}")
+    got = [ps.density_pass(e17, st, wcfg)]
+    designs_equal("density 3-D", "density_sweep_3d", wcfg, got)
+    errs["density_3d"] = exact("density 3-D", got,
+                               [ps.density_pass(e17, st, wcfg)],
+                               [ps.density_pass_plain(e17, st, wcfg)])
+    say(19, f"3-D density kernel (tiled): bit for bit equal to the direct "
+            f"design and the twin (max abs err "
+            f"{errs['density_3d'][0]:.3e}, max |rho| "
+            f"{errs['density_3d'][1]:.4f}), rerun bitwise equal")
     for fm in (False, True):
         c = dataclasses.replace(wcfg, fast_math=fm)
-        err, scale = errs[f"momentum_3d_fm{int(fm)}"] = kernel_vs_twin(
-            f"momentum 3-D fast_math={fm}", ps.momentum_pass(e17, st, c),
-            ps.momentum_pass(e17, st, c), ps.momentum_pass_plain(e17, st, c),
-            fm, scaled=True)
-        say(19, f"3-D momentum kernel vs twin, fast_math={fm}: max abs err "
-                f"{err:.3e} (max |Dv| {scale:.4e}, rel {err / scale:.3e})"
-                + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
-                + ", rerun bitwise equal")
+        got = ps.momentum_pass(e17, st, c)
+        label = f"momentum 3-D fast_math={fm}"
+        designs_equal(label, "momentum_sweep_3d", c, got)
+        rerun = ps.momentum_pass(e17, st, c)
+        twin = ps.momentum_pass_plain(e17, st, c)
+        err, scale = errs[f"momentum_3d_fm{int(fm)}"] = (
+            kernel_vs_twin(label, got, rerun, twin, True, scaled=True) if fm
+            else exact(label, got, rerun, twin))
+        say(19, f"3-D momentum kernel (tiled), fast_math={fm}: bit for bit "
+                f"equal to the direct design; "
+                f"against the twin max abs err {err:.3e} (max |Dv| "
+                f"{scale:.4e}, rel {err / scale:.3e}"
+                + (", gate 1e-3" if fm else ", bit for bit") + "), rerun "
+                "bitwise equal")
     del st
 
     # 20: witch3d set-up and main path
@@ -1306,7 +1348,7 @@ def main(profile: bool) -> None:
     w3_frame = frame_runner(w3_step, W3D_STEPS_PER_FRAME,
                             finalize=w3.make_finalize(wcfg))
     w3_steps = 3 * W3D_STEPS_PER_FRAME
-    w3_state, w3_ms, w3_counts, _, u_max = drive(
+    w3_state, _, w3_counts, _, u_max = drive(
         20, "witch3d main path", counters, w3_frame, w3_ready, 2,
         {"density_sweep": w3_steps, "momentum_sweep": w3_steps}, card, n3,
         steps_per_frame=W3D_STEPS_PER_FRAME)
@@ -1316,8 +1358,7 @@ def main(profile: bool) -> None:
     say(20, f"rescatters in the {w3_steps} witch3d steps: "
             f"{rescatters(w3_frame, w3_ready, 3)}; peak device memory so far "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if profile:
-        profile_steps(20, "witch3d", w3_step, w3_state)
+    profile_steps(20, "witch3d", w3_step, w3_state, table=profile)
     del w3_ready
 
     # 21: the dam-break kernels against their twins on live states at the
@@ -1848,6 +1889,19 @@ def main(profile: bool) -> None:
                 f"{DIST_OPS[e.dim]} + {pairs} pairs x {body_ops} ops -> "
                 f"{ops_ms * 1e3:.1f} us), "
                 f"{100 * timing[kernel]['bound_ms'] / km:.1f} % of it ({card})")
+
+    # the tiled 3-D sweeps against the design they replaced, in turns on
+    # one card
+    for kernel in ("density_sweep_3d", "momentum_sweep_3d"):
+        runs = ps.sweep3_yardsticks(kernel, e17, w3_state, wcfg)
+        bound = timing[kernel]["bound_ms"]
+        order = ("direct", "tiled", "tiled", "direct")
+        ms = [cuda_ms(runs[name], 50) for name in order]
+        say(30, f"{kernel} in turns: " + ", ".join(
+            f"{name} {t:.4f} ms ({100 * bound / t:.1f} % of the "
+            f"{bound * 1e3:.1f} us bound)" for name, t in zip(order, ms))
+            + f" ({card})")
+        del runs
 
     # the ISPH matvec's one library counterpart: a CSR sparse product
     lib_ms, lib_err, nnz = matvec_library(e31, i_state, icfg)

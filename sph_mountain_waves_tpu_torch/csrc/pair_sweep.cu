@@ -56,10 +56,22 @@
 // (legacy force), 9 (Pavelka continuity), 10 (momentum, adiabatic entropy +
 // force), 11/13 (Hopkins momentum) or 12 (fused Pavelka) f32 fields are
 // read (the ISPH matvec and gradient 4, the ISPH divergence 5, the
-// Rayleigh-Benard sweep 7); neighbouring threads share them, so most reads hit L1/L2. Memory
-// traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests
-// 27*kmax candidates for the few dozen pairs inside the cutoff, and the
-// distance tests weigh as much as the bytes.
+// Rayleigh-Benard sweep 7); neighbouring threads share them, so most reads
+// hit L1/L2, and memory traffic and occupancy bound the 2-D sweeps, not
+// FLOPs. In 3-D a slot tests 27*kmax candidates (216 at cap 8) for the ~25
+// pairs inside the cutoff. pair_sweep3 reads each candidate from the planes
+// (at least 4 dependent global loads), and its grid runs the p rank
+// slowest, so the q planes are read once per p rank: at witch3d's stretch
+// size it took 1.45 ms (density) and 1.96 ms (momentum) on an H100, 7 % of
+// an operations bound. The 3-D density and momentum therefore run
+// pair_sweep3_tiled: a block stages each q rank of its tile's 27-cell
+// neighbourhood in shared memory once for all p ranks (occupancy and
+// coordinates as one float4, the body's q planes as scalars), keeps
+// pair_sweep3's order of summation and so its outputs bit for bit, and
+// uses no TMA (the [cap, C+1] row stride is not a multiple of 16 bytes).
+// It takes 0.65 and 0.99 ms there (15 and 14 % of the bound); its
+// candidate loop (a 16-byte shared load, the distance and its test), not
+// the staging, paces it (PERF.md has the breakdown).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -353,17 +365,38 @@ struct GammaGrad {
 };
 
 
+// q's fields as the 3-D density and momentum bodies read them: q[i] is
+// plane i at q's slot. PlaneQ reads the planes (pair_sweep3); StagedQ reads
+// the copy that pair_sweep3_tiled staged in shared memory, planes lo.. at
+// ex[(i - lo) * nc + s].
+template <int NIN, int NOUT>
+struct PlaneQ {
+  const Planes<NIN, NOUT>& f;
+  int64_t qi;
+  __device__ float operator[](int i) const { return f.in[i][qi]; }
+};
+
+struct StagedQ {
+  const float* ex;
+  int nc;
+  int s;
+  int lo;
+  __device__ float operator[](int i) const { return ex[(i - lo) * nc + s]; }
+};
+
 // 3-D density: rho_p = sum_q w_q W3(h_p, r); fields: occ, x0, x1, x2, 1/h, w.
+// q's planes read by the body: QLO.. (w only).
 struct Density3 {
   static constexpr int NIN = 6;
   static constexpr int NOUT = 1;
+  static constexpr int QLO = 5;
   struct Params {
     float cw;  // 21/(2 pi)
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
-    const float wq = f.in[5][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float wq = q[5];
     const float r = sqrtf(r2);
     const float hinv = p[4];
     const float x = r * hinv;
@@ -373,31 +406,38 @@ struct Density3 {
     const float ker = prm.cw * t2 * t2 * (1.0f + 4.0f * x) * hpow;
     tot[0] += wq * ker;
   }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
+  }
 };
 
 // 3-D momentum: the 2-D form on three axes with rDW3 = dw t^3 / h_ij^5;
-// fields: occ, x0, x1, x2, h, m, v0, v1, v2, rho_f, A=P'/rho^2, c.
+// fields: occ, x0, x1, x2, h, m, v0, v1, v2, rho_f, A=P'/rho^2, c. q's
+// planes read by the body: QLO.. (all but the occupancy and position).
 template <bool FAST>
 struct Momentum3 {
   static constexpr int NIN = 12;
   static constexpr int NOUT = 3;
+  static constexpr int QLO = 4;
   struct Params {
     float dw;      // -210/pi
     float eps;
     float nalpha;  // -alpha
     float beta;
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[4][qi];
-    const float mq = f.in[5][qi];
-    const float v0q = f.in[6][qi];
-    const float v1q = f.in[7][qi];
-    const float v2q = f.in[8][qi];
-    const float rhoq = f.in[9][qi];
-    const float aq = f.in[10][qi];
-    const float cq = f.in[11][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[4];
+    const float mq = q[5];
+    const float v0q = q[6];
+    const float v1q = q[7];
+    const float v2q = q[8];
+    const float rhoq = q[9];
+    const float aq = q[10];
+    const float cq = q[11];
     const float r = sqrtf(r2);
     const float h_ij = 0.5f * (p[4] + hq);
     const float hinv = pdiv<FAST>(1.0f, h_ij);
@@ -414,6 +454,11 @@ struct Momentum3 {
     tot[0] += s * d[0];
     tot[1] += s * d[1];
     tot[2] += s * d[2];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -908,6 +953,187 @@ int launch3(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiled 27-cell sweep of the 3-D density and momentum. One block is TX
+// consecutive x-cells of one grid row (cy, cz) times every p rank: thread
+// (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx), so
+// a warp reads consecutive cells of one rank. Blocks run x-tiles fastest,
+// then cy, then cz: the three z-planes a tile reads stay in L2 for the
+// tiles that share them. For each q rank kq the block stages the (TX+2) x
+// 3 x 3 neighbour cells of that rank in shared memory, once for all its p
+// ranks: occupancy and coordinates as one float4 per cell (a candidate is
+// one 16-byte shared load), the body's other q planes (Body::QLO..) as
+// scalars. The cells' plane offsets are computed once per block (cell_off);
+// cells outside the grid are zero-filled, so they read as unoccupied. Rank
+// kq+1 is copied with cp.async while rank kq is summed (two stages; a
+// barrier between a copy and its use, another before a stage is
+// overwritten). The thread of an occupied p slot then takes its 27 cells
+// in pair_sweep3's order (dk, dj, di), skips an empty q cell before any
+// arithmetic on it, sums the pairs into tot and adds tot to acc: the same
+// operations in the same order, so the outputs equal pair_sweep3's bit for
+// bit. A tile with no occupied p slot (or kmax 0) stages nothing; a ragged
+// last tile masks its spare threads; block 0 writes the trash column. No
+// TMA: a plane's row stride, C+1 floats, is not a multiple of 16 bytes, and
+// every module shares the [cap, C+1] layout. The launch plan (TX and the
+// dynamic shared bytes of the two stages) is ops/pair_sweeps.py::_tile_plan;
+// the launch refuses a plan the kernel cannot hold.
+constexpr int kTileThreads = 256;  // most threads a tile block takes
+constexpr int kTileMaxX = 32;      // most x-cells a tile block takes
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  // 4 bytes global -> shared; src-size 0 zero-fills dst and reads nothing
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <class Body, bool SELF>
+__global__ void __launch_bounds__(kTileThreads)
+pair_sweep3_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
+                  Layout3 g, typename Body::Params prm, int stage_f4) {
+  constexpr int NE = Body::NIN - Body::QLO;  // scalar planes staged per cell
+  extern __shared__ float4 stage[];
+  const int TX = blockDim.x;
+  const int W = TX + 2;   // staged cells per (dk, dj) row
+  const int nc = 9 * W;   // staged cells per rank
+  const int tx = threadIdx.x;
+  const int k = threadIdx.y;
+  const int tid = k * TX + tx;
+  const int nthreads = TX * blockDim.y;
+  const int ntiles = (g.nx + TX - 1) / TX;
+  const int row = blockIdx.x / ntiles;  // cz*ny + cy
+  const int x0 = (blockIdx.x - row * ntiles) * TX;
+  const int cz = row / g.ny;
+  const int cy = row - cz * g.ny;
+  const int C = g.nx * g.ny * g.nz;
+  const int64_t ld = C + 1;
+  const bool mine = x0 + tx < g.nx;
+  const int64_t ps = k * ld + (int64_t)row * g.nx + x0 + tx;
+  if (blockIdx.x == 0 && tx == 0) {
+#pragma unroll
+    for (int o = 0; o < Body::NOUT; ++o) f.out[o][k * ld + C] = 0.0f;
+  }
+  float acc[Body::NOUT];
+#pragma unroll
+  for (int o = 0; o < Body::NOUT; ++o) acc[o] = 0.0f;
+  const bool occ = mine && f.in[0][ps] > 0.5f;
+  const int kend = kmax[row];
+  // each staged cell's offset in a plane (-1: outside the grid), the same
+  // for every rank: (dk+1)*3 + dj+1 = i / W, x0 - 1 + i % W
+  __shared__ int cell_off[9 * (kTileMaxX + 2)];
+  for (int i = tid; i < nc; i += nthreads) {
+    const int r = i / W;
+    const int qx = x0 - 1 + (i - r * W);
+    const int qy = cy + r % 3 - 1;
+    const int qz = cz + r / 3 - 1;
+    const bool in = qx >= 0 && qx < g.nx && qy >= 0 && qy < g.ny && qz >= 0
+                    && qz < g.nz;
+    cell_off[i] = in ? (qz * g.ny + qy) * g.nx + qx : -1;
+  }
+
+  if (__syncthreads_or(occ) && kend > 0) {  // uniform over the block
+    float p[Body::NIN];
+    if (occ) {
+#pragma unroll
+      for (int i = 0; i < Body::NIN; ++i) p[i] = f.in[i][ps];
+    }
+    // stage q rank kq into stage (kq & 1), one commit group
+    auto stage_rank = [&](int kq) {
+      float4* pos = stage + (kq & 1) * stage_f4;
+      float* ex = reinterpret_cast<float*>(pos + nc);
+      for (int i = tid; i < nc; i += nthreads) {
+        const int off = cell_off[i];
+        const bool in = off >= 0;
+        const int64_t qi = kq * ld + (in ? off : 0);
+        float* cell = reinterpret_cast<float*>(pos + i);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cp_async4(cell + j, f.in[j] + qi, in);
+#pragma unroll
+        for (int j = 0; j < NE; ++j)
+          cp_async4(ex + j * nc + i, f.in[Body::QLO + j] + qi, in);
+      }
+      cp_async_commit();
+    };
+    stage_rank(0);
+    for (int kq = 0; kq < kend; ++kq) {
+      if (kq + 1 < kend) {
+        stage_rank(kq + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (occ) {
+        const float4* pos = stage + (kq & 1) * stage_f4;
+        const float* ex = reinterpret_cast<const float*>(pos + nc);
+        float tot[Body::NOUT];
+#pragma unroll
+        for (int o = 0; o < Body::NOUT; ++o) tot[o] = 0.0f;
+#pragma unroll 1
+        for (int dk = 0; dk < 3; ++dk) {
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj) {
+#pragma unroll
+            for (int di = 0; di < 3; ++di) {
+              if (!SELF && di == 1 && dj == 1 && dk == 1 && kq == k) continue;
+              const int s = (dk * 3 + dj) * W + tx + di;
+              const float4 q = pos[s];
+              if (!(q.x > 0.5f)) continue;
+              float d[3];
+              d[0] = p[1] - q.y;
+              d[1] = p[2] - q.z;
+              d[2] = p[3] - q.w;
+              const float r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+              if (!(r2 <= g.h2)) continue;
+              Body::pair(p, StagedQ{ex, nc, s, Body::QLO}, d, r2, prm, tot);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 0; o < Body::NOUT; ++o) acc[o] += tot[o];
+      }
+      __syncthreads();  // every thread is done with this stage
+    }
+  }
+  if (mine) {
+#pragma unroll
+    for (int o = 0; o < Body::NOUT; ++o) f.out[o][ps] = acc[o];
+  }
+}
+
+// Launch pair_sweep3_tiled on the plan of ops/pair_sweeps.py::_tile_plan:
+// tx x-cells per block and smem_bytes of dynamic shared memory for two
+// stages; a plan the kernel cannot hold is refused.
+template <class Body, bool SELF>
+int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
+                  const Layout3& g, const typename Body::Params& prm, int tx,
+                  int smem_bytes, cudaStream_t stream) {
+  constexpr int staged = 4 + Body::NIN - Body::QLO;  // floats per cell
+  const int stage_f4 = smem_bytes / 32;  // one stage, in float4
+  if (tx < 1 || tx > kTileMaxX || tx * g.cap > kTileThreads
+      || stage_f4 * 16 < (tx + 2) * 9 * staged * 4)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = pair_sweep3_tiled<Body, SELF>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int ntiles = (g.nx + tx - 1) / tx;
+  kernel<<<ntiles * g.ny * g.nz, dim3(tx, g.cap), smem_bytes, stream>>>(
+      f, kmax, g, prm, stage_f4);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1177,11 +1403,30 @@ int rb_mass_heat_sweep(const float* occ, const float* x0, const float* x1,
                                    static_cast<cudaStream_t>(stream));
 }
 
-// 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]
+// 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]. The density
+// and momentum launch pair_sweep3_tiled on the plan (tx, smem_bytes) the
+// wrapper passes; their "_direct" exports launch pair_sweep3 (one thread
+// per slot, q read from the planes), the design the tiled one replaced: a
+// yardstick, on no path.
 int density_sweep_3d(const float* occ, const float* x0, const float* x1,
                      const float* x2, const float* hinv, const float* w,
                      const int* kmax, float* rho, int cap, int nx, int ny,
-                     int nz, float h2, int self_pair, float cw, void* stream) {
+                     int nz, float h2, int self_pair, float cw, int tx,
+                     int smem_bytes, void* stream) {
+  Planes<Density3::NIN, Density3::NOUT> f{{occ, x0, x1, x2, hinv, w}, {rho}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  const Density3::Params prm{cw};
+  auto s = static_cast<cudaStream_t>(stream);
+  return self_pair
+      ? launch3_tiled<Density3, true>(f, kmax, g, prm, tx, smem_bytes, s)
+      : launch3_tiled<Density3, false>(f, kmax, g, prm, tx, smem_bytes, s);
+}
+
+int density_sweep_3d_direct(const float* occ, const float* x0,
+                            const float* x1, const float* x2,
+                            const float* hinv, const float* w, const int* kmax,
+                            float* rho, int cap, int nx, int ny, int nz,
+                            float h2, int self_pair, float cw, void* stream) {
   Planes<Density3::NIN, Density3::NOUT> f{{occ, x0, x1, x2, hinv, w}, {rho}};
   const Layout3 g{cap, nx, ny, nz, h2};
   const Density3::Params prm{cw};
@@ -1197,7 +1442,27 @@ int momentum_sweep_3d(const float* occ, const float* x0, const float* x1,
                       const int* kmax, float* dv0, float* dv1, float* dv2,
                       int cap, int nx, int ny, int nz, float h2, float dw,
                       float eps, float nalpha, float beta, int fast_math,
-                      void* stream) {
+                      int tx, int smem_bytes, void* stream) {
+  Planes<12, 3> f{{occ, x0, x1, x2, h, m, v0, v1, v2, rho, aterm, cs},
+                  {dv0, dv1, dv2}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  auto s = static_cast<cudaStream_t>(stream);
+  return fast_math
+      ? launch3_tiled<Momentum3<true>, false>(f, kmax, g, {dw, eps, nalpha, beta},
+                                              tx, smem_bytes, s)
+      : launch3_tiled<Momentum3<false>, false>(f, kmax, g, {dw, eps, nalpha, beta},
+                                               tx, smem_bytes, s);
+}
+
+int momentum_sweep_3d_direct(const float* occ, const float* x0,
+                             const float* x1, const float* x2, const float* h,
+                             const float* m, const float* v0, const float* v1,
+                             const float* v2, const float* rho,
+                             const float* aterm, const float* cs,
+                             const int* kmax, float* dv0, float* dv1,
+                             float* dv2, int cap, int nx, int ny, int nz,
+                             float h2, float dw, float eps, float nalpha,
+                             float beta, int fast_math, void* stream) {
   Planes<12, 3> f{{occ, x0, x1, x2, h, m, v0, v1, v2, rho, aterm, cs},
                   {dv0, dv1, dv2}};
   const Layout3 g{cap, nx, ny, nz, h2};

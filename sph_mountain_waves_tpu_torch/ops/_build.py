@@ -86,9 +86,18 @@ SIGNATURES = {
         # 1/h, 2 kappa, stream
         "rb_mass_heat_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
         # the 3-D forms take x2 (and v2) planes, one more output for the
-        # vector sweeps, and nz after ny
-        "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P], _I),
-        "momentum_sweep_3d": ([_P] * 16 + [_I] * 4 + [_F] * 5 + [_I, _P], _I),
+        # vector sweeps, and nz after ny; the 3-D density and momentum take
+        # the tiled sweep's plan (TX, dynamic shared bytes) before the
+        # stream, their "_direct" exports (the one-thread-per-slot design, a
+        # yardstick) take none
+        "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
+                             _I),
+        "momentum_sweep_3d": ([_P] * 16 + [_I] * 4 + [_F] * 5
+                              + [_I, _I, _I, _P], _I),
+        "density_sweep_3d_direct": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P],
+                                    _I),
+        "momentum_sweep_3d_direct": ([_P] * 16 + [_I] * 4 + [_F] * 5
+                                     + [_I, _P], _I),
         "dambreak_mass_sweep_3d": ([_P] * 10 + [_I] * 4 + [_F] * 4 + [_P], _I),
         "dambreak_force_sweep_3d": ([_P] * 13 + [_I] * 4 + [_F] * 4 + [_P], _I),
     },

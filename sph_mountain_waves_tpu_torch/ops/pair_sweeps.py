@@ -45,7 +45,11 @@ Each sweep has two implementations:
   wrappers and the four ISPH/Rayleigh–Bénard ones) for CUDA tensors, which
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
-  kernel by ``engine.dim``;
+  kernel by ``engine.dim``. The 3-D density and momentum run the tiled
+  design (``_tile_plan``: one block per x-tile of a grid row covering every
+  p rank, q ranks staged in shared memory); ``sweep3_yardsticks`` launches
+  them beside the one-thread-per-slot design they replaced, for timing and
+  for bit-for-bit comparison only;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
   vectorised over shifted views of the padded ``[cap, (nz+2,) ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
@@ -58,14 +62,16 @@ of 9 cells up to the row's band occupancy (about 9·kmax slots) of 4 (∇Γ),
 matvec reads 4 (its coordinates and the iterate), the ISPH gradient 4, the
 divergence/viscous sweep 5 and the Rayleigh–Bénard sweep 7.
 Neighbouring threads share most of those q reads, so they hit L1/L2; memory
-traffic and occupancy bound the sweep, not FLOPs. In 3-D a slot tests up
-to 27·kmax candidates (6 to 12 fields) for the few dozen pairs inside the
-cutoff, and the candidate tests are no longer negligible beside the bytes.
+traffic and occupancy bound the 2-D sweeps, not FLOPs. In 3-D a slot tests
+up to 27·kmax candidates (6 to 12 fields) for the few dozen pairs inside the
+cutoff: the candidate loop, not the bytes, paces the density and momentum
+(``csrc/pair_sweep.cu`` says why).
 """
 from __future__ import annotations
 
 import ctypes
 import types
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -1091,18 +1097,68 @@ def _check_planes(engine, planes, band):
                          "device")
 
 
+class TilePlan(NamedTuple):
+    """Launch plan of the tiled 3-D sweep (``pair_sweep3_tiled``)."""
+    tx: int            # x-cells per block
+    block: tuple       # (tx, cap) threads: one per p slot of the tile
+    smem_bytes: int    # dynamic shared memory: two stages of q planes
+
+
+# the tiled 3-D sweep's block size bound (its __launch_bounds__), its
+# widest tile (its offset table's size), and a block's shared memory on an
+# H100 (227 KB); the launch refuses a plan beyond the first two
+_TILE_THREADS = 256
+_TILE_MAX_X = 32
+_MAX_SHARED_BYTES = 232_448
+# q planes the tiled 3-D exports stage per cell (occupancy and coordinates
+# included): the density body reads w of q (not 1/h), the momentum body
+# every plane of q
+_TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12}
+
+
+def _tile_plan(engine, staged: int) -> TilePlan:
+    """The tiled 3-D sweep's launch plan for ``staged`` q planes: TX =
+    min(32, 256 // cap) x-cells of one grid row times every rank, one thread
+    per p slot, and two stages of (TX+2)·9 cells, each rounded up to 16
+    bytes. ``_launch`` passes it to the export. Raises ValueError for a
+    shape the template cannot take."""
+    cap = engine.cap
+    if engine.dim != 3:
+        raise ValueError(f"the tiled sweep is 3-D, got a {engine.dim}-D engine")
+    if not 1 <= cap <= _TILE_THREADS:
+        raise ValueError(f"the tiled 3-D sweep takes 1 to {_TILE_THREADS} "
+                         f"ranks per cell (a block thread per p slot), got "
+                         f"cap {cap}")
+    if staged < 4:
+        raise ValueError(f"the tiled 3-D sweep stages the occupancy and 3 "
+                         f"coordinates at least, got {staged} planes")
+    tx = min(_TILE_MAX_X, _TILE_THREADS // cap)
+    stage = ((tx + 2) * 9 * 4 * staged + 15) // 16 * 16
+    if 2 * stage > _MAX_SHARED_BYTES:
+        raise ValueError(f"the tiled 3-D sweep's two stages of {staged} "
+                         f"planes take {2 * stage} B of shared memory, over "
+                         f"{_MAX_SHARED_BYTES}")
+    return TilePlan(tx, (tx, cap), 2 * stage)
+
+
 def _launch(fn_name: str, engine, planes, band, n_out, scalars):
     """Launch one sweep of csrc/pair_sweep.cu on the current stream; raise if
     the launch was refused. A 3-D engine takes the ``<fn_name>_3d`` export,
-    which has nz after ny."""
+    which has nz after ny (a name that holds "_3d" already, such as a
+    yardstick's ``density_sweep_3d_direct``, is taken as it is); a tiled
+    3-D export gets its plan (TX, dynamic shared bytes) after the
+    scalars."""
     _check_planes(engine, planes, band)
     dev = planes[0].device
     band = band.contiguous()
     outs = [torch.empty((engine.cap, engine.num_cells + 1),
                         dtype=torch.float32, device=dev) for _ in range(n_out)]
-    lib = _build.load("pair_sweep")
-    if engine.dim == 3:
+    if engine.dim == 3 and "_3d" not in fn_name:
         fn_name += "_3d"
+    if fn_name in _TILED_STAGED:
+        plan = _tile_plan(engine, _TILED_STAGED[fn_name])
+        scalars = list(scalars) + [plan.tx, plan.smem_bytes]
+    lib = _build.load("pair_sweep")
     h2 = ctypes.c_float(engine.h * engine.h)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     err = getattr(lib, fn_name)(*[_ptr(p) for p in planes], _ptr(band),
@@ -1171,6 +1227,29 @@ def momentum_pass(engine, state: ParticleState, cfg):
                    _momentum_scalars(cfg, engine.dim) + [_fast(cfg)])
     momentum_pass.launches += 1
     return outs
+
+
+def sweep3_yardsticks(kernel: str, engine, state: ParticleState, cfg):
+    """Launches of a tiled 3-D sweep (``"density_sweep_3d"``, with the self
+    pair per ``cfg.self_density``, or ``"momentum_sweep_3d"``) on planes
+    prepared once from ``state``, by design: ``"tiled"`` (the export
+    ``density_pass``/``momentum_pass`` launch) and ``"direct"`` (the
+    one-thread-per-slot design it replaced). Each returns the outputs as the
+    wrapper does. Yardsticks for timing and for holding the designs bit for
+    bit against each other: on no path, and no launch is counted."""
+    band, _ = row_kmax(engine, state)
+    if kernel == "density_sweep_3d":
+        planes, _ = _density_inputs(engine, state, state.fields["m"])
+        args, n_out = [int(bool(cfg.self_density)), ctypes.c_float(C_W3)], 1
+    elif kernel == "momentum_sweep_3d":
+        planes, _ = _momentum_inputs(engine, state, cfg)
+        args, n_out = _momentum_scalars(cfg, 3) + [_fast(cfg)], 3
+    else:
+        raise ValueError(f"no tiled 3-D sweep {kernel!r}")
+
+    def run(name):
+        return lambda: _launch(name, engine, planes, band, n_out, args)
+    return {"tiled": run(kernel), "direct": run(kernel + "_direct")}
 
 
 def pressure_pass(engine, state: ParticleState, cfg):

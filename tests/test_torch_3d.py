@@ -298,3 +298,32 @@ def test_stencil_cost_rule_counts_27_offsets(cap, accepted):
         assert len(engine.stencil) * cap == 1080
     in_2d = NeighborEngine.create(box, 0.1, 2, cap=cap)
     assert in_2d.effective_rescatter_mode == "stencil"
+
+
+@pytest.mark.parametrize("cap,staged,want", [
+    (8, 5, (32, 256, 12256)), (8, 12, (32, 256, 29376)),
+    (16, 5, (16, 256, 6496)), (16, 12, (16, 256, 15552)),
+    (24, 12, (10, 240, 10368))],
+    ids=["stretch-density", "stretch-momentum", "tiny-density",
+         "tiny-momentum", "cap24-momentum"])
+def test_tile_plan_of_the_tiled_3d_sweeps(cap, staged, want):
+    """The tiled 3-D sweep's launch plan (TX, threads, dynamic shared
+    bytes): witch3d's stretch size has cap 8, this file's tiny system cap
+    16; the density stages 5 q planes, the momentum 12. TX = min(32,
+    256 // cap); two stages of (TX+2)·9 cells, each rounded up to 16 B."""
+    engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0), 0.1, 3,
+                                   cap=cap)
+    plan = tps._tile_plan(engine, staged)
+    assert (plan.tx, plan.tx * cap, plan.smem_bytes) == want
+    assert plan.block == (plan.tx, cap)
+    assert plan.tx * cap <= 1024 and plan.smem_bytes <= 227 * 1024
+
+
+def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
+    box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="ranks per cell"):
+        tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=257), 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=8), 100)
+    with pytest.raises(ValueError, match="3-D"):
+        tps._tile_plan(NeighborEngine.create(box, 0.1, 2, cap=8), 12)

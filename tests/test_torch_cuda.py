@@ -251,10 +251,11 @@ def _dam(name):
     return {"2d": (collapse_dry, DRY), "3d": (collapse3d, C3D)}[name]
 
 
-def _live_3d(device):
-    """witch3d at the tiny size with v ±1 m/s, h ±1 % and P′ ±50 Pa."""
+def _live_3d(device, **over):
+    """witch3d at the tiny size (``over`` replaces config fields) with v
+    ±1 m/s, h ±1 % and P′ ±50 Pa."""
     from sph_mountain_waves_tpu_torch.models import witch3d as w3
-    cfg = w3.Witch3DConfig(**W3D)
+    cfg = w3.Witch3DConfig(**{**W3D, **over})
     sys_ = w3.make_system(cfg)
     st = sys_.freeze(device=device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -289,26 +290,104 @@ def _live_dam(device, name):
         P=torch.where(act, rand(act.shape) * 5e3, 0.0))
 
 
+def _tiled_edges(eng, st):
+    """The edges of the tiled 3-D sweep a state reaches: (a ragged last
+    x-tile, rows with kmax 0, tiles with kmax > 0 but no occupied p slot)."""
+    tx = ps._tile_plan(eng, 12).tx
+    band, _ = ps.row_kmax(eng, st)
+    occ = eng.grid_view(st.active).sum(dim=0)            # [nz, ny, nx]
+    nx = eng.lims[0]
+    tiles = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
+        occ.shape[:2] + (-1, tx)).sum(dim=-1)
+    band = band.reshape(occ.shape[:2])
+    return (nx % tx != 0, int((band == 0).sum()),
+            int(((tiles == 0) & (band[..., None] > 0)).sum()))
+
+
+def _held_to_designs(kernel, eng, st, cfg, got):
+    """The wrapper's outputs bit for bit equal to each design's: the tiled
+    one it launches and the one-thread-per-slot sweep it replaced. The
+    yardsticks count no launch."""
+    wrapper = ps.density_pass if kernel.startswith("density") else ps.momentum_pass
+    before = wrapper.launches
+    for name, run in ps.sweep3_yardsticks(kernel, eng, st, cfg).items():
+        out = run()
+        assert all(torch.equal(a, b) for a, b in zip(got, out)), name
+    assert wrapper.launches == before
+
+
 @pytest.mark.cuda
 def test_density_kernel_matches_twin_in_3d(card):
+    """The tiled density bit for bit against the direct design and the
+    twin; reruns bitwise equal."""
     eng, cfg, st = _live_3d(card)
     before = ps.density_pass.launches
     got = ps.density_pass(eng, st, cfg)
     assert ps.density_pass.launches == before + 1
-    _held_to_twin([got], [ps.density_pass(eng, st, cfg)],
-                  [ps.density_pass_plain(eng, st, cfg)], False)
+    _held_to_designs("density_sweep_3d", eng, st, cfg, [got])
+    ref = ps.density_pass_plain(eng, st, cfg)
+    _held_to_twin([got], [ps.density_pass(eng, st, cfg)], [ref], False)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
 def test_momentum_kernel_matches_twin_in_3d(card, fast_math):
+    """The tiled momentum bit for bit against the direct design; against
+    the twin bit for bit with exact divides,
+    within 1e-3 of max |Dv| with fast_math; reruns bitwise equal."""
     eng, cfg, st = _live_3d(card)
     cfg = dataclasses.replace(cfg, fast_math=fast_math)
     before = ps.momentum_pass.launches
     got = ps.momentum_pass(eng, st, cfg)
     assert ps.momentum_pass.launches == before + 1 and len(got) == 3
-    _held_to_twin(got, ps.momentum_pass(eng, st, cfg),
-                  ps.momentum_pass_plain(eng, st, cfg), fast_math)
+    _held_to_designs("momentum_sweep_3d", eng, st, cfg, got)
+    ref = ps.momentum_pass_plain(eng, st, cfg)
+    _held_to_twin(got, ps.momentum_pass(eng, st, cfg), ref, fast_math)
+    if not fast_math:
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_pair", [True, False], ids=["self", "no_self"])
+def test_tiled_density_reaches_every_edge_in_3d(card, self_pair):
+    """At cap 24 a tile is 10 x-cells: 128 cells leave a ragged last tile of
+    8, and the tiny grid has rows with kmax 0 and tiles with kmax > 0 but no
+    occupied p slot. Bit for bit against the direct design and the twin,
+    with the self pair on and off."""
+    eng, cfg, st = _live_3d(card, bucket_cap=24, self_density=self_pair)
+    ragged, empty_rows, empty_tiles = _tiled_edges(eng, st)
+    assert ragged and empty_rows > 0 and empty_tiles > 0
+    got = ps.density_pass(eng, st, cfg)
+    _held_to_designs("density_sweep_3d", eng, st, cfg, [got])
+    assert torch.equal(got, ps.density_pass(eng, st, cfg))
+    assert torch.equal(got, ps.density_pass_plain(eng, st, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_tiled_momentum_reaches_every_edge_in_3d(card, fast_math):
+    """The momentum on the cap-24 state of the density test above, held as
+    in ``test_momentum_kernel_matches_twin_in_3d``; with non-finite values
+    in every empty slot (skipped before any arithmetic) the tiled and the
+    direct design still give the same finite outputs."""
+    eng, cfg, st = _live_3d(card, bucket_cap=24, fast_math=fast_math)
+    assert all(_tiled_edges(eng, st))
+    got = ps.momentum_pass(eng, st, cfg)
+    _held_to_designs("momentum_sweep_3d", eng, st, cfg, got)
+    ref = ps.momentum_pass_plain(eng, st, cfg)
+    _held_to_twin(got, ps.momentum_pass(eng, st, cfg), ref, fast_math)
+    if not fast_math:
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    planes = [pl.clone() for pl in ps._momentum_inputs(eng, st, cfg)[0]]
+    empty = planes[0] < 0.5
+    for pl in planes[1:]:
+        pl[empty] = float("nan")
+    band, _ = ps.row_kmax(eng, st)
+    args = ps._momentum_scalars(cfg, 3) + [int(fast_math)]
+    for name in ("momentum_sweep_3d", "momentum_sweep_3d_direct"):
+        out = ps._launch(name, eng, planes, band, 3, args)
+        assert all(torch.equal(a, b) for a, b in zip(out, got)), name
 
 
 @pytest.mark.cuda
