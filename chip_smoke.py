@@ -60,20 +60,29 @@ Phases, each printing one or more lines:
  18. a forced 3-D rescatter of the frozen state (27 offsets), which must be
      the identity, with its time and peak memory;
  19. the 3-D density and momentum kernels (the tiled design) at full width
-     on a live state: the tile plan, bit for bit against the
-     one-thread-per-slot design they replaced (``_direct``), fast_math off
-     and on; bit for bit against their twins with fast_math
-     off, within 1e-3 of the output's max with it; reruns bitwise equal;
+     on a live state: the tile plan and the per-tile trip bound against the
+     row band, bit for bit against the one-thread-per-slot design they
+     replaced (``_direct``) and the tiled export on the row band, fast_math
+     off and on; bit for bit against their
+     twins with fast_math off, within 1e-3 of the output's max with it;
+     reruns bitwise equal;
  20. witch3d: its set-up (4 mass-renormalisation iterations; the summed
      density's median over the background within 1e-3 of 1), 6 tiny steps
      card against CPU twins, then the main path: 1 warm-up and 2 timed frames
      of 20 steps, and the device and wall time of 10 more steps under
      torch.profiler, with the device's idle share of those steps;
  21. the dam-break continuity and force kernels, 2-D and 3-D, against their
-     twins on live collapse_dry and collapse3d states at full size;
+     twins on live collapse_dry and collapse3d states at full size; the 3-D
+     pair (the tiled design) with its tile plan (TX, threads, blocks,
+     dynamic shared bytes, tiles with a non-zero bound, the mean per-tile
+     bound against the mean row band), bit for bit against the
+     one-thread-per-slot design (``_direct``), the tiled export on the row
+     band and their twins;
  22. 8 small steps of each dam break, card against CPU twins;
  23. the dam-break main paths: 1 warm-up and 1 timed frame of 100 steps
-     (collapse_dry after init_forces), with the energy;
+     (collapse_dry after init_forces), with the energy; then the device and
+     wall time of 10 more collapse3d steps under torch.profiler, with the
+     device's idle share of those steps;
  24. the terrain baseline built as ``legacy_witch.run`` builds it, with
      shape checks and host seconds; forced stencil and sort rescatters of the
      frozen state (stencil: the identity; sort: equal to it slot for slot);
@@ -113,8 +122,13 @@ Phases, each printing one or more lines:
      over 50 runs, twin over 5) beside its bound; the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the 3-D density and momentum in turns with the design they replaced
-     (direct, tiled, tiled, direct), each beside its bound.
+     the four tiled 3-D kernels (witch3d's density and momentum, collapse3d's
+     dam-break continuity and force) in turns with the design they replaced
+     and with each tile's bound its row's band (direct, tiled, row band, row
+     band, tiled, direct), each beside its bound. A bound counts
+     the bytes the state needs (the occupancy plane, the other input planes
+     at the occupied slots, every output slot, the trip bound) and the
+     operations (every candidate's distance, every pair's body).
 Then the card line, one JSON line of per-kernel results and, last, the ok
 line.
 
@@ -124,7 +138,8 @@ Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
              10 Pavelka steps (from the packed state), 10 witch3d steps
-             (whose device time is printed in any case), 10 terrain steps
+             (whose device time is printed in any case, as is collapse3d's),
+             10 terrain steps
              (after its timed frames), 10 ISPH steps and 10 Rayleigh–Bénard
              steps, with the device time per step
 """
@@ -389,6 +404,38 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
                f"{wall_ms:.3f} ms/step over the same {n_steps} steps under "
                f"the profiler: device idle {100 * (1 - device_ms / wall_ms):.1f}"
                " % of them")
+
+
+def tile_plan_line(ps, e, state, kernels):
+    """The tiled 3-D sweep's launch plan of each of ``kernels`` (tiled
+    exports) on engine ``e``, and its per-tile trip bound on ``state``
+    against the row band: the tiles with a non-zero bound, each bound's mean
+    over those tiles, and the rank walks each asks for (27 cells times the
+    bound, summed over the occupied p slots)."""
+    import torch
+    nx, ny, nz = e.lims
+    parts = []
+    for k in kernels:
+        p = ps._tile_plan(e, ps._TILED_STAGED[k])
+        parts.append(f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} "
+                     f"threads, {-(-nx // p.tx) * ny * nz} blocks, "
+                     f"{p.smem_bytes} B dynamic smem")
+    tx = ps._tile_plan(e, ps._TILED_STAGED[kernels[0]]).tx
+    ntiles = -(-nx // tx)
+    tile = ps._trip_bound(kernels[0], e, state).to(torch.int64)
+    band = ps.row_kmax(e, state)[0].to(torch.int64).repeat_interleave(ntiles)
+    occ = e.grid_view(state.active).sum(dim=0)             # [nz, ny, nx]
+    p_slots = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
+        -1, tx).sum(dim=-1)                                 # per tile
+    work = tile > 0
+    parts.append(
+        f"per-tile bound non-zero in {int(work.sum())} of {tile.numel()} "
+        f"tiles ({int((p_slots > 0).sum())} hold an occupied p slot), mean "
+        f"{float(tile[work].double().mean()):.2f} over them against the row "
+        f"band's {float(band[work].double().mean()):.2f}; "
+        f"rank walks {27 * int((p_slots * tile).sum()):.4e} against "
+        f"{27 * int((p_slots * band).sum()):.4e}")
+    return f"tile plan at cap {e.cap}: " + "; ".join(parts)
 
 
 def build_full(module, cfg, dev):
@@ -1266,23 +1313,20 @@ def main(profile: bool) -> None:
 
     # 19: the 3-D kernels (the tiled design) at full width on a live state:
     # bit for bit against the design they replaced and their twins
-    plans = {k: ps._tile_plan(e17, n) for k, n in ps._TILED_STAGED.items()}
-    say(19, f"tile plan at cap {e17.cap}: " + "; ".join(
-        f"{k} TX {p.tx}, block {p.block} = {p.tx * e17.cap} threads, "
-        f"{-(-e17.lims[0] // p.tx) * e17.lims[1] * e17.lims[2]} blocks, "
-        f"{p.smem_bytes} B dynamic smem" for k, p in plans.items()))
+    say(19, tile_plan_line(ps, e17, w3_state0, ("density_sweep_3d",
+                                                "momentum_sweep_3d")))
     st = perturbed(w3.make_step(wcfg, e17)(w3_state0), dev)
 
-    def designs_equal(label, kernel, c, got):
+    def designs_equal(label, kernel, e, s_, c, got):
         others = {name: run() for name, run in
-                  ps.sweep3_yardsticks(kernel, e17, st, c).items()}
+                  ps.sweep3_yardsticks(kernel, e, s_, c).items()}
         bad = [name for name, out in others.items()
                if not all(torch.equal(a, b) for a, b in zip(got, out))]
         if bad:
             raise AssertionError(f"{label}: the wrapper's output differs from "
                                  f"{bad}")
     got = [ps.density_pass(e17, st, wcfg)]
-    designs_equal("density 3-D", "density_sweep_3d", wcfg, got)
+    designs_equal("density 3-D", "density_sweep_3d", e17, st, wcfg, got)
     errs["density_3d"] = exact("density 3-D", got,
                                [ps.density_pass(e17, st, wcfg)],
                                [ps.density_pass_plain(e17, st, wcfg)])
@@ -1294,7 +1338,7 @@ def main(profile: bool) -> None:
         c = dataclasses.replace(wcfg, fast_math=fm)
         got = ps.momentum_pass(e17, st, c)
         label = f"momentum 3-D fast_math={fm}"
-        designs_equal(label, "momentum_sweep_3d", c, got)
+        designs_equal(label, "momentum_sweep_3d", e17, st, c, got)
         rerun = ps.momentum_pass(e17, st, c)
         twin = ps.momentum_pass_plain(e17, st, c)
         err, scale = errs[f"momentum_3d_fm{int(fm)}"] = (
@@ -1389,25 +1433,43 @@ def main(profile: bool) -> None:
                 act.shape, generator=gen, device=dev)), 0.0),
             P=torch.where(act, torch.rand(act.shape, generator=gen,
                                           device=dev) * 5e3, 0.0))
-        err, scale = errs["dambreak_mass_sweep" + suffix] = kernel_vs_twin(
-            f"{name} continuity", [ps.dambreak_mass_pass(de, st, dcfg)],
-            [ps.dambreak_mass_pass(de, st, dcfg)],
-            [ps.dambreak_mass_pass_plain(de, st, dcfg)], False, scaled=True)
-        say(21, f"{name} continuity kernel vs twin: max abs err {err:.3e} "
-                f"(max |Drho| {scale:.4e}, rel {err / scale:.3e}), gate rtol "
-                f"{RTOL} atol {ATOL} x max, rerun bitwise equal")
-        kern = ps.dambreak_force_pass(de, st, dcfg)
-        err, scale = errs["dambreak_force_sweep" + suffix] = kernel_vs_twin(
-            f"{name} force", kern, ps.dambreak_force_pass(de, st, dcfg),
-            ps.dambreak_force_pass_plain(de, st, dcfg), False, scaled=True)
-        wall = act & (st.fields["type"] == 1.0)
-        if not all(bool((k[wall] == 0.0).all()) for k in kern):
-            raise AssertionError(f"{name}: force on WALL slots is not zero")
-        say(21, f"{name} force kernel vs twin: max abs err {err:.3e} (max "
-                f"|Dv| {scale:.4e}, rel {err / scale:.3e}), gate rtol {RTOL} "
-                f"atol {ATOL} x max, rerun bitwise equal; {int(wall.sum())} "
-                f"WALL slots exactly 0")
-        del st, kern
+        # 3-D: the tiled design, bit for bit against the direct one and the
+        # twin; 2-D: the twin's gate
+        tiled = module is c3
+        if tiled:
+            say(21, tile_plan_line(ps, de, ds, ("dambreak_mass_sweep_3d",
+                                                "dambreak_force_sweep_3d")))
+        held = ("bit for bit equal to the direct design and the twin" if tiled
+                else f"gate rtol {RTOL} atol {ATOL} x max")
+        for kernel, what, scale_of, wrapper, twin_of in (
+                ("dambreak_mass_sweep", "continuity", "Drho",
+                 ps.dambreak_mass_pass, ps.dambreak_mass_pass_plain),
+                ("dambreak_force_sweep", "force", "Dv",
+                 ps.dambreak_force_pass, ps.dambreak_force_pass_plain)):
+            kern, rerun, twin = (f(de, st, dcfg) for f in
+                                 (wrapper, wrapper, twin_of))
+            if kernel == "dambreak_mass_sweep":
+                kern, rerun, twin = [kern], [rerun], [twin]
+            label = f"{name} {what}"
+            if tiled:
+                designs_equal(label, kernel + suffix, de, st, dcfg, kern)
+                err, scale = exact(label, kern, rerun, twin)
+            else:
+                err, scale = kernel_vs_twin(label, kern, rerun, twin, False,
+                                            scaled=True)
+            errs[kernel + suffix] = (err, scale)
+            extra = ""
+            if what == "force":
+                wall = act & (st.fields["type"] == 1.0)
+                if not all(bool((k[wall] == 0.0).all()) for k in kern):
+                    raise AssertionError(f"{name}: force on WALL slots is "
+                                         "not zero")
+                extra = f"; {int(wall.sum())} WALL slots exactly 0"
+            say(21, f"{label} kernel: {held} (max abs err {err:.3e}, max "
+                    f"|{scale_of}| {scale:.4e}, rel {err / scale:.3e}), rerun "
+                    f"bitwise equal{extra}")
+            del kern, rerun, twin
+        del st
 
     # 22: 8 small steps of each dam break, card against CPU twins
     def dam_steps(module, dcfg, where, n_steps):
@@ -1468,6 +1530,8 @@ def main(profile: bool) -> None:
                 f"{2 * STEPS_PER_FRAME} steps (rel "
                 f"{abs(e1 / e0 - 1):.2e}); rescatters in them: "
                 f"{rescatters(dframe, ds, 2)}")
+        if module is c3 or profile:
+            profile_steps(23, name, step, dam_state[name], table=profile)
     del dam_state0
 
     # 24: the terrain baseline (the bench_all terrain_flow cell), built as
@@ -1687,9 +1751,10 @@ def main(profile: bool) -> None:
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
-        """(kernel launch, twin call, pair-count call) on planes prepared
-        once from state s."""
-        band, _ = ps.row_kmax(e, s)
+        """(kernel launch, twin call, pair-count call) on planes and the
+        trip bound prepared once from state s (the twin reads only the
+        bound's largest value, the same per tile as per row)."""
+        band = ps._trip_bound(kernel.split()[0], e, s)
         d = e.dim
         f32 = ps.ctypes.c_float
         if kernel in ("density_sweep", "density_sweep_3d"):
@@ -1878,7 +1943,11 @@ def main(profile: bool) -> None:
         body_ops = BODY_OPS[name] - (HOPKINS_SPLIT_OPS
                                      if kernel.endswith("total") else 0)
         ops = tested * DIST_OPS[e.dim] + pairs * body_ops
-        nbytes = (n_in + n_out) * e.slots * 4 + e.num_cells // e.lims[0] * 4
+        # what the state needs: the occupancy plane, the other input planes
+        # at the occupied slots, every output slot, the trip bound
+        occupied = int(s.active.sum())
+        nbytes = (e.slots + (n_in - 1) * occupied + n_out * e.slots) * 4 + (
+            ps._trip_bound(name, e, s).numel() * 4)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
         timing[kernel] = {"ms": km, "plain_ms": pm,
                           "bound_ms": max(bytes_ms, ops_ms),
@@ -1892,10 +1961,16 @@ def main(profile: bool) -> None:
 
     # the tiled 3-D sweeps against the design they replaced, in turns on
     # one card
-    for kernel in ("density_sweep_3d", "momentum_sweep_3d"):
-        runs = ps.sweep3_yardsticks(kernel, e17, w3_state, wcfg)
+    for kernel, e, s, c in (
+            ("density_sweep_3d", e17, w3_state, wcfg),
+            ("momentum_sweep_3d", e17, w3_state, wcfg),
+            ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
+            ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"],
+             c3_cfg)):
+        runs = ps.sweep3_yardsticks(kernel, e, s, c)
         bound = timing[kernel]["bound_ms"]
-        order = ("direct", "tiled", "tiled", "direct")
+        order = ("direct", "tiled", "tiled_row_band", "tiled_row_band",
+                 "tiled", "direct")
         ms = [cuda_ms(runs[name], 50) for name in order]
         say(30, f"{kernel} in turns: " + ", ".join(
             f"{name} {t:.4f} ms ({100 * bound / t:.1f} % of the "

@@ -1,0 +1,166 @@
+"""Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
+with g++ and hold its tiled 3-D sweeps against the one-thread-per-slot
+design they replaced and against the plain twins, bit for bit, on tiny
+states, through the port's own wrappers (``ops/pair_sweeps.py``: the tile
+plan, the per-tile trip bound, the export names and arguments).
+
+    python scripts/host_sweeps/check.py            # dam-break and witch3d
+    python scripts/host_sweeps/check.py dam        # collapse3d only
+
+No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
+the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
+blocks one after another; the tiled sweep (barriers, shared memory) runs one
+std::thread per CUDA thread and a std::barrier per block, the other
+templates loop over their threads. ``cp.async`` becomes a plain copy (zero
+for an out-of-grid cell) and its commit and wait no-ops; ``rcp.approx``
+becomes a divide. The twins' ``torch.sqrt`` is replaced by NumPy's, which is
+correctly rounded as the card's is. A tiled launch of the tiny collapse3d
+(2,816 blocks of 240 threads) takes ~40 s.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent.parent
+sys.path.insert(0, str(ROOT))
+
+from sph_mountain_waves_tpu_torch.ops import _build, pair_sweeps as ps  # noqa: E402
+
+
+def _sub(pat, rep, s, count, flags=0):
+    n = len(re.findall(pat, s, flags))
+    if n != count:
+        raise RuntimeError(f"{pat!r}: {n} matches, expected {count}")
+    return re.sub(pat, rep, s, flags=flags)
+
+
+def host_source(src: str) -> str:
+    """pair_sweep.cu rewritten for g++ and the stand-in runtime."""
+    src = _sub(r'asm\("rcp\.approx\.ftz\.f32 %0, %1;" : "=f"\(r\) : "f"\(b\)\);',
+               "r = 1.0f / b;", src, 1)
+    src = _sub(r"(void cp_async4\(float\* dst, const float\* src,\s*bool valid\) \{).*?\n\}",
+               r"\1\n  *dst = valid ? *src : 0.0f;\n}", src, 1, re.S)
+    src = _sub(r"(void cp_async_commit\(\) \{).*?\n\}", r"\1}", src, 1, re.S)
+    src = _sub(r"(void cp_async_wait\(\) \{).*?\n\}", r"\1}", src, 1, re.S)
+    src = _sub(r"extern __shared__ float4 stage\[\];",
+               "float4* stage = host_dyn_smem;", src, 1)
+    src = _sub(r"__shared__ int cell_off\[[^\]]*\];",
+               "int* cell_off = reinterpret_cast<int*>(host_static_smem);",
+               src, 1)
+    src = _sub(r"__syncthreads_or\(", "host_sync_or(", src, 1)
+    src = _sub(r"__syncthreads\(\)", "host_sync()", src, 2)
+
+    def launch(m):
+        # launch3_tiled names its kernel "kernel": the one with barriers
+        threaded = "true" if m.group(1) == "kernel" else "false"
+        return f"host_launch({threaded}, {m.group(1)}, {m.group(2)}, "
+    return _sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", launch, src, 3, re.S)
+
+
+def build() -> ctypes.CDLL:
+    """Compile the host form into build/host/ (a directory git ignores) and
+    load it with the exports' ctypes signatures."""
+    out = ROOT / "build" / "host" / "pair_sweep_host.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cpp = out.with_suffix(".cpp")
+    cpp.write_text(host_source((_build.CSRC / "pair_sweep.cu").read_text()))
+    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-pthread", "-I", str(HERE), "-o", str(out),
+                    str(cpp)], check=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, (argtypes, restype) in _build.SIGNATURES["pair_sweep"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def _perturbed(state, **ranges):
+    """``state`` with each named field drawn uniformly from its range on the
+    active rows (a ``scale`` entry multiplies the field instead), from a
+    seeded NumPy generator."""
+    rng = np.random.default_rng(0)
+    act = state.active
+    new = {}
+    for name, (lo, hi, scale) in ranges.items():
+        f = state.fields[name]
+        r = torch.from_numpy(rng.uniform(lo, hi, f.shape).astype(np.float32))
+        val = f * r if scale else r
+        mask = act[:, None] if f.ndim == 2 else act
+        new[name] = torch.where(mask, val, 0.0)
+    return state.replace(**new)
+
+
+def held(kernel, engine, state, cfg, twin) -> bool:
+    """The tiled launch bit for bit against the direct design (raises
+    otherwise); returns whether it also equals the twin bit for bit."""
+    runs = ps.sweep3_yardsticks(kernel, engine, state, cfg)
+    t0 = time.perf_counter()
+    tiled = runs["tiled"]()
+    secs = time.perf_counter() - t0
+    direct = runs["direct"]()
+    ref = twin(engine, state, cfg)
+    ref = ref if isinstance(ref, list) else [ref]
+    if not all(torch.equal(a, b) for a, b in zip(tiled, direct)):
+        raise AssertionError(f"{kernel}: the tiled design differs from the "
+                             "direct one")
+    same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
+    bound = ps._trip_bound(kernel, engine, state)
+    print(f"{kernel}, lims {engine.lims}, cap {engine.cap}: tiled == direct; "
+          f"tiled == twin {same}; max |out| "
+          f"{max(float(a.abs().max()) for a in tiled):.4e}; "
+          f"{int((bound > 0).sum())} of {bound.numel()} tiles with a non-zero "
+          f"bound; tiled launch {secs:.1f} s", flush=True)
+    return same
+
+
+def main(which) -> None:
+    lib = build()
+    _build.load = lambda name: lib
+    torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(
+        cuda_stream=0)
+    torch.sqrt = lambda x: torch.from_numpy(np.sqrt(x.numpy()))
+    torch.set_num_threads(1)
+    ok = True
+    if "dam" in which:
+        from sph_mountain_waves_tpu_torch.models import collapse3d as c3
+        cfg = c3.Config(dr=2e-2, dtype="float32", layout="bucket", skin=0.2,
+                        use_pallas=True)
+        system = c3.make_system(cfg)
+        state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                           rho=(0.99, 1.01, True), P=(0, 5e3, False))
+        for kernel, twin in (
+                ("dambreak_mass_sweep_3d", ps.dambreak_mass_pass_plain),
+                ("dambreak_force_sweep_3d", ps.dambreak_force_pass_plain)):
+            ok &= held(kernel, system.engine, state, cfg, twin)
+    if "witch" in which:
+        from sph_mountain_waves_tpu_torch.models import witch3d as w3
+        for cap in (None, 24):
+            cfg = w3.Witch3DConfig(
+                n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
+                self_density=True, eta=1.2, dtype="float32", layout="bucket",
+                lattice_cells=True, skin=0.15, use_pallas=True,
+                renorm_iters=2, bucket_cap=cap)
+            system = w3.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               P_p=(-50, 50, False))
+            for kernel, twin in (
+                    ("density_sweep_3d", ps.density_pass_plain),
+                    ("momentum_sweep_3d", ps.momentum_pass_plain)):
+                ok &= held(kernel, system.engine, state, cfg, twin)
+    if not ok:
+        raise AssertionError("a tiled sweep differs from its twin")
+    print("host check passed")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["dam", "witch"])

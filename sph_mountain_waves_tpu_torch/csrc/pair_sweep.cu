@@ -63,15 +63,16 @@
 // (at least 4 dependent global loads), and its grid runs the p rank
 // slowest, so the q planes are read once per p rank: at witch3d's stretch
 // size it took 1.45 ms (density) and 1.96 ms (momentum) on an H100, 7 % of
-// an operations bound. The 3-D density and momentum therefore run
-// pair_sweep3_tiled: a block stages each q rank of its tile's 27-cell
-// neighbourhood in shared memory once for all p ranks (occupancy and
-// coordinates as one float4, the body's q planes as scalars), keeps
-// pair_sweep3's order of summation and so its outputs bit for bit, and
-// uses no TMA (the [cap, C+1] row stride is not a multiple of 16 bytes).
-// It takes 0.65 and 0.99 ms there (15 and 14 % of the bound); its
-// candidate loop (a 16-byte shared load, the distance and its test), not
-// the staging, paces it (PERF.md has the breakdown).
+// an operations bound. The 3-D density, momentum and dam-break sweeps
+// therefore run pair_sweep3_tiled: a block stages each q rank of its tile's
+// 27-cell neighbourhood in shared memory once for all p ranks (occupancy
+// and coordinates as one float4, the body's q planes as scalars), walks the
+// q ranks to its tile's own bound, keeps pair_sweep3's order of summation
+// and so its outputs bit for bit, and uses no TMA (the [cap, C+1] row
+// stride is not a multiple of 16 bytes). The density and momentum take 0.65
+// and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
+// 16-byte shared load, the distance and its test), not the staging, paces
+// them (PERF.md has the breakdown, and the dam-break sweeps' times).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -365,10 +366,10 @@ struct GammaGrad {
 };
 
 
-// q's fields as the 3-D density and momentum bodies read them: q[i] is
-// plane i at q's slot. PlaneQ reads the planes (pair_sweep3); StagedQ reads
-// the copy that pair_sweep3_tiled staged in shared memory, planes lo.. at
-// ex[(i - lo) * nc + s].
+// q's fields as the 3-D bodies (and the dam-break bodies in 2-D) read
+// them: q[i] is plane i at q's slot. PlaneQ reads the planes (pair_sweep,
+// pair_sweep3); StagedQ reads the copy that pair_sweep3_tiled staged in
+// shared memory, planes lo.. at ex[(i - lo) * nc + s].
 template <int NIN, int NOUT>
 struct PlaneQ {
   const Planes<NIN, NOUT>& f;
@@ -385,11 +386,12 @@ struct StagedQ {
 };
 
 // 3-D density: rho_p = sum_q w_q W3(h_p, r); fields: occ, x0, x1, x2, 1/h, w.
-// q's planes read by the body: QLO.. (w only).
+// q's planes read by the body: QLO..QHI-1 (w only).
 struct Density3 {
   static constexpr int NIN = 6;
   static constexpr int NOUT = 1;
   static constexpr int QLO = 5;
+  static constexpr int QHI = NIN;
   struct Params {
     float cw;  // 21/(2 pi)
   };
@@ -415,12 +417,13 @@ struct Density3 {
 
 // 3-D momentum: the 2-D form on three axes with rDW3 = dw t^3 / h_ij^5;
 // fields: occ, x0, x1, x2, h, m, v0, v1, v2, rho_f, A=P'/rho^2, c. q's
-// planes read by the body: QLO.. (all but the occupancy and position).
+// planes read by the body: QLO..QHI-1 (all but the occupancy and position).
 template <bool FAST>
 struct Momentum3 {
   static constexpr int NIN = 12;
   static constexpr int NOUT = 3;
   static constexpr int QLO = 4;
+  static constexpr int QHI = NIN;
   struct Params {
     float dw;      // -210/pi
     float eps;
@@ -464,27 +467,35 @@ struct Momentum3 {
 
 // Dam-break continuity with fixed h: Drho_p = sum_q kc t^3 (x_pq . v_pq
 // + 2 nu (rho_p - rho_q)), t = max(1 - r/h, 0), kc = m (-C of rDW) / h^(D+2);
-// fields: occ, x[D], v[D], rho. No divide.
+// fields: occ, x[D], v[D], rho. No divide. q's planes read by the body:
+// QLO..QHI-1 (v and rho).
 template <int D>
 struct DamMass {
   static constexpr int NIN = 2 + 2 * D;
   static constexpr int NOUT = 1;
+  static constexpr int QLO = 1 + D;
+  static constexpr int QHI = 2 + 2 * D;
   struct Params {
     float kc;
     float hinv;    // 1/h
     float two_nu;  // 2 nu
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
     const float ker = prm.kc * t * t * t;
-    float dot = d[0] * (p[1 + D] - f.in[1 + D][qi]);
+    float dot = d[0] * (p[1 + D] - q[1 + D]);
 #pragma unroll
-    for (int a = 1; a < D; ++a) dot += d[a] * (p[1 + D + a] - f.in[1 + D + a][qi]);
-    const float drho = p[1 + 2 * D] - f.in[1 + 2 * D][qi];
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[1 + D + a] - q[1 + D + a]);
+    const float drho = p[1 + 2 * D] - q[1 + 2 * D];
     tot[0] += ker * (dot + prm.two_nu * drho);
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
   __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
                               int64_t qi, float d0, float d1, float r2,
@@ -497,27 +508,35 @@ struct DamMass {
 // Dam-break force with fixed h, on FLUID p only (a WALL p slot sums exact
 // zeros): Dv_p = sum_q -ker (Pt_p + Pt_q) x_pq + ker visc_c v_pq with
 // ker = kc (fl_p t)^3, Pt = P / max(rho, 1e-12)^2, visc_c = 2 mu / rho0^2;
-// fields: occ, x[D], v[D], Pt, fl = [type == FLUID].
+// fields: occ, x[D], v[D], Pt, fl = [type == FLUID]. q's planes read by the
+// body: QLO..QHI-1 (v and Pt; fl is read on the p side only).
 template <int D>
 struct DamForce {
   static constexpr int NIN = 3 + 2 * D;
   static constexpr int NOUT = D;
+  static constexpr int QLO = 1 + D;
+  static constexpr int QHI = 2 + 2 * D;
   struct Params {
     float kc;
     float hinv;    // 1/h
     float visc_c;  // 2 mu / rho0^2
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     const float t = fmaxf(1.0f - r * prm.hinv, 0.0f) * p[2 + 2 * D];
     const float ker = prm.kc * t * t * t;
-    const float s = -ker * (p[1 + 2 * D] + f.in[1 + 2 * D][qi]);
+    const float s = -ker * (p[1 + 2 * D] + q[1 + 2 * D]);
     const float w = ker * prm.visc_c;
 #pragma unroll
     for (int a = 0; a < D; ++a)
-      tot[a] += s * d[a] + w * (p[1 + D + a] - f.in[1 + D + a][qi]);
+      tot[a] += s * d[a] + w * (p[1 + D + a] - q[1 + D + a]);
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, const float* d, float r2,
+                              const Params& prm, float* tot) {
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
   __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
                               int64_t qi, float d0, float d1, float r2,
@@ -953,29 +972,50 @@ int launch3(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiled 27-cell sweep of the 3-D density and momentum. One block is TX
-// consecutive x-cells of one grid row (cy, cz) times every p rank: thread
-// (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx), so
-// a warp reads consecutive cells of one rank. Blocks run x-tiles fastest,
-// then cy, then cz: the three z-planes a tile reads stay in L2 for the
-// tiles that share them. For each q rank kq the block stages the (TX+2) x
-// 3 x 3 neighbour cells of that rank in shared memory, once for all its p
-// ranks: occupancy and coordinates as one float4 per cell (a candidate is
-// one 16-byte shared load), the body's other q planes (Body::QLO..) as
-// scalars. The cells' plane offsets are computed once per block (cell_off);
-// cells outside the grid are zero-filled, so they read as unoccupied. Rank
-// kq+1 is copied with cp.async while rank kq is summed (two stages; a
-// barrier between a copy and its use, another before a stage is
-// overwritten). The thread of an occupied p slot then takes its 27 cells
-// in pair_sweep3's order (dk, dj, di), skips an empty q cell before any
-// arithmetic on it, sums the pairs into tot and adds tot to acc: the same
-// operations in the same order, so the outputs equal pair_sweep3's bit for
-// bit. A tile with no occupied p slot (or kmax 0) stages nothing; a ragged
-// last tile masks its spare threads; block 0 writes the trash column. No
-// TMA: a plane's row stride, C+1 floats, is not a multiple of 16 bytes, and
-// every module shares the [cap, C+1] layout. The launch plan (TX and the
-// dynamic shared bytes of the two stages) is ops/pair_sweeps.py::_tile_plan;
-// the launch refuses a plan the kernel cannot hold.
+// The tiled 27-cell sweep of the 3-D density and momentum and of the 3-D
+// dam-break continuity and force (pallas_pairs.py dambreak_mass_pass and
+// dambreak_force_pass). One block is TX consecutive x-cells of one grid row
+// (cy, cz) times every p rank: thread (threadIdx.x, threadIdx.y) = (tx, k)
+// owns slot (rank k, cell x0 + tx), so a warp reads consecutive cells of one
+// rank. Blocks run x-tiles fastest, then cy, then cz: the three z-planes a
+// tile reads stay in L2 for the tiles that share them. The q loop runs to
+// kmax[blockIdx.x], the tile's own bound (ops/pair_sweeps.py::tile_kmax: the
+// largest count among the (TX+2) x 3 x 3 cells it stages; ranks are packed
+// from 0, so every rank past it is empty in all of them). For each q rank
+// kq the block stages the (TX+2) x 3 x 3 neighbour cells of that rank in
+// shared memory, once for all its p ranks: occupancy and coordinates as one
+// float4 per cell (a candidate is one 16-byte shared load), the q planes the
+// body reads (Body::QLO..QHI-1) as scalars. The cells' plane offsets are
+// computed once per block (cell_off); cells outside the grid are
+// zero-filled, so they read as unoccupied. Rank kq+1 is copied with
+// cp.async while rank kq is summed (two stages; a barrier between a copy and
+// its use, another before a stage is overwritten). The thread of an
+// occupied p slot then takes its 27 cells in pair_sweep3's order (dk, dj,
+// di), skips an empty q cell before any arithmetic on it, sums the pairs
+// into tot and adds tot to acc: the same operations in the same order, and
+// the ranks it skips would add exact zeros, so the outputs equal
+// pair_sweep3's bit for bit. A tile with no occupied p slot (or kmax 0)
+// stages nothing; a ragged last tile masks its spare threads; block 0 writes
+// the trash column. No TMA: a plane's row stride, C+1 floats, is not a
+// multiple of 16 bytes, and every module shares the [cap, C+1] layout. The
+// launch plan (TX and the dynamic shared bytes of the two stages) is
+// ops/pair_sweeps.py::_tile_plan; the launch refuses a plan the kernel
+// cannot hold.
+//
+// The dam-break sweeps of collapse3d (N = 103,479, grid 128 x 40 x 24, cap
+// 40) fill 2.1 % of their slots. What they must move is the occupancy plane,
+// their other input planes at the occupied slots and every output slot:
+// 42.2 MB (continuity) and 81.9 MB (force) on an H100, 12.6 and 24.5 us;
+// their operations (~2.4e7 occupied candidates, 2.6e6 pairs) take less.
+// pair_sweep3 spends a thread on every one of the 4.9 M slots and walks each
+// occupied one to its row band's bound (27 ranks for an 8-particle fluid
+// cell beside the walls), every candidate a gather from the planes. Here a
+// tile (TX = 6 at cap 40) with no occupied slot writes its zeros and stops
+// (~90 % of them), the per-tile bound cuts the ranks walked (6.3e7 rank
+// walks against 7.1e7), and the candidates are read from shared memory:
+// 0.21 and 0.24 ms on an H100 against pair_sweep3's 0.54 and 0.66 ms, 6
+// and 10 % of the byte bound, each staged rank now a cp.async round trip
+// and two barriers for a block whose occupied ranks fill few of its warps.
 constexpr int kTileThreads = 256;  // most threads a tile block takes
 constexpr int kTileMaxX = 32;      // most x-cells a tile block takes
 
@@ -1000,7 +1040,7 @@ template <class Body, bool SELF>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep3_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
                   Layout3 g, typename Body::Params prm, int stage_f4) {
-  constexpr int NE = Body::NIN - Body::QLO;  // scalar planes staged per cell
+  constexpr int NE = Body::QHI - Body::QLO;  // scalar planes staged per cell
   extern __shared__ float4 stage[];
   const int TX = blockDim.x;
   const int W = TX + 2;   // staged cells per (dk, dj) row
@@ -1026,7 +1066,7 @@ pair_sweep3_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
 #pragma unroll
   for (int o = 0; o < Body::NOUT; ++o) acc[o] = 0.0f;
   const bool occ = mine && f.in[0][ps] > 0.5f;
-  const int kend = kmax[row];
+  const int kend = kmax[blockIdx.x];
   // each staged cell's offset in a plane (-1: outside the grid), the same
   // for every rank: (dk+1)*3 + dj+1 = i / W, x0 - 1 + i % W
   __shared__ int cell_off[9 * (kTileMaxX + 2)];
@@ -1117,7 +1157,7 @@ template <class Body, bool SELF>
 int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
                   const Layout3& g, const typename Body::Params& prm, int tx,
                   int smem_bytes, cudaStream_t stream) {
-  constexpr int staged = 4 + Body::NIN - Body::QLO;  // floats per cell
+  constexpr int staged = 4 + Body::QHI - Body::QLO;  // floats per cell
   const int stage_f4 = smem_bytes / 32;  // one stage, in float4
   if (tx < 1 || tx > kTileMaxX || tx * g.cap > kTileThreads
       || stage_f4 * 16 < (tx + 2) * 9 * staged * 4)
@@ -1403,11 +1443,12 @@ int rb_mass_heat_sweep(const float* occ, const float* x0, const float* x1,
                                    static_cast<cudaStream_t>(stream));
 }
 
-// 3-D sweeps: planes [cap, nx*ny*nz+1], kmax int32 [nz*ny]. The density
-// and momentum launch pair_sweep3_tiled on the plan (tx, smem_bytes) the
-// wrapper passes; their "_direct" exports launch pair_sweep3 (one thread
-// per slot, q read from the planes), the design the tiled one replaced: a
-// yardstick, on no path.
+// 3-D sweeps: planes [cap, nx*ny*nz+1]. The density, momentum and
+// dam-break sweeps launch pair_sweep3_tiled on the plan (tx, smem_bytes) the
+// wrapper passes, with kmax int32 [nz*ny*ntiles] (one bound per x-tile,
+// ntiles = ceil(nx / tx)); their "_direct" exports launch pair_sweep3 (one
+// thread per slot, q read from the planes, kmax int32 [nz*ny] per grid
+// row), the design the tiled one replaced: a yardstick, on no path.
 int density_sweep_3d(const float* occ, const float* x0, const float* x1,
                      const float* x2, const float* hinv, const float* w,
                      const int* kmax, float* rho, int cap, int nx, int ny,
@@ -1477,7 +1518,21 @@ int dambreak_mass_sweep_3d(const float* occ, const float* x0, const float* x1,
                            const float* v2, const float* rho, const int* kmax,
                            float* drho, int cap, int nx, int ny, int nz,
                            float h2, float kc, float hinv, float two_nu,
-                           void* stream) {
+                           int tx, int smem_bytes, void* stream) {
+  Planes<8, 1> f{{occ, x0, x1, x2, v0, v1, v2, rho}, {drho}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  return launch3_tiled<DamMass<3>, false>(f, kmax, g, {kc, hinv, two_nu}, tx,
+                                          smem_bytes,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_mass_sweep_3d_direct(const float* occ, const float* x0,
+                                  const float* x1, const float* x2,
+                                  const float* v0, const float* v1,
+                                  const float* v2, const float* rho,
+                                  const int* kmax, float* drho, int cap,
+                                  int nx, int ny, int nz, float h2, float kc,
+                                  float hinv, float two_nu, void* stream) {
   Planes<8, 1> f{{occ, x0, x1, x2, v0, v1, v2, rho}, {drho}};
   const Layout3 g{cap, nx, ny, nz, h2};
   return launch3<DamMass<3>, false>(f, kmax, g, {kc, hinv, two_nu},
@@ -1490,7 +1545,23 @@ int dambreak_force_sweep_3d(const float* occ, const float* x0, const float* x1,
                             const float* fluid, const int* kmax, float* dv0,
                             float* dv1, float* dv2, int cap, int nx, int ny,
                             int nz, float h2, float kc, float hinv,
-                            float visc_c, void* stream) {
+                            float visc_c, int tx, int smem_bytes,
+                            void* stream) {
+  Planes<9, 3> f{{occ, x0, x1, x2, v0, v1, v2, pterm, fluid}, {dv0, dv1, dv2}};
+  const Layout3 g{cap, nx, ny, nz, h2};
+  return launch3_tiled<DamForce<3>, false>(f, kmax, g, {kc, hinv, visc_c}, tx,
+                                           smem_bytes,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_force_sweep_3d_direct(const float* occ, const float* x0,
+                                   const float* x1, const float* x2,
+                                   const float* v0, const float* v1,
+                                   const float* v2, const float* pterm,
+                                   const float* fluid, const int* kmax,
+                                   float* dv0, float* dv1, float* dv2, int cap,
+                                   int nx, int ny, int nz, float h2, float kc,
+                                   float hinv, float visc_c, void* stream) {
   Planes<9, 3> f{{occ, x0, x1, x2, v0, v1, v2, pterm, fluid}, {dv0, dv1, dv2}};
   const Layout3 g{cap, nx, ny, nz, h2};
   return launch3<DamForce<3>, false>(f, kmax, g, {kc, hinv, visc_c},

@@ -86,20 +86,27 @@ SIGNATURES = {
         # 1/h, 2 kappa, stream
         "rb_mass_heat_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
         # the 3-D forms take x2 (and v2) planes, one more output for the
-        # vector sweeps, and nz after ny; the 3-D density and momentum take
-        # the tiled sweep's plan (TX, dynamic shared bytes) before the
-        # stream, their "_direct" exports (the one-thread-per-slot design, a
-        # yardstick) take none
+        # vector sweeps, and nz after ny; the 3-D density, momentum and
+        # dam-break sweeps take the tiled sweep's plan (TX, dynamic shared
+        # bytes) before the stream and one trip bound per x-tile, their
+        # "_direct" exports (the one-thread-per-slot design, a yardstick)
+        # take no plan and one bound per grid row
         "density_sweep_3d": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
                              _I),
         "momentum_sweep_3d": ([_P] * 16 + [_I] * 4 + [_F] * 5
                               + [_I, _I, _I, _P], _I),
+        "dambreak_mass_sweep_3d": ([_P] * 10 + [_I] * 4 + [_F] * 4
+                                   + [_I, _I, _P], _I),
+        "dambreak_force_sweep_3d": ([_P] * 13 + [_I] * 4 + [_F] * 4
+                                    + [_I, _I, _P], _I),
         "density_sweep_3d_direct": ([_P] * 8 + [_I] * 4 + [_F, _I, _F, _P],
                                     _I),
         "momentum_sweep_3d_direct": ([_P] * 16 + [_I] * 4 + [_F] * 5
                                      + [_I, _P], _I),
-        "dambreak_mass_sweep_3d": ([_P] * 10 + [_I] * 4 + [_F] * 4 + [_P], _I),
-        "dambreak_force_sweep_3d": ([_P] * 13 + [_I] * 4 + [_F] * 4 + [_P], _I),
+        "dambreak_mass_sweep_3d_direct": ([_P] * 10 + [_I] * 4 + [_F] * 4
+                                          + [_P], _I),
+        "dambreak_force_sweep_3d_direct": ([_P] * 13 + [_I] * 4 + [_F] * 4
+                                           + [_P], _I),
     },
 }
 

@@ -45,11 +45,12 @@ Each sweep has two implementations:
   wrappers and the four ISPH/Rayleigh–Bénard ones) for CUDA tensors, which
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
-  kernel by ``engine.dim``. The 3-D density and momentum run the tiled
-  design (``_tile_plan``: one block per x-tile of a grid row covering every
-  p rank, q ranks staged in shared memory); ``sweep3_yardsticks`` launches
-  them beside the one-thread-per-slot design they replaced, for timing and
-  for bit-for-bit comparison only;
+  kernel by ``engine.dim``. The 3-D density, momentum and dam-break
+  sweeps run the tiled design (``_tile_plan``: one block per x-tile of a
+  grid row covering every p rank, q ranks staged in shared memory, each
+  tile walking the q ranks to its own bound, ``tile_kmax``);
+  ``sweep3_yardsticks`` launches them beside the one-thread-per-slot design
+  they replaced, for timing and for bit-for-bit comparison only;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
   vectorised over shifted views of the padded ``[cap, (nz+2,) ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
@@ -80,7 +81,7 @@ from ..kernels import C_DSPLINE23, C_DW2, C_DW3, C_W2, C_W3
 from ..structs import ParticleState
 from . import _build
 
-__all__ = ["row_kmax", "density_pass", "density_pass_plain",
+__all__ = ["row_kmax", "tile_kmax", "density_pass", "density_pass_plain",
            "momentum_pass", "momentum_pass_plain", "pressure_pass",
            "pressure_pass_plain", "hopkins_momentum_pass",
            "hopkins_momentum_pass_plain", "pavelka_mass_pass",
@@ -121,6 +122,25 @@ def row_kmax(engine, state: ParticleState):
                 band = torch.maximum(band, padded[dk:dk + nz, dj:dj + ny])
     return (band.reshape(-1).to(torch.int32),
             per_row.reshape(-1).to(torch.int32))
+
+
+def tile_kmax(engine, state: ParticleState, tx: int) -> torch.Tensor:
+    """The tiled 3-D sweep's trip bound, one per x-tile of ``tx`` cells of a
+    grid row: the largest bucket occupancy among the (tx+2)×3×3 cells the
+    tile stages (its cells and their neighbours inside the grid), as int32
+    [nz·ny·ntiles] in the sweep's block order (x-tiles fastest, then y, then
+    z; ntiles = ⌈nx / tx⌉, the last tile ragged). Ranks are packed from 0,
+    so every rank past the bound is empty in all of those cells; the bound
+    is never above ``row_kmax``'s band of the tile's row."""
+    if engine.dim != 3:
+        raise ValueError(f"tile_kmax is 3-D, got a {engine.dim}-D engine")
+    per_cell = engine.grid_view(state.active).sum(dim=0).to(torch.float32)
+    # the largest count in each cell's 3×3×3 neighbourhood (pads count -inf)
+    around = F.max_pool3d(per_cell[None, None], 3, stride=1, padding=1)[0, 0]
+    nx = engine.lims[0]
+    tiles = F.pad(around, (0, -nx % tx)).reshape(
+        around.shape[:2] + (-1, tx)).amax(dim=-1)
+    return tiles.reshape(-1).to(torch.int32)
 
 
 def _hfloor(engine) -> float:
@@ -1080,7 +1100,7 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _check_planes(engine, planes, band):
+def _check_planes(engine, planes, band, n_bound):
     shape = (engine.cap, engine.num_cells + 1)
     dev = planes[0].device
     for pl in planes:
@@ -1091,10 +1111,10 @@ def _check_planes(engine, planes, band):
             raise ValueError(f"sweep input must be contiguous f32 {shape} "
                              f"on {dev}, got {pl.dtype} {tuple(pl.shape)} "
                              f"on {pl.device}")
-    rows = engine.num_cells // engine.lims[0]
-    if band.device != dev or band.dtype != torch.int32 or band.numel() != rows:
-        raise ValueError(f"row bound must be int32 [{rows}] on the planes' "
-                         "device")
+    if (band.device != dev or band.dtype != torch.int32
+            or band.numel() != n_bound):
+        raise ValueError(f"trip bound must be int32 [{n_bound}] on the "
+                         "planes' device")
 
 
 class TilePlan(NamedTuple):
@@ -1112,8 +1132,10 @@ _TILE_MAX_X = 32
 _MAX_SHARED_BYTES = 232_448
 # q planes the tiled 3-D exports stage per cell (occupancy and coordinates
 # included): the density body reads w of q (not 1/h), the momentum body
-# every plane of q
-_TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12}
+# every plane of q, the dam-break bodies v and ρ or v and P/ρ² (the force's
+# FLUID gate is read on the p side only)
+_TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
+                 "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8}
 
 
 def _tile_plan(engine, staged: int) -> TilePlan:
@@ -1141,23 +1163,42 @@ def _tile_plan(engine, staged: int) -> TilePlan:
     return TilePlan(tx, (tx, cap), 2 * stage)
 
 
+def _export(fn_name: str, engine) -> str:
+    """The export of csrc/pair_sweep.cu that ``fn_name`` names on
+    ``engine``: a 3-D engine takes ``<fn_name>_3d``, which has nz after ny
+    (a name that holds "_3d" already, such as a yardstick's
+    ``density_sweep_3d_direct``, is taken as it is)."""
+    return fn_name + "_3d" if engine.dim == 3 and "_3d" not in fn_name else fn_name
+
+
+def _trip_bound(fn_name: str, engine, state: ParticleState) -> torch.Tensor:
+    """The q-rank trip bound the export ``fn_name`` (named as ``_launch``
+    names it) reads: one per x-tile (``tile_kmax``) for a tiled 3-D export,
+    one per grid row (``row_kmax``'s band) for the others."""
+    name = _export(fn_name, engine)
+    if name in _TILED_STAGED:
+        return tile_kmax(engine, state,
+                         _tile_plan(engine, _TILED_STAGED[name]).tx)
+    return row_kmax(engine, state)[0]
+
+
 def _launch(fn_name: str, engine, planes, band, n_out, scalars):
-    """Launch one sweep of csrc/pair_sweep.cu on the current stream; raise if
-    the launch was refused. A 3-D engine takes the ``<fn_name>_3d`` export,
-    which has nz after ny (a name that holds "_3d" already, such as a
-    yardstick's ``density_sweep_3d_direct``, is taken as it is); a tiled
-    3-D export gets its plan (TX, dynamic shared bytes) after the
-    scalars."""
-    _check_planes(engine, planes, band)
+    """Launch one sweep of csrc/pair_sweep.cu (the export ``_export``
+    names) on the current stream with the trip bound ``band`` (as
+    ``_trip_bound`` gives it); raise if the launch was refused. A tiled 3-D
+    export gets its plan (TX, dynamic shared bytes) after the scalars."""
+    fn_name = _export(fn_name, engine)
+    rows = engine.num_cells // engine.lims[0]
+    n_bound = rows
+    if fn_name in _TILED_STAGED:
+        plan = _tile_plan(engine, _TILED_STAGED[fn_name])
+        scalars = list(scalars) + [plan.tx, plan.smem_bytes]
+        n_bound = rows * -(-engine.lims[0] // plan.tx)
+    _check_planes(engine, planes, band, n_bound)
     dev = planes[0].device
     band = band.contiguous()
     outs = [torch.empty((engine.cap, engine.num_cells + 1),
                         dtype=torch.float32, device=dev) for _ in range(n_out)]
-    if engine.dim == 3 and "_3d" not in fn_name:
-        fn_name += "_3d"
-    if fn_name in _TILED_STAGED:
-        plan = _tile_plan(engine, _TILED_STAGED[fn_name])
-        scalars = list(scalars) + [plan.tx, plan.smem_bytes]
     lib = _build.load("pair_sweep")
     h2 = ctypes.c_float(engine.h * engine.h)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -1206,7 +1247,7 @@ def density_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return density_pass_plain(engine, state, cfg)
     planes, _ = _density_inputs(engine, state, state.fields["m"])
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("density_sweep", engine, state)
     (out,) = _launch("density_sweep", engine, planes, band, 1,
                      [int(bool(cfg.self_density)),
                       ctypes.c_float(C_W2 if engine.dim == 2 else C_W3)])
@@ -1222,7 +1263,7 @@ def momentum_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return momentum_pass_plain(engine, state, cfg)
     planes, _ = _momentum_inputs(engine, state, cfg)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("momentum_sweep", engine, state)
     outs = _launch("momentum_sweep", engine, planes, band, engine.dim,
                    _momentum_scalars(cfg, engine.dim) + [_fast(cfg)])
     momentum_pass.launches += 1
@@ -1231,25 +1272,39 @@ def momentum_pass(engine, state: ParticleState, cfg):
 
 def sweep3_yardsticks(kernel: str, engine, state: ParticleState, cfg):
     """Launches of a tiled 3-D sweep (``"density_sweep_3d"``, with the self
-    pair per ``cfg.self_density``, or ``"momentum_sweep_3d"``) on planes
-    prepared once from ``state``, by design: ``"tiled"`` (the export
-    ``density_pass``/``momentum_pass`` launch) and ``"direct"`` (the
-    one-thread-per-slot design it replaced). Each returns the outputs as the
-    wrapper does. Yardsticks for timing and for holding the designs bit for
-    bit against each other: on no path, and no launch is counted."""
-    band, _ = row_kmax(engine, state)
+    pair per ``cfg.self_density``, ``"momentum_sweep_3d"``,
+    ``"dambreak_mass_sweep_3d"`` or ``"dambreak_force_sweep_3d"``) on planes
+    and trip bounds prepared once from ``state``, by design: ``"tiled"``
+    (the export the wrapper launches, with the per-tile bound),
+    ``"tiled_row_band"`` (the same export with each tile's bound its row's
+    band, the bound the tiled sweep took before the per-tile one) and
+    ``"direct"`` (the one-thread-per-slot design it replaced, with the row
+    band). Each returns the outputs as the wrapper does. Yardsticks for
+    timing and for holding the designs bit for bit against each other: on
+    no path, and no launch is counted."""
     if kernel == "density_sweep_3d":
         planes, _ = _density_inputs(engine, state, state.fields["m"])
         args, n_out = [int(bool(cfg.self_density)), ctypes.c_float(C_W3)], 1
     elif kernel == "momentum_sweep_3d":
         planes, _ = _momentum_inputs(engine, state, cfg)
         args, n_out = _momentum_scalars(cfg, 3) + [_fast(cfg)], 3
+    elif kernel == "dambreak_mass_sweep_3d":
+        planes, _ = _dambreak_mass_inputs(engine, state)
+        args, n_out = _dambreak_mass_scalars(cfg, 3), 1
+    elif kernel == "dambreak_force_sweep_3d":
+        planes, _ = _dambreak_force_inputs(engine, state)
+        args, n_out = _dambreak_force_scalars(cfg, 3), 3
     else:
         raise ValueError(f"no tiled 3-D sweep {kernel!r}")
+    tile_band = _trip_bound(kernel, engine, state)
+    row_band, _ = row_kmax(engine, state)
 
-    def run(name):
+    def run(name, band):
         return lambda: _launch(name, engine, planes, band, n_out, args)
-    return {"tiled": run(kernel), "direct": run(kernel + "_direct")}
+    per_tile = row_band.repeat_interleave(tile_band.numel() // row_band.numel())
+    return {"tiled": run(kernel, tile_band),
+            "tiled_row_band": run(kernel, per_tile),
+            "direct": run(kernel + "_direct", row_band)}
 
 
 def pressure_pass(engine, state: ParticleState, cfg):
@@ -1352,6 +1407,20 @@ def gamma_grad_pass(engine, state: ParticleState, V0: float):
     return outs
 
 
+def _dambreak_mass_scalars(cfg, dim: int):
+    """(kc, 1/h, 2ν) of the dam-break continuity body."""
+    kc, hinv = _dambreak_consts(cfg, dim)
+    return [ctypes.c_float(kc), ctypes.c_float(hinv),
+            ctypes.c_float(2.0 * cfg.nu)]
+
+
+def _dambreak_force_scalars(cfg, dim: int):
+    """(kc, 1/h, 2μ/ρ0²) of the dam-break force body."""
+    kc, hinv = _dambreak_consts(cfg, dim)
+    return [ctypes.c_float(kc), ctypes.c_float(hinv),
+            ctypes.c_float(2.0 * cfg.mu / cfg.rho0**2)]
+
+
 def dambreak_mass_pass(engine, state: ParticleState, cfg):
     """Dam-break continuity with fixed h: Drho = Σ m·rDW(h, r)·(x_pq·v_pq +
     2ν(ρ_p − ρ_q)) as a flat [slots] tensor, in 2-D (rDW₂) or 3-D (rDW₃) by
@@ -1361,11 +1430,9 @@ def dambreak_mass_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return dambreak_mass_pass_plain(engine, state, cfg)
     planes, _ = _dambreak_mass_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
-    kc, hinv = _dambreak_consts(cfg, engine.dim)
+    band = _trip_bound("dambreak_mass_sweep", engine, state)
     (out,) = _launch("dambreak_mass_sweep", engine, planes, band, 1,
-                     [ctypes.c_float(kc), ctypes.c_float(hinv),
-                      ctypes.c_float(2.0 * cfg.nu)])
+                     _dambreak_mass_scalars(cfg, engine.dim))
     dambreak_mass_pass.launches += 1
     return out
 
@@ -1379,11 +1446,9 @@ def dambreak_force_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return dambreak_force_pass_plain(engine, state, cfg)
     planes, _ = _dambreak_force_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
-    kc, hinv = _dambreak_consts(cfg, engine.dim)
+    band = _trip_bound("dambreak_force_sweep", engine, state)
     outs = _launch("dambreak_force_sweep", engine, planes, band, engine.dim,
-                   [ctypes.c_float(kc), ctypes.c_float(hinv),
-                    ctypes.c_float(2.0 * cfg.mu / cfg.rho0**2)])
+                   _dambreak_force_scalars(cfg, engine.dim))
     dambreak_force_pass.launches += 1
     return outs
 
@@ -1528,7 +1593,7 @@ def adia_density_pass(engine, state: ParticleState, cfg):
         return adia_density_pass_plain(engine, state, cfg)
     planes, _ = _density_inputs(engine, state,
                                 _adia_density_weight(state, cfg))
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("density_sweep", engine, state)
     (out,) = _launch("density_sweep", engine, planes, band, 1,
                      [1, ctypes.c_float(C_W2 if engine.dim == 2 else C_W3)])
     adia_density_pass.launches += 1
@@ -1593,7 +1658,7 @@ def isph_matvec_prepared(engine, state: ParticleState, cfg):
     _check_2d(engine, "isph_matvec_pass")
     planes, _ = _isph_matvec_inputs(engine, state)
     band, _ = row_kmax(engine, state)
-    _check_planes(engine, planes, band)
+    _check_planes(engine, planes, band, engine.num_cells // engine.lims[0])
     band = band.contiguous()
     dev = planes[0].device
     out = torch.empty(engine.slots, dtype=torch.float32, device=dev)

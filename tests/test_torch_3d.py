@@ -303,14 +303,15 @@ def test_stencil_cost_rule_counts_27_offsets(cap, accepted):
 @pytest.mark.parametrize("cap,staged,want", [
     (8, 5, (32, 256, 12256)), (8, 12, (32, 256, 29376)),
     (16, 5, (16, 256, 6496)), (16, 12, (16, 256, 15552)),
-    (24, 12, (10, 240, 10368))],
+    (24, 12, (10, 240, 10368)), (40, 8, (6, 240, 4608))],
     ids=["stretch-density", "stretch-momentum", "tiny-density",
-         "tiny-momentum", "cap24-momentum"])
+         "tiny-momentum", "cap24-momentum", "collapse3d-dambreak"])
 def test_tile_plan_of_the_tiled_3d_sweeps(cap, staged, want):
     """The tiled 3-D sweep's launch plan (TX, threads, dynamic shared
     bytes): witch3d's stretch size has cap 8, this file's tiny system cap
-    16; the density stages 5 q planes, the momentum 12. TX = min(32,
-    256 // cap); two stages of (TX+2)·9 cells, each rounded up to 16 B."""
+    16, collapse3d cap 40; the density stages 5 q planes, the momentum 12,
+    the dam-break continuity and force 8 each. TX = min(32, 256 // cap); two
+    stages of (TX+2)·9 cells, each rounded up to 16 B."""
     engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0), 0.1, 3,
                                    cap=cap)
     plan = tps._tile_plan(engine, staged)

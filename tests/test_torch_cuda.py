@@ -271,10 +271,11 @@ def _live_3d(device, **over):
         P_p=torch.where(act, rand(act.shape) * 100 - 50, 0.0))
 
 
-def _live_dam(device, name):
-    """A dam-break system with v ±1 m/s, ρ ±1 % and P in 0–5 kPa."""
+def _live_dam(device, name, **over):
+    """A dam-break system (``over`` replaces config fields) with v ±1 m/s,
+    ρ ±1 % and P in 0–5 kPa."""
     module, kw = _dam(name)
-    cfg = module.Config(**kw)
+    cfg = module.Config(**{**kw, **over})
     sys_ = module.make_system(cfg)
     st = sys_.freeze(device=device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -290,25 +291,33 @@ def _live_dam(device, name):
         P=torch.where(act, rand(act.shape) * 5e3, 0.0))
 
 
-def _tiled_edges(eng, st):
+def _tiled_edges(eng, st, kernel="momentum_sweep_3d"):
     """The edges of the tiled 3-D sweep a state reaches: (a ragged last
-    x-tile, rows with kmax 0, tiles with kmax > 0 but no occupied p slot)."""
-    tx = ps._tile_plan(eng, 12).tx
-    band, _ = ps.row_kmax(eng, st)
+    x-tile, tiles whose trip bound is 0, tiles with a bound > 0 but no
+    occupied p slot)."""
+    tx = ps._tile_plan(eng, ps._TILED_STAGED[kernel]).tx
+    bound = ps._trip_bound(kernel, eng, st)
     occ = eng.grid_view(st.active).sum(dim=0)            # [nz, ny, nx]
     nx = eng.lims[0]
-    tiles = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
-        occ.shape[:2] + (-1, tx)).sum(dim=-1)
-    band = band.reshape(occ.shape[:2])
-    return (nx % tx != 0, int((band == 0).sum()),
-            int(((tiles == 0) & (band[..., None] > 0)).sum()))
+    p_slots = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
+        -1, tx).sum(dim=-1)
+    return (nx % tx != 0, int((bound == 0).sum()),
+            int(((p_slots == 0) & (bound > 0)).sum()))
+
+
+# the wrapper that launches each tiled 3-D export
+_TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
+                  "momentum_sweep_3d": ps.momentum_pass,
+                  "dambreak_mass_sweep_3d": ps.dambreak_mass_pass,
+                  "dambreak_force_sweep_3d": ps.dambreak_force_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got):
     """The wrapper's outputs bit for bit equal to each design's: the tiled
-    one it launches and the one-thread-per-slot sweep it replaced. The
+    one it launches (with the per-tile trip bound) and the
+    one-thread-per-slot sweep it replaced (with the row band). The
     yardsticks count no launch."""
-    wrapper = ps.density_pass if kernel.startswith("density") else ps.momentum_pass
+    wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
     for name, run in ps.sweep3_yardsticks(kernel, eng, st, cfg).items():
         out = run()
@@ -352,12 +361,12 @@ def test_momentum_kernel_matches_twin_in_3d(card, fast_math):
 @pytest.mark.parametrize("self_pair", [True, False], ids=["self", "no_self"])
 def test_tiled_density_reaches_every_edge_in_3d(card, self_pair):
     """At cap 24 a tile is 10 x-cells: 128 cells leave a ragged last tile of
-    8, and the tiny grid has rows with kmax 0 and tiles with kmax > 0 but no
-    occupied p slot. Bit for bit against the direct design and the twin,
-    with the self pair on and off."""
+    8, and the tiny grid has tiles with a trip bound of 0 and tiles with a
+    bound > 0 but no occupied p slot. Bit for bit against the direct design
+    and the twin, with the self pair on and off."""
     eng, cfg, st = _live_3d(card, bucket_cap=24, self_density=self_pair)
-    ragged, empty_rows, empty_tiles = _tiled_edges(eng, st)
-    assert ragged and empty_rows > 0 and empty_tiles > 0
+    ragged, idle_tiles, empty_tiles = _tiled_edges(eng, st, "density_sweep_3d")
+    assert ragged and idle_tiles > 0 and empty_tiles > 0
     got = ps.density_pass(eng, st, cfg)
     _held_to_designs("density_sweep_3d", eng, st, cfg, [got])
     assert torch.equal(got, ps.density_pass(eng, st, cfg))
@@ -383,9 +392,9 @@ def test_tiled_momentum_reaches_every_edge_in_3d(card, fast_math):
     empty = planes[0] < 0.5
     for pl in planes[1:]:
         pl[empty] = float("nan")
-    band, _ = ps.row_kmax(eng, st)
     args = ps._momentum_scalars(cfg, 3) + [int(fast_math)]
     for name in ("momentum_sweep_3d", "momentum_sweep_3d_direct"):
+        band = ps._trip_bound(name, eng, st)
         out = ps._launch(name, eng, planes, band, 3, args)
         assert all(torch.equal(a, b) for a, b in zip(out, got)), name
 
@@ -393,27 +402,55 @@ def test_tiled_momentum_reaches_every_edge_in_3d(card, fast_math):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["2d", "3d"])
 def test_dambreak_mass_kernel_matches_twin(card, name):
+    """2-D: the twin's gate. 3-D (the tiled design; cap 40, a tile of 6
+    x-cells, a ragged last tile of 2): bit for bit against the direct design
+    and the twin. Reruns bitwise equal."""
     eng, cfg, st = _live_dam(card, name)
     before = ps.dambreak_mass_pass.launches
     got = ps.dambreak_mass_pass(eng, st, cfg)
     assert ps.dambreak_mass_pass.launches == before + 1
     assert float(got.abs().max()) > 1.0
-    _held_to_twin([got], [ps.dambreak_mass_pass(eng, st, cfg)],
-                  [ps.dambreak_mass_pass_plain(eng, st, cfg)], False)
+    ref = ps.dambreak_mass_pass_plain(eng, st, cfg)
+    _held_to_twin([got], [ps.dambreak_mass_pass(eng, st, cfg)], [ref], False)
+    if name == "3d":
+        assert all(_tiled_edges(eng, st, "dambreak_mass_sweep_3d"))
+        _held_to_designs("dambreak_mass_sweep_3d", eng, st, cfg, [got])
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["2d", "3d"])
 def test_dambreak_force_kernel_matches_twin(card, name):
+    """As the continuity above; WALL p slots exactly 0."""
     eng, cfg, st = _live_dam(card, name)
     before = ps.dambreak_force_pass.launches
     got = ps.dambreak_force_pass(eng, st, cfg)
     assert ps.dambreak_force_pass.launches == before + 1
     assert len(got) == eng.dim
-    _held_to_twin(got, ps.dambreak_force_pass(eng, st, cfg),
-                  ps.dambreak_force_pass_plain(eng, st, cfg), False)
+    ref = ps.dambreak_force_pass_plain(eng, st, cfg)
+    _held_to_twin(got, ps.dambreak_force_pass(eng, st, cfg), ref, False)
     wall = st.active & (st.fields["type"] == 1.0)
     assert all(bool((g[wall] == 0.0).all()) for g in got)
+    if name == "3d":
+        assert all(_tiled_edges(eng, st, "dambreak_force_sweep_3d"))
+        _held_to_designs("dambreak_force_sweep_3d", eng, st, cfg, got)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dambreak_mass_sweep_3d",
+                                    "dambreak_force_sweep_3d"])
+def test_tiled_dambreak_matches_direct_at_full_width(card, kernel):
+    """collapse3d at its full width (dr 5e-3: N = 103,479, grid 128 × 40 ×
+    24, cap 40): the wrapper's tiled launch bit for bit against the direct
+    design, reruns bitwise equal."""
+    eng, cfg, st = _live_dam(card, "3d", dr=5e-3, skin=0.15)
+    assert int(st.n) == 103_479 and eng.cap == 40
+    wrapper = _TILED_WRAPPER[kernel]
+    got, rerun = wrapper(eng, st, cfg), wrapper(eng, st, cfg)
+    got, rerun = ([got], [rerun]) if torch.is_tensor(got) else (got, rerun)
+    assert all(torch.equal(a, b) for a, b in zip(got, rerun))
+    _held_to_designs(kernel, eng, st, cfg, got)
 
 
 def _new_path(name, device):

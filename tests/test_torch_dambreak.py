@@ -25,6 +25,11 @@ What is compared, and at which tolerance:
   all 27·cap candidates (655,400 slots × 1,080 in 3-D: 14 s a step on one
   core), the flat one only the particles. Two 3-D steps because the port's
   CPU twins take 1.7 s a step at cap 40;
+* ``tile_kmax``, the trip bound of the tiled 3-D sweep (one per x-tile of
+  6 cells at cap 40), against a brute-force NumPy loop over each tile's
+  (6+2)×3×3 cells, exactly, on the tiny ``collapse3d`` state, on a
+  hand-made occupancy (a 27-particle wall cell beside 8-particle cells, a
+  ragged last tile) and on an empty grid; never above ``row_kmax``'s band;
 * ``run(cfg, out_path=..., device="cpu")`` of ``collapse_dry``: the file set,
   the columns of ``data.csv``, and a resumed run bit for bit equal to the
   uninterrupted one;
@@ -32,6 +37,7 @@ What is compared, and at which tolerance:
   asks for the CPU, and refuses the reference's default flat/float64 config.
 """
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -43,12 +49,14 @@ import sph_mountain_waves_tpu.ops.pallas_pairs as pp
 from sph_mountain_waves_tpu.models import collapse3d as jc3, collapse_dry as jcd
 from sph_mountain_waves_tpu.structs import ParticleState as JState
 
+from sph_mountain_waves_tpu_torch.geometry import Box
 from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
 from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
 from sph_mountain_waves_tpu_torch.models import (
     collapse3d as tc3, collapse_dry as tcd, witch3d as tw,
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
 from torch_reference_harness import reference_body_sweep
 
 torch.set_num_threads(1)
@@ -159,6 +167,77 @@ def test_force_twin_matches_reference(live, monkeypatch):
     for got, ref in zip(gots, refs):
         _check(got, ref, active)
         assert np.all(got.numpy()[wall] == 0.0)  # the p-side FLUID gate
+
+
+def _tile_kmax_brute(counts: np.ndarray, tx: int) -> np.ndarray:
+    """Per x-tile of ``tx`` cells of each grid row of the cell counts
+    [nz, ny, nx], the largest count among the tile's cells and their
+    neighbours inside the grid, in (z, y, tile) order."""
+    nz, ny, nx = counts.shape
+    out = []
+    for z in range(nz):
+        for y in range(ny):
+            for x0 in range(0, nx, tx):
+                block = counts[max(z - 1, 0):z + 2, max(y - 1, 0):y + 2,
+                               max(x0 - 1, 0):x0 + tx + 1]
+                out.append(block.max())
+    return np.array(out)
+
+
+def _hand_made_occupancy(engine):
+    """A block of 8-particle cells with a 27-particle wall cell beside it at
+    a tile's edge, and a 12-particle cell in the ragged last tile; ranks
+    packed from 0."""
+    counts = np.zeros(tuple(reversed(engine.lims)), dtype=np.int64)
+    counts[2:6, 3:9, 10:40] = 8
+    counts[4, 5, 11] = 27   # last cell of tile x 6..11, staged by x 12..17
+    counts[7, 0, 127] = 12  # in the ragged last tile, x 126..127
+    return counts
+
+
+def _active_of(engine, counts):
+    ranks = np.arange(engine.cap)[:, None]
+    occ = ranks < counts.reshape(1, -1)                 # [cap, C]
+    occ = np.pad(occ, ((0, 0), (0, 1)))                 # the trash column
+    return torch.from_numpy(occ.reshape(-1))
+
+
+@pytest.mark.parametrize("case", ["collapse3d", "hand-made", "empty"])
+def test_tile_kmax_matches_a_brute_force_count(case):
+    """The per-tile trip bound of the tiled 3-D sweep at cap 40 (TX = 6:
+    128 x-cells leave a ragged last tile of 2) equals the largest count
+    among each tile's (6+2)×3×3 cells, exactly, and is never above the row
+    band of its row."""
+    if case == "collapse3d":
+        system = tc3.make_system(tc3.Config(**C3D))
+        state = system.freeze(device="cpu")
+        engine = system.engine
+    else:
+        engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0),
+                                       0.1, 3, cap=40)
+        counts = (_hand_made_occupancy(engine) if case == "hand-made"
+                  else np.zeros(tuple(reversed(engine.lims)), np.int64))
+        state = types.SimpleNamespace(active=_active_of(engine, counts))
+    counts = engine.grid_view(state.active).sum(dim=0).numpy()
+    tx = tps._tile_plan(engine, tps._TILED_STAGED["dambreak_mass_sweep_3d"]).tx
+    assert engine.cap == 40 and tx == 6 and engine.lims[0] % tx == 2
+    got = tps.tile_kmax(engine, state, tx)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _tile_kmax_brute(counts, tx))
+    band, _ = tps.row_kmax(engine, state)
+    ntiles = -(-engine.lims[0] // tx)
+    assert bool((got.reshape(-1, ntiles) <= band[:, None]).all())
+    assert int(got.max()) == int(counts.max())
+    if case == "hand-made":  # the wall cell bounds its tile and the next
+        assert int((got == 27).sum()) == 3 * 3 * 2
+
+
+def test_tile_kmax_refuses_a_2d_engine():
+    engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0), 0.1, 2,
+                                   cap=24)
+    with pytest.raises(ValueError, match="3-D"):
+        tps.tile_kmax(engine, types.SimpleNamespace(
+            active=torch.zeros(engine.slots, dtype=torch.bool)), 10)
 
 
 def test_steps_match_jax(built):
