@@ -45,13 +45,21 @@ Phases, each printing one or more lines:
      1 timed frame;
  12. hopkins_perturbed: 1 frame of 100 steps;
  13. the Pavelka kernels (continuity with both diffusion forms, fused
-     momentum + entropy) and the packing's gradient sweep against their
-     twins at full size on a live Pavelka state, fast_math off and on; reruns
-     bitwise equal;
+     momentum + entropy: the tiled 9-cell design) and the packing's
+     gradient sweep against their twins at full size on a live Pavelka
+     state, fast_math off and on; reruns bitwise equal; the tiled pair with
+     its tile plan (TX, threads, blocks, dynamic shared bytes of both
+     staging schemes, tiles with a non-zero bound, the mean per-tile bound
+     against the mean row band, the warps of the working blocks that hold
+     no occupied p slot), bit for bit against the one-thread-per-slot
+     design (``_direct``), the tiled export on the row band and its other
+     staging scheme;
  14. 8 small Pavelka steps, card against CPU twins;
  15. the Pavelka main path: its set-up (Colagrossi packing, 100 steps, then
      the initial passes) at full size, then 1 warm-up and 2 timed frames of
-     100 steps, with max h over the cell width and over the cutoff;
+     100 steps, with max h over the cell width and over the cutoff; then
+     the device and wall time of 10 steps from the packed state under
+     torch.profiler, with the device's idle share of those steps;
  16. ``run(cfg, out_path=..., device="cuda")`` of the flagship at n_rows=10
      with a checkpoint every frame: the file set, the last frame read back,
      and a resumed run against the uninterrupted one, bit for bit;
@@ -122,10 +130,12 @@ Phases, each printing one or more lines:
      over 50 runs, twin over 5) beside its bound; the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the four tiled 3-D kernels (witch3d's density and momentum, collapse3d's
-     dam-break continuity and force) in turns with the design they replaced
-     and with each tile's bound its row's band (direct, tiled, row band, row
-     band, tiled, direct), each beside its bound. A bound counts
+     the six tiled kernels (the two Pavelka sweeps, witch3d's density and
+     momentum, collapse3d's dam-break continuity and force) in turns with
+     the design they replaced and with each tile's bound its row's band
+     (direct, tiled, row band, row band, tiled, direct; the 2-D pair with
+     its other staging scheme after each tiled turn), each beside its
+     bound. A bound counts
      the bytes the state needs (the occupancy plane, the other input planes
      at the occupied slots, every output slot, the trip bound) and the
      operations (every candidate's distance, every pair's body).
@@ -138,7 +148,8 @@ Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
              the timed frames), 10 full Hopkins steps (from the built state)
              10 Pavelka steps (from the packed state), 10 witch3d steps
-             (whose device time is printed in any case, as is collapse3d's),
+             (whose device time is printed in any case, as are Pavelka's and
+             collapse3d's),
              10 terrain steps
              (after its timed frames), 10 ISPH steps and 10 Rayleigh–Bénard
              steps, with the device time per step
@@ -407,34 +418,55 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
 
 
 def tile_plan_line(ps, e, state, kernels):
-    """The tiled 3-D sweep's launch plan of each of ``kernels`` (tiled
-    exports) on engine ``e``, and its per-tile trip bound on ``state``
+    """The tiled sweep's launch plan of each of ``kernels`` (tiled exports)
+    on engine ``e`` (2-D or 3-D), and its per-tile trip bound on ``state``
     against the row band: the tiles with a non-zero bound, each bound's mean
-    over those tiles, and the rank walks each asks for (27 cells times the
-    bound, summed over the occupied p slots)."""
+    over those tiles, the rank walks each asks for (9 or 27 cells times the
+    bound, summed over the occupied p slots, and the bound summed over the
+    warps that hold an occupied p slot: a warp walks its tile's ranks when
+    any of its lanes does), and the warps of the working tiles (an occupied
+    p slot and a non-zero bound) that hold no occupied p slot: they only
+    stage."""
     import torch
-    nx, ny, nz = e.lims
+    F = torch.nn.functional
+    nx = e.lims[0]
+    rows = e.num_cells // nx
     parts = []
     for k in kernels:
         p = ps._tile_plan(e, ps._TILED_STAGED[k])
-        parts.append(f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} "
-                     f"threads, {-(-nx // p.tx) * ny * nz} blocks, "
-                     f"{p.smem_bytes} B dynamic smem")
+        part = (f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} threads, "
+                f"{-(-nx // p.tx) * rows} blocks, {p.smem_bytes} B dynamic "
+                f"smem ({p.stages} stages)")
+        if e.dim == 2:
+            o = ps._tile_plan(e, ps._TILED_STAGED[k],
+                              every_rank=not ps._EVERY_RANK)
+            part += f"; the other scheme {o.smem_bytes} B ({o.stages} stages)"
+        parts.append(part)
     tx = ps._tile_plan(e, ps._TILED_STAGED[kernels[0]]).tx
     ntiles = -(-nx // tx)
     tile = ps._trip_bound(kernels[0], e, state).to(torch.int64)
     band = ps.row_kmax(e, state)[0].to(torch.int64).repeat_interleave(ntiles)
-    occ = e.grid_view(state.active).sum(dim=0)             # [nz, ny, nx]
-    p_slots = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
-        -1, tx).sum(dim=-1)                                 # per tile
+    slots = F.pad(e.grid_view(state.active).to(torch.int64),
+                  (0, -nx % tx)).reshape(e.cap, rows * ntiles, tx)
+    p_slots = slots.sum(dim=(0, 2))                         # per tile
+    per_warp = F.pad(slots.permute(1, 0, 2).reshape(rows * ntiles, -1),
+                     (0, -(e.cap * tx) % 32)).reshape(rows * ntiles, -1, 32)
+    busy = per_warp.any(dim=-1)                             # [tiles, warps]
     work = tile > 0
+    working = work & (p_slots > 0)
+    cells = len(e.stencil)
     parts.append(
         f"per-tile bound non-zero in {int(work.sum())} of {tile.numel()} "
         f"tiles ({int((p_slots > 0).sum())} hold an occupied p slot), mean "
         f"{float(tile[work].double().mean()):.2f} over them against the row "
         f"band's {float(band[work].double().mean()):.2f}; "
-        f"rank walks {27 * int((p_slots * tile).sum()):.4e} against "
-        f"{27 * int((p_slots * band).sum()):.4e}")
+        f"rank walks {cells * int((p_slots * tile).sum()):.4e} against "
+        f"{cells * int((p_slots * band).sum()):.4e} (warp rank walks "
+        f"{int((busy.sum(dim=1) * tile).sum())} against "
+        f"{int((busy.sum(dim=1) * band).sum())}); {busy.shape[1]} warps a "
+        f"block, {int((~busy[working]).sum())} of the "
+        f"{busy.shape[1] * int(working.sum())} in the {int(working.sum())} "
+        f"working blocks hold no occupied p slot")
     return f"tile plan at cap {e.cap}: " + "; ".join(parts)
 
 
@@ -1133,6 +1165,18 @@ def main(profile: bool) -> None:
             f"{ {k: v for k, v in hp_counts.items() if v} }")
     del hp_state, hp_sys
 
+    def designs_equal(label, kernel, e, s_, c, got):
+        """The wrapper's outputs bit for bit against every other design of a
+        tiled sweep (``tiled_yardsticks``); returns their names."""
+        others = {name: run() for name, run in
+                  ps.tiled_yardsticks(kernel, e, s_, c).items()}
+        bad = [name for name, out in others.items()
+               if not all(torch.equal(a, b) for a, b in zip(got, out))]
+        if bad:
+            raise AssertionError(f"{label}: the wrapper's output differs from "
+                                 f"{bad}")
+        return ", ".join(others)
+
     # 13: the Pavelka kernels and the packing's gradient sweep against their
     # twins on a live full-width Pavelka state (one step in, v and h
     # perturbed). The sums cancel (Dv_y is about +g against terms of
@@ -1143,22 +1187,31 @@ def main(profile: bool) -> None:
     e13 = pv_sys.engine
     say(13, f"Pavelka system built in {build_s:.2f} s")
     st = perturbed(pv.make_step(pcfg, e13)(pv_state0), dev)
+    # the two Pavelka sweeps run the tiled design: held bit for bit against
+    # the direct one, the row band and the other staging scheme, then
+    # against their twins at the gate
+    say(13, tile_plan_line(ps, e13, st, ("pavelka_mass_sweep",
+                                         "pavelka_momentum_entropy_sweep")))
     for fixed in (True, False):
         for fm in (False, True):
             c = dataclasses.replace(pcfg, fixed_diffusion=fixed, fast_math=fm)
+            label = f"pavelka mass fixed_diffusion={fixed} fast_math={fm}"
+            kern = [ps.pavelka_mass_pass(e13, st, c)]
+            held = designs_equal(label, "pavelka_mass_sweep", e13, st, c, kern)
             err, scale = errs[f"pmass_fx{int(fixed)}_fm{int(fm)}"] = kernel_vs_twin(
-                f"pavelka mass fixed_diffusion={fixed} fast_math={fm}",
-                [ps.pavelka_mass_pass(e13, st, c)],
-                [ps.pavelka_mass_pass(e13, st, c)],
+                label, kern, [ps.pavelka_mass_pass(e13, st, c)],
                 [ps.pavelka_mass_pass_plain(e13, st, c)], fm, scaled=True)
-            say(13, f"pavelka mass kernel vs twin, fixed_diffusion={fixed} "
-                    f"fast_math={fm}: max abs err {err:.3e} (max |Drho| "
-                    f"{scale:.4e}, rel {err / scale:.3e})"
+            say(13, f"pavelka mass kernel (tiled), fixed_diffusion={fixed} "
+                    f"fast_math={fm}: bit for bit equal to {held}; vs twin max "
+                    f"abs err {err:.3e} (max |Drho| {scale:.4e}, rel "
+                    f"{err / scale:.3e})"
                     + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
                     + ", rerun bitwise equal")
     for fm in (False, True):
         c = dataclasses.replace(pcfg, fast_math=fm)
         kern = ps.pavelka_momentum_entropy_pass(e13, st, c)
+        held = designs_equal(f"pavelka momentum + entropy fast_math={fm}",
+                             "pavelka_momentum_entropy_sweep", e13, st, c, kern)
         rerun = ps.pavelka_momentum_entropy_pass(e13, st, c)
         twin = ps.pavelka_momentum_entropy_pass_plain(e13, st, c)
         err_dv, scale_dv = kernel_vs_twin(
@@ -1168,8 +1221,9 @@ def main(profile: bool) -> None:
             f"pavelka entropy fast_math={fm}", kern[2:], rerun[2:], twin[2:],
             fm, scaled=True)
         errs[f"pmoment_fm{int(fm)}"] = (max(err_dv, err_ds), scale_dv)
-        say(13, f"pavelka momentum + entropy kernel vs twin, fast_math={fm}: "
-                f"Dv max abs err {err_dv:.3e} (max |Dv| {scale_dv:.4f}, rel "
+        say(13, f"pavelka momentum + entropy kernel (tiled), fast_math={fm}: "
+                f"bit for bit equal to {held}; vs twin Dv max abs err "
+                f"{err_dv:.3e} (max |Dv| {scale_dv:.4f}, rel "
                 f"{err_dv / scale_dv:.3e}); dS max abs err {err_ds:.3e} (max "
                 f"|dS| {scale_ds:.4e}, rel {err_ds / scale_ds:.3e})"
                 + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
@@ -1234,8 +1288,8 @@ def main(profile: bool) -> None:
             f"{rescatters(pv_frame, packed, 3)}")
     if int(pv_state.n) != n:
         raise AssertionError(f"pavelka: active {int(pv_state.n)}/{n}")
-    if profile:
-        profile_steps(15, "pavelka", pv.make_step(pcfg, e13), packed)
+    profile_steps(15, "pavelka", pv.make_step(pcfg, e13), packed,
+                  table=profile)
     del packed
 
     # 16: run(out_path=...) on the card at a small size: the file set, the
@@ -1317,14 +1371,6 @@ def main(profile: bool) -> None:
                                                 "momentum_sweep_3d")))
     st = perturbed(w3.make_step(wcfg, e17)(w3_state0), dev)
 
-    def designs_equal(label, kernel, e, s_, c, got):
-        others = {name: run() for name, run in
-                  ps.sweep3_yardsticks(kernel, e, s_, c).items()}
-        bad = [name for name, out in others.items()
-               if not all(torch.equal(a, b) for a, b in zip(got, out))]
-        if bad:
-            raise AssertionError(f"{label}: the wrapper's output differs from "
-                                 f"{bad}")
     got = [ps.density_pass(e17, st, wcfg)]
     designs_equal("density 3-D", "density_sweep_3d", e17, st, wcfg, got)
     errs["density_3d"] = exact("density 3-D", got,
@@ -1959,18 +2005,23 @@ def main(profile: bool) -> None:
                 f"{ops_ms * 1e3:.1f} us), "
                 f"{100 * timing[kernel]['bound_ms'] / km:.1f} % of it ({card})")
 
-    # the tiled 3-D sweeps against the design they replaced, in turns on
-    # one card
+    # the tiled sweeps against the design they replaced, in turns on one
+    # card (the 2-D ones with their other staging scheme too)
     for kernel, e, s, c in (
+            ("pavelka_mass_sweep", e13, pv_state, pcfg),
+            ("pavelka_momentum_entropy_sweep", e13, pv_state, pcfg),
             ("density_sweep_3d", e17, w3_state, wcfg),
             ("momentum_sweep_3d", e17, w3_state, wcfg),
             ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
             ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"],
              c3_cfg)):
-        runs = ps.sweep3_yardsticks(kernel, e, s, c)
+        say(30, tile_plan_line(ps, e, s, (kernel,)) + " (the timed state)")
+        runs = ps.tiled_yardsticks(kernel, e, s, c)
         bound = timing[kernel]["bound_ms"]
-        order = ("direct", "tiled", "tiled_row_band", "tiled_row_band",
-                 "tiled", "direct")
+        other = tuple(n for n in runs
+                      if n not in ("tiled", "tiled_row_band", "direct"))
+        order = ("direct", "tiled", *other, "tiled_row_band",
+                 "tiled_row_band", *other, "tiled", "direct")
         ms = [cuda_ms(runs[name], 50) for name in order]
         say(30, f"{kernel} in turns: " + ", ".join(
             f"{name} {t:.4f} ms ({100 * bound / t:.1f} % of the "

@@ -1,16 +1,18 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
-with g++ and hold its tiled 3-D sweeps against the one-thread-per-slot
-design they replaced and against the plain twins, bit for bit, on tiny
-states, through the port's own wrappers (``ops/pair_sweeps.py``: the tile
-plan, the per-tile trip bound, the export names and arguments).
+with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
+the 2-D Pavelka pair) against the one-thread-per-slot design they replaced,
+against the tiled export on the row band (and, in 2-D, its other staging
+scheme) and against the plain twins, bit for bit, on tiny states, through
+the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
+per-tile trip bound, the export names and arguments).
 
-    python scripts/host_sweeps/check.py            # dam-break and witch3d
-    python scripts/host_sweeps/check.py dam        # collapse3d only
+    python scripts/host_sweeps/check.py            # every tiled sweep
+    python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
-blocks one after another; the tiled sweep (barriers, shared memory) runs one
-std::thread per CUDA thread and a std::barrier per block, the other
+blocks one after another; the tiled sweeps (barriers, shared memory) run
+one std::thread per CUDA thread and a std::barrier per block, the other
 templates loop over their threads. ``cp.async`` becomes a plain copy (zero
 for an out-of-grid cell) and its commit and wait no-ops; ``rcp.approx``
 becomes a divide. The twins' ``torch.sqrt`` is replaced by NumPy's, which is
@@ -53,18 +55,19 @@ def host_source(src: str) -> str:
     src = _sub(r"(void cp_async_commit\(\) \{).*?\n\}", r"\1}", src, 1, re.S)
     src = _sub(r"(void cp_async_wait\(\) \{).*?\n\}", r"\1}", src, 1, re.S)
     src = _sub(r"extern __shared__ float4 stage\[\];",
-               "float4* stage = host_dyn_smem;", src, 1)
+               "float4* stage = host_dyn_smem;", src, 2)
     src = _sub(r"__shared__ int cell_off\[[^\]]*\];",
                "int* cell_off = reinterpret_cast<int*>(host_static_smem);",
-               src, 1)
-    src = _sub(r"__syncthreads_or\(", "host_sync_or(", src, 1)
-    src = _sub(r"__syncthreads\(\)", "host_sync()", src, 2)
+               src, 2)
+    src = _sub(r"__syncthreads_or\(", "host_sync_or(", src, 2)
+    src = _sub(r"__syncthreads\(\)", "host_sync()", src, 5)
 
     def launch(m):
-        # launch3_tiled names its kernel "kernel": the one with barriers
+        # launch3_tiled and launch_tiled name their kernel "kernel": the ones
+        # with barriers
         threaded = "true" if m.group(1) == "kernel" else "false"
         return f"host_launch({threaded}, {m.group(1)}, {m.group(2)}, "
-    return _sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", launch, src, 3, re.S)
+    return _sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", launch, src, 4, re.S)
 
 
 def build() -> ctypes.CDLL:
@@ -101,22 +104,24 @@ def _perturbed(state, **ranges):
 
 
 def held(kernel, engine, state, cfg, twin) -> bool:
-    """The tiled launch bit for bit against the direct design (raises
-    otherwise); returns whether it also equals the twin bit for bit."""
-    runs = ps.sweep3_yardsticks(kernel, engine, state, cfg)
+    """The tiled launch bit for bit against every other design
+    (``tiled_yardsticks``: the direct one, the row band, the other 2-D
+    staging scheme; raises otherwise); returns whether it also equals the
+    twin bit for bit."""
+    runs = ps.tiled_yardsticks(kernel, engine, state, cfg)
     t0 = time.perf_counter()
-    tiled = runs["tiled"]()
+    tiled = runs.pop("tiled")()
     secs = time.perf_counter() - t0
-    direct = runs["direct"]()
+    for name, run in runs.items():
+        if not all(torch.equal(a, b) for a, b in zip(tiled, run())):
+            raise AssertionError(f"{kernel}: the tiled design differs from "
+                                 f"{name}")
     ref = twin(engine, state, cfg)
     ref = ref if isinstance(ref, list) else [ref]
-    if not all(torch.equal(a, b) for a, b in zip(tiled, direct)):
-        raise AssertionError(f"{kernel}: the tiled design differs from the "
-                             "direct one")
     same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
     bound = ps._trip_bound(kernel, engine, state)
-    print(f"{kernel}, lims {engine.lims}, cap {engine.cap}: tiled == direct; "
-          f"tiled == twin {same}; max |out| "
+    print(f"{kernel}, lims {engine.lims}, cap {engine.cap}: tiled == "
+          f"{', '.join(runs)}; tiled == twin {same}; max |out| "
           f"{max(float(a.abs().max()) for a in tiled):.4e}; "
           f"{int((bound > 0).sum())} of {bound.numel()} tiles with a non-zero "
           f"bound; tiled launch {secs:.1f} s", flush=True)
@@ -157,10 +162,35 @@ def main(which) -> None:
                     ("density_sweep_3d", ps.density_pass_plain),
                     ("momentum_sweep_3d", ps.momentum_pass_plain)):
                 ok &= held(kernel, system.engine, state, cfg, twin)
+    if "pavelka" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import (
+            pavelka_total_witch as pv,
+        )
+        # cap 8: TX 32 on 128 x-cells; cap 24: TX 10, a ragged last tile of 8
+        for cap in (None, 24):
+            cfg = pv.PavelkaConfig(
+                n_rows=10, dtype="float32", self_density=True,
+                layout="bucket", skin=0.15, use_pallas=True,
+                lattice_cells=True, bucket_cap=cap)
+            system = pv.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               h=(0.99, 1.01, True), rho=(0.99, 1.01, True),
+                               P=(0.99, 1.01, True), T=(0.99, 1.01, True))
+            for fm in (False, True):
+                for fixed in (True, False):
+                    c = dataclasses.replace(cfg, fast_math=fm,
+                                            fixed_diffusion=fixed)
+                    ok &= held("pavelka_mass_sweep", system.engine, state, c,
+                               ps.pavelka_mass_pass_plain) or fm
+                c = dataclasses.replace(cfg, fast_math=fm)
+                ok &= held("pavelka_momentum_entropy_sweep", system.engine,
+                           state, c, ps.pavelka_momentum_entropy_pass_plain
+                           ) or fm
     if not ok:
         raise AssertionError("a tiled sweep differs from its twin")
     print("host check passed")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["dam", "witch"])
+    main(sys.argv[1:] or ["dam", "witch", "pavelka"])

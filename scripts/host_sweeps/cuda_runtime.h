@@ -13,6 +13,7 @@
 using std::fmaxf;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct alignas(16) float4 { float x, y, z, w; };

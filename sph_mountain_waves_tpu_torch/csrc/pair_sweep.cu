@@ -72,7 +72,9 @@
 // stride is not a multiple of 16 bytes). The density and momentum take 0.65
 // and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
 // 16-byte shared load, the distance and its test), not the staging, paces
-// them (PERF.md has the breakdown, and the dam-break sweeps' times).
+// them (PERF.md has the breakdown, and the dam-break sweeps' times). The two
+// Pavelka sweeps run the same design in 2-D, pair_sweep_tiled (9 cells);
+// every other 2-D sweep still runs pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,6 +105,61 @@ __device__ __forceinline__ float pdiv(float a, float b) {
   }
   return a / b;
 }
+
+// q's fields as the accessor bodies read them (the 3-D bodies, the
+// dam-break bodies in 2-D and the Pavelka bodies): q[i] is plane i at q's
+// slot. PlaneQ reads the planes (pair_sweep, pair_sweep3); StagedQ reads the
+// copy that pair_sweep3_tiled staged in shared memory, planes lo.. at
+// ex[(i - lo) * nc + s]; StagedQ2 the copy that pair_sweep_tiled staged:
+// planes 0-3 (occupancy, x0, x1, h) as the candidate's float4 c4, the planes
+// of the body's QMASK as scalars, the j-th of them at ex[j * nc + s].
+template <int NIN, int NOUT>
+struct PlaneQ {
+  const Planes<NIN, NOUT>& f;
+  int64_t qi;
+  __device__ float operator[](int i) const { return f.in[i][qi]; }
+};
+
+struct StagedQ {
+  const float* ex;
+  int nc;
+  int s;
+  int lo;
+  __device__ float operator[](int i) const { return ex[(i - lo) * nc + s]; }
+};
+
+// The scalar planes a 2-D tiled body stages (the set bits of its QMASK, all
+// above plane 3): how many, the j-th of them, and plane i's place among
+// them. Called with constants, they fold at compile time.
+__host__ __device__ constexpr int staged_count(unsigned mask) {
+  int n = 0;
+  for (int i = 4; i < 32; ++i) n += (mask >> i) & 1u;
+  return n;
+}
+
+__host__ __device__ constexpr int staged_plane(unsigned mask, int j) {
+  for (int i = 4; i < 32; ++i)
+    if (((mask >> i) & 1u) && j-- == 0) return i;
+  return -1;
+}
+
+__host__ __device__ constexpr int staged_slot(unsigned mask, int plane) {
+  int n = 0;
+  for (int i = 4; i < plane; ++i) n += (mask >> i) & 1u;
+  return n;
+}
+
+template <unsigned QMASK>
+struct StagedQ2 {
+  float4 c4;
+  const float* ex;
+  int nc;
+  int s;
+  __device__ float operator[](int i) const {
+    return i == 0 ? c4.x : i == 1 ? c4.y : i == 2 ? c4.z : i == 3 ? c4.w
+                                 : ex[staged_slot(QMASK, i) * nc + s];
+  }
+};
 
 // rho_p = sum_q w_q W2(h_p, r); fields: occ, x0, x1, 1/h, w.
 struct Density {
@@ -254,31 +311,33 @@ struct Hopkins {
 // ker = wq_q rDW(h_ij, r), with diff = 2 nu (rho_p - rho_q) ker (FIXED, the
 // Molteni-Colagrossi form) or the reference's kernel-less
 // (2 nu / rho_p)(rho_p - rho_q); fields: occ, x0, x1, h, v0, v1, rho_f,
-// wq = m/rho_f, fl = [type == FLUID].
+// wq = m/rho_f, fl = [type == FLUID]. q's planes read by the body beyond the
+// occupancy and position: h and QMASK (v0, v1, rho_f, wq, fl: planes 4-8).
 template <bool FAST, bool FIXED>
 struct PavelkaMass {
   static constexpr int NIN = 9;
   static constexpr int NOUT = 1;
+  static constexpr unsigned QMASK = 0x1F0u;
   struct Params {
     float dw;      // -140/pi
     float two_nu;  // 2 nu
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[3][qi];
-    const float v0q = f.in[4][qi];
-    const float v1q = f.in[5][qi];
-    const float rhoq = f.in[6][qi];
-    const float wq = f.in[7][qi];
-    const float flq = f.in[8][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[3];
+    const float v0q = q[4];
+    const float v1q = q[5];
+    const float rhoq = q[6];
+    const float wq = q[7];
+    const float flq = q[8];
     const float r = sqrtf(r2);
     const float h_ij = 0.5f * (p[3] + hq);
     const float hinv = pdiv<FAST>(1.0f, h_ij);
     const float t = fmaxf(1.0f - r * hinv, 0.0f);
     const float hinv2 = hinv * hinv;
     const float ker = wq * prm.dw * t * t * t * (hinv2 * hinv2);
-    const float dot = d0 * (p[4] - v0q) + d1 * (p[5] - v1q);
+    const float dot = d[0] * (p[4] - v0q) + d[1] * (p[5] - v1q);
     const float conv = p[6] * ker * dot;
     float diff;
     if constexpr (FIXED) {
@@ -287,6 +346,12 @@ struct PavelkaMass {
       diff = pdiv<FAST>(prm.two_nu, p[6]) * (p[6] - rhoq);
     }
     tot[0] += conv + (p[8] * flq) * diff;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -298,27 +363,31 @@ struct PavelkaMass {
 //   dS_p = sum_q ((-4 m_p m_q ker mu)/(T_p rho_q)) dot^2
 //                / (r^2 + 0.01 h_p h_q) dt fl_p fl_q
 // fields: occ, x0, x1, h, m, v0, v1, rho_f, wq = m/rho_f, Pt = P/rho_f^2,
-// T_f, fl = [type == FLUID]. rho_f and T_f are non-zero on every slot.
+// T_f, fl = [type == FLUID]. rho_f and T_f are non-zero on every slot. q's
+// planes read by the body beyond the occupancy and position: h and QMASK
+// (m, v0, v1, rho_f, wq, Pt, fl: planes 4-9 and 11; T_f is read on the p
+// side only).
 template <bool FAST>
 struct PavelkaMomentumEntropy {
   static constexpr int NIN = 12;
   static constexpr int NOUT = 3;
+  static constexpr unsigned QMASK = 0xBF0u;
   struct Params {
     float dw;  // -140/pi
     float mu;
     float dt;
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[3][qi];
-    const float mq = f.in[4][qi];
-    const float v0q = f.in[5][qi];
-    const float v1q = f.in[6][qi];
-    const float rhoq = f.in[7][qi];
-    const float wq = f.in[8][qi];
-    const float ptq = f.in[9][qi];
-    const float flq = f.in[11][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[3];
+    const float mq = q[4];
+    const float v0q = q[5];
+    const float v1q = q[6];
+    const float rhoq = q[7];
+    const float wq = q[8];
+    const float ptq = q[9];
+    const float flq = q[11];
     const float hp = p[3];
     const float rhop = p[7];
     const float r = sqrtf(r2);
@@ -327,7 +396,7 @@ struct PavelkaMomentumEntropy {
     const float t = fmaxf(1.0f - r * hinv, 0.0f);
     const float hinv2 = hinv * hinv;
     const float ker = wq * prm.dw * t * t * t * (hinv2 * hinv2);
-    const float dot = d0 * (p[5] - v0q) + d1 * (p[6] - v1q);
+    const float dot = d[0] * (p[5] - v0q) + d[1] * (p[6] - v1q);
     const float du = -rhop * ker * (p[9] + ptq);
     const float hs = hp + hq;
     const float visc = pdiv<FAST>(
@@ -337,9 +406,15 @@ struct PavelkaMomentumEntropy {
     const float ds = (pdiv<FAST>(
         pdiv<FAST>(-4.0f * p[4] * mq * ker * prm.mu, p[10] * rhoq) * dot * dot,
         r2 + 0.01f * hp * hq) * prm.dt) * (p[11] * flq);
-    tot[0] += s * d0;
-    tot[1] += s * d1;
+    tot[0] += s * d[0];
+    tot[1] += s * d[1];
     tot[2] += ds;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -365,25 +440,6 @@ struct GammaGrad {
   }
 };
 
-
-// q's fields as the 3-D bodies (and the dam-break bodies in 2-D) read
-// them: q[i] is plane i at q's slot. PlaneQ reads the planes (pair_sweep,
-// pair_sweep3); StagedQ reads the copy that pair_sweep3_tiled staged in
-// shared memory, planes lo.. at ex[(i - lo) * nc + s].
-template <int NIN, int NOUT>
-struct PlaneQ {
-  const Planes<NIN, NOUT>& f;
-  int64_t qi;
-  __device__ float operator[](int i) const { return f.in[i][qi]; }
-};
-
-struct StagedQ {
-  const float* ex;
-  int nc;
-  int s;
-  int lo;
-  __device__ float operator[](int i) const { return ex[(i - lo) * nc + s]; }
-};
 
 // 3-D density: rho_p = sum_q w_q W3(h_p, r); fields: occ, x0, x1, x2, 1/h, w.
 // q's planes read by the body: QLO..QHI-1 (w only).
@@ -1174,6 +1230,239 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiled 9-cell sweep of the Pavelka continuity and fused momentum +
+// entropy (pallas_pairs.py pavelka_mass_pass, pavelka_momentum_entropy_pass):
+// pair_sweep3_tiled's design in 2-D. One block is TX consecutive x-cells of
+// one grid row cy times every p rank: thread (threadIdx.x, threadIdx.y) =
+// (tx, k) owns slot (rank k, cell x0 + tx). Blocks run x-tiles fastest, then
+// rows, so the three rows a tile reads stay in L2 for the tiles that share
+// them. The q loop runs to kmax[blockIdx.x], the tile's own bound
+// (ops/pair_sweeps.py::tile_kmax: the largest count among the (TX+2) x 3
+// cells it stages; ranks are packed from 0, so every rank past it is empty in
+// all of them). Each q rank of those cells is staged in shared memory once
+// for all p ranks: occupancy, x0, x1 and h as one float4 per cell (a
+// candidate is one 16-byte shared load), the other q planes the body reads
+// (Body::QMASK) as scalars; 4-byte cp.async, cells outside the grid
+// zero-filled so that they read as unoccupied. Two staging schemes, one
+// template each (EVERY_RANK):
+//   false: two stages, rank kq+1 copied while rank kq is summed, a barrier
+//          between a copy and its use and another before a stage is
+//          overwritten (pair_sweep3_tiled's pipeline);
+//   true:  every rank up to the bound copied in one go, one barrier (a
+//          stage is small in 2-D: (TX+2) x 3 cells, 3.7 KB and 4.5 KB at
+//          TX 32 for the two bodies, so cap 8 ranks take 29 and 36 KB).
+// The thread of an occupied p slot then takes its 9 cells per rank in
+// pair_sweep's order (dj, then di), skips the self pair by (di, dj, kq) ==
+// (0, 0, k) (neither Pavelka sweep counts it) and an empty q cell before
+// any arithmetic on it, sums the pairs
+// into tot and adds tot to acc: the same operations in the same order, and
+// the ranks it skips would add exact zeros, so the outputs equal
+// pair_sweep's bit for bit. A tile with no occupied p slot (or bound 0)
+// writes its zeros and stages nothing; a ragged last tile masks its spare
+// threads; block 0 writes the trash column. No TMA, for the reason
+// pair_sweep3_tiled gives.
+//
+// At the Pavelka size (N = 978,463, grid 1792 x 144, cap 8: TX 32, 256
+// threads, 8,064 blocks) pair_sweep reads the 8.3 MB planes from HBM once per
+// p rank (its grid runs the p rank slowest, and the fused sweep's 12 planes
+// do not fit in the 50 MB L2), each candidate a chain of dependent gathers.
+// Here each block reads each q plane's (TX+2) x 3 cells of a rank once:
+// 0.095 and 0.115 ms on an H100 against pair_sweep's 0.26 and 0.29 ms, 15
+// and 20 % of the byte bound (47.9 and 76.1 MB); every rank at once is 3
+// and 12 % faster than the pipeline, and half of a working block's warps
+// (ranks 4-7 of a cap-8 bucket holding ~4 particles a cell) only stage.
+template <class Body, bool EVERY_RANK>
+__global__ void __launch_bounds__(kTileThreads)
+pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
+                 Layout g, typename Body::Params prm, int stage_f4) {
+  constexpr int NE = staged_count(Body::QMASK);  // scalar planes per cell
+  extern __shared__ float4 stage[];
+  const int TX = blockDim.x;
+  const int W = TX + 2;  // staged cells per row
+  const int nc = 3 * W;  // staged cells per rank
+  const int tx = threadIdx.x;
+  const int k = threadIdx.y;
+  const int tid = k * TX + tx;
+  const int nthreads = TX * blockDim.y;
+  const int ntiles = (g.nx + TX - 1) / TX;
+  const int cy = blockIdx.x / ntiles;
+  const int x0 = (blockIdx.x - cy * ntiles) * TX;
+  const int C = g.nx * g.ny;
+  const int64_t ld = C + 1;
+  const bool mine = x0 + tx < g.nx;
+  const int64_t ps = k * ld + (int64_t)cy * g.nx + x0 + tx;
+  if (blockIdx.x == 0 && tx == 0) {
+#pragma unroll
+    for (int o = 0; o < Body::NOUT; ++o) f.out[o][k * ld + C] = 0.0f;
+  }
+  float acc[Body::NOUT];
+#pragma unroll
+  for (int o = 0; o < Body::NOUT; ++o) acc[o] = 0.0f;
+  const bool occ = mine && f.in[0][ps] > 0.5f;
+  const int kend = kmax[blockIdx.x];
+  // each staged cell's offset in a plane (-1: outside the grid), the same
+  // for every rank: dj + 1 = i / W, x0 - 1 + i % W
+  __shared__ int cell_off[3 * (kTileMaxX + 2)];
+  for (int i = tid; i < nc; i += nthreads) {
+    const int r = i / W;
+    const int qx = x0 - 1 + (i - r * W);
+    const int qy = cy + r - 1;
+    const bool in = qx >= 0 && qx < g.nx && qy >= 0 && qy < g.ny;
+    cell_off[i] = in ? qy * g.nx + qx : -1;
+  }
+
+  if (__syncthreads_or(occ) && kend > 0) {  // uniform over the block
+    float p[Body::NIN];
+    if (occ) {
+#pragma unroll
+      for (int i = 0; i < Body::NIN; ++i) p[i] = f.in[i][ps];
+    }
+    // copy q ranks k0..k1-1 into their stages, one commit group
+    auto stage_ranks = [&](int k0, int k1) {
+      const int n = (k1 - k0) * nc;
+      for (int i = tid; i < n; i += nthreads) {
+        const int kq = k0 + i / nc;
+        const int c = i - (kq - k0) * nc;
+        const int off = cell_off[c];
+        const bool in = off >= 0;
+        const int64_t qi = kq * ld + (in ? off : 0);
+        float4* pos = stage + (EVERY_RANK ? kq : kq & 1) * stage_f4;
+        float* ex = reinterpret_cast<float*>(pos + nc);
+        float* cell = reinterpret_cast<float*>(pos + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cp_async4(cell + j, f.in[j] + qi, in);
+#pragma unroll
+        for (int j = 0; j < NE; ++j)
+          cp_async4(ex + j * nc + c, f.in[staged_plane(Body::QMASK, j)] + qi,
+                    in);
+      }
+      cp_async_commit();
+    };
+    // rank kq's 9 cells for this thread's p slot, in pair_sweep's order
+    auto sum_rank = [&](int kq) {
+      const float4* pos = stage + (EVERY_RANK ? kq : kq & 1) * stage_f4;
+      const float* ex = reinterpret_cast<const float*>(pos + nc);
+      float tot[Body::NOUT];
+#pragma unroll
+      for (int o = 0; o < Body::NOUT; ++o) tot[o] = 0.0f;
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) {
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          if (di == 1 && dj == 1 && kq == k) continue;
+          const int s = dj * W + tx + di;
+          const float4 q = pos[s];
+          if (!(q.x > 0.5f)) continue;
+          float d[2];
+          d[0] = p[1] - q.y;
+          d[1] = p[2] - q.z;
+          const float r2 = d[0] * d[0] + d[1] * d[1];
+          if (!(r2 <= g.h2)) continue;
+          Body::pair(p, StagedQ2<Body::QMASK>{q, ex, nc, s}, d, r2, prm, tot);
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < Body::NOUT; ++o) acc[o] += tot[o];
+    };
+    if constexpr (EVERY_RANK) {
+      stage_ranks(0, kend);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (occ) {
+        for (int kq = 0; kq < kend; ++kq) sum_rank(kq);
+      }
+    } else {
+      stage_ranks(0, 1);
+      for (int kq = 0; kq < kend; ++kq) {
+        if (kq + 1 < kend) {
+          stage_ranks(kq + 1, kq + 2);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (occ) sum_rank(kq);
+        __syncthreads();  // every thread is done with this stage
+      }
+    }
+  }
+  if (mine) {
+#pragma unroll
+    for (int o = 0; o < Body::NOUT; ++o) f.out[o][ps] = acc[o];
+  }
+}
+
+// Launch pair_sweep_tiled on the plan of ops/pair_sweeps.py::_tile_plan: tx
+// x-cells per block and smem_bytes of dynamic shared memory. Room for every
+// rank's stage (cap stages) takes the every-rank scheme, room for two the
+// two-stage pipeline (at cap <= 2 the two are one); a plan the kernel cannot
+// hold is refused.
+template <class Body>
+int launch_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
+                 const Layout& g, const typename Body::Params& prm, int tx,
+                 int smem_bytes, cudaStream_t stream) {
+  constexpr int staged = 4 + staged_count(Body::QMASK);  // floats per cell
+  const int stage = ((tx + 2) * 3 * staged * 4 + 15) / 16 * 16;  // bytes
+  if (tx < 1 || tx > kTileMaxX || tx * g.cap > kTileThreads
+      || smem_bytes < 2 * stage)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = smem_bytes >= g.cap * stage
+                    ? pair_sweep_tiled<Body, true>
+                    : pair_sweep_tiled<Body, false>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int ntiles = (g.nx + tx - 1) / tx;
+  kernel<<<ntiles * g.ny, dim3(tx, g.cap), smem_bytes, stream>>>(
+      f, kmax, g, prm, stage / 16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Pavelka exports: the tiled launch (TILED) on the plan (tx,
+// smem_bytes), or pair_sweep (the "_direct" yardsticks, which take no plan).
+template <bool TILED, class Body>
+int launch2(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
+            const Layout& g, const typename Body::Params& prm, int tx,
+            int smem_bytes, cudaStream_t s) {
+  if constexpr (TILED) {
+    return launch_tiled<Body>(f, kmax, g, prm, tx, smem_bytes, s);
+  } else {
+    return launch<Body, false>(f, kmax, g, prm, s);
+  }
+}
+
+template <bool TILED>
+int pavelka_mass(const Planes<9, 1>& f, const int* kmax, const Layout& g,
+                 float dw, float two_nu, int fixed_diffusion, int fast_math,
+                 int tx, int smem_bytes, cudaStream_t s) {
+  if (fixed_diffusion) {
+    return fast_math
+        ? launch2<TILED, PavelkaMass<true, true>>(f, kmax, g, {dw, two_nu}, tx,
+                                                  smem_bytes, s)
+        : launch2<TILED, PavelkaMass<false, true>>(f, kmax, g, {dw, two_nu},
+                                                   tx, smem_bytes, s);
+  }
+  return fast_math
+      ? launch2<TILED, PavelkaMass<true, false>>(f, kmax, g, {dw, two_nu}, tx,
+                                                 smem_bytes, s)
+      : launch2<TILED, PavelkaMass<false, false>>(f, kmax, g, {dw, two_nu}, tx,
+                                                  smem_bytes, s);
+}
+
+template <bool TILED>
+int pavelka_momentum_entropy(const Planes<12, 3>& f, const int* kmax,
+                             const Layout& g, float dw, float mu, float dt,
+                             int fast_math, int tx, int smem_bytes,
+                             cudaStream_t s) {
+  return fast_math
+      ? launch2<TILED, PavelkaMomentumEntropy<true>>(f, kmax, g, {dw, mu, dt},
+                                                     tx, smem_bytes, s)
+      : launch2<TILED, PavelkaMomentumEntropy<false>>(f, kmax, g, {dw, mu, dt},
+                                                      tx, smem_bytes, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1250,23 +1539,35 @@ int hopkins_momentum_sweep(const float* occ, const float* x0, const float* x1,
       : launch<Hopkins<false, false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
 }
 
+// The Pavelka sweeps launch pair_sweep_tiled on the plan (tx, smem_bytes)
+// the wrapper passes, with kmax int32 [ny*ntiles] (one bound per x-tile,
+// ntiles = ceil(nx / tx)); their "_direct" exports launch pair_sweep (one
+// thread per slot, q read from the planes, kmax int32 [ny] per grid row),
+// the design the tiled one replaced: a yardstick, on no path.
 int pavelka_mass_sweep(const float* occ, const float* x0, const float* x1,
                        const float* h, const float* v0, const float* v1,
                        const float* rho, const float* wq, const float* fluid,
                        const int* kmax, float* drho, int cap, int nx, int ny,
                        float h2, float dw, float two_nu, int fixed_diffusion,
-                       int fast_math, void* stream) {
-  Planes<9, 1> f{{occ, x0, x1, h, v0, v1, rho, wq, fluid}, {drho}};
-  const Layout g{cap, nx, ny, h2};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (fixed_diffusion) {
-    return fast_math
-        ? launch<PavelkaMass<true, true>, false>(f, kmax, g, {dw, two_nu}, s)
-        : launch<PavelkaMass<false, true>, false>(f, kmax, g, {dw, two_nu}, s);
-  }
-  return fast_math
-      ? launch<PavelkaMass<true, false>, false>(f, kmax, g, {dw, two_nu}, s)
-      : launch<PavelkaMass<false, false>, false>(f, kmax, g, {dw, two_nu}, s);
+                       int fast_math, int tx, int smem_bytes, void* stream) {
+  return pavelka_mass<true>({{occ, x0, x1, h, v0, v1, rho, wq, fluid}, {drho}},
+                            kmax, {cap, nx, ny, h2}, dw, two_nu,
+                            fixed_diffusion, fast_math, tx, smem_bytes,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int pavelka_mass_sweep_direct(const float* occ, const float* x0,
+                              const float* x1, const float* h, const float* v0,
+                              const float* v1, const float* rho,
+                              const float* wq, const float* fluid,
+                              const int* kmax, float* drho, int cap, int nx,
+                              int ny, float h2, float dw, float two_nu,
+                              int fixed_diffusion, int fast_math,
+                              void* stream) {
+  return pavelka_mass<false>({{occ, x0, x1, h, v0, v1, rho, wq, fluid}, {drho}},
+                             kmax, {cap, nx, ny, h2}, dw, two_nu,
+                             fixed_diffusion, fast_math, 0, 0,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int pavelka_momentum_entropy_sweep(
@@ -1275,14 +1576,26 @@ int pavelka_momentum_entropy_sweep(
     const float* wq, const float* pterm, const float* temp,
     const float* fluid, const int* kmax, float* dv0, float* dv1, float* ds,
     int cap, int nx, int ny, float h2, float dw, float mu, float dt,
+    int fast_math, int tx, int smem_bytes, void* stream) {
+  return pavelka_momentum_entropy<true>(
+      {{occ, x0, x1, h, m, v0, v1, rho, wq, pterm, temp, fluid},
+       {dv0, dv1, ds}},
+      kmax, {cap, nx, ny, h2}, dw, mu, dt, fast_math, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int pavelka_momentum_entropy_sweep_direct(
+    const float* occ, const float* x0, const float* x1, const float* h,
+    const float* m, const float* v0, const float* v1, const float* rho,
+    const float* wq, const float* pterm, const float* temp,
+    const float* fluid, const int* kmax, float* dv0, float* dv1, float* ds,
+    int cap, int nx, int ny, float h2, float dw, float mu, float dt,
     int fast_math, void* stream) {
-  const Layout g{cap, nx, ny, h2};
-  auto s = static_cast<cudaStream_t>(stream);
-  Planes<12, 3> f{{occ, x0, x1, h, m, v0, v1, rho, wq, pterm, temp, fluid},
-                  {dv0, dv1, ds}};
-  return fast_math
-      ? launch<PavelkaMomentumEntropy<true>, false>(f, kmax, g, {dw, mu, dt}, s)
-      : launch<PavelkaMomentumEntropy<false>, false>(f, kmax, g, {dw, mu, dt}, s);
+  return pavelka_momentum_entropy<false>(
+      {{occ, x0, x1, h, m, v0, v1, rho, wq, pterm, temp, fluid},
+       {dv0, dv1, ds}},
+      kmax, {cap, nx, ny, h2}, dw, mu, dt, fast_math, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int gamma_grad_sweep(const float* occ, const float* x0, const float* x1,

@@ -44,13 +44,20 @@ SIGNATURES = {
         "hopkins_momentum_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 5
                                    + [_I, _I, _P], _I),
         # 9 planes, kmax, out, cap, nx, ny, h2, dw, 2nu, fixed_diffusion,
-        # fast_math, stream
+        # fast_math, the tiled sweep's plan (TX, dynamic shared bytes),
+        # stream; kmax is one bound per x-tile
         "pavelka_mass_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3
-                               + [_I, _I, _P], _I),
+                               + [_I] * 4 + [_P], _I),
         # 12 planes, kmax, 3 outs, cap, nx, ny, h2, dw, mu, dt, fast_math,
-        # stream
+        # the plan (TX, dynamic shared bytes), stream; one bound per x-tile
         "pavelka_momentum_entropy_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 4
-                                           + [_I, _P], _I),
+                                           + [_I] * 3 + [_P], _I),
+        # their "_direct" yardsticks (the one-thread-per-slot design): no
+        # plan, one bound per grid row
+        "pavelka_mass_sweep_direct": ([_P] * 11 + [_I] * 3 + [_F] * 3
+                                      + [_I, _I, _P], _I),
+        "pavelka_momentum_entropy_sweep_direct": ([_P] * 16 + [_I] * 3
+                                                  + [_F] * 4 + [_I, _P], _I),
         # occ, x0, x1, h, kmax, 2 outs, cap, nx, ny, h2, coef, stream
         "gamma_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
         # occ, x0, x1, v0, v1, rho, kmax, out, cap, nx, ny, h2, kc, 1/h, 2nu,

@@ -46,11 +46,12 @@ Each sweep has two implementations:
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``. The 3-D density, momentum and dam-break
-  sweeps run the tiled design (``_tile_plan``: one block per x-tile of a
-  grid row covering every p rank, q ranks staged in shared memory, each
-  tile walking the q ranks to its own bound, ``tile_kmax``);
-  ``sweep3_yardsticks`` launches them beside the one-thread-per-slot design
-  they replaced, for timing and for bit-for-bit comparison only;
+  sweeps and the two Pavelka sweeps run the tiled design (``_tile_plan``:
+  one block per x-tile of a grid row covering every p rank, q ranks staged
+  in shared memory, each tile walking the q ranks to its own bound,
+  ``tile_kmax``); ``tiled_yardsticks`` launches them beside the
+  one-thread-per-slot design they replaced, for timing and for bit-for-bit
+  comparison only;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
   vectorised over shifted views of the padded ``[cap, (nz+2,) ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
@@ -125,21 +126,22 @@ def row_kmax(engine, state: ParticleState):
 
 
 def tile_kmax(engine, state: ParticleState, tx: int) -> torch.Tensor:
-    """The tiled 3-D sweep's trip bound, one per x-tile of ``tx`` cells of a
-    grid row: the largest bucket occupancy among the (tx+2)×3×3 cells the
-    tile stages (its cells and their neighbours inside the grid), as int32
-    [nz·ny·ntiles] in the sweep's block order (x-tiles fastest, then y, then
-    z; ntiles = ⌈nx / tx⌉, the last tile ragged). Ranks are packed from 0,
-    so every rank past the bound is empty in all of those cells; the bound
-    is never above ``row_kmax``'s band of the tile's row."""
-    if engine.dim != 3:
-        raise ValueError(f"tile_kmax is 3-D, got a {engine.dim}-D engine")
+    """The tiled sweeps' trip bound, one per x-tile of ``tx`` cells of a grid
+    row: the largest bucket occupancy among the (tx+2)×3 (2-D) or
+    (tx+2)×3×3 (3-D) cells the tile stages (its cells and their neighbours
+    inside the grid), as int32 [(nz·)ny·ntiles] in the sweep's block order
+    (x-tiles fastest, then y, then z; ntiles = ⌈nx / tx⌉, the last tile
+    ragged). Ranks are packed from 0, so every rank past the bound is empty
+    in all of those cells; the bound is never above ``row_kmax``'s band of
+    the tile's row."""
     per_cell = engine.grid_view(state.active).sum(dim=0).to(torch.float32)
-    # the largest count in each cell's 3×3×3 neighbourhood (pads count -inf)
-    around = F.max_pool3d(per_cell[None, None], 3, stride=1, padding=1)[0, 0]
+    # the largest count in each cell's 3×3(×3) neighbourhood (pads count
+    # -inf)
+    pool = F.max_pool2d if engine.dim == 2 else F.max_pool3d
+    around = pool(per_cell[None, None], 3, stride=1, padding=1)[0, 0]
     nx = engine.lims[0]
     tiles = F.pad(around, (0, -nx % tx)).reshape(
-        around.shape[:2] + (-1, tx)).amax(dim=-1)
+        around.shape[:-1] + (-1, tx)).amax(dim=-1)
     return tiles.reshape(-1).to(torch.int32)
 
 
@@ -1118,49 +1120,67 @@ def _check_planes(engine, planes, band, n_bound):
 
 
 class TilePlan(NamedTuple):
-    """Launch plan of the tiled 3-D sweep (``pair_sweep3_tiled``)."""
+    """Launch plan of the tiled sweeps (``pair_sweep_tiled`` in 2-D,
+    ``pair_sweep3_tiled`` in 3-D)."""
     tx: int            # x-cells per block
     block: tuple       # (tx, cap) threads: one per p slot of the tile
-    smem_bytes: int    # dynamic shared memory: two stages of q planes
+    smem_bytes: int    # dynamic shared memory: `stages` stages of q planes
+    stages: int        # 2 (the two-stage pipeline) or cap (every rank at once)
 
 
-# the tiled 3-D sweep's block size bound (its __launch_bounds__), its
-# widest tile (its offset table's size), and a block's shared memory on an
+# the tiled sweeps' block size bound (their __launch_bounds__), their
+# widest tile (their offset tables' size), and a block's shared memory on an
 # H100 (227 KB); the launch refuses a plan beyond the first two
 _TILE_THREADS = 256
 _TILE_MAX_X = 32
 _MAX_SHARED_BYTES = 232_448
-# q planes the tiled 3-D exports stage per cell (occupancy and coordinates
-# included): the density body reads w of q (not 1/h), the momentum body
-# every plane of q, the dam-break bodies v and ρ or v and P/ρ² (the force's
-# FLUID gate is read on the p side only)
+# q planes the tiled exports stage per cell (occupancy and coordinates
+# included): the 3-D density body reads w of q (not 1/h), the 3-D momentum
+# body every plane of q, the 3-D dam-break bodies v and ρ or v and P/ρ² (the
+# force's FLUID gate is read on the p side only); the Pavelka continuity h,
+# v, ρ_f, wq and the FLUID gate, the fused Pavelka sweep h, m, v, ρ_f, wq,
+# P/ρ_f² and the FLUID gate (T_f is read on the p side only)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
-                 "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8}
+                 "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
+                 "pavelka_mass_sweep": 9,
+                 "pavelka_momentum_entropy_sweep": 11}
+# the 2-D tiled sweep's staging scheme: every q rank up to the tile's bound
+# in one go (one barrier) rather than the two-stage pipeline the 3-D sweep
+# runs; both give the same outputs bit for bit, and this one was the faster
+# on an H100 (PERF.md §6)
+_EVERY_RANK = True
 
 
-def _tile_plan(engine, staged: int) -> TilePlan:
-    """The tiled 3-D sweep's launch plan for ``staged`` q planes: TX =
-    min(32, 256 // cap) x-cells of one grid row times every rank, one thread
-    per p slot, and two stages of (TX+2)·9 cells, each rounded up to 16
-    bytes. ``_launch`` passes it to the export. Raises ValueError for a
-    shape the template cannot take."""
+def _tile_plan(engine, staged: int, every_rank: bool | None = None
+               ) -> TilePlan:
+    """The tiled sweep's launch plan for ``staged`` q planes: TX = min(32,
+    256 // cap) x-cells of one grid row times every rank, one thread per p
+    slot, and stages of (TX+2)·3 cells (2-D) or (TX+2)·9 cells (3-D), each
+    rounded up to 16 bytes: two of them (the pipeline), or one per rank with
+    ``every_rank`` (2-D only; its default there is ``_EVERY_RANK``).
+    ``_launch`` passes it to the export. Raises ValueError for a shape the
+    templates cannot take."""
     cap = engine.cap
-    if engine.dim != 3:
-        raise ValueError(f"the tiled sweep is 3-D, got a {engine.dim}-D engine")
+    if engine.dim == 3 and every_rank:
+        raise ValueError("the tiled 3-D sweep stages two ranks at a time")
+    if every_rank is None:
+        every_rank = engine.dim == 2 and _EVERY_RANK
     if not 1 <= cap <= _TILE_THREADS:
-        raise ValueError(f"the tiled 3-D sweep takes 1 to {_TILE_THREADS} "
+        raise ValueError(f"the tiled sweep takes 1 to {_TILE_THREADS} "
                          f"ranks per cell (a block thread per p slot), got "
                          f"cap {cap}")
     if staged < 4:
-        raise ValueError(f"the tiled 3-D sweep stages the occupancy and 3 "
-                         f"coordinates at least, got {staged} planes")
+        raise ValueError(f"the tiled sweep stages 4 planes a cell at least "
+                         f"(one float4), got {staged}")
     tx = min(_TILE_MAX_X, _TILE_THREADS // cap)
-    stage = ((tx + 2) * 9 * 4 * staged + 15) // 16 * 16
-    if 2 * stage > _MAX_SHARED_BYTES:
-        raise ValueError(f"the tiled 3-D sweep's two stages of {staged} "
-                         f"planes take {2 * stage} B of shared memory, over "
-                         f"{_MAX_SHARED_BYTES}")
-    return TilePlan(tx, (tx, cap), 2 * stage)
+    cells = (tx + 2) * 3 ** (engine.dim - 1)
+    stage = (cells * 4 * staged + 15) // 16 * 16
+    stages = max(cap, 2) if every_rank else 2
+    if stages * stage > _MAX_SHARED_BYTES:
+        raise ValueError(f"the tiled sweep's {stages} stages of {staged} "
+                         f"planes take {stages * stage} B of shared memory, "
+                         f"over {_MAX_SHARED_BYTES}")
+    return TilePlan(tx, (tx, cap), stages * stage, stages)
 
 
 def _export(fn_name: str, engine) -> str:
@@ -1173,8 +1193,8 @@ def _export(fn_name: str, engine) -> str:
 
 def _trip_bound(fn_name: str, engine, state: ParticleState) -> torch.Tensor:
     """The q-rank trip bound the export ``fn_name`` (named as ``_launch``
-    names it) reads: one per x-tile (``tile_kmax``) for a tiled 3-D export,
-    one per grid row (``row_kmax``'s band) for the others."""
+    names it) reads: one per x-tile (``tile_kmax``) for a tiled export, one
+    per grid row (``row_kmax``'s band) for the others."""
     name = _export(fn_name, engine)
     if name in _TILED_STAGED:
         return tile_kmax(engine, state,
@@ -1182,16 +1202,17 @@ def _trip_bound(fn_name: str, engine, state: ParticleState) -> torch.Tensor:
     return row_kmax(engine, state)[0]
 
 
-def _launch(fn_name: str, engine, planes, band, n_out, scalars):
+def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
     """Launch one sweep of csrc/pair_sweep.cu (the export ``_export``
     names) on the current stream with the trip bound ``band`` (as
-    ``_trip_bound`` gives it); raise if the launch was refused. A tiled 3-D
-    export gets its plan (TX, dynamic shared bytes) after the scalars."""
+    ``_trip_bound`` gives it); raise if the launch was refused. A tiled
+    export gets its plan (TX, dynamic shared bytes) after the scalars:
+    ``plan``, or ``_tile_plan``'s by default."""
     fn_name = _export(fn_name, engine)
     rows = engine.num_cells // engine.lims[0]
     n_bound = rows
     if fn_name in _TILED_STAGED:
-        plan = _tile_plan(engine, _TILED_STAGED[fn_name])
+        plan = plan or _tile_plan(engine, _TILED_STAGED[fn_name])
         scalars = list(scalars) + [plan.tx, plan.smem_bytes]
         n_bound = rows * -(-engine.lims[0] // plan.tx)
     _check_planes(engine, planes, band, n_bound)
@@ -1270,18 +1291,20 @@ def momentum_pass(engine, state: ParticleState, cfg):
     return outs
 
 
-def sweep3_yardsticks(kernel: str, engine, state: ParticleState, cfg):
-    """Launches of a tiled 3-D sweep (``"density_sweep_3d"``, with the self
-    pair per ``cfg.self_density``, ``"momentum_sweep_3d"``,
-    ``"dambreak_mass_sweep_3d"`` or ``"dambreak_force_sweep_3d"``) on planes
-    and trip bounds prepared once from ``state``, by design: ``"tiled"``
-    (the export the wrapper launches, with the per-tile bound),
+def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg):
+    """Launches of a tiled sweep (``"density_sweep_3d"``, with the self pair
+    per ``cfg.self_density``, ``"momentum_sweep_3d"``,
+    ``"dambreak_mass_sweep_3d"``, ``"dambreak_force_sweep_3d"``,
+    ``"pavelka_mass_sweep"`` or ``"pavelka_momentum_entropy_sweep"``) on
+    planes and trip bounds prepared once from ``state``, by design:
+    ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
     ``"tiled_row_band"`` (the same export with each tile's bound its row's
-    band, the bound the tiled sweep took before the per-tile one) and
-    ``"direct"`` (the one-thread-per-slot design it replaced, with the row
-    band). Each returns the outputs as the wrapper does. Yardsticks for
-    timing and for holding the designs bit for bit against each other: on
-    no path, and no launch is counted."""
+    band), ``"direct"`` (the one-thread-per-slot design it replaced, with
+    the row band) and, for the 2-D sweeps, the staging scheme not kept
+    (``"tiled_two_stages"`` or ``"tiled_every_rank"``, per-tile bound).
+    Each returns the outputs as the wrapper does. Yardsticks for timing and
+    for holding the designs bit for bit against each other: on no path, and
+    no launch is counted."""
     if kernel == "density_sweep_3d":
         planes, _ = _density_inputs(engine, state, state.fields["m"])
         args, n_out = [int(bool(cfg.self_density)), ctypes.c_float(C_W3)], 1
@@ -1294,17 +1317,29 @@ def sweep3_yardsticks(kernel: str, engine, state: ParticleState, cfg):
     elif kernel == "dambreak_force_sweep_3d":
         planes, _ = _dambreak_force_inputs(engine, state)
         args, n_out = _dambreak_force_scalars(cfg, 3), 3
+    elif kernel == "pavelka_mass_sweep":
+        planes, _ = _pavelka_mass_inputs(engine, state, cfg)
+        args, n_out = _pavelka_mass_scalars(cfg), 1
+    elif kernel == "pavelka_momentum_entropy_sweep":
+        planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
+        args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
     else:
-        raise ValueError(f"no tiled 3-D sweep {kernel!r}")
+        raise ValueError(f"no tiled sweep {kernel!r}")
     tile_band = _trip_bound(kernel, engine, state)
     row_band, _ = row_kmax(engine, state)
 
-    def run(name, band):
-        return lambda: _launch(name, engine, planes, band, n_out, args)
+    def run(name, band, plan=None):
+        return lambda: _launch(name, engine, planes, band, n_out, args, plan)
     per_tile = row_band.repeat_interleave(tile_band.numel() // row_band.numel())
-    return {"tiled": run(kernel, tile_band),
+    runs = {"tiled": run(kernel, tile_band),
             "tiled_row_band": run(kernel, per_tile),
             "direct": run(kernel + "_direct", row_band)}
+    if engine.dim == 2:
+        other = _tile_plan(engine, _TILED_STAGED[kernel],
+                           every_rank=not _EVERY_RANK)
+        name = "tiled_two_stages" if _EVERY_RANK else "tiled_every_rank"
+        runs[name] = run(kernel, tile_band, other)
+    return runs
 
 
 def pressure_pass(engine, state: ParticleState, cfg):
@@ -1367,7 +1402,7 @@ def pavelka_mass_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return pavelka_mass_pass_plain(engine, state, cfg)
     planes, _ = _pavelka_mass_inputs(engine, state, cfg)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("pavelka_mass_sweep", engine, state)
     (out,) = _launch("pavelka_mass_sweep", engine, planes, band, 1,
                      _pavelka_mass_scalars(cfg))
     pavelka_mass_pass.launches += 1
@@ -1383,7 +1418,7 @@ def pavelka_momentum_entropy_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return pavelka_momentum_entropy_pass_plain(engine, state, cfg)
     planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("pavelka_momentum_entropy_sweep", engine, state)
     outs = _launch("pavelka_momentum_entropy_sweep", engine, planes, band, 3,
                    _pavelka_momentum_entropy_scalars(cfg))
     pavelka_momentum_entropy_pass.launches += 1

@@ -326,5 +326,36 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
         tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=257), 12)
     with pytest.raises(ValueError, match="shared memory"):
         tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=8), 100)
-    with pytest.raises(ValueError, match="3-D"):
-        tps._tile_plan(NeighborEngine.create(box, 0.1, 2, cap=8), 12)
+
+
+@pytest.mark.parametrize("cap,kernel,every_rank,want", [
+    (8, "pavelka_mass_sweep", True, (32, 256, 29440, 8)),
+    (8, "pavelka_mass_sweep", False, (32, 256, 7360, 2)),
+    (8, "pavelka_momentum_entropy_sweep", True, (32, 256, 35968, 8)),
+    (8, "pavelka_momentum_entropy_sweep", False, (32, 256, 8992, 2)),
+    (24, "pavelka_mass_sweep", True, (10, 240, 31104, 24)),
+    (24, "pavelka_momentum_entropy_sweep", False, (10, 240, 3168, 2))],
+    ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
+         "cap8-fused-two", "cap24-mass-every", "cap24-fused-two"])
+def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
+    """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
+    stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
+    occupancy, x and h, then v, ρ_f, wq and the FLUID gate) and 11 (fused
+    sweep: the float4, m, v, ρ_f, wq, P/ρ_f² and the gate) q planes a cell:
+    the Pavelka size has cap 8 (TX 32), cap 24 gives TX 10; a stage is
+    (TX+2)·3 cells rounded up to 16 B, two of them or one per rank. The
+    wrapper's default is ``_EVERY_RANK``; a 3-D engine refuses the
+    every-rank scheme."""
+    box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
+    staged = tps._TILED_STAGED[kernel]
+    assert staged == {"pavelka_mass_sweep": 9,
+                      "pavelka_momentum_entropy_sweep": 11}[kernel]
+    plan = tps._tile_plan(engine, staged, every_rank=every_rank)
+    assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
+    assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024
+    assert tps._tile_plan(engine, staged) == tps._tile_plan(
+        engine, staged, every_rank=tps._EVERY_RANK)
+    with pytest.raises(ValueError, match="two ranks"):
+        tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=cap), staged,
+                       every_rank=True)

@@ -185,6 +185,7 @@ def test_pavelka_mass_kernel_matches_twin(card, fixed, fast_math):
     before = ps.pavelka_mass_pass.launches
     got = ps.pavelka_mass_pass(eng, st, cfg)
     assert ps.pavelka_mass_pass.launches == before + 1
+    _held_to_designs("pavelka_mass_sweep", eng, st, cfg, [got])
     _held_to_twin([got], [ps.pavelka_mass_pass(eng, st, cfg)],
                   [ps.pavelka_mass_pass_plain(eng, st, cfg)], fast_math)
 
@@ -198,6 +199,38 @@ def test_pavelka_momentum_entropy_kernel_matches_twin(card, fast_math):
     got = ps.pavelka_momentum_entropy_pass(eng, st, cfg)
     assert ps.pavelka_momentum_entropy_pass.launches == before + 1
     assert len(got) == 3 and float(got[2].abs().max()) > 0.0
+    _held_to_designs("pavelka_momentum_entropy_sweep", eng, st, cfg, got)
+    _held_to_twin(got, ps.pavelka_momentum_entropy_pass(eng, st, cfg),
+                  ps.pavelka_momentum_entropy_pass_plain(eng, st, cfg),
+                  fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_tiled_pavelka_reaches_every_edge(card, fast_math):
+    """At cap 24 a tile is 10 x-cells: the tiny grid's 128 cells leave a
+    ragged last tile of 8; the grid has tiles with a trip bound of 0 (its
+    empty rows and columns) and occupied p ranks above a neighbour cell's
+    count. Both Pavelka kernels (the continuity with both diffusion forms)
+    bit for bit against the direct design, the row band and the other
+    staging scheme, and within their twins' gate."""
+    cfg = dataclasses.replace(PV_BENCH, bucket_cap=24, fast_math=fast_math)
+    eng, st = _live_state(card, pv, cfg)
+    ragged, idle_tiles, _ = _tiled_edges(eng, st, "pavelka_mass_sweep")
+    assert eng.cap == 24 and ragged and idle_tiles > 0
+    counts = eng.grid_view(st.active).sum(dim=0).to(torch.float32)
+    fewest = -torch.nn.functional.max_pool2d(
+        torch.nn.functional.pad(-counts, (1, 1, 1, 1), value=-1e9)[None, None],
+        3, stride=1)[0, 0]  # the fewest ranks among each cell's neighbours
+    assert bool(((counts > 0) & (counts - 1 >= fewest)).any())
+    for fixed in (True, False):
+        c = dataclasses.replace(cfg, fixed_diffusion=fixed)
+        got = ps.pavelka_mass_pass(eng, st, c)
+        _held_to_designs("pavelka_mass_sweep", eng, st, c, [got])
+        _held_to_twin([got], [ps.pavelka_mass_pass(eng, st, c)],
+                      [ps.pavelka_mass_pass_plain(eng, st, c)], fast_math)
+    got = ps.pavelka_momentum_entropy_pass(eng, st, cfg)
+    _held_to_designs("pavelka_momentum_entropy_sweep", eng, st, cfg, got)
     _held_to_twin(got, ps.pavelka_momentum_entropy_pass(eng, st, cfg),
                   ps.pavelka_momentum_entropy_pass_plain(eng, st, cfg),
                   fast_math)
@@ -292,12 +325,12 @@ def _live_dam(device, name, **over):
 
 
 def _tiled_edges(eng, st, kernel="momentum_sweep_3d"):
-    """The edges of the tiled 3-D sweep a state reaches: (a ragged last
-    x-tile, tiles whose trip bound is 0, tiles with a bound > 0 but no
+    """The edges of a tiled sweep (2-D or 3-D) a state reaches: (a ragged
+    last x-tile, tiles whose trip bound is 0, tiles with a bound > 0 but no
     occupied p slot)."""
     tx = ps._tile_plan(eng, ps._TILED_STAGED[kernel]).tx
     bound = ps._trip_bound(kernel, eng, st)
-    occ = eng.grid_view(st.active).sum(dim=0)            # [nz, ny, nx]
+    occ = eng.grid_view(st.active).sum(dim=0)            # [(nz,) ny, nx]
     nx = eng.lims[0]
     p_slots = torch.nn.functional.pad(occ, (0, -nx % tx)).reshape(
         -1, tx).sum(dim=-1)
@@ -305,21 +338,25 @@ def _tiled_edges(eng, st, kernel="momentum_sweep_3d"):
             int(((p_slots == 0) & (bound > 0)).sum()))
 
 
-# the wrapper that launches each tiled 3-D export
+# the wrapper that launches each tiled export
 _TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
                   "momentum_sweep_3d": ps.momentum_pass,
                   "dambreak_mass_sweep_3d": ps.dambreak_mass_pass,
-                  "dambreak_force_sweep_3d": ps.dambreak_force_pass}
+                  "dambreak_force_sweep_3d": ps.dambreak_force_pass,
+                  "pavelka_mass_sweep": ps.pavelka_mass_pass,
+                  "pavelka_momentum_entropy_sweep":
+                      ps.pavelka_momentum_entropy_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got):
     """The wrapper's outputs bit for bit equal to each design's: the tiled
-    one it launches (with the per-tile trip bound) and the
-    one-thread-per-slot sweep it replaced (with the row band). The
-    yardsticks count no launch."""
+    one it launches (with the per-tile trip bound, and on the row band), the
+    one-thread-per-slot sweep it replaced (with the row band) and, in 2-D,
+    the tiled sweep's other staging scheme. The yardsticks count no
+    launch."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
-    for name, run in ps.sweep3_yardsticks(kernel, eng, st, cfg).items():
+    for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg).items():
         out = run()
         assert all(torch.equal(a, b) for a, b in zip(got, out)), name
     assert wrapper.launches == before

@@ -30,6 +30,9 @@ What is compared, and at which tolerance:
   (6+2)×3×3 cells, exactly, on the tiny ``collapse3d`` state, on a
   hand-made occupancy (a 27-particle wall cell beside 8-particle cells, a
   ragged last tile) and on an empty grid; never above ``row_kmax``'s band;
+  the same in 2-D (the tiled Pavelka sweeps: (TX+2)×3 cells a tile) on the
+  tiny Pavelka state, a hand-made occupancy at cap 24 with full cells beside
+  empty ones and a ragged last tile, and an empty grid;
 * ``run(cfg, out_path=..., device="cpu")`` of ``collapse_dry``: the file set,
   the columns of ``data.csv``, and a resumed run bit for bit equal to the
   uninterrupted one;
@@ -53,7 +56,8 @@ from sph_mountain_waves_tpu_torch.geometry import Box
 from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
 from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
 from sph_mountain_waves_tpu_torch.models import (
-    collapse3d as tc3, collapse_dry as tcd, witch3d as tw,
+    collapse3d as tc3, collapse_dry as tcd, pavelka_total_witch as tpv,
+    witch3d as tw,
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
@@ -232,12 +236,46 @@ def test_tile_kmax_matches_a_brute_force_count(case):
         assert int((got == 27).sum()) == 3 * 3 * 2
 
 
-def test_tile_kmax_refuses_a_2d_engine():
-    engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0), 0.1, 2,
-                                   cap=24)
-    with pytest.raises(ValueError, match="3-D"):
-        tps.tile_kmax(engine, types.SimpleNamespace(
-            active=torch.zeros(engine.slots, dtype=torch.bool)), 10)
+@pytest.mark.parametrize("case", ["pavelka", "hand-made", "empty"])
+def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
+    """The per-tile trip bound of the tiled 2-D sweep (the Pavelka pair)
+    equals the largest count among each tile's (TX+2)×3 cells, exactly, and
+    is never above the row band of its row: on the tiny Pavelka state (cap
+    8, TX 32), on a hand-made occupancy at cap 24 (TX 10: 128 x-cells leave
+    a ragged last tile of 8) with full cells beside empty ones, and on an
+    empty grid."""
+    if case == "pavelka":
+        system = tpv.make_system(tpv.PavelkaConfig(
+            n_rows=10, dtype="float32", layout="bucket", skin=0.15,
+            use_pallas=True, lattice_cells=True))
+        state = system.freeze(device="cpu")
+        engine = system.engine
+    else:
+        engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0),
+                                       0.1, 2, cap=24)
+        counts = np.zeros(tuple(reversed(engine.lims)), dtype=np.int64)
+        if case == "hand-made":
+            counts[3:9, 10:40] = 4
+            counts[5, 19] = 24   # last cell of tile x 10..19, staged by 20..29
+            counts[12, 60] = 24  # a full cell with no neighbour
+            counts[0, 127] = 7   # in the ragged last tile, x 120..127
+        state = types.SimpleNamespace(active=_active_of(engine, counts))
+    counts = engine.grid_view(state.active).sum(dim=0).numpy()
+    kernel = "pavelka_momentum_entropy_sweep"
+    tx = tps._tile_plan(engine, tps._TILED_STAGED[kernel]).tx
+    assert tx == {8: 32, 24: 10}[engine.cap]
+    assert case == "pavelka" or engine.lims[0] % tx == 8
+    got = tps.tile_kmax(engine, state, tx)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tps._trip_bound(kernel, engine, state))
+    np.testing.assert_array_equal(got.numpy(),
+                                  _tile_kmax_brute(counts[None], tx))
+    band, _ = tps.row_kmax(engine, state)
+    ntiles = -(-engine.lims[0] // tx)
+    assert bool((got.reshape(-1, ntiles) <= band[:, None]).all())
+    assert int(got.max()) == int(counts.max())
+    if case == "hand-made":  # each full cell bounds its tile and the next
+        assert int((got == 24).sum()) == 2 * 3 * 2
 
 
 def test_steps_match_jax(built):
