@@ -31,14 +31,20 @@ Phases, each printing one or more lines:
   3. flagship build and shape checks;
   4. a forced rescatter of the frozen state, which must be the identity;
   5. the flagship's kernels against their plain PyTorch twins at full size
-     (fast_math off and on), plus bitwise-equal reruns;
+     (fast_math off and on), plus bitwise-equal reruns; the momentum (the
+     tiled 9-cell design) with its tile plan, bit for bit against the
+     one-thread-per-slot design (``_direct``), the tiled export on the row
+     band and its other staging scheme;
   6. a small-input check: 8 flagship kernel steps on the card against 8
      steps of the plain twins on the CPU;
   7. the flagship main path: 1 warm-up frame and 2 timed frames of 100
      steps, with the kernels' launch counters set to 0 before and read after;
   8. the Hopkins kernels against their twins at full size on a live full
      Hopkins state: pressure, and the Hopkins momentum with the background
-     split on and off, fast_math off and on; reruns bitwise equal;
+     split on and off, fast_math off and on; reruns bitwise equal; the
+     momentum (the tiled design, each form on its own plan) with its tile
+     plans, bit for bit against ``_direct``, the row band and the other
+     staging scheme;
   9. 8 small steps of each Hopkins scheme, card against CPU twins;
  10. the full Hopkins main path: 1 warm-up and 2 timed frames of 100 steps;
  11. hopkins_total: its hydrostatic packing at full size, then 1 warm-up and
@@ -127,14 +133,18 @@ Phases, each printing one or more lines:
      width, a checkpoint every frame: the file set, the data.csv columns and
      a resumed run bit for bit;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
-     over 50 runs, twin over 5) beside its bound; the adiabatic density
+     over 50 runs, twin over 5) beside its bound, and the kernels' own
+     time that torch.profiler records over 50 more runs (``device_ms``;
+     null, "not measured", where three sessions record no kernel);
+     the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the six tiled kernels (the two Pavelka sweeps, witch3d's density and
+     the nine tiled kernels (the flagship momentum, the Hopkins momentum in
+     both forms, the two Pavelka sweeps, witch3d's density and
      momentum, collapse3d's dam-break continuity and force) in turns with
      the design they replaced and with each tile's bound its row's band
-     (direct, tiled, row band, row band, tiled, direct; the 2-D pair with
-     its other staging scheme after each tiled turn), each beside its
+     (direct, tiled, row band, row band, tiled, direct; the 2-D ones with
+     their other staging scheme after each tiled turn), each beside its
      bound. A bound counts
      the bytes the state needs (the occupancy plane, the other input planes
      at the occupied slots, every output slot, the trip bound) and the
@@ -269,6 +279,37 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps, tries=3):
+    """The CUDA kernel's own time per call of fn() (one kernel a call), as
+    torch.profiler (CUDA activity only) records it over reps calls: the
+    card's busy time, without the host's launch path that paces an event
+    time below ~0.1 ms. Taken over its own reps calls: the profiler's host
+    cost would inflate an event time taken under it. Returns (the mean
+    duration of the kernels it recorded, how many it recorded): late in a
+    long run a session can lose kernel records, so the mean is taken over
+    those it has, not divided by reps. A session that records none is
+    tried again, up to ``tries`` sessions; if none records a kernel (the
+    profiler cannot attach to the card's activity, e.g. while another
+    tracer holds it) the reading is (None, 0): "not measured", which fails
+    nothing, since the CUDA-event time is the row's time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    fn()
+    for _ in range(tries):
+        with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        n = sum(e.count for e in kernels)
+        if n:
+            return sum(e.self_device_time_total for e in kernels) / n / 1e3, n
+    return None, 0
 
 
 def compare(name, got, ref, rtol=RTOL, atol=ATOL, gate=True):
@@ -410,6 +451,11 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
                     and not e.is_user_annotation)
     if table:
         print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    if not device_us:
+        say(phase, f"{label} profile: device time not measured "
+                   f"(torch.profiler recorded no kernel), wall {wall_ms:.3f} "
+                   f"ms/step over {n_steps} steps under the profiler")
+        return
     device_ms = device_us / n_steps / 1e3
     say(phase, f"{label} profile: device time {device_ms:.3f} ms/step, wall "
                f"{wall_ms:.3f} ms/step over the same {n_steps} steps under "
@@ -417,8 +463,17 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
                " % of them")
 
 
+def tiled_label(kernel):
+    """(export name, keyword arguments) of a tiled sweep's label: the
+    Hopkins momentum's carries its form ("hopkins_momentum_sweep split" or
+    "... total", ``background_split``), the others are export names."""
+    name, _, form = kernel.partition(" ")
+    return name, ({"background_split": form == "split"} if form else {})
+
+
 def tile_plan_line(ps, e, state, kernels):
-    """The tiled sweep's launch plan of each of ``kernels`` (tiled exports)
+    """The tiled sweep's launch plan of each of ``kernels`` (tiled exports,
+    labelled as ``tiled_label`` reads them)
     on engine ``e`` (2-D or 3-D), and its per-tile trip bound on ``state``
     against the row band: the tiles with a non-zero bound, each bound's mean
     over those tiles, the rank walks each asks for (9 or 27 cells times the
@@ -433,18 +488,20 @@ def tile_plan_line(ps, e, state, kernels):
     rows = e.num_cells // nx
     parts = []
     for k in kernels:
-        p = ps._tile_plan(e, ps._TILED_STAGED[k])
+        name, kw = tiled_label(k)
+        staged = ps._staged(name, **kw)
+        p = ps._tile_plan(e, staged)
         part = (f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} threads, "
                 f"{-(-nx // p.tx) * rows} blocks, {p.smem_bytes} B dynamic "
                 f"smem ({p.stages} stages)")
         if e.dim == 2:
-            o = ps._tile_plan(e, ps._TILED_STAGED[k],
-                              every_rank=not ps._EVERY_RANK)
+            o = ps._tile_plan(e, staged, every_rank=not ps._EVERY_RANK)
             part += f"; the other scheme {o.smem_bytes} B ({o.stages} stages)"
         parts.append(part)
-    tx = ps._tile_plan(e, ps._TILED_STAGED[kernels[0]]).tx
+    tx = ps._tile_tx(e)
     ntiles = -(-nx // tx)
-    tile = ps._trip_bound(kernels[0], e, state).to(torch.int64)
+    tile = ps._trip_bound(tiled_label(kernels[0])[0], e, state).to(
+        torch.int64)
     band = ps.row_kmax(e, state)[0].to(torch.int64).repeat_interleave(ntiles)
     slots = F.pad(e.grid_view(state.active).to(torch.int64),
                   (0, -nx % tx)).reshape(e.cap, rows * ntiles, tx)
@@ -766,8 +823,10 @@ def isph_phase(dev, card, counters, errs, profile):
     sync_its = mvc.launches - before - 2
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     del s2
+    per_it = (f"{kernels / max(prof_its, 1):.1f}" if kernels else
+              "not measured (torch.profiler recorded no kernel)")
     say(31, f"ISPH launches: {kernels} device kernels in 2 steps with "
-            f"{prof_its} CG iterations = {kernels / max(prof_its, 1):.1f} per "
+            f"{prof_its} CG iterations = {per_it} per "
             f"CG iteration; host syncs {syncs} in 2 steps with {sync_its} CG "
             f"iterations = {syncs / 2:.1f} per step")
     if profile:
@@ -1028,9 +1087,25 @@ def main(profile: bool) -> None:
         say(4, f"forced rescatter ({label}): identical, 0 dropped; "
                f"{ms:.2f} ms per rescatter ({card})")
 
+    def designs_equal(label, kernel, e, s_, c, got, **kw):
+        """The wrapper's outputs bit for bit against every other design of a
+        tiled sweep (``tiled_yardsticks``; ``kw``: the Hopkins momentum's
+        ``background_split``); returns their names."""
+        others = {name: run() for name, run in
+                  ps.tiled_yardsticks(kernel, e, s_, c, **kw).items()}
+        bad = [name for name, out in others.items()
+               if not all(torch.equal(a, b) for a, b in zip(got, out))]
+        if bad:
+            raise AssertionError(f"{label}: the wrapper's output differs from "
+                                 f"{bad}")
+        return ", ".join(others)
+
     # 5: the flagship's kernels against their twins on a live state: one
-    # step in, then v and h perturbed from a seeded generator
+    # step in, then v and h perturbed from a seeded generator; the momentum
+    # runs the tiled design: held bit for bit against the direct one, the
+    # row band and the other staging scheme, then against its twin
     st = perturbed(w.make_step(cfg, eng)(state0), dev)
+    say(5, tile_plan_line(ps, eng, st, ("momentum_sweep",)))
     errs = {}
     errs["density"] = kernel_vs_twin(
         "density", [ps.density_pass(eng, st, cfg)],
@@ -1040,10 +1115,14 @@ def main(profile: bool) -> None:
            f"(max |rho| {errs['density'][1]:.4f}), rerun bitwise equal")
     for fm in (False, True):
         c = dataclasses.replace(cfg, fast_math=fm)
+        label = f"momentum fast_math={fm}"
+        kern = ps.momentum_pass(eng, st, c)
+        held = designs_equal(label, "momentum_sweep", eng, st, c, kern)
         err, scale = errs[f"momentum_fm{int(fm)}"] = kernel_vs_twin(
-            f"momentum fast_math={fm}", ps.momentum_pass(eng, st, c),
-            ps.momentum_pass(eng, st, c), ps.momentum_pass_plain(eng, st, c), fm)
-        say(5, f"momentum kernel vs twin, fast_math={fm}: max abs err {err:.3e} "
+            label, kern, ps.momentum_pass(eng, st, c),
+            ps.momentum_pass_plain(eng, st, c), fm)
+        say(5, f"momentum kernel (tiled), fast_math={fm}: bit for bit equal "
+               f"to {held}; vs twin max abs err {err:.3e} "
                f"(max |Dv| {scale:.4f}, rel {err / scale:.3e})"
                + ("" if fm else f", gate rtol {RTOL} atol {ATOL}")
                + ", rerun bitwise equal")
@@ -1084,16 +1163,22 @@ def main(profile: bool) -> None:
     say(8, f"pressure kernel vs twin: max abs err {errs['pressure'][0]:.3e} "
            f"(max |P root| {errs['pressure'][1]:.4f}), gate rtol {RTOL} "
            f"atol {ATOL}, rerun bitwise equal")
+    # the Hopkins momentum runs the tiled design, each form on its own plan
+    say(8, tile_plan_line(ps, e8, st, ("hopkins_momentum_sweep split",
+                                       "hopkins_momentum_sweep total")))
     for split in (True, False):
         for fm in (False, True):
             c = dataclasses.replace(cfg, fast_math=fm)
+            label = f"hopkins split={split} fast_math={fm}"
+            kern = ps.hopkins_momentum_pass(e8, st, c, split)
+            held = designs_equal(label, "hopkins_momentum_sweep", e8, st, c,
+                                 kern, background_split=split)
             err, scale = errs[f"hopkins_s{int(split)}_fm{int(fm)}"] = kernel_vs_twin(
-                f"hopkins split={split} fast_math={fm}",
-                ps.hopkins_momentum_pass(e8, st, c, split),
-                ps.hopkins_momentum_pass(e8, st, c, split),
+                label, kern, ps.hopkins_momentum_pass(e8, st, c, split),
                 ps.hopkins_momentum_pass_plain(e8, st, c, split), fm)
-            say(8, f"hopkins momentum kernel vs twin, split={split} "
-                   f"fast_math={fm}: max abs err {err:.3e} (max |Dv| "
+            say(8, f"hopkins momentum kernel (tiled), split={split} "
+                   f"fast_math={fm}: bit for bit equal to {held}; vs twin max "
+                   f"abs err {err:.3e} (max |Dv| "
                    f"{scale:.4f}, rel {err / scale:.3e})"
                    + ("" if fm else f", gate rtol {RTOL} atol {ATOL}")
                    + ", rerun bitwise equal")
@@ -1164,18 +1249,6 @@ def main(profile: bool) -> None:
             f"warm-up included); active {int(hp_state.n)}; launches "
             f"{ {k: v for k, v in hp_counts.items() if v} }")
     del hp_state, hp_sys
-
-    def designs_equal(label, kernel, e, s_, c, got):
-        """The wrapper's outputs bit for bit against every other design of a
-        tiled sweep (``tiled_yardsticks``); returns their names."""
-        others = {name: run() for name, run in
-                  ps.tiled_yardsticks(kernel, e, s_, c).items()}
-        bad = [name for name, out in others.items()
-               if not all(torch.equal(a, b) for a, b in zip(got, out))]
-        if bad:
-            raise AssertionError(f"{label}: the wrapper's output differs from "
-                                 f"{bad}")
-        return ", ".join(others)
 
     # 13: the Pavelka kernels and the packing's gradient sweep against their
     # twins on a live full-width Pavelka state (one step in, v and h
@@ -1911,12 +1984,12 @@ def main(profile: bool) -> None:
         else:
             split = kernel.endswith("split")
             planes, pads = ps._hopkins_inputs(e, s, c, split)
-            args, body, n_out, self_pair = (
-                ps._momentum_scalars(c) + [int(split), 1],
-                ps._hopkins_body(c, split), 2, False)
-            planes_k = planes if split else planes + [None, None]
+            planes_k, args = ps._hopkins_launch_inputs(e, s, c, split)
+            body, n_out, self_pair = ps._hopkins_body(c, split), 2, False
+            plan = ps._tile_plan(e, ps._staged("hopkins_momentum_sweep",
+                                               split))
             return (lambda: ps._launch("hopkins_momentum_sweep", e, planes_k,
-                                       band, n_out, args),
+                                       band, n_out, args, plan),
                     lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
                                             self_pair),
                     lambda: ps._sweep_plain(e, planes, pads, band,
@@ -1975,7 +2048,8 @@ def main(profile: bool) -> None:
             ("isph_grad_sweep", e31, i_state, icfg),
             ("rb_mass_heat_sweep", e32, r_state, rcfg)):
         launch, twin, count = prepared(kernel, e, s, c)
-        km, pm = cuda_ms(launch, 50), cuda_ms(twin, 5)
+        km, (dm, recorded), pm = (cuda_ms(launch, 50), kernel_ms(launch, 50),
+                                  cuda_ms(twin, 5))
         pairs = int(count()[0].double().sum().item())
         name = kernel.split()[0]
         tested = candidates(e, s, name in ("density_sweep", "pressure_sweep",
@@ -1995,19 +2069,29 @@ def main(profile: bool) -> None:
         nbytes = (e.slots + (n_in - 1) * occupied + n_out * e.slots) * 4 + (
             ps._trip_bound(name, e, s).numel() * 4)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-        timing[kernel] = {"ms": km, "plain_ms": pm,
+        timing[kernel] = {"ms": km, "device_ms": dm, "plain_ms": pm,
                           "bound_ms": max(bytes_ms, ops_ms),
                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        say(30, f"{kernel}: kernel {km:.4f} ms, plain twin {pm:.4f} ms; bound "
-                f"{timing[kernel]['bound_ms'] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB "
-                f"-> {bytes_ms * 1e3:.1f} us; {tested} candidates x "
+        bound = timing[kernel]["bound_ms"]
+        own = ("not measured: torch.profiler recorded no kernel in "
+               "3 sessions of 50 more calls" if dm is None else
+               f"{dm:.4f} ms of kernel time, torch.profiler over 50 more "
+               f"calls, {recorded} kernels recorded")
+        own_share = ("" if dm is None else
+                     f" ({100 * bound / dm:.1f} % of the kernel time)")
+        say(30, f"{kernel}: kernel {km:.4f} ms (events; {own}), plain twin "
+                f"{pm:.4f} ms; bound {bound * 1e3:.1f} us ({nbytes / 1e6:.1f} "
+                f"MB -> {bytes_ms * 1e3:.1f} us; {tested} candidates x "
                 f"{DIST_OPS[e.dim]} + {pairs} pairs x {body_ops} ops -> "
-                f"{ops_ms * 1e3:.1f} us), "
-                f"{100 * timing[kernel]['bound_ms'] / km:.1f} % of it ({card})")
+                f"{ops_ms * 1e3:.1f} us), {100 * bound / km:.1f} % of it"
+                f"{own_share} ({card})")
 
     # the tiled sweeps against the design they replaced, in turns on one
     # card (the 2-D ones with their other staging scheme too)
     for kernel, e, s, c in (
+            ("momentum_sweep", eng, flag_state, cfg),
+            ("hopkins_momentum_sweep split", e8, fh_state, cfg),
+            ("hopkins_momentum_sweep total", e11, ht_state, cfg),
             ("pavelka_mass_sweep", e13, pv_state, pcfg),
             ("pavelka_momentum_entropy_sweep", e13, pv_state, pcfg),
             ("density_sweep_3d", e17, w3_state, wcfg),
@@ -2016,7 +2100,8 @@ def main(profile: bool) -> None:
             ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"],
              c3_cfg)):
         say(30, tile_plan_line(ps, e, s, (kernel,)) + " (the timed state)")
-        runs = ps.tiled_yardsticks(kernel, e, s, c)
+        name, kw = tiled_label(kernel)
+        runs = ps.tiled_yardsticks(name, e, s, c, **kw)
         bound = timing[kernel]["bound_ms"]
         other = tuple(n for n in runs
                       if n not in ("tiled", "tiled_row_band", "direct"))

@@ -1,6 +1,7 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D Pavelka pair) against the one-thread-per-slot design they replaced,
+the 2-D Pavelka pair, the 2-D flagship momentum and the Hopkins momentum in
+both forms) against the one-thread-per-slot design they replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -8,6 +9,7 @@ per-tile trip bound, the export names and arguments).
 
     python scripts/host_sweeps/check.py            # every tiled sweep
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
+    python scripts/host_sweeps/check.py momentum hopkins   # the 2-D momenta
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -103,12 +105,12 @@ def _perturbed(state, **ranges):
     return state.replace(**new)
 
 
-def held(kernel, engine, state, cfg, twin) -> bool:
+def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     """The tiled launch bit for bit against every other design
     (``tiled_yardsticks``: the direct one, the row band, the other 2-D
     staging scheme; raises otherwise); returns whether it also equals the
-    twin bit for bit."""
-    runs = ps.tiled_yardsticks(kernel, engine, state, cfg)
+    twin bit for bit. ``kw``: the Hopkins momentum's ``background_split``."""
+    runs = ps.tiled_yardsticks(kernel, engine, state, cfg, **kw)
     t0 = time.perf_counter()
     tiled = runs.pop("tiled")()
     secs = time.perf_counter() - t0
@@ -120,7 +122,9 @@ def held(kernel, engine, state, cfg, twin) -> bool:
     ref = ref if isinstance(ref, list) else [ref]
     same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
     bound = ps._trip_bound(kernel, engine, state)
-    print(f"{kernel}, lims {engine.lims}, cap {engine.cap}: tiled == "
+    form = "".join(f" {k}={v}" for k, v in kw.items())
+    print(f"{kernel}{form} fast_math={ps._fast(cfg)}, lims {engine.lims}, "
+          f"cap {engine.cap}: tiled == "
           f"{', '.join(runs)}; tiled == twin {same}; max |out| "
           f"{max(float(a.abs().max()) for a in tiled):.4e}; "
           f"{int((bound > 0).sum())} of {bound.numel()} tiles with a non-zero "
@@ -187,10 +191,49 @@ def main(which) -> None:
                 ok &= held("pavelka_momentum_entropy_sweep", system.engine,
                            state, c, ps.pavelka_momentum_entropy_pass_plain
                            ) or fm
+    if "momentum" in which or "hopkins" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import (
+            full_hopkins_perturbed_witch as fh, wcsph_perturbed_witch as w,
+        )
+        from sph_mountain_waves_tpu_torch.models.witch_common import (
+            WitchConfig,
+        )
+        # the tiny flagship and full_hopkins states; cap 8: TX 32 on 128
+        # x-cells; cap 24: TX 10, a ragged last tile of 8
+        for cap in (None, 24):
+            cfg = WitchConfig(n_rows=10, dtype="float32", self_density=True,
+                              layout="bucket", skin=0.15, use_pallas=True,
+                              lazy_diagnostics=True, lattice_cells=True,
+                              bucket_cap=cap)
+            for fm in (False, True):
+                c = dataclasses.replace(cfg, fast_math=fm)
+                if "momentum" in which:
+                    system = w.make_system(cfg)
+                    state = _perturbed(
+                        system.freeze(device="cpu"), v=(-1, 1, False),
+                        h=(0.99, 1.01, True), rho=(0.99, 1.01, True),
+                        P=(0.99, 1.01, True), P_p=(-50, 50, False))
+                    ok &= held("momentum_sweep", system.engine, state, c,
+                               ps.momentum_pass_plain) or fm
+                if "hopkins" in which:
+                    system = fh.make_system(cfg)
+                    state = _perturbed(
+                        system.freeze(device="cpu"), v=(-1, 1, False),
+                        h=(0.99, 1.01, True), rho=(0.99, 1.01, True),
+                        P=(0.99, 1.01, True), P_bg=(0.99, 1.01, True),
+                        A=(0.99, 1.01, True), A_bg=(0.99, 1.01, True))
+                    for split in (True, False):  # total: null A_bg, P_bg,e
+                        ok &= held("hopkins_momentum_sweep", system.engine,
+                                   state, c,
+                                   lambda e, s_, c_, split=split:
+                                   ps.hopkins_momentum_pass_plain(e, s_, c_,
+                                                                  split),
+                                   background_split=split) or fm
     if not ok:
         raise AssertionError("a tiled sweep differs from its twin")
     print("host check passed")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["dam", "witch", "pavelka"])
+    main(sys.argv[1:] or ["dam", "witch", "pavelka", "momentum", "hopkins"])

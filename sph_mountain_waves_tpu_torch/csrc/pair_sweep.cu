@@ -73,8 +73,9 @@
 // and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
 // 16-byte shared load, the distance and its test), not the staging, paces
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The two
-// Pavelka sweeps run the same design in 2-D, pair_sweep_tiled (9 cells);
-// every other 2-D sweep still runs pair_sweep.
+// Pavelka sweeps, the flagship momentum and the Hopkins momentum run the same
+// design in 2-D, pair_sweep_tiled (9 cells); every other 2-D sweep still runs
+// pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,7 +108,8 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 }
 
 // q's fields as the accessor bodies read them (the 3-D bodies, the
-// dam-break bodies in 2-D and the Pavelka bodies): q[i] is plane i at q's
+// dam-break bodies in 2-D, the 2-D momentum, Hopkins momentum and Pavelka
+// bodies): q[i] is plane i at q's
 // slot. PlaneQ reads the planes (pair_sweep, pair_sweep3); StagedQ reads the
 // copy that pair_sweep3_tiled staged in shared memory, planes lo.. at
 // ex[(i - lo) * nc + s]; StagedQ2 the copy that pair_sweep_tiled staged:
@@ -185,26 +187,29 @@ struct Density {
 
 // Dv_p = sum_q -m_q rDW(h_ij, r) (A_p + A_q + [x.v<0] Pi_ij) x_pq with the
 // Monaghan term Pi_ij; fields: occ, x0, x1, h, m, v0, v1, rho_f, A=P'/rho^2, c.
+// q's planes read by the body beyond the occupancy and position: h and QMASK
+// (m, v0, v1, rho_f, A, c: planes 4-9).
 template <bool FAST>
 struct Momentum {
   static constexpr int NIN = 10;
   static constexpr int NOUT = 2;
+  static constexpr unsigned QMASK = 0x3F0u;
   struct Params {
     float dw;      // -140/pi
     float eps;
     float nalpha;  // -alpha
     float beta;
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[3][qi];
-    const float mq = f.in[4][qi];
-    const float v0q = f.in[5][qi];
-    const float v1q = f.in[6][qi];
-    const float rhoq = f.in[7][qi];
-    const float aq = f.in[8][qi];
-    const float cq = f.in[9][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[3];
+    const float mq = q[4];
+    const float v0q = q[5];
+    const float v1q = q[6];
+    const float rhoq = q[7];
+    const float aq = q[8];
+    const float cq = q[9];
     const float r = sqrtf(r2);
     const float h_ij = 0.5f * (p[3] + hq);
     const float hinv = pdiv<FAST>(1.0f, h_ij);
@@ -213,14 +218,20 @@ struct Momentum {
     const float ker = prm.dw * t * t * t * (hinv2 * hinv2);
     const float dv0 = p[5] - v0q;
     const float dv1 = p[6] - v1q;
-    const float dot = d0 * dv0 + d1 * dv1;
+    const float dot = d[0] * dv0 + d[1] * dv1;
     const float c_ij = 0.5f * (p[9] + cq);
     const float rho_ij = 0.5f * (p[7] + rhoq);
     const float mu = pdiv<FAST>(h_ij * dot, r2 + prm.eps * h_ij * h_ij);
     const float pi = pdiv<FAST>(prm.nalpha * c_ij * mu + prm.beta * mu * mu, rho_ij);
     const float s = -mq * ker * (p[8] + aq + (dot < 0.0f ? pi : 0.0f));
-    tot[0] += s * d0;
-    tot[1] += s * d1;
+    tot[0] += s * d[0];
+    tot[1] += s * d[1];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -254,11 +265,15 @@ struct Pressure {
 //       + [x.v<0] (-m_q) Pi_ij rDW(h_ij)
 // fields: occ, x0, x1, h, m, v0, v1, rho_f, c, Ag = A^(1/gamma),
 // Pe = max(P, P_floor)^(1-2/gamma) and, with SPLIT, Abg = A_bg^(1/gamma),
-// Pbe = max(P_bg, P_floor)^(1-2/gamma).
+// Pbe = max(P_bg, P_floor)^(1-2/gamma). q's planes read by the body beyond
+// the occupancy and position: h and QMASK (m, v0, v1, rho_f, c, Ag, Pe:
+// planes 4-10, and with SPLIT Abg, Pbe: planes 11-12; without it those two
+// planes may be null, and QMASK leaves them out).
 template <bool FAST, bool SPLIT>
 struct Hopkins {
   static constexpr int NIN = SPLIT ? 13 : 11;
   static constexpr int NOUT = 2;
+  static constexpr unsigned QMASK = SPLIT ? 0x1FF0u : 0x7F0u;
   struct Params {
     float dw;      // -140/pi
     float eps;
@@ -271,29 +286,29 @@ struct Hopkins {
     const float hinv2 = hinv * hinv;
     return dw * t * t * t * (hinv2 * hinv2);
   }
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[3][qi];
-    const float mq = f.in[4][qi];
-    const float v0q = f.in[5][qi];
-    const float v1q = f.in[6][qi];
-    const float rhoq = f.in[7][qi];
-    const float cq = f.in[8][qi];
-    const float agq = f.in[9][qi];
-    const float peq = f.in[10][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[3];
+    const float mq = q[4];
+    const float v0q = q[5];
+    const float v1q = q[6];
+    const float rhoq = q[7];
+    const float cq = q[8];
+    const float agq = q[9];
+    const float peq = q[10];
     const float r = sqrtf(r2);
     const float ker_i = rdw(p[3], r, prm.dw);
     const float ker_j = rdw(hq, r, prm.dw);
     float s = -mq * p[9] * agq * (p[10] * ker_i + peq * ker_j);
     if constexpr (SPLIT) {
-      const float abq = f.in[11][qi];
-      const float pbq = f.in[12][qi];
+      const float abq = q[11];
+      const float pbq = q[12];
       s = s + mq * p[11] * abq * (p[12] * ker_i + pbq * ker_j);
     }
     const float dv0 = p[5] - v0q;
     const float dv1 = p[6] - v1q;
-    const float dot = d0 * dv0 + d1 * dv1;
+    const float dot = d[0] * dv0 + d[1] * dv1;
     const float h_ij = 0.5f * (p[3] + hq);
     const float ker = rdw(h_ij, r, prm.dw);
     const float c_ij = 0.5f * (p[8] + cq);
@@ -302,8 +317,14 @@ struct Hopkins {
     const float pi = pdiv<FAST>(prm.nalpha * c_ij * mu + prm.beta * mu * mu, rho_ij);
     const float visc = (dot < 0.0f ? 1.0f : 0.0f) * (-mq) * pi * ker;
     s = s + visc;
-    tot[0] += s * d0;
-    tot[1] += s * d1;
+    tot[0] += s * d[0];
+    tot[1] += s * d[1];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1231,8 +1252,9 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 }
 
 // The tiled 9-cell sweep of the Pavelka continuity and fused momentum +
-// entropy (pallas_pairs.py pavelka_mass_pass, pavelka_momentum_entropy_pass):
-// pair_sweep3_tiled's design in 2-D. One block is TX consecutive x-cells of
+// entropy, the flagship momentum and the Hopkins momentum (pallas_pairs.py
+// pavelka_mass_pass, pavelka_momentum_entropy_pass, momentum_pass,
+// hopkins_momentum_pass): pair_sweep3_tiled's design in 2-D. One block is TX consecutive x-cells of
 // one grid row cy times every p rank: thread (threadIdx.x, threadIdx.y) =
 // (tx, k) owns slot (rank k, cell x0 + tx). Blocks run x-tiles fastest, then
 // rows, so the three rows a tile reads stay in L2 for the tiles that share
@@ -1249,11 +1271,11 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 //          between a copy and its use and another before a stage is
 //          overwritten (pair_sweep3_tiled's pipeline);
 //   true:  every rank up to the bound copied in one go, one barrier (a
-//          stage is small in 2-D: (TX+2) x 3 cells, 3.7 KB and 4.5 KB at
-//          TX 32 for the two bodies, so cap 8 ranks take 29 and 36 KB).
+//          stage is small in 2-D: (TX+2) x 3 cells, 3.7 to 5.3 KB at TX 32
+//          for 9 to 13 staged planes, so cap 8 ranks take 29 to 42 KB).
 // The thread of an occupied p slot then takes its 9 cells per rank in
 // pair_sweep's order (dj, then di), skips the self pair by (di, dj, kq) ==
-// (0, 0, k) (neither Pavelka sweep counts it) and an empty q cell before
+// (0, 0, k) (none of these sweeps counts it) and an empty q cell before
 // any arithmetic on it, sums the pairs
 // into tot and adds tot to acc: the same operations in the same order, and
 // the ranks it skips would add exact zeros, so the outputs equal
@@ -1262,19 +1284,22 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // threads; block 0 writes the trash column. No TMA, for the reason
 // pair_sweep3_tiled gives.
 //
-// At the Pavelka size (N = 978,463, grid 1792 x 144, cap 8: TX 32, 256
+// At the flagship size (N = 978,463, grid 1792 x 144, cap 8: TX 32, 256
 // threads, 8,064 blocks) pair_sweep reads the 8.3 MB planes from HBM once per
-// p rank (its grid runs the p rank slowest, and the fused sweep's 12 planes
-// do not fit in the 50 MB L2), each candidate a chain of dependent gathers.
-// Here each block reads each q plane's (TX+2) x 3 cells of a rank once:
-// 0.095 and 0.115 ms on an H100 against pair_sweep's 0.26 and 0.29 ms, 15
-// and 20 % of the byte bound (47.9 and 76.1 MB); every rank at once is 3
-// and 12 % faster than the pipeline, and half of a working block's warps
-// (ranks 4-7 of a cap-8 bucket holding ~4 particles a cell) only stage.
+// p rank (its grid runs the p rank slowest, and 10-13 planes do not fit in
+// the 50 MB L2), each candidate a chain of dependent gathers. Here each block
+// reads each q plane's (TX+2) x 3 cells of a rank once. On an H100, against
+// pair_sweep: Pavelka continuity 0.095 ms (0.26), fused 0.115 (0.29),
+// momentum 0.085 (0.21), Hopkins split 0.113 (0.24) and total 0.096 (0.24),
+// 15-21 % of the byte bound; every rank at once is 3-24 % faster than the
+// pipeline, and half of a working block's warps (ranks 4-7 of a cap-8
+// bucket holding ~4 particles a cell) only stage.
 template <class Body, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
                  Layout g, typename Body::Params prm, int stage_f4) {
+  static_assert((Body::QMASK & 0xFu) == 0 && (Body::QMASK >> Body::NIN) == 0,
+                "QMASK names planes 4..NIN-1 only");
   constexpr int NE = staged_count(Body::QMASK);  // scalar planes per cell
   extern __shared__ float4 stage[];
   const int TX = blockDim.x;
@@ -1420,7 +1445,7 @@ int launch_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Pavelka exports: the tiled launch (TILED) on the plan (tx,
+// The tiled 2-D exports: the tiled launch (TILED) on the plan (tx,
 // smem_bytes), or pair_sweep (the "_direct" yardsticks, which take no plan).
 template <bool TILED, class Body>
 int launch2(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
@@ -1463,6 +1488,46 @@ int pavelka_momentum_entropy(const Planes<12, 3>& f, const int* kmax,
                                                       tx, smem_bytes, s);
 }
 
+template <bool TILED>
+int momentum(const Planes<10, 2>& f, const int* kmax, const Layout& g,
+             float dw, float eps, float nalpha, float beta, int fast_math,
+             int tx, int smem_bytes, cudaStream_t s) {
+  return fast_math
+      ? launch2<TILED, Momentum<true>>(f, kmax, g, {dw, eps, nalpha, beta}, tx,
+                                       smem_bytes, s)
+      : launch2<TILED, Momentum<false>>(f, kmax, g, {dw, eps, nalpha, beta},
+                                        tx, smem_bytes, s);
+}
+
+// in: the 13 planes in order, abg and pbe (the last two) read only with
+// background_split (null otherwise)
+template <bool TILED>
+int hopkins_momentum(const float* const* in, float* dv0, float* dv1,
+                     const int* kmax, const Layout& g, float dw, float eps,
+                     float nalpha, float beta, int background_split,
+                     int fast_math, int tx, int smem_bytes, cudaStream_t s) {
+  if (background_split) {
+    Planes<13, 2> f{{}, {dv0, dv1}};
+    for (int i = 0; i < 13; ++i) f.in[i] = in[i];
+    return fast_math
+        ? launch2<TILED, Hopkins<true, true>>(f, kmax, g,
+                                              {dw, eps, nalpha, beta}, tx,
+                                              smem_bytes, s)
+        : launch2<TILED, Hopkins<false, true>>(f, kmax, g,
+                                               {dw, eps, nalpha, beta}, tx,
+                                               smem_bytes, s);
+  }
+  Planes<11, 2> f{{}, {dv0, dv1}};
+  for (int i = 0; i < 11; ++i) f.in[i] = in[i];
+  return fast_math
+      ? launch2<TILED, Hopkins<true, false>>(f, kmax, g,
+                                             {dw, eps, nalpha, beta}, tx,
+                                             smem_bytes, s)
+      : launch2<TILED, Hopkins<false, false>>(f, kmax, g,
+                                              {dw, eps, nalpha, beta}, tx,
+                                              smem_bytes, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1484,22 +1549,37 @@ int density_sweep(const float* occ, const float* x0, const float* x1,
                    : launch<Density, false>(f, kmax, g, prm, s);
 }
 
+// The flagship momentum, the Hopkins momentum and the Pavelka sweeps launch
+// pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper passes, with kmax
+// int32 [ny*ntiles] (one bound per x-tile, ntiles = ceil(nx / tx)); their
+// "_direct" exports launch pair_sweep (one thread per slot, q read from the
+// planes, kmax int32 [ny] per grid row), the design the tiled one replaced: a
+// yardstick, on no path.
 int momentum_sweep(const float* occ, const float* x0, const float* x1,
                    const float* h, const float* m, const float* v0,
                    const float* v1, const float* rho, const float* aterm,
                    const float* cs, const int* kmax, float* dv0, float* dv1,
                    int cap, int nx, int ny, float h2, float dw, float eps,
-                   float nalpha, float beta, int fast_math, void* stream) {
-  const Layout g{cap, nx, ny, h2};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (fast_math) {
-    Planes<Momentum<true>::NIN, Momentum<true>::NOUT> f{
-        {occ, x0, x1, h, m, v0, v1, rho, aterm, cs}, {dv0, dv1}};
-    return launch<Momentum<true>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
-  }
-  Planes<Momentum<false>::NIN, Momentum<false>::NOUT> f{
-      {occ, x0, x1, h, m, v0, v1, rho, aterm, cs}, {dv0, dv1}};
-  return launch<Momentum<false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
+                   float nalpha, float beta, int fast_math, int tx,
+                   int smem_bytes, void* stream) {
+  return momentum<true>({{occ, x0, x1, h, m, v0, v1, rho, aterm, cs},
+                         {dv0, dv1}},
+                        kmax, {cap, nx, ny, h2}, dw, eps, nalpha, beta,
+                        fast_math, tx, smem_bytes,
+                        static_cast<cudaStream_t>(stream));
+}
+
+int momentum_sweep_direct(const float* occ, const float* x0, const float* x1,
+                          const float* h, const float* m, const float* v0,
+                          const float* v1, const float* rho,
+                          const float* aterm, const float* cs, const int* kmax,
+                          float* dv0, float* dv1, int cap, int nx, int ny,
+                          float h2, float dw, float eps, float nalpha,
+                          float beta, int fast_math, void* stream) {
+  return momentum<false>({{occ, x0, x1, h, m, v0, v1, rho, aterm, cs},
+                          {dv0, dv1}},
+                         kmax, {cap, nx, ny, h2}, dw, eps, nalpha, beta,
+                         fast_math, 0, 0, static_cast<cudaStream_t>(stream));
 }
 
 int pressure_sweep(const float* occ, const float* x0, const float* x1,
@@ -1523,27 +1603,28 @@ int hopkins_momentum_sweep(const float* occ, const float* x0, const float* x1,
                            const float* pbe, const int* kmax, float* dv0,
                            float* dv1, int cap, int nx, int ny, float h2,
                            float dw, float eps, float nalpha, float beta,
-                           int background_split, int fast_math, void* stream) {
-  const Layout g{cap, nx, ny, h2};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (background_split) {
-    Planes<13, 2> f{{occ, x0, x1, h, m, v0, v1, rho, cs, ag, pe, abg, pbe},
-                    {dv0, dv1}};
-    return fast_math
-        ? launch<Hopkins<true, true>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s)
-        : launch<Hopkins<false, true>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
-  }
-  Planes<11, 2> f{{occ, x0, x1, h, m, v0, v1, rho, cs, ag, pe}, {dv0, dv1}};
-  return fast_math
-      ? launch<Hopkins<true, false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s)
-      : launch<Hopkins<false, false>, false>(f, kmax, g, {dw, eps, nalpha, beta}, s);
+                           int background_split, int fast_math, int tx,
+                           int smem_bytes, void* stream) {
+  const float* in[13] = {occ, x0, x1, h, m, v0, v1, rho, cs, ag, pe, abg, pbe};
+  return hopkins_momentum<true>(in, dv0, dv1, kmax, {cap, nx, ny, h2}, dw, eps,
+                                nalpha, beta, background_split, fast_math, tx,
+                                smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// The Pavelka sweeps launch pair_sweep_tiled on the plan (tx, smem_bytes)
-// the wrapper passes, with kmax int32 [ny*ntiles] (one bound per x-tile,
-// ntiles = ceil(nx / tx)); their "_direct" exports launch pair_sweep (one
-// thread per slot, q read from the planes, kmax int32 [ny] per grid row),
-// the design the tiled one replaced: a yardstick, on no path.
+int hopkins_momentum_sweep_direct(
+    const float* occ, const float* x0, const float* x1, const float* h,
+    const float* m, const float* v0, const float* v1, const float* rho,
+    const float* cs, const float* ag, const float* pe, const float* abg,
+    const float* pbe, const int* kmax, float* dv0, float* dv1, int cap, int nx,
+    int ny, float h2, float dw, float eps, float nalpha, float beta,
+    int background_split, int fast_math, void* stream) {
+  const float* in[13] = {occ, x0, x1, h, m, v0, v1, rho, cs, ag, pe, abg, pbe};
+  return hopkins_momentum<false>(in, dv0, dv1, kmax, {cap, nx, ny, h2}, dw,
+                                 eps, nalpha, beta, background_split,
+                                 fast_math, 0, 0,
+                                 static_cast<cudaStream_t>(stream));
+}
+
 int pavelka_mass_sweep(const float* occ, const float* x0, const float* x1,
                        const float* h, const float* v0, const float* v1,
                        const float* rho, const float* wq, const float* fluid,

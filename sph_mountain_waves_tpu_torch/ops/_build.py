@@ -34,15 +34,17 @@ SIGNATURES = {
         # occ, x0, x1, 1/h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, stream
         "density_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
         # 10 planes, kmax, 2 outs, cap, nx, ny, h2, dw, eps, -alpha, beta,
-        # fast_math, stream
-        "momentum_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5 + [_I, _P], _I),
+        # fast_math, the tiled sweep's plan (TX, dynamic shared bytes),
+        # stream; kmax is one bound per x-tile
+        "momentum_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5 + [_I] * 3 + [_P],
+                           _I),
         # occ, x0, x1, h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, stream
         "pressure_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
         # 13 planes (the last two null without the split), kmax, 2 outs, cap,
         # nx, ny, h2, dw, eps, -alpha, beta, background_split, fast_math,
-        # stream
+        # the plan (TX, dynamic shared bytes), stream; one bound per x-tile
         "hopkins_momentum_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 5
-                                   + [_I, _I, _P], _I),
+                                   + [_I] * 4 + [_P], _I),
         # 9 planes, kmax, out, cap, nx, ny, h2, dw, 2nu, fixed_diffusion,
         # fast_math, the tiled sweep's plan (TX, dynamic shared bytes),
         # stream; kmax is one bound per x-tile
@@ -52,8 +54,12 @@ SIGNATURES = {
         # the plan (TX, dynamic shared bytes), stream; one bound per x-tile
         "pavelka_momentum_entropy_sweep": ([_P] * 16 + [_I] * 3 + [_F] * 4
                                            + [_I] * 3 + [_P], _I),
-        # their "_direct" yardsticks (the one-thread-per-slot design): no
-        # plan, one bound per grid row
+        # the "_direct" yardsticks of the four tiled 2-D sweeps (the
+        # one-thread-per-slot design): no plan, one bound per grid row
+        "momentum_sweep_direct": ([_P] * 13 + [_I] * 3 + [_F] * 5
+                                  + [_I, _P], _I),
+        "hopkins_momentum_sweep_direct": ([_P] * 16 + [_I] * 3 + [_F] * 5
+                                          + [_I, _I, _P], _I),
         "pavelka_mass_sweep_direct": ([_P] * 11 + [_I] * 3 + [_F] * 3
                                       + [_I, _I, _P], _I),
         "pavelka_momentum_entropy_sweep_direct": ([_P] * 16 + [_I] * 3

@@ -46,12 +46,12 @@ Each sweep has two implementations:
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``. The 3-D density, momentum and dam-break
-  sweeps and the two Pavelka sweeps run the tiled design (``_tile_plan``:
-  one block per x-tile of a grid row covering every p rank, q ranks staged
-  in shared memory, each tile walking the q ranks to its own bound,
-  ``tile_kmax``); ``tiled_yardsticks`` launches them beside the
-  one-thread-per-slot design they replaced, for timing and for bit-for-bit
-  comparison only;
+  sweeps, the 2-D momentum and Hopkins momentum and the two Pavelka sweeps
+  run the tiled design (``_tile_plan``: one block per x-tile of a grid row
+  covering every p rank, q ranks staged in shared memory, each tile walking
+  the q ranks to its own bound, ``tile_kmax``); ``tiled_yardsticks``
+  launches them beside the one-thread-per-slot design they replaced, for
+  timing and for bit-for-bit comparison only;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
   vectorised over shifted views of the padded ``[cap, (nz+2,) ny+2, nx+2]``
   grid. The wrapper takes it for CPU tensors only.
@@ -1139,16 +1139,44 @@ _MAX_SHARED_BYTES = 232_448
 # body every plane of q, the 3-D dam-break bodies v and ρ or v and P/ρ² (the
 # force's FLUID gate is read on the p side only); the Pavelka continuity h,
 # v, ρ_f, wq and the FLUID gate, the fused Pavelka sweep h, m, v, ρ_f, wq,
-# P/ρ_f² and the FLUID gate (T_f is read on the p side only)
+# P/ρ_f² and the FLUID gate (T_f is read on the p side only); the 2-D
+# momentum every plane of q; the Hopkins momentum every plane of q, 11 in
+# the total form and 13 with the background split (A_bg^{1/γ} and P_bg,e),
+# keyed by ``background_split`` (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
-                 "pavelka_momentum_entropy_sweep": 11}
+                 "pavelka_momentum_entropy_sweep": 11,
+                 "momentum_sweep": 10,
+                 "hopkins_momentum_sweep": {False: 11, True: 13}}
 # the 2-D tiled sweep's staging scheme: every q rank up to the tile's bound
 # in one go (one barrier) rather than the two-stage pipeline the 3-D sweep
 # runs; both give the same outputs bit for bit, and this one was the faster
 # on an H100 (PERF.md §6)
 _EVERY_RANK = True
+
+
+def _staged(fn_name: str, background_split: bool | None = None) -> int:
+    """The q planes the tiled export ``fn_name`` stages a cell. The Hopkins
+    momentum's count depends on its form, so ``background_split`` must be
+    given for it (and only for it): neither form takes the other's plan."""
+    staged = _TILED_STAGED[fn_name]
+    if isinstance(staged, dict) != (background_split is not None):
+        raise ValueError(f"{fn_name}: background_split is "
+                         + ("needed" if isinstance(staged, dict)
+                            else "the Hopkins momentum's alone"))
+    return staged[bool(background_split)] if isinstance(staged, dict) else staged
+
+
+def _tile_tx(engine) -> int:
+    """The tiled sweeps' x-cells per block, min(32, 256 // cap), whatever
+    they stage; raises ValueError for a cap the templates cannot take."""
+    cap = engine.cap
+    if not 1 <= cap <= _TILE_THREADS:
+        raise ValueError(f"the tiled sweep takes 1 to {_TILE_THREADS} "
+                         f"ranks per cell (a block thread per p slot), got "
+                         f"cap {cap}")
+    return min(_TILE_MAX_X, _TILE_THREADS // cap)
 
 
 def _tile_plan(engine, staged: int, every_rank: bool | None = None
@@ -1165,14 +1193,10 @@ def _tile_plan(engine, staged: int, every_rank: bool | None = None
         raise ValueError("the tiled 3-D sweep stages two ranks at a time")
     if every_rank is None:
         every_rank = engine.dim == 2 and _EVERY_RANK
-    if not 1 <= cap <= _TILE_THREADS:
-        raise ValueError(f"the tiled sweep takes 1 to {_TILE_THREADS} "
-                         f"ranks per cell (a block thread per p slot), got "
-                         f"cap {cap}")
+    tx = _tile_tx(engine)
     if staged < 4:
         raise ValueError(f"the tiled sweep stages 4 planes a cell at least "
                          f"(one float4), got {staged}")
-    tx = min(_TILE_MAX_X, _TILE_THREADS // cap)
     cells = (tx + 2) * 3 ** (engine.dim - 1)
     stage = (cells * 4 * staged + 15) // 16 * 16
     stages = max(cap, 2) if every_rank else 2
@@ -1195,10 +1219,8 @@ def _trip_bound(fn_name: str, engine, state: ParticleState) -> torch.Tensor:
     """The q-rank trip bound the export ``fn_name`` (named as ``_launch``
     names it) reads: one per x-tile (``tile_kmax``) for a tiled export, one
     per grid row (``row_kmax``'s band) for the others."""
-    name = _export(fn_name, engine)
-    if name in _TILED_STAGED:
-        return tile_kmax(engine, state,
-                         _tile_plan(engine, _TILED_STAGED[name]).tx)
+    if _export(fn_name, engine) in _TILED_STAGED:
+        return tile_kmax(engine, state, _tile_tx(engine))
     return row_kmax(engine, state)[0]
 
 
@@ -1207,12 +1229,13 @@ def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
     names) on the current stream with the trip bound ``band`` (as
     ``_trip_bound`` gives it); raise if the launch was refused. A tiled
     export gets its plan (TX, dynamic shared bytes) after the scalars:
-    ``plan``, or ``_tile_plan``'s by default."""
+    ``plan``, or ``_tile_plan``'s by default (the Hopkins momentum has none:
+    its caller passes the plan of its form)."""
     fn_name = _export(fn_name, engine)
     rows = engine.num_cells // engine.lims[0]
     n_bound = rows
     if fn_name in _TILED_STAGED:
-        plan = plan or _tile_plan(engine, _TILED_STAGED[fn_name])
+        plan = plan or _tile_plan(engine, _staged(fn_name))
         scalars = list(scalars) + [plan.tx, plan.smem_bytes]
         n_bound = rows * -(-engine.lims[0] // plan.tx)
     _check_planes(engine, planes, band, n_bound)
@@ -1291,12 +1314,15 @@ def momentum_pass(engine, state: ParticleState, cfg):
     return outs
 
 
-def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg):
+def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
+                     background_split: bool | None = None):
     """Launches of a tiled sweep (``"density_sweep_3d"``, with the self pair
     per ``cfg.self_density``, ``"momentum_sweep_3d"``,
     ``"dambreak_mass_sweep_3d"``, ``"dambreak_force_sweep_3d"``,
-    ``"pavelka_mass_sweep"`` or ``"pavelka_momentum_entropy_sweep"``) on
-    planes and trip bounds prepared once from ``state``, by design:
+    ``"pavelka_mass_sweep"``, ``"pavelka_momentum_entropy_sweep"``, the 2-D
+    ``"momentum_sweep"`` or ``"hopkins_momentum_sweep"`` in the form
+    ``background_split`` names) on planes and trip bounds prepared once from
+    ``state``, by design:
     ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
     ``"tiled_row_band"`` (the same export with each tile's bound its row's
     band), ``"direct"`` (the one-thread-per-slot design it replaced, with
@@ -1323,20 +1349,32 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg):
     elif kernel == "pavelka_momentum_entropy_sweep":
         planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
         args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
+    elif kernel in ("momentum_sweep", "hopkins_momentum_sweep"):
+        # 2-D exports: a 3-D engine's momentum is "momentum_sweep_3d", and
+        # the Hopkins sweep has no 3-D form
+        _check_2d(engine, kernel)
+        if kernel == "momentum_sweep":
+            planes, _ = _momentum_inputs(engine, state, cfg)
+            args, n_out = _momentum_scalars(cfg) + [_fast(cfg)], 2
+        else:
+            planes, args = _hopkins_launch_inputs(engine, state, cfg,
+                                                  background_split)
+            n_out = 2
     else:
         raise ValueError(f"no tiled sweep {kernel!r}")
+    staged = _staged(kernel, background_split)
+    plan = _tile_plan(engine, staged)
     tile_band = _trip_bound(kernel, engine, state)
     row_band, _ = row_kmax(engine, state)
 
     def run(name, band, plan=None):
         return lambda: _launch(name, engine, planes, band, n_out, args, plan)
     per_tile = row_band.repeat_interleave(tile_band.numel() // row_band.numel())
-    runs = {"tiled": run(kernel, tile_band),
-            "tiled_row_band": run(kernel, per_tile),
+    runs = {"tiled": run(kernel, tile_band, plan),
+            "tiled_row_band": run(kernel, per_tile, plan),
             "direct": run(kernel + "_direct", row_band)}
     if engine.dim == 2:
-        other = _tile_plan(engine, _TILED_STAGED[kernel],
-                           every_rank=not _EVERY_RANK)
+        other = _tile_plan(engine, staged, every_rank=not _EVERY_RANK)
         name = "tiled_two_stages" if _EVERY_RANK else "tiled_every_rank"
         runs[name] = run(kernel, tile_band, other)
     return runs
@@ -1370,14 +1408,25 @@ def hopkins_momentum_pass(engine, state: ParticleState, cfg,
     if not _on_cuda(state.active):
         return hopkins_momentum_pass_plain(engine, state, cfg,
                                            background_split)
-    planes, _ = _hopkins_inputs(engine, state, cfg, background_split)
-    band, _ = row_kmax(engine, state)
-    outs = _launch("hopkins_momentum_sweep", engine,
-                   planes if background_split else planes + [None, None],
-                   band, 2, _momentum_scalars(cfg)
-                   + [int(bool(background_split)), _fast(cfg)])
+    planes, args = _hopkins_launch_inputs(engine, state, cfg,
+                                          background_split)
+    band = _trip_bound("hopkins_momentum_sweep", engine, state)
+    plan = _tile_plan(engine, _staged("hopkins_momentum_sweep",
+                                      background_split))
+    outs = _launch("hopkins_momentum_sweep", engine, planes, band, 2, args,
+                   plan)
     hopkins_momentum_pass.launches += 1
     return outs
+
+
+def _hopkins_launch_inputs(engine, state: ParticleState, cfg,
+                           background_split: bool):
+    """The Hopkins export's 13 plane pointers (A_bg^{1/γ} and P_bg,e null
+    in the total form, which reads neither) and its scalars."""
+    planes, _ = _hopkins_inputs(engine, state, cfg, background_split)
+    return (planes if background_split else planes + [None, None],
+            _momentum_scalars(cfg) + [int(bool(background_split)),
+                                      _fast(cfg)])
 
 
 def _pavelka_mass_scalars(cfg):

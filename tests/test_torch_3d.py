@@ -334,28 +334,54 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
     (8, "pavelka_momentum_entropy_sweep", True, (32, 256, 35968, 8)),
     (8, "pavelka_momentum_entropy_sweep", False, (32, 256, 8992, 2)),
     (24, "pavelka_mass_sweep", True, (10, 240, 31104, 24)),
-    (24, "pavelka_momentum_entropy_sweep", False, (10, 240, 3168, 2))],
+    (24, "pavelka_momentum_entropy_sweep", False, (10, 240, 3168, 2)),
+    (8, "momentum_sweep", True, (32, 256, 32640, 8)),
+    (8, "momentum_sweep", False, (32, 256, 8160, 2)),
+    (8, "hopkins_momentum_sweep total", True, (32, 256, 35968, 8)),
+    (8, "hopkins_momentum_sweep total", False, (32, 256, 8992, 2)),
+    (8, "hopkins_momentum_sweep split", True, (32, 256, 42496, 8)),
+    (8, "hopkins_momentum_sweep split", False, (32, 256, 10624, 2)),
+    (24, "momentum_sweep", True, (10, 240, 34560, 24)),
+    (24, "hopkins_momentum_sweep total", True, (10, 240, 38016, 24)),
+    (24, "hopkins_momentum_sweep split", True, (10, 240, 44928, 24)),
+    (24, "hopkins_momentum_sweep split", False, (10, 240, 3744, 2))],
     ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
-         "cap8-fused-two", "cap24-mass-every", "cap24-fused-two"])
+         "cap8-fused-two", "cap24-mass-every", "cap24-fused-two",
+         "cap8-momentum-every", "cap8-momentum-two", "cap8-total-every",
+         "cap8-total-two", "cap8-split-every", "cap8-split-two",
+         "cap24-momentum-every", "cap24-total-every", "cap24-split-every",
+         "cap24-split-two"])
 def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
     stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
     occupancy, x and h, then v, ρ_f, wq and the FLUID gate) and 11 (fused
-    sweep: the float4, m, v, ρ_f, wq, P/ρ_f² and the gate) q planes a cell:
-    the Pavelka size has cap 8 (TX 32), cap 24 gives TX 10; a stage is
-    (TX+2)·3 cells rounded up to 16 B, two of them or one per rank. The
-    wrapper's default is ``_EVERY_RANK``; a 3-D engine refuses the
-    every-rank scheme."""
+    sweep: the float4, m, v, ρ_f, wq, P/ρ_f² and the gate) q planes a cell,
+    the flagship momentum, which stages 10 (the float4, m, v, ρ_f, P′/ρ_f²,
+    c), and the Hopkins momentum, which stages 11 in its total form (the
+    float4, m, v, ρ_f, c, A^{1/γ}, P_e) and 13 with the background split
+    (A_bg^{1/γ}, P_bg,e besides): the flagship size has cap 8 (TX 32), cap
+    24 gives TX 10; a stage is (TX+2)·3 cells rounded up to 16 B, two of
+    them or one per rank. The wrapper's default is ``_EVERY_RANK``; a 3-D
+    engine refuses the every-rank scheme; the Hopkins count needs its form,
+    and only the Hopkins count takes one."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
     engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
-    staged = tps._TILED_STAGED[kernel]
+    name, _, form = kernel.partition(" ")
+    split = {"": None, "total": False, "split": True}[form]
+    staged = tps._staged(name, split)
     assert staged == {"pavelka_mass_sweep": 9,
-                      "pavelka_momentum_entropy_sweep": 11}[kernel]
+                      "pavelka_momentum_entropy_sweep": 11,
+                      "momentum_sweep": 10,
+                      "hopkins_momentum_sweep total": 11,
+                      "hopkins_momentum_sweep split": 13}[kernel]
     plan = tps._tile_plan(engine, staged, every_rank=every_rank)
     assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
     assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024
+    assert plan.tx == tps._tile_tx(engine)
     assert tps._tile_plan(engine, staged) == tps._tile_plan(
         engine, staged, every_rank=tps._EVERY_RANK)
     with pytest.raises(ValueError, match="two ranks"):
         tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=cap), staged,
                        every_rank=True)
+    with pytest.raises(ValueError, match="background_split"):
+        tps._staged(name, None if split is not None else False)

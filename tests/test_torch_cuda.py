@@ -64,11 +64,16 @@ def test_density_kernel_matches_twin(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
 def test_momentum_kernel_matches_twin(card, fast_math):
-    """Exact divides: the gate rtol 1e-5 / atol 1e-6. fast_math: the
-    hardware's approximate reciprocal, held within 1e-3 of max |Dv|."""
+    """The tiled 2-D momentum, bit for bit against the direct design, the
+    row band and the other staging scheme. Exact divides: the gate rtol
+    1e-5 / atol 1e-6. fast_math: the hardware's approximate reciprocal, held
+    within 1e-3 of max |Dv|."""
     eng, st = _live_state(card)
     cfg = dataclasses.replace(BENCH, fast_math=fast_math)
+    before = ps.momentum_pass.launches
     got = ps.momentum_pass(eng, st, cfg)
+    assert ps.momentum_pass.launches == before + 1
+    _held_to_designs("momentum_sweep", eng, st, cfg, got)
     ref = ps.momentum_pass_plain(eng, st, cfg)
     for g, r in zip(got, ref):
         if fast_math:
@@ -109,13 +114,16 @@ def test_pressure_kernel_matches_twin(card):
 @pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
 @pytest.mark.parametrize("split", [False, True], ids=["total", "split"])
 def test_hopkins_momentum_kernel_matches_twin(card, split, fast_math):
-    """Both forms of the Hopkins momentum, with the gates of the momentum
-    kernel; reruns bitwise equal."""
+    """Both forms of the tiled Hopkins momentum, each on its own plan, bit
+    for bit against the direct design, the row band and the other staging
+    scheme, with the gates of the momentum kernel; reruns bitwise equal."""
     eng, st = _live_state(card, fh)
     cfg = dataclasses.replace(BENCH, fast_math=fast_math)
     before = ps.hopkins_momentum_pass.launches
     got = ps.hopkins_momentum_pass(eng, st, cfg, split)
     assert ps.hopkins_momentum_pass.launches == before + 1
+    _held_to_designs("hopkins_momentum_sweep", eng, st, cfg, got,
+                     background_split=split)
     rerun = ps.hopkins_momentum_pass(eng, st, cfg, split)
     ref = ps.hopkins_momentum_pass_plain(eng, st, cfg, split)
     for g, g2, r in zip(got, rerun, ref):
@@ -216,13 +224,7 @@ def test_tiled_pavelka_reaches_every_edge(card, fast_math):
     staging scheme, and within their twins' gate."""
     cfg = dataclasses.replace(PV_BENCH, bucket_cap=24, fast_math=fast_math)
     eng, st = _live_state(card, pv, cfg)
-    ragged, idle_tiles, _ = _tiled_edges(eng, st, "pavelka_mass_sweep")
-    assert eng.cap == 24 and ragged and idle_tiles > 0
-    counts = eng.grid_view(st.active).sum(dim=0).to(torch.float32)
-    fewest = -torch.nn.functional.max_pool2d(
-        torch.nn.functional.pad(-counts, (1, 1, 1, 1), value=-1e9)[None, None],
-        3, stride=1)[0, 0]  # the fewest ranks among each cell's neighbours
-    assert bool(((counts > 0) & (counts - 1 >= fewest)).any())
+    _reaches_every_edge(eng, st, "pavelka_mass_sweep")
     for fixed in (True, False):
         c = dataclasses.replace(cfg, fixed_diffusion=fixed)
         got = ps.pavelka_mass_pass(eng, st, c)
@@ -233,6 +235,54 @@ def test_tiled_pavelka_reaches_every_edge(card, fast_math):
     _held_to_designs("pavelka_momentum_entropy_sweep", eng, st, cfg, got)
     _held_to_twin(got, ps.pavelka_momentum_entropy_pass(eng, st, cfg),
                   ps.pavelka_momentum_entropy_pass_plain(eng, st, cfg),
+                  fast_math)
+
+
+def _reaches_every_edge(eng, st, kernel):
+    """At cap 24 a tile is 10 x-cells: the tiny grid's 128 cells leave a
+    ragged last tile of 8; the grid has tiles with a trip bound of 0 (its
+    empty rows and columns) and occupied p ranks above a neighbour cell's
+    count (empty q slots beside full ones)."""
+    ragged, idle_tiles, _ = _tiled_edges(eng, st, kernel)
+    assert eng.cap == 24 and ragged and idle_tiles > 0
+    counts = eng.grid_view(st.active).sum(dim=0).to(torch.float32)
+    fewest = -torch.nn.functional.max_pool2d(
+        torch.nn.functional.pad(-counts, (1, 1, 1, 1), value=-1e9)[None, None],
+        3, stride=1)[0, 0]  # the fewest ranks among each cell's neighbours
+    assert bool(((counts > 0) & (counts - 1 >= fewest)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+def test_tiled_momentum_reaches_every_edge(card, fast_math):
+    """The tiled flagship momentum at cap 24 (``_reaches_every_edge``), bit
+    for bit against the direct design, the row band and the other staging
+    scheme, and within its twin's gate."""
+    cfg = dataclasses.replace(BENCH, bucket_cap=24, fast_math=fast_math)
+    eng, st = _live_state(card, w, cfg)
+    _reaches_every_edge(eng, st, "momentum_sweep")
+    got = ps.momentum_pass(eng, st, cfg)
+    _held_to_designs("momentum_sweep", eng, st, cfg, got)
+    _held_to_twin(got, ps.momentum_pass(eng, st, cfg),
+                  ps.momentum_pass_plain(eng, st, cfg), fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+@pytest.mark.parametrize("split", [False, True], ids=["total", "split"])
+def test_tiled_hopkins_reaches_every_edge(card, split, fast_math):
+    """The tiled Hopkins momentum at cap 24 (``_reaches_every_edge``), the
+    total form with null A_bg and P_bg,e planes, bit for bit against the
+    direct design, the row band and the other staging scheme, and within
+    its twin's gate."""
+    cfg = dataclasses.replace(BENCH, bucket_cap=24, fast_math=fast_math)
+    eng, st = _live_state(card, fh, cfg)
+    _reaches_every_edge(eng, st, "hopkins_momentum_sweep")
+    got = ps.hopkins_momentum_pass(eng, st, cfg, split)
+    _held_to_designs("hopkins_momentum_sweep", eng, st, cfg, got,
+                     background_split=split)
+    _held_to_twin(got, ps.hopkins_momentum_pass(eng, st, cfg, split),
+                  ps.hopkins_momentum_pass_plain(eng, st, cfg, split),
                   fast_math)
 
 
@@ -328,7 +378,7 @@ def _tiled_edges(eng, st, kernel="momentum_sweep_3d"):
     """The edges of a tiled sweep (2-D or 3-D) a state reaches: (a ragged
     last x-tile, tiles whose trip bound is 0, tiles with a bound > 0 but no
     occupied p slot)."""
-    tx = ps._tile_plan(eng, ps._TILED_STAGED[kernel]).tx
+    tx = ps._tile_tx(eng)
     bound = ps._trip_bound(kernel, eng, st)
     occ = eng.grid_view(st.active).sum(dim=0)            # [(nz,) ny, nx]
     nx = eng.lims[0]
@@ -345,18 +395,20 @@ _TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
                   "dambreak_force_sweep_3d": ps.dambreak_force_pass,
                   "pavelka_mass_sweep": ps.pavelka_mass_pass,
                   "pavelka_momentum_entropy_sweep":
-                      ps.pavelka_momentum_entropy_pass}
+                      ps.pavelka_momentum_entropy_pass,
+                  "momentum_sweep": ps.momentum_pass,
+                  "hopkins_momentum_sweep": ps.hopkins_momentum_pass}
 
 
-def _held_to_designs(kernel, eng, st, cfg, got):
+def _held_to_designs(kernel, eng, st, cfg, got, **kw):
     """The wrapper's outputs bit for bit equal to each design's: the tiled
     one it launches (with the per-tile trip bound, and on the row band), the
     one-thread-per-slot sweep it replaced (with the row band) and, in 2-D,
     the tiled sweep's other staging scheme. The yardsticks count no
-    launch."""
+    launch. ``kw``: the Hopkins momentum's ``background_split``."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
-    for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg).items():
+    for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg, **kw).items():
         out = run()
         assert all(torch.equal(a, b) for a, b in zip(got, out)), name
     assert wrapper.launches == before

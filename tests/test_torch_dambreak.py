@@ -30,7 +30,8 @@ What is compared, and at which tolerance:
   (6+2)×3×3 cells, exactly, on the tiny ``collapse3d`` state, on a
   hand-made occupancy (a 27-particle wall cell beside 8-particle cells, a
   ragged last tile) and on an empty grid; never above ``row_kmax``'s band;
-  the same in 2-D (the tiled Pavelka sweeps: (TX+2)×3 cells a tile) on the
+  the same in 2-D (the tiled Pavelka sweeps, the flagship momentum and the
+  Hopkins momentum: (TX+2)×3 cells a tile) on the
   tiny Pavelka state, a hand-made occupancy at cap 24 with full cells beside
   empty ones and a ragged last tile, and an empty grid;
 * ``run(cfg, out_path=..., device="cpu")`` of ``collapse_dry``: the file set,
@@ -238,9 +239,11 @@ def test_tile_kmax_matches_a_brute_force_count(case):
 
 @pytest.mark.parametrize("case", ["pavelka", "hand-made", "empty"])
 def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
-    """The per-tile trip bound of the tiled 2-D sweep (the Pavelka pair)
-    equals the largest count among each tile's (TX+2)×3 cells, exactly, and
-    is never above the row band of its row: on the tiny Pavelka state (cap
+    """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
+    the flagship momentum and the Hopkins momentum: each export's
+    ``_trip_bound``) equals the largest count among each tile's (TX+2)×3
+    cells, exactly, and is never above the row band of its row: on the tiny
+    Pavelka state (cap
     8, TX 32), on a hand-made occupancy at cap 24 (TX 10: 128 x-cells leave
     a ragged last tile of 8) with full cells beside empty ones, and on an
     empty grid."""
@@ -267,7 +270,9 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     assert case == "pavelka" or engine.lims[0] % tx == 8
     got = tps.tile_kmax(engine, state, tx)
     assert got.dtype == torch.int32
-    assert torch.equal(got, tps._trip_bound(kernel, engine, state))
+    for name in ("pavelka_mass_sweep", kernel, "momentum_sweep",
+                 "hopkins_momentum_sweep"):
+        assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
                                   _tile_kmax_brute(counts[None], tx))
     band, _ = tps.row_kmax(engine, state)
