@@ -104,7 +104,11 @@ Phases, each printing one or more lines:
      with the FLUID-gated weight) against their twins at full width: the
      isothermal-flow pair on the baseline after 50 steps, the others on the
      isothermal and adiabatic static configs' default sizes; exact divides,
-     fast_math, and the AV term; reruns bitwise equal;
+     fast_math, and the AV term with both; reruns bitwise equal; the
+     terrain force (the tiled 9-cell design, each AV form on its own plan)
+     with its tile plans, bit for bit against the one-thread-per-slot design
+     (``_direct``), the tiled export on the row band and its other staging
+     scheme;
  26. 8 small steps of each terrain variant, card against CPU twins;
  27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
      the first inflow spawn event), with the spawn events, spawn_drops, the
@@ -119,7 +123,10 @@ Phases, each printing one or more lines:
      coarse stencil's and one V-cycle's time; the three ISPH kernels
      (divergence/viscous, CG matvec on the first solve's P, pressure
      gradient) against their twins at full width, max abs err 0, reruns
-     bitwise; 2 small kicked steps card against CPU twins; the main path:
+     bitwise; the matvec (the tiled design, prepared once per solve) with its
+     tile plan, bit for bit against ``_direct``, the row band and the other
+     staging scheme, each prepared once; 2 small kicked steps card against
+     CPU twins; the main path:
      a warm-up frame of 5 steps and 20 timed steps with every launch
      counted, cg_it per step (matvec launches = sum of (cg_it + 1)), the
      last solve's cg_res, and over 2 more steps the kernel launches per CG
@@ -139,8 +146,9 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the nine tiled kernels (the flagship momentum, the Hopkins momentum in
-     both forms, the two Pavelka sweeps, witch3d's density and
+     the eleven tiled kernels (the flagship momentum, the Hopkins momentum in
+     both forms, the two Pavelka sweeps, the terrain force in both AV forms,
+     the ISPH matvec in its prepared form, witch3d's density and
      momentum, collapse3d's dam-break continuity and force) in turns with
      the design they replaced and with each tile's bound its row's band
      (direct, tiled, row band, row band, tiled, direct; the 2-D ones with
@@ -463,12 +471,20 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
                " % of them")
 
 
+FORMS = {"split": True, "total": False, "av": True, "no_av": False}
+
+
 def tiled_label(kernel):
-    """(export name, keyword arguments) of a tiled sweep's label: the
-    Hopkins momentum's carries its form ("hopkins_momentum_sweep split" or
-    "... total", ``background_split``), the others are export names."""
-    name, _, form = kernel.partition(" ")
-    return name, ({"background_split": form == "split"} if form else {})
+    """(export name, form, ``tiled_yardsticks``' keyword arguments) of a
+    tiled sweep's label: the Hopkins momentum's carries its form
+    ("hopkins_momentum_sweep split" or "... total": ``background_split``,
+    a keyword), the terrain force's its AV switch ("legacy_force_sweep av"
+    or "... no_av": the config's, so no keyword); the others are export
+    names (form None)."""
+    name, _, label = kernel.partition(" ")
+    form = FORMS[label] if label else None
+    kw = {"background_split": form} if name == "hopkins_momentum_sweep" else {}
+    return name, form, kw
 
 
 def tile_plan_line(ps, e, state, kernels):
@@ -488,8 +504,8 @@ def tile_plan_line(ps, e, state, kernels):
     rows = e.num_cells // nx
     parts = []
     for k in kernels:
-        name, kw = tiled_label(k)
-        staged = ps._staged(name, **kw)
+        name, form, _ = tiled_label(k)
+        staged = ps._staged(name, form)
         p = ps._tile_plan(e, staged)
         part = (f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} threads, "
                 f"{-(-nx // p.tx) * rows} blocks, {p.smem_bytes} B dynamic "
@@ -724,17 +740,29 @@ def isph_phase(dev, card, counters, errs, profile):
     errs["isph_grad_sweep"] = exact(
         "isph grad", ps.isph_grad_pass(e, st, cfg), ps.isph_grad_pass(e, st, cfg),
         ps.isph_grad_pass_plain(e, st, cfg))
+    # the matvec runs the tiled design, prepared once per solve: held bit for
+    # bit against every other design, each prepared once as well
+    say(31, tile_plan_line(ps, e, st, ("isph_matvec_sweep",)))
     mv = ps.isph_matvec_prepared(e, st, cfg)
+    got = mv(f["P"]).clone()
     errs["isph_matvec_sweep"] = exact(
-        "isph matvec", [mv(f["P"]).clone()], [mv(f["P"]).clone()],
+        "isph matvec", [got], [mv(f["P"]).clone()],
         [ps.isph_matvec_pass_plain(e, st, cfg, f["P"])])
+    designs = ps.tiled_yardsticks("isph_matvec_sweep", e, st, cfg)
+    bad = [name for name, run in designs.items()
+           if not torch.equal(run(f["P"])[0], got)]
+    if bad:
+        raise AssertionError(f"isph matvec: the prepared tiled kernel differs "
+                             f"from {bad}")
+    held = {"isph_matvec_sweep": " (tiled, prepared), bit for bit equal to "
+                                 + ", ".join(designs) + ";"}
     for k, label in (("isph_div_visc_sweep", "div/visc (5 sums)"),
                      ("isph_grad_sweep", "pressure gradient"),
                      ("isph_matvec_sweep", "CG matvec on the first solve's P")):
-        say(31, f"ISPH {label} kernel vs twin at full width: max abs err "
-                f"{errs[k][0]:.1e} (max |out| {errs[k][1]:.4e}), rerun bitwise "
-                f"equal")
-    del st, W, mv
+        say(31, f"ISPH {label} kernel{held.get(k, '')} vs twin at full width: "
+                f"max abs err {errs[k][0]:.1e} (max |out| {errs[k][1]:.4e}), "
+                f"rerun bitwise equal")
+    del st, W, mv, designs
 
     # 2 small kicked steps: kernels on the card against the CPU twins (the
     # f32 CG's iterates depend on the reductions' order: the reference's
@@ -1741,19 +1769,27 @@ def main(profile: bool) -> None:
          ps.adia_density_pass_plain, False),
         ("adia_entropy_force_sweep", "adiabatic static",
          ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
+    # the terrain force runs the tiled design, each AV form on its own plan
+    say(25, tile_plan_line(ps, e24, live["terrain"][1],
+                           ("legacy_force_sweep no_av",
+                            "legacy_force_sweep av")))
     for key, where, kern, twin, divides in cases:
         e, st, base_cfg = live[where]
-        variants = ((0.0, False), (0.0, True), (0.05, False)) if divides else (
-            (0.0, False),)
+        variants = ((0.0, False), (0.0, True), (0.05, False),
+                    (0.05, True)) if divides else ((0.0, False),)
         for av, fm in variants:
             c = dataclasses.replace(base_cfg, av_alpha=av, fast_math=fm)
             as_list = (lambda o: o if isinstance(o, list) else [o])
+            label = f"{key} av={av} fast_math={fm}"
+            got = as_list(kern(e, st, c))
+            held = ("" if key != "legacy_force_sweep" else
+                    " (tiled), bit for bit equal to "
+                    + designs_equal(label, key, e, st, c, got))
             err, scale = kernel_vs_twin(
-                f"{key} av={av} fast_math={fm}", as_list(kern(e, st, c)),
-                as_list(kern(e, st, c)), as_list(twin(e, st, c)), fm,
-                scaled=True)
+                label, got, as_list(kern(e, st, c)), as_list(twin(e, st, c)),
+                fm, scaled=True)
             errs[f"{key}_av{int(av > 0)}_fm{int(fm)}"] = (err, scale)
-            say(25, f"{key} kernel vs twin on the {where} state, "
+            say(25, f"{key} kernel{held}; vs twin on the {where} state, "
                     f"av_alpha={av} fast_math={fm}: max abs err {err:.3e} "
                     f"(max |out| {scale:.4e}, rel {err / scale:.3e})"
                     + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
@@ -1912,7 +1948,11 @@ def main(profile: bool) -> None:
                 ps._legacy_force_scalars(c, d, adaptive),
                 ps._legacy_force_body(c, d, adaptive), d, False)
             planes_k = ps._legacy_force_planes(planes, c)
-            return (lambda: ps._launch(kernel, e, planes_k, band, n_out, args),
+            # the tiled terrain force takes the plan of its form
+            plan = None if adaptive else ps._tile_plan(
+                e, ps._staged(kernel, bool(c.av_alpha)))
+            return (lambda: ps._launch(kernel, e, planes_k, band, n_out, args,
+                                       plan),
                     lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
                                             self_pair),
                     lambda: ps._sweep_plain(e, planes, pads, band,
@@ -2094,15 +2134,21 @@ def main(profile: bool) -> None:
             ("hopkins_momentum_sweep total", e11, ht_state, cfg),
             ("pavelka_mass_sweep", e13, pv_state, pcfg),
             ("pavelka_momentum_entropy_sweep", e13, pv_state, pcfg),
+            ("legacy_force_sweep no_av", e24, t_state, tcfg),
+            ("legacy_force_sweep av", e24, t_state,
+             dataclasses.replace(tcfg, av_alpha=0.05)),
+            ("isph_matvec_sweep", e31, i_state, icfg),
             ("density_sweep_3d", e17, w3_state, wcfg),
             ("momentum_sweep_3d", e17, w3_state, wcfg),
             ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),
             ("dambreak_force_sweep_3d", c3_e, dam_state["collapse3d"],
              c3_cfg)):
         say(30, tile_plan_line(ps, e, s, (kernel,)) + " (the timed state)")
-        name, kw = tiled_label(kernel)
+        name, _, kw = tiled_label(kernel)
         runs = ps.tiled_yardsticks(name, e, s, c, **kw)
-        bound = timing[kernel]["bound_ms"]
+        # the terrain force's AV form has no row of its own: the main path's
+        # bound (without the AV term's operations) stands beside it
+        bound = timing[kernel if kernel in timing else name]["bound_ms"]
         other = tuple(n for n in runs
                       if n not in ("tiled", "tiled_row_band", "direct"))
         order = ("direct", "tiled", *other, "tiled_row_band",

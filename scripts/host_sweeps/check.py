@@ -1,7 +1,8 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D Pavelka pair, the 2-D flagship momentum and the Hopkins momentum in
-both forms) against the one-thread-per-slot design they replaced,
+the 2-D Pavelka pair, the 2-D flagship momentum, the Hopkins momentum in
+both forms, the terrain force with and without AV and the ISPH CG matvec in
+its prepared form) against the one-thread-per-slot design they replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -10,6 +11,7 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py            # every tiled sweep
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
     python scripts/host_sweeps/check.py momentum hopkins   # the 2-D momenta
+    python scripts/host_sweeps/check.py legacy isph   # terrain force, matvec
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -122,7 +124,8 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     ref = ref if isinstance(ref, list) else [ref]
     same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
     bound = ps._trip_bound(kernel, engine, state)
-    form = "".join(f" {k}={v}" for k, v in kw.items())
+    form = "".join(f" {k}={v}" for k, v in kw.items()) + (
+        f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else "")
     print(f"{kernel}{form} fast_math={ps._fast(cfg)}, lims {engine.lims}, "
           f"cap {engine.cap}: tiled == "
           f"{', '.join(runs)}; tiled == twin {same}; max |out| "
@@ -230,10 +233,43 @@ def main(which) -> None:
                                    ps.hopkins_momentum_pass_plain(e, s_, c_,
                                                                   split),
                                    background_split=split) or fm
+    if "legacy" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+        # the tiny terrain state; cap 16: TX 16 on 128 x-cells; cap 24: TX
+        # 10, a ragged last tile of 8
+        for cap in (None, 24):
+            cfg = lw.isothermal_flow_config(
+                n_rows=14, dom_length=40e3, h_m=2000.0, a=6e3,
+                dtype="float32", layout="bucket", skin=0.15, use_pallas=True,
+                bucket_cap=cap)
+            system = lw.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               rho=(0.99, 1.01, True), P=(0.99, 1.01, True))
+            for av in (0.0, 0.05):  # without AV: a null FLUID plane
+                for fm in (False, True):
+                    c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)
+                    ok &= held("legacy_force_sweep", system.engine, state, c,
+                               ps.legacy_force_pass_plain) or fm
+    if "isph" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+        # the tiny ISPH state, P drawn as the iterate; cap 16 (its own): TX
+        # 16; cap 8: TX 32
+        for cap in (None, 8):
+            cfg = iw.ISPHWitchConfig(n_rows=10, dtype="float32",
+                                     layout="bucket", skin=0.2,
+                                     use_pallas=True, bucket_cap=cap)
+            system = iw.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), P=(-1, 1, False))
+            ok &= held("isph_matvec_sweep", system.engine, state, cfg,
+                       lambda e, s_, c_: ps.isph_matvec_pass_plain(
+                           e, s_, c_, s_.fields["P"]))
     if not ok:
         raise AssertionError("a tiled sweep differs from its twin")
     print("host check passed")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["dam", "witch", "pavelka", "momentum", "hopkins"])
+    main(sys.argv[1:] or ["dam", "witch", "pavelka", "momentum", "hopkins",
+                          "legacy", "isph"])

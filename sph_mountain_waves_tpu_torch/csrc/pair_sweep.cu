@@ -73,9 +73,9 @@
 // and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
 // 16-byte shared load, the distance and its test), not the staging, paces
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The two
-// Pavelka sweeps, the flagship momentum and the Hopkins momentum run the same
-// design in 2-D, pair_sweep_tiled (9 cells); every other 2-D sweep still runs
-// pair_sweep.
+// Pavelka sweeps, the flagship momentum, the Hopkins momentum, the terrain
+// force with fixed h and the ISPH CG matvec run the same design in 2-D,
+// pair_sweep_tiled (9 cells); every other 2-D sweep still runs pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -688,41 +688,46 @@ struct LegacyMass {
 //   Pi = (-alpha c mu_av + 2 alpha mu_av^2) (ri_p + ri_q)/2,
 //   w -= fl_p fl_q [dot < 0] ker Pi.
 // Pt = P / max(rho, 1e-12)^2, ri = 1 / max(rho, 1e-12); fields occ, x[D],
-// (h,) v[D], m, Pt, ri (, fl = [type == FLUID] with AV).
+// (h,) v[D], m, Pt, ri (, fl = [type == FLUID] with AV). q's planes read by
+// the body beyond the occupancy and position: every other one (QMASK:
+// planes 4..NIN-1; with fixed h plane 3 is v0, which the tiled sweep stages
+// in the candidate's float4). Without AV the FLUID plane is null and not
+// among the NIN planes, so QMASK leaves it out.
 template <int D, bool ADAPTIVE_H, bool AV, bool FAST>
 struct LegacyForce {
   static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
   static constexpr int MO = VO + D;                      // m, Pt, ri, fl
   static constexpr int NIN = MO + (AV ? 4 : 3);
   static constexpr int NOUT = D;
+  static constexpr unsigned QMASK = ((1u << NIN) - 1u) & ~0xFu;
   using Params = LegacyParams;
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     float ker, di, hpq = 0.0f;
-    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+    float dot = d[0] * (p[VO] - q[VO]);
 #pragma unroll
-    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - q[VO + a]);
     if constexpr (ADAPTIVE_H) {
       const float hp = p[1 + D];
       const float hinv = pdiv<FAST>(1.0f, hp);
       const float t = fmaxf(1.0f - r * hinv, 0.0f);
       const float h2 = hinv * hinv;
       ker = prm.kc * t * t * t * (D == 2 ? h2 * h2 : h2 * h2 * hinv);
-      ker = ker * f.in[MO][qi];
-      hpq = hp + f.in[1 + D][qi];
+      ker = ker * q[MO];
+      hpq = hp + q[1 + D];
       di = pdiv<FAST>(dot, r2 + 0.0025f * hpq * hpq);
     } else {
       const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
-      ker = prm.kc * t * t * t * f.in[MO][qi];
+      ker = prm.kc * t * t * t * q[MO];
       di = pdiv<FAST>(dot, r2 + prm.eps_h2);
     }
-    const float riq = f.in[MO + 2][qi];
-    const float s = -ker * (p[MO + 1] + f.in[MO + 1][qi]);
+    const float riq = q[MO + 2];
+    const float s = -ker * (p[MO + 1] + q[MO + 1]);
     float w = prm.mu8 * ker * p[MO + 2] * riq * di;
     if constexpr (AV) {
-      const float both = p[MO + 3] * f.in[MO + 3][qi];
+      const float both = p[MO + 3] * q[MO + 3];
       const float mu_av = (ADAPTIVE_H ? 0.5f * hpq : prm.h0) * di;
       const float pi = (prm.nac * mu_av + prm.two_av * mu_av * mu_av) * 0.5f
                        * (p[MO + 2] + riq);
@@ -735,7 +740,7 @@ struct LegacyForce {
                               int64_t qi, float d0, float d1, float r2,
                               const Params& prm, float* tot) {
     const float d[2] = {d0, d1};
-    pair(p, f, qi, d, r2, prm, tot);
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -827,15 +832,24 @@ struct IsphDivVisc {
 };
 
 // ISPH CG matvec, off-diagonal part: sum_q rD(h0, r) v_q; fields: occ, x0,
-// x1 (prepared once per solve) and the iterate v (streamed per call).
+// x1 (prepared once per solve) and the iterate v (streamed per call). q's
+// only plane beyond the occupancy and position is v, plane 3: the tiled
+// sweep stages it in the candidate's float4 and no scalar plane (QMASK 0).
 struct IsphMatvec {
   static constexpr int NIN = 4;
   static constexpr int NOUT = 1;
+  static constexpr unsigned QMASK = 0u;
   using Params = IsphParams;
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    tot[0] += rd_spline23(sqrtf(r2), prm) * q[3];
+  }
   __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
                               int64_t qi, float d0, float d1, float r2,
                               const Params& prm, float* tot) {
-    tot[0] += rd_spline23(sqrtf(r2), prm) * f.in[3][qi];
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -941,22 +955,6 @@ int launch(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   const dim3 grid((columns + kBlock - 1) / kBlock, g.cap);
   pair_sweep<Body, SELF><<<grid, kBlock, 0, stream>>>(f, kmax, g, prm);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The legacy force's exports: the input pointers in plane order (the FLUID
-// gate, last, only with AV) and the fast_math switch.
-template <bool ADAPTIVE_H, bool AV>
-int legacy_force_launch(const float* const* in, const int* kmax, float* dv0,
-                        float* dv1, const Layout& g, const LegacyParams& prm,
-                        int fast_math, cudaStream_t s) {
-  using Exact = LegacyForce<2, ADAPTIVE_H, AV, false>;
-  using Fast = LegacyForce<2, ADAPTIVE_H, AV, true>;
-  Planes<Exact::NIN, Exact::NOUT> f{};
-  for (int i = 0; i < Exact::NIN; ++i) f.in[i] = in[i];
-  f.out[0] = dv0;
-  f.out[1] = dv1;
-  return fast_math ? launch<Fast, false>(f, kmax, g, prm, s)
-                   : launch<Exact, false>(f, kmax, g, prm, s);
 }
 
 template <bool AV>
@@ -1252,9 +1250,11 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 }
 
 // The tiled 9-cell sweep of the Pavelka continuity and fused momentum +
-// entropy, the flagship momentum and the Hopkins momentum (pallas_pairs.py
-// pavelka_mass_pass, pavelka_momentum_entropy_pass, momentum_pass,
-// hopkins_momentum_pass): pair_sweep3_tiled's design in 2-D. One block is TX consecutive x-cells of
+// entropy, the flagship momentum, the Hopkins momentum, the terrain force and
+// the ISPH CG matvec (pallas_pairs.py pavelka_mass_pass,
+// pavelka_momentum_entropy_pass, momentum_pass, hopkins_momentum_pass,
+// legacy_force_pass, isph_matvec_prepared): pair_sweep3_tiled's design in
+// 2-D. One block is TX consecutive x-cells of
 // one grid row cy times every p rank: thread (threadIdx.x, threadIdx.y) =
 // (tx, k) owns slot (rank k, cell x0 + tx). Blocks run x-tiles fastest, then
 // rows, so the three rows a tile reads stay in L2 for the tiles that share
@@ -1262,8 +1262,9 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // (ops/pair_sweeps.py::tile_kmax: the largest count among the (TX+2) x 3
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
-// for all p ranks: occupancy, x0, x1 and h as one float4 per cell (a
-// candidate is one 16-byte shared load), the other q planes the body reads
+// for all p ranks: occupancy, x0, x1 and plane 3 (h; v0 in the terrain force,
+// the iterate in the matvec) as one float4 per cell (a candidate is one
+// 16-byte shared load), the other q planes the body reads
 // (Body::QMASK) as scalars; 4-byte cp.async, cells outside the grid
 // zero-filled so that they read as unoccupied. Two staging schemes, one
 // template each (EVERY_RANK):
@@ -1293,7 +1294,11 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // momentum 0.085 (0.21), Hopkins split 0.113 (0.24) and total 0.096 (0.24),
 // 15-21 % of the byte bound; every rank at once is 3-24 % faster than the
 // pipeline, and half of a working block's warps (ranks 4-7 of a cap-8
-// bucket holding ~4 particles a cell) only stage.
+// bucket holding ~4 particles a cell) only stage. The terrain force runs at
+// cap 24 (N = 212,819, grid 256 x 72: TX 10, 240 threads, 1,872 blocks, a
+// ragged last tile of 6), the matvec at cap 8 (N = 207,672, grid 896 x 72:
+// TX 32, 2,016 blocks), each launch of the CG loop on the bound and plan
+// prepared once per solve.
 template <class Body, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1456,6 +1461,37 @@ int launch2(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   } else {
     return launch<Body, false>(f, kmax, g, prm, s);
   }
+}
+
+// The legacy force's exports: the input pointers in plane order (the FLUID
+// gate, last, only with AV), the fast_math switch and, for the tiled launch
+// (TILED, fixed h only), its plan (tx, smem_bytes).
+template <bool TILED, bool ADAPTIVE_H, bool AV>
+int legacy_force_launch(const float* const* in, const int* kmax, float* dv0,
+                        float* dv1, const Layout& g, const LegacyParams& prm,
+                        int fast_math, int tx, int smem_bytes,
+                        cudaStream_t s) {
+  static_assert(!(TILED && ADAPTIVE_H),
+                "the per-particle-h force is not tiled");
+  using Exact = LegacyForce<2, ADAPTIVE_H, AV, false>;
+  using Fast = LegacyForce<2, ADAPTIVE_H, AV, true>;
+  Planes<Exact::NIN, Exact::NOUT> f{};
+  for (int i = 0; i < Exact::NIN; ++i) f.in[i] = in[i];
+  f.out[0] = dv0;
+  f.out[1] = dv1;
+  return fast_math ? launch2<TILED, Fast>(f, kmax, g, prm, tx, smem_bytes, s)
+                   : launch2<TILED, Exact>(f, kmax, g, prm, tx, smem_bytes, s);
+}
+
+// the fixed-h terrain force in the form av names
+template <bool TILED>
+int legacy_force(const float* const* in, const int* kmax, float* dv0,
+                 float* dv1, const Layout& g, const LegacyParams& prm, int av,
+                 int fast_math, int tx, int smem_bytes, cudaStream_t s) {
+  return av ? legacy_force_launch<TILED, false, true>(
+                  in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s)
+            : legacy_force_launch<TILED, false, false>(
+                  in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s);
 }
 
 template <bool TILED>
@@ -1736,23 +1772,40 @@ int iso_static_mass_sweep(const float* occ, const float* x0, const float* x1,
                                              static_cast<cudaStream_t>(stream));
 }
 
-// fluid is read only with av (it may be null otherwise)
+// fluid is read only with av (it may be null otherwise). The terrain force
+// launches pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper passes,
+// with kmax int32 [ny*ntiles] (one bound per x-tile); the "_direct" export
+// launches pair_sweep (kmax int32 [ny] per grid row), the design the tiled
+// one replaced: a yardstick, on no path.
 int legacy_force_sweep(const float* occ, const float* x0, const float* x1,
                        const float* v0, const float* v1, const float* m,
                        const float* pterm, const float* rinv,
                        const float* fluid, const int* kmax, float* dv0,
                        float* dv1, int cap, int nx, int ny, float h2, float kc,
                        float hinv, float eps_h2, float mu8, float nac,
-                       float two_av, float h0, int av, int fast_math,
-                       void* stream) {
+                       float two_av, float h0, int av, int fast_math, int tx,
+                       int smem_bytes, void* stream) {
   const float* in[] = {occ, x0, x1, v0, v1, m, pterm, rinv, fluid};
-  const Layout g{cap, nx, ny, h2};
-  const LegacyParams prm{kc, hinv, eps_h2, mu8, 0.0f, nac, two_av, h0};
-  auto s = static_cast<cudaStream_t>(stream);
-  return av ? legacy_force_launch<false, true>(in, kmax, dv0, dv1, g, prm,
-                                               fast_math, s)
-            : legacy_force_launch<false, false>(in, kmax, dv0, dv1, g, prm,
-                                                fast_math, s);
+  return legacy_force<true>(in, kmax, dv0, dv1, {cap, nx, ny, h2},
+                            {kc, hinv, eps_h2, mu8, 0.0f, nac, two_av, h0}, av,
+                            fast_math, tx, smem_bytes,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int legacy_force_sweep_direct(const float* occ, const float* x0,
+                              const float* x1, const float* v0,
+                              const float* v1, const float* m,
+                              const float* pterm, const float* rinv,
+                              const float* fluid, const int* kmax, float* dv0,
+                              float* dv1, int cap, int nx, int ny, float h2,
+                              float kc, float hinv, float eps_h2, float mu8,
+                              float nac, float two_av, float h0, int av,
+                              int fast_math, void* stream) {
+  const float* in[] = {occ, x0, x1, v0, v1, m, pterm, rinv, fluid};
+  return legacy_force<false>(in, kmax, dv0, dv1, {cap, nx, ny, h2},
+                             {kc, hinv, eps_h2, mu8, 0.0f, nac, two_av, h0},
+                             av, fast_math, 0, 0,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // fluid is read only with av (it may be null otherwise)
@@ -1768,10 +1821,10 @@ int iso_static_force_sweep(const float* occ, const float* x0, const float* x1,
   const Layout g{cap, nx, ny, h2};
   const LegacyParams prm{dw, 0.0f, 0.0f, mu8, 0.0f, nac, two_av, 0.0f};
   auto s = static_cast<cudaStream_t>(stream);
-  return av ? legacy_force_launch<true, true>(in, kmax, dv0, dv1, g, prm,
-                                              fast_math, s)
-            : legacy_force_launch<true, false>(in, kmax, dv0, dv1, g, prm,
-                                               fast_math, s);
+  return av ? legacy_force_launch<false, true, true>(in, kmax, dv0, dv1, g,
+                                                     prm, fast_math, 0, 0, s)
+            : legacy_force_launch<false, true, false>(in, kmax, dv0, dv1, g,
+                                                      prm, fast_math, 0, 0, s);
 }
 
 int adia_entropy_force_sweep(const float* occ, const float* x0,
@@ -1806,13 +1859,25 @@ int isph_div_visc_sweep(const float* occ, const float* x0, const float* x1,
                                     static_cast<cudaStream_t>(stream));
 }
 
+// The CG matvec launches pair_sweep_tiled on the plan (tx, smem_bytes) the
+// prepared wrapper passes, with kmax int32 [ny*ntiles] (one bound per
+// x-tile); the "_direct" export launches pair_sweep (kmax int32 [ny] per grid
+// row), the design the tiled one replaced: a yardstick, on no path.
 int isph_matvec_sweep(const float* occ, const float* x0, const float* x1,
                       const float* v, const int* kmax, float* out, int cap,
-                      int nx, int ny, float h2, float hinv, float kw,
-                      void* stream) {
-  Planes<4, 1> f{{occ, x0, x1, v}, {out}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<IsphMatvec, false>(f, kmax, g, {hinv, kw},
+                      int nx, int ny, float h2, float hinv, float kw, int tx,
+                      int smem_bytes, void* stream) {
+  return launch_tiled<IsphMatvec>({{occ, x0, x1, v}, {out}}, kmax,
+                                  {cap, nx, ny, h2}, {hinv, kw}, tx, smem_bytes,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int isph_matvec_sweep_direct(const float* occ, const float* x0,
+                             const float* x1, const float* v, const int* kmax,
+                             float* out, int cap, int nx, int ny, float h2,
+                             float hinv, float kw, void* stream) {
+  return launch<IsphMatvec, false>({{occ, x0, x1, v}, {out}}, kmax,
+                                   {cap, nx, ny, h2}, {hinv, kw},
                                    static_cast<cudaStream_t>(stream));
 }
 

@@ -78,9 +78,13 @@ SIGNATURES = {
         # stream
         "iso_static_mass_sweep": ([_P] * 9 + [_I] * 3 + [_F] * 2 + [_P], _I),
         # 9 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2, kc,
-        # 1/h0, 0.01 h0^2, 8mu, -alpha c, 2 alpha, h0, av, fast_math, stream
+        # 1/h0, 0.01 h0^2, 8mu, -alpha c, 2 alpha, h0, av, fast_math, the
+        # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
+        # per x-tile (the "_direct" yardstick: no plan, one per grid row)
         "legacy_force_sweep": ([_P] * 12 + [_I] * 3 + [_F] * 8
-                               + [_I, _I, _P], _I),
+                               + [_I] * 4 + [_P], _I),
+        "legacy_force_sweep_direct": ([_P] * 12 + [_I] * 3 + [_F] * 8
+                                      + [_I, _I, _P], _I),
         # 10 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2,
         # dw, 8mu, -alpha c, 2 alpha, av, fast_math, stream
         "iso_static_force_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5
@@ -91,8 +95,13 @@ SIGNATURES = {
                                      + [_I, _I, _P], _I),
         # occ, x0, x1, v0, v1, kmax, 5 outs, cap, nx, ny, h2, 1/h0, kw, stream
         "isph_div_visc_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3 + [_P], _I),
-        # occ, x0, x1, v, kmax, out, cap, nx, ny, h2, 1/h0, kw, stream
-        "isph_matvec_sweep": ([_P] * 6 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, v, kmax, out, cap, nx, ny, h2, 1/h0, kw, the tiled
+        # sweep's plan (TX, dynamic shared bytes), stream; one bound per
+        # x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "isph_matvec_sweep": ([_P] * 6 + [_I] * 3 + [_F] * 3 + [_I, _I, _P],
+                              _I),
+        "isph_matvec_sweep_direct": ([_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
+                                     _I),
         # occ, x0, x1, P, kmax, 2 outs, cap, nx, ny, h2, 1/h0, kw, stream
         "isph_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_P], _I),
         # occ, x0, x1, v0, v1, T, 1/rho, kmax, 2 outs, cap, nx, ny, h2, kc,

@@ -46,10 +46,11 @@ Each sweep has two implementations:
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``. The 3-D density, momentum and dam-break
-  sweeps, the 2-D momentum and Hopkins momentum and the two Pavelka sweeps
-  run the tiled design (``_tile_plan``: one block per x-tile of a grid row
-  covering every p rank, q ranks staged in shared memory, each tile walking
-  the q ranks to its own bound, ``tile_kmax``); ``tiled_yardsticks``
+  sweeps, the 2-D momentum and Hopkins momentum, the two Pavelka sweeps,
+  the terrain force (fixed h) and the ISPH CG matvec run the tiled design
+  (``_tile_plan``: one block per x-tile of a grid row covering every p
+  rank, q ranks staged in shared memory, each tile walking the q ranks to
+  its own bound, ``tile_kmax``); ``tiled_yardsticks``
   launches them beside the one-thread-per-slot design they replaced, for
   timing and for bit-for-bit comparison only;
 * a plain PyTorch twin (``<wrapper>_plain``) with the Pallas body's math,
@@ -1142,13 +1143,24 @@ _MAX_SHARED_BYTES = 232_448
 # P/ρ_f² and the FLUID gate (T_f is read on the p side only); the 2-D
 # momentum every plane of q; the Hopkins momentum every plane of q, 11 in
 # the total form and 13 with the background split (A_bg^{1/γ} and P_bg,e),
-# keyed by ``background_split`` (``_staged``)
+# keyed by ``background_split``; the terrain force every plane of q (the
+# float4 of occupancy, x and v0, then v1, m, P/ρ_f², 1/ρ_f), 8 without AV
+# and 9 with it (the FLUID gate), keyed by the AV switch; the ISPH matvec
+# the float4 of occupancy, x and the iterate, nothing besides. A form's key
+# is ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
                  "pavelka_momentum_entropy_sweep": 11,
                  "momentum_sweep": 10,
-                 "hopkins_momentum_sweep": {False: 11, True: 13}}
+                 "hopkins_momentum_sweep": {False: 11, True: 13},
+                 "legacy_force_sweep": {False: 8, True: 9},
+                 "isph_matvec_sweep": 4}
+# the tiled exports with two forms, and what names the form: the Hopkins
+# momentum's ``background_split`` argument, the terrain force's AV switch
+# (``cfg.av_alpha > 0``)
+_FORM_KEY = {"hopkins_momentum_sweep": "background_split",
+             "legacy_force_sweep": "av"}
 # the 2-D tiled sweep's staging scheme: every q rank up to the tile's bound
 # in one go (one barrier) rather than the two-stage pipeline the 3-D sweep
 # runs; both give the same outputs bit for bit, and this one was the faster
@@ -1156,16 +1168,20 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
 _EVERY_RANK = True
 
 
-def _staged(fn_name: str, background_split: bool | None = None) -> int:
+def _staged(fn_name: str, form: bool | None = None) -> int:
     """The q planes the tiled export ``fn_name`` stages a cell. The Hopkins
-    momentum's count depends on its form, so ``background_split`` must be
-    given for it (and only for it): neither form takes the other's plan."""
+    momentum's and the terrain force's counts depend on their form
+    (``_FORM_KEY``: ``background_split``, the AV switch), so ``form`` must
+    be given for them, and only for them: neither form takes the other's
+    plan."""
     staged = _TILED_STAGED[fn_name]
-    if isinstance(staged, dict) != (background_split is not None):
-        raise ValueError(f"{fn_name}: background_split is "
-                         + ("needed" if isinstance(staged, dict)
-                            else "the Hopkins momentum's alone"))
-    return staged[bool(background_split)] if isinstance(staged, dict) else staged
+    if isinstance(staged, dict) != (form is not None):
+        raise ValueError(
+            f"{fn_name}: its form ({_FORM_KEY[fn_name]}) is needed"
+            if isinstance(staged, dict) else
+            f"{fn_name} has one form: no form key "
+            f"({', '.join(_FORM_KEY.values())}) applies")
+    return staged[bool(form)] if isinstance(staged, dict) else staged
 
 
 def _tile_tx(engine) -> int:
@@ -1224,14 +1240,13 @@ def _trip_bound(fn_name: str, engine, state: ParticleState) -> torch.Tensor:
     return row_kmax(engine, state)[0]
 
 
-def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
-    """Launch one sweep of csrc/pair_sweep.cu (the export ``_export``
-    names) on the current stream with the trip bound ``band`` (as
-    ``_trip_bound`` gives it); raise if the launch was refused. A tiled
-    export gets its plan (TX, dynamic shared bytes) after the scalars:
-    ``plan``, or ``_tile_plan``'s by default (the Hopkins momentum has none:
-    its caller passes the plan of its form)."""
-    fn_name = _export(fn_name, engine)
+def _with_plan(fn_name: str, engine, planes, band, scalars, plan):
+    """The scalars of export ``fn_name`` (as ``_export`` names it) with a
+    tiled export's plan (TX, dynamic shared bytes) after them: ``plan``, or
+    ``_tile_plan``'s by default (an export with two forms has none: its
+    caller passes the plan of its form); the planes and the trip bound
+    checked against the shape the export reads (one bound per x-tile for a
+    tiled export, per grid row for the others)."""
     rows = engine.num_cells // engine.lims[0]
     n_bound = rows
     if fn_name in _TILED_STAGED:
@@ -1239,6 +1254,22 @@ def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
         scalars = list(scalars) + [plan.tx, plan.smem_bytes]
         n_bound = rows * -(-engine.lims[0] // plan.tx)
     _check_planes(engine, planes, band, n_bound)
+    return scalars
+
+
+def _raise_on(lib, fn_name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.pair_sweep_error_string(err).decode()}")
+
+
+def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
+    """Launch one sweep of csrc/pair_sweep.cu (the export ``_export``
+    names) on the current stream with the trip bound ``band`` (as
+    ``_trip_bound`` gives it) and, for a tiled export, its plan
+    (``_with_plan``); raise if the launch was refused."""
+    fn_name = _export(fn_name, engine)
+    scalars = _with_plan(fn_name, engine, planes, band, scalars, plan)
     dev = planes[0].device
     band = band.contiguous()
     outs = [torch.empty((engine.cap, engine.num_cells + 1),
@@ -1246,12 +1277,9 @@ def _launch(fn_name: str, engine, planes, band, n_out, scalars, plan=None):
     lib = _build.load("pair_sweep")
     h2 = ctypes.c_float(engine.h * engine.h)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = getattr(lib, fn_name)(*[_ptr(p) for p in planes], _ptr(band),
-                                *[_ptr(o) for o in outs],
-                                engine.cap, *engine.lims, h2, *scalars, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.pair_sweep_error_string(err).decode()}")
+    _raise_on(lib, fn_name, getattr(lib, fn_name)(
+        *[_ptr(p) for p in planes], _ptr(band), *[_ptr(o) for o in outs],
+        engine.cap, *engine.lims, h2, *scalars, stream))
     return [o.reshape(-1) for o in outs]
 
 
@@ -1320,17 +1348,21 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     per ``cfg.self_density``, ``"momentum_sweep_3d"``,
     ``"dambreak_mass_sweep_3d"``, ``"dambreak_force_sweep_3d"``,
     ``"pavelka_mass_sweep"``, ``"pavelka_momentum_entropy_sweep"``, the 2-D
-    ``"momentum_sweep"`` or ``"hopkins_momentum_sweep"`` in the form
-    ``background_split`` names) on planes and trip bounds prepared once from
-    ``state``, by design:
+    ``"momentum_sweep"``, ``"hopkins_momentum_sweep"`` in the form
+    ``background_split`` names, ``"legacy_force_sweep"`` in the form
+    ``cfg.av_alpha`` names, or ``"isph_matvec_sweep"``) on planes and trip
+    bounds prepared once from ``state``, by design:
     ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
     ``"tiled_row_band"`` (the same export with each tile's bound its row's
     band), ``"direct"`` (the one-thread-per-slot design it replaced, with
     the row band) and, for the 2-D sweeps, the staging scheme not kept
     (``"tiled_two_stages"`` or ``"tiled_every_rank"``, per-tile bound).
-    Each returns the outputs as the wrapper does. Yardsticks for timing and
-    for holding the designs bit for bit against each other: on no path, and
-    no launch is counted."""
+    Each returns the outputs as the wrapper does (a list). The matvec's run
+    in its prepared form, as the CG loop does: each design prepared once
+    (``_prepared_matvec``), one launch per call on the iterate it is given,
+    ``state``'s P by default, into a buffer the next call overwrites.
+    Yardsticks for timing and for holding the designs bit for bit against
+    each other: on no path, and no launch is counted."""
     if kernel == "density_sweep_3d":
         planes, _ = _density_inputs(engine, state, state.fields["m"])
         args, n_out = [int(bool(cfg.self_density)), ctypes.c_float(C_W3)], 1
@@ -1349,26 +1381,44 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel == "pavelka_momentum_entropy_sweep":
         planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
         args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
-    elif kernel in ("momentum_sweep", "hopkins_momentum_sweep"):
+    elif kernel in ("momentum_sweep", "hopkins_momentum_sweep",
+                    "legacy_force_sweep", "isph_matvec_sweep"):
         # 2-D exports: a 3-D engine's momentum is "momentum_sweep_3d", and
-        # the Hopkins sweep has no 3-D form
+        # the others have no 3-D form
         _check_2d(engine, kernel)
+        n_out = 2
         if kernel == "momentum_sweep":
             planes, _ = _momentum_inputs(engine, state, cfg)
-            args, n_out = _momentum_scalars(cfg) + [_fast(cfg)], 2
-        else:
+            args = _momentum_scalars(cfg) + [_fast(cfg)]
+        elif kernel == "hopkins_momentum_sweep":
             planes, args = _hopkins_launch_inputs(engine, state, cfg,
                                                   background_split)
-            n_out = 2
+        elif kernel == "legacy_force_sweep":
+            planes, _ = _legacy_force_inputs(engine, state, cfg, False)
+            planes = _legacy_force_planes(planes, cfg)
+            args = _legacy_force_scalars(cfg, 2, False)
+        else:
+            planes, _ = _isph_matvec_inputs(engine, state)
+            args = n_out = None  # its runs are prepared (_prepared_matvec)
     else:
         raise ValueError(f"no tiled sweep {kernel!r}")
-    staged = _staged(kernel, background_split)
+    form = (bool(cfg.av_alpha) if kernel == "legacy_force_sweep"
+            else background_split)
+    staged = _staged(kernel, form)
     plan = _tile_plan(engine, staged)
     tile_band = _trip_bound(kernel, engine, state)
     row_band, _ = row_kmax(engine, state)
 
-    def run(name, band, plan=None):
-        return lambda: _launch(name, engine, planes, band, n_out, args, plan)
+    if kernel == "isph_matvec_sweep":
+        iterate = state.fields["P"].contiguous()
+
+        def run(name, band, plan=None):
+            mv = _prepared_matvec(engine, planes, band, cfg, name, plan)
+            return lambda v=iterate: [mv(v)]
+    else:
+        def run(name, band, plan=None):
+            return lambda: _launch(name, engine, planes, band, n_out, args,
+                                   plan)
     per_tile = row_band.repeat_interleave(tile_band.numel() // row_band.numel())
     runs = {"tiled": run(kernel, tile_band, plan),
             "tiled_row_band": run(kernel, per_tile, plan),
@@ -1622,10 +1672,12 @@ def legacy_force_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return legacy_force_pass_plain(engine, state, cfg)
     planes, _ = _legacy_force_inputs(engine, state, cfg, False)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("legacy_force_sweep", engine, state)
+    plan = _tile_plan(engine, _staged("legacy_force_sweep",
+                                      bool(cfg.av_alpha)))
     outs = _launch("legacy_force_sweep", engine,
                    _legacy_force_planes(planes, cfg), band, engine.dim,
-                   _legacy_force_scalars(cfg, engine.dim, False))
+                   _legacy_force_scalars(cfg, engine.dim, False), plan)
     legacy_force_pass.launches += 1
     return outs
 
@@ -1731,8 +1783,9 @@ def isph_matvec_prepared(engine, state: ParticleState, cfg):
     2h0²·vol and adds the diagonal). Replaces ``isph_matvec_prepared`` of
     pallas_pairs.py.
 
-    The occupancy and coordinate planes, the row bound and (on the card) the
-    output buffer are built here; each ``mv(v)`` is then one launch on the
+    The occupancy and coordinate planes, the tiled sweep's per-tile trip
+    bound and plan and (on the card) the output buffer are built here, once
+    per solve; each ``mv(v)`` is then one launch of the tiled kernel on the
     resident view of ``v`` (a reshape, no copy), counted in
     ``isph_matvec_pass.launches``, with no allocation. The tensor it returns
     is that buffer: the next call overwrites it. CPU tensors take the twin
@@ -1741,16 +1794,29 @@ def isph_matvec_prepared(engine, state: ParticleState, cfg):
         return lambda v: isph_matvec_pass_plain(engine, state, cfg, v)
     _check_2d(engine, "isph_matvec_pass")
     planes, _ = _isph_matvec_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
-    _check_planes(engine, planes, band, engine.num_cells // engine.lims[0])
+    band = _trip_bound("isph_matvec_sweep", engine, state)
+    return _prepared_matvec(engine, planes, band, cfg, "isph_matvec_sweep",
+                            _tile_plan(engine, _staged("isph_matvec_sweep")),
+                            counter=isph_matvec_pass)
+
+
+def _prepared_matvec(engine, planes, band, cfg, fn_name: str, plan=None,
+                     counter=None):
+    """``mv(v)``: one launch of the matvec export ``fn_name`` (the tiled
+    ``isph_matvec_sweep`` on ``plan``, or its ``_direct`` yardstick) on the
+    prepared planes (occ, x[dim]) and trip bound ``band``, with the iterate
+    ``v`` as the last plane, into one output buffer made here; the launch is
+    counted in ``counter.launches`` when a counter is given (the wrapper's,
+    not a yardstick's)."""
+    tail = _with_plan(fn_name, engine, planes, band, _isph_scalars(cfg), plan)
     band = band.contiguous()
     dev = planes[0].device
     out = torch.empty(engine.slots, dtype=torch.float32, device=dev)
     lib = _build.load("pair_sweep")
-    fn = lib.isph_matvec_sweep
+    fn = getattr(lib, fn_name)
     head = [_ptr(p) for p in planes]
     tail = [_ptr(band), _ptr(out), engine.cap, *engine.lims,
-            ctypes.c_float(engine.h * engine.h), *_isph_scalars(cfg)]
+            ctypes.c_float(engine.h * engine.h), *tail]
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     shape = (engine.slots,)
 
@@ -1760,14 +1826,12 @@ def isph_matvec_prepared(engine, state: ParticleState, cfg):
             raise ValueError(f"matvec iterate must be contiguous f32 {shape} "
                              f"on {dev}, got {v.dtype} {tuple(v.shape)} on "
                              f"{v.device}")
-        err = fn(*head, _ptr(v), *tail, stream)
-        if err != 0:
-            raise RuntimeError("isph_matvec_sweep launch failed: "
-                               f"{lib.pair_sweep_error_string(err).decode()}")
-        isph_matvec_pass.launches += 1
+        _raise_on(lib, fn_name, fn(*head, _ptr(v), *tail, stream))
+        if counter is not None:
+            counter.launches += 1
         return out
 
-    # the kernel reads the prepared planes and the row bound at every call:
+    # the kernel reads the prepared planes and the trip bound at every call:
     # keep them alive for as long as mv is (the launches hold raw pointers)
     mv.prepared = (planes, band)
     return mv

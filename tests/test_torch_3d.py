@@ -344,36 +344,54 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
     (24, "momentum_sweep", True, (10, 240, 34560, 24)),
     (24, "hopkins_momentum_sweep total", True, (10, 240, 38016, 24)),
     (24, "hopkins_momentum_sweep split", True, (10, 240, 44928, 24)),
-    (24, "hopkins_momentum_sweep split", False, (10, 240, 3744, 2))],
+    (24, "hopkins_momentum_sweep split", False, (10, 240, 3744, 2)),
+    (8, "legacy_force_sweep no_av", True, (32, 256, 26112, 8)),
+    (8, "legacy_force_sweep av", True, (32, 256, 29440, 8)),
+    (24, "legacy_force_sweep no_av", True, (10, 240, 27648, 24)),
+    (24, "legacy_force_sweep no_av", False, (10, 240, 2304, 2)),
+    (24, "legacy_force_sweep av", True, (10, 240, 31104, 24)),
+    (24, "legacy_force_sweep av", False, (10, 240, 2592, 2)),
+    (8, "isph_matvec_sweep", True, (32, 256, 13056, 8)),
+    (8, "isph_matvec_sweep", False, (32, 256, 3264, 2))],
     ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
          "cap8-fused-two", "cap24-mass-every", "cap24-fused-two",
          "cap8-momentum-every", "cap8-momentum-two", "cap8-total-every",
          "cap8-total-two", "cap8-split-every", "cap8-split-two",
          "cap24-momentum-every", "cap24-total-every", "cap24-split-every",
-         "cap24-split-two"])
+         "cap24-split-two", "cap8-terrain-every", "cap8-terrain-av-every",
+         "cap24-terrain-every", "cap24-terrain-two", "cap24-terrain-av-every",
+         "cap24-terrain-av-two", "cap8-matvec-every", "cap8-matvec-two"])
 def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
     stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
     occupancy, x and h, then v, ρ_f, wq and the FLUID gate) and 11 (fused
     sweep: the float4, m, v, ρ_f, wq, P/ρ_f² and the gate) q planes a cell,
     the flagship momentum, which stages 10 (the float4, m, v, ρ_f, P′/ρ_f²,
-    c), and the Hopkins momentum, which stages 11 in its total form (the
+    c), the Hopkins momentum, which stages 11 in its total form (the
     float4, m, v, ρ_f, c, A^{1/γ}, P_e) and 13 with the background split
-    (A_bg^{1/γ}, P_bg,e besides): the flagship size has cap 8 (TX 32), cap
-    24 gives TX 10; a stage is (TX+2)·3 cells rounded up to 16 B, two of
-    them or one per rank. The wrapper's default is ``_EVERY_RANK``; a 3-D
-    engine refuses the every-rank scheme; the Hopkins count needs its form,
-    and only the Hopkins count takes one."""
+    (A_bg^{1/γ}, P_bg,e besides), the terrain force, which stages 8 without
+    AV (the float4 of occupancy, x and v0, then v1, m, P/ρ_f², 1/ρ_f) and 9
+    with it (the FLUID gate besides), and the ISPH matvec, which stages the
+    float4 of occupancy, x and the iterate alone (4): the flagship and ISPH
+    sizes have cap 8 (TX 32), the terrain baseline's cap 24 gives TX 10; a
+    stage is (TX+2)·3 cells rounded up to 16 B, two of them or one per rank.
+    The wrapper's default is ``_EVERY_RANK``; a 3-D engine refuses the
+    every-rank scheme; the Hopkins and terrain-force counts need their form,
+    and no other count takes one."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
     engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
-    name, _, form = kernel.partition(" ")
-    split = {"": None, "total": False, "split": True}[form]
-    staged = tps._staged(name, split)
+    name, _, label = kernel.partition(" ")
+    form = {"": None, "total": False, "split": True, "no_av": False,
+            "av": True}[label]
+    staged = tps._staged(name, form)
     assert staged == {"pavelka_mass_sweep": 9,
                       "pavelka_momentum_entropy_sweep": 11,
                       "momentum_sweep": 10,
                       "hopkins_momentum_sweep total": 11,
-                      "hopkins_momentum_sweep split": 13}[kernel]
+                      "hopkins_momentum_sweep split": 13,
+                      "legacy_force_sweep no_av": 8,
+                      "legacy_force_sweep av": 9,
+                      "isph_matvec_sweep": 4}[kernel]
     plan = tps._tile_plan(engine, staged, every_rank=every_rank)
     assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
     assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024
@@ -383,5 +401,8 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     with pytest.raises(ValueError, match="two ranks"):
         tps._tile_plan(NeighborEngine.create(box, 0.1, 3, cap=cap), staged,
                        every_rank=True)
-    with pytest.raises(ValueError, match="background_split"):
-        tps._staged(name, None if split is not None else False)
+    # a form asked for without its key, or a key given to a one-form sweep
+    with pytest.raises(ValueError, match={
+            "hopkins_momentum_sweep": r"\(background_split\) is needed",
+            "legacy_force_sweep": r"\(av\) is needed"}.get(name, "one form")):
+        tps._staged(name, None if form is not None else False)

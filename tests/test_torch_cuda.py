@@ -397,7 +397,9 @@ _TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
                   "pavelka_momentum_entropy_sweep":
                       ps.pavelka_momentum_entropy_pass,
                   "momentum_sweep": ps.momentum_pass,
-                  "hopkins_momentum_sweep": ps.hopkins_momentum_pass}
+                  "hopkins_momentum_sweep": ps.hopkins_momentum_pass,
+                  "legacy_force_sweep": ps.legacy_force_pass,
+                  "isph_matvec_sweep": ps.isph_matvec_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got, **kw):
@@ -405,7 +407,8 @@ def _held_to_designs(kernel, eng, st, cfg, got, **kw):
     one it launches (with the per-tile trip bound, and on the row band), the
     one-thread-per-slot sweep it replaced (with the row band) and, in 2-D,
     the tiled sweep's other staging scheme. The yardsticks count no
-    launch. ``kw``: the Hopkins momentum's ``background_split``."""
+    launch. ``kw``: the Hopkins momentum's ``background_split`` (the
+    terrain force takes its form from ``cfg``)."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
     for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg, **kw).items():
@@ -694,6 +697,27 @@ def test_terrain_kernel_steps_match_cpu_twins(card, factory, extra):
         lw.make_step(cfg, sys_.engine)(state)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
+@pytest.mark.parametrize("av", [0.0, 0.05], ids=["no_av", "av"])
+def test_tiled_legacy_force_reaches_every_edge(card, av, fast_math):
+    """The tiled terrain force at cap 24 (``_reaches_every_edge`` on the
+    n_rows=14 terrain state: a ragged last tile, idle tiles, empty q slots
+    beside full ones), without AV (a null FLUID plane, 8 staged planes) and
+    with it (9), each form on its own plan: one launch counted, bit for bit
+    against the direct design, the row band and the other staging scheme,
+    and within its twin's gate."""
+    eng, st, cfg = _terrain_live("isothermal_flow_config", card, bucket_cap=24,
+                                 av_alpha=av, fast_math=fast_math)
+    _reaches_every_edge(eng, st, "legacy_force_sweep")
+    before = ps.legacy_force_pass.launches
+    got = ps.legacy_force_pass(eng, st, cfg)
+    assert ps.legacy_force_pass.launches == before + 1
+    _held_to_designs("legacy_force_sweep", eng, st, cfg, got)
+    _held_to_twin(got, ps.legacy_force_pass(eng, st, cfg),
+                  ps.legacy_force_pass_plain(eng, st, cfg), fast_math)
+
+
 ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2,
             use_pallas=True)
 RB = dict(n_rows=16, dtype="float32", layout="bucket", skin=0.2,
@@ -745,6 +769,37 @@ def test_isph_kernel_matches_twin_bitwise(card, name):
     for g, g2, r in zip(got, rerun, ref):
         assert torch.equal(g, g2) and torch.equal(g, r)
         assert r.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_prepared_tiled_matvec_takes_every_iterate(card):
+    """The CG matvec prepared once (``isph_matvec_prepared``: the tiled
+    kernel, its per-tile bound held in ``mv.prepared`` with the planes) and
+    three different iterates through it: each call one launch counted, its
+    output bit for bit that of every other design prepared once
+    (``tiled_yardsticks``: ``_direct``, the row band, the other staging
+    scheme; no launch counted) and of the twin."""
+    cfg, eng, st = _isph_live(card)
+    mv = ps.isph_matvec_prepared(eng, st, cfg)
+    planes, band = mv.prepared
+    assert len(planes) == 3 and band.dtype == torch.int32
+    assert torch.equal(band, ps.tile_kmax(eng, st, ps._tile_tx(eng)))
+    runs = ps.tiled_yardsticks("isph_matvec_sweep", eng, st, cfg)
+    assert set(runs) == {"tiled", "tiled_row_band", "direct",
+                         "tiled_two_stages"}
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    noise = torch.randn(st.active.shape, generator=gen).to(card)
+    for v in (st.fields["P"], torch.where(st.active, noise, 0.0),
+              torch.where(st.active, 1e3 * noise.abs(), 0.0)):
+        v = v.contiguous()
+        before = ps.isph_matvec_pass.launches
+        got = mv(v).clone()
+        assert ps.isph_matvec_pass.launches == before + 1
+        for name, run in runs.items():
+            assert torch.equal(got, run(v)[0]), name
+        assert ps.isph_matvec_pass.launches == before + 1
+        ref = ps.isph_matvec_pass_plain(eng, st, cfg, v)
+        assert torch.equal(got, ref) and ref.abs().max() > 0
 
 
 @pytest.mark.cuda
