@@ -40,11 +40,12 @@ Phases, each printing one or more lines:
   7. the flagship main path: 1 warm-up frame and 2 timed frames of 100
      steps, with the kernels' launch counters set to 0 before and read after;
   8. the Hopkins kernels against their twins at full size on a live full
-     Hopkins state: pressure, and the Hopkins momentum with the background
-     split on and off, fast_math off and on; reruns bitwise equal; the
-     momentum (the tiled design, each form on its own plan) with its tile
-     plans, bit for bit against ``_direct``, the row band and the other
-     staging scheme;
+     Hopkins state: the pressure root with the self pair and without it,
+     and the Hopkins momentum with the background split on and off,
+     fast_math off and on; reruns bitwise equal; both (the tiled design:
+     the pressure root in either self-pair form, the momentum each form on
+     its own plan) with their tile plans, bit for bit against ``_direct``,
+     the row band and the other staging scheme;
   9. 8 small steps of each Hopkins scheme, card against CPU twins;
  10. the full Hopkins main path: 1 warm-up and 2 timed frames of 100 steps;
  11. hopkins_total: its hydrostatic packing at full size, then 1 warm-up and
@@ -105,10 +106,10 @@ Phases, each printing one or more lines:
      isothermal-flow pair on the baseline after 50 steps, the others on the
      isothermal and adiabatic static configs' default sizes; exact divides,
      fast_math, and the AV term with both; reruns bitwise equal; the
-     terrain force (the tiled 9-cell design, each AV form on its own plan)
-     with its tile plans, bit for bit against the one-thread-per-slot design
-     (``_direct``), the tiled export on the row band and its other staging
-     scheme;
+     terrain continuity and force (the tiled 9-cell design, the force each
+     AV form on its own plan) with their tile plans, bit for bit against the
+     one-thread-per-slot design (``_direct``), the tiled export on the row
+     band and its other staging scheme;
  26. 8 small steps of each terrain variant, card against CPU twins;
  27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
      the first inflow spawn event), with the spawn events, spawn_drops, the
@@ -146,14 +147,15 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the eleven tiled kernels (the flagship momentum, the Hopkins momentum in
-     both forms, the two Pavelka sweeps, the terrain force in both AV forms,
-     the ISPH matvec in its prepared form, witch3d's density and
-     momentum, collapse3d's dam-break continuity and force) in turns with
-     the design they replaced and with each tile's bound its row's band
-     (direct, tiled, row band, row band, tiled, direct; the 2-D ones with
-     their other staging scheme after each tiled turn), each beside its
-     bound. A bound counts
+     the thirteen tiled kernels (the flagship momentum, the Hopkins
+     pressure root and momentum in both forms, the two Pavelka sweeps, the
+     terrain continuity, the terrain force in both AV forms, the ISPH matvec
+     in its prepared form, witch3d's density and momentum, collapse3d's
+     dam-break continuity and force) in turns with the design they replaced
+     and with each tile's bound its row's band (direct, tiled, row band, row
+     band, tiled, direct; the 2-D ones with their other staging scheme after
+     each tiled turn), each beside its bound, and each design's kernel time
+     in torch.profiler over 50 more launches. A bound counts
      the bytes the state needs (the occupancy plane, the other input planes
      at the occupied slots, every output slot, the trip bound) and the
      operations (every candidate's distance, every pair's body).
@@ -164,13 +166,13 @@ Exits non-zero, printing no ok line, on any failure or without a card.
 
 Usage: python3 chip_smoke.py [--profile]
   --profile  also print torch.profiler tables of 10 flagship steps (after
-             the timed frames), 10 full Hopkins steps (from the built state)
-             10 Pavelka steps (from the packed state), 10 witch3d steps
-             (whose device time is printed in any case, as are Pavelka's and
-             collapse3d's),
-             10 terrain steps
-             (after its timed frames), 10 ISPH steps and 10 Rayleigh–Bénard
-             steps, with the device time per step
+             the timed frames), 10 full Hopkins steps (from the built state),
+             10 hopkins_total steps and 10 Pavelka steps (each from its
+             packed state), 10 witch3d steps (whose device time is printed
+             in any case, as are Pavelka's and collapse3d's), 10 terrain
+             steps (after its timed frames), 10 ISPH steps and 10
+             Rayleigh–Bénard steps, with the device time and device kernels
+             per step
 """
 from __future__ import annotations
 
@@ -454,9 +456,12 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA
-                    and not e.is_user_annotation)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    # kernels, not copies or fills (as phase 31 counts them)
+    launched = sum(e.count for e in kernels
+                   if not e.key.startswith(("Memcpy", "Memset")))
     if table:
         print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     if not device_us:
@@ -468,7 +473,7 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
     say(phase, f"{label} profile: device time {device_ms:.3f} ms/step, wall "
                f"{wall_ms:.3f} ms/step over the same {n_steps} steps under "
                f"the profiler: device idle {100 * (1 - device_ms / wall_ms):.1f}"
-               " % of them")
+               f" % of them; {launched / n_steps:g} device kernels per step")
 
 
 FORMS = {"split": True, "total": False, "av": True, "no_av": False}
@@ -1184,16 +1189,24 @@ def main(profile: bool) -> None:
     say(8, f"full Hopkins system built in {build_s:.2f} s")
     st = perturbed(fh.make_step(cfg, fh_sys.engine)(fh_state0), dev)
     e8 = fh_sys.engine
-    errs["pressure"] = kernel_vs_twin(
-        "pressure", [ps.pressure_pass(e8, st, cfg)],
-        [ps.pressure_pass(e8, st, cfg)], [ps.pressure_pass_plain(e8, st, cfg)],
-        fast=False)
-    say(8, f"pressure kernel vs twin: max abs err {errs['pressure'][0]:.3e} "
-           f"(max |P root| {errs['pressure'][1]:.4f}), gate rtol {RTOL} "
-           f"atol {ATOL}, rerun bitwise equal")
-    # the Hopkins momentum runs the tiled design, each form on its own plan
-    say(8, tile_plan_line(ps, e8, st, ("hopkins_momentum_sweep split",
+    # the pressure root and the Hopkins momentum run the tiled design: the
+    # pressure root with the self pair (the Hopkins paths' self_density) and
+    # without it, the momentum each form on its own plan
+    say(8, tile_plan_line(ps, e8, st, ("pressure_sweep",
+                                       "hopkins_momentum_sweep split",
                                        "hopkins_momentum_sweep total")))
+    for self_pair in (True, False):
+        c = dataclasses.replace(cfg, self_density=self_pair)
+        label = f"pressure self_pair={self_pair}"
+        kern = [ps.pressure_pass(e8, st, c)]
+        held = designs_equal(label, "pressure_sweep", e8, st, c, kern)
+        err, scale = errs[f"pressure_self{int(self_pair)}"] = kernel_vs_twin(
+            label, kern, [ps.pressure_pass(e8, st, c)],
+            [ps.pressure_pass_plain(e8, st, c)], fast=False)
+        say(8, f"pressure kernel (tiled), self_pair={self_pair}: bit for bit "
+               f"equal to {held}; vs twin max abs err {err:.3e} (max |P root| "
+               f"{scale:.4f}), gate rtol {RTOL} atol {ATOL}, rerun bitwise "
+               f"equal")
     for split in (True, False):
         for fm in (False, True):
             c = dataclasses.replace(cfg, fast_math=fm)
@@ -1256,6 +1269,8 @@ def main(profile: bool) -> None:
             f"{int(ht_state.n)} of {n} (walls are not FLUID-filtered, as in "
             f"the reference: {n - int(ht_state.n)} dropped); rescatters in "
             f"them: {rescatters(ht_frame, packed, 2)}")
+    if profile:  # from the packed state
+        profile_steps(11, "hopkins_total", ht.make_step(cfg, e11), packed)
     del packed
 
     # 12: hopkins_perturbed, one frame
@@ -1769,9 +1784,10 @@ def main(profile: bool) -> None:
          ps.adia_density_pass_plain, False),
         ("adia_entropy_force_sweep", "adiabatic static",
          ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
-    # the terrain force runs the tiled design, each AV form on its own plan
+    # the terrain continuity and force run the tiled design, the force each
+    # AV form on its own plan
     say(25, tile_plan_line(ps, e24, live["terrain"][1],
-                           ("legacy_force_sweep no_av",
+                           ("legacy_mass_sweep", "legacy_force_sweep no_av",
                             "legacy_force_sweep av")))
     for key, where, kern, twin, divides in cases:
         e, st, base_cfg = live[where]
@@ -1782,7 +1798,8 @@ def main(profile: bool) -> None:
             as_list = (lambda o: o if isinstance(o, list) else [o])
             label = f"{key} av={av} fast_math={fm}"
             got = as_list(kern(e, st, c))
-            held = ("" if key != "legacy_force_sweep" else
+            held = ("" if key not in ("legacy_mass_sweep",
+                                      "legacy_force_sweep") else
                     " (tiled), bit for bit equal to "
                     + designs_equal(label, key, e, st, c, got))
             err, scale = kernel_vs_twin(
@@ -2130,10 +2147,12 @@ def main(profile: bool) -> None:
     # card (the 2-D ones with their other staging scheme too)
     for kernel, e, s, c in (
             ("momentum_sweep", eng, flag_state, cfg),
+            ("pressure_sweep", e8, fh_state, cfg),
             ("hopkins_momentum_sweep split", e8, fh_state, cfg),
             ("hopkins_momentum_sweep total", e11, ht_state, cfg),
             ("pavelka_mass_sweep", e13, pv_state, pcfg),
             ("pavelka_momentum_entropy_sweep", e13, pv_state, pcfg),
+            ("legacy_mass_sweep", e24, t_state, tcfg),
             ("legacy_force_sweep no_av", e24, t_state, tcfg),
             ("legacy_force_sweep av", e24, t_state,
              dataclasses.replace(tcfg, av_alpha=0.05)),
@@ -2158,6 +2177,13 @@ def main(profile: bool) -> None:
             f"{name} {t:.4f} ms ({100 * bound / t:.1f} % of the "
             f"{bound * 1e3:.1f} us bound)" for name, t in zip(order, ms))
             + f" ({card})")
+        # each design's own kernel time, beside the event times above
+        own = {name: kernel_ms(run, 50)[0] for name, run in runs.items()}
+        say(30, f"{kernel} kernel time (torch.profiler, 50 launches each): "
+                + ", ".join(f"{name} " + ("not measured" if t is None else
+                                          f"{t:.4f} ms ({100 * bound / t:.1f}"
+                                          " % of the bound)")
+                            for name, t in own.items()) + f" ({card})")
         del runs
 
     # the ISPH matvec's one library counterpart: a CSR sparse product
@@ -2208,7 +2234,8 @@ def main(profile: bool) -> None:
                 "rb_mass_heat_sweep": r_counts["rb_mass_heat_sweep"]}
     err_of = {"density_sweep": errs["density"][0],
               "momentum_sweep": errs["momentum_fm1"][0],
-              "pressure_sweep": errs["pressure"][0],
+              "pressure_sweep": max(errs["pressure_self1"][0],
+                                    errs["pressure_self0"][0]),
               "hopkins_momentum_sweep": max(errs["hopkins_s1_fm1"][0],
                                             errs["hopkins_s0_fm1"][0]),
               "pavelka_mass_sweep": errs["pmass_fx1_fm1"][0],

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Hold this checkout's sweeps of the Hopkins pressure root and the legacy
+continuity against another checkout's build of ``csrc/pair_sweep.cu`` on the
+card, bit for bit: the other checkout's ``pressure_sweep`` and
+``legacy_mass_sweep`` (one thread per slot, where they ran on
+``pair_sweep``) against this one's ``_direct`` yardsticks and tiled exports,
+and ``iso_static_mass_sweep`` (the per-particle-h continuity, which shares
+its body with the terrain continuity) against itself. Tiny live states of
+the card tests (``tests/test_torch_cuda.py``): full_hopkins at caps 8 and 24
+with the self pair and without it, the terrain flow at caps 16 and 24, the
+isothermal static state at its own cap and at 24.
+
+    python3 scripts/hold_against_checkout.py build/parent
+
+The other checkout's source is built with this checkout's nvcc flags into
+``build/other_kernels/`` and called with this checkout's argument lists
+(the other's ``pressure_sweep`` and ``legacy_mass_sweep`` take those of the
+``_direct`` exports). Prints one line per case and a count; exits non-zero
+on the first difference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import ctypes
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+# export of this checkout -> the other checkout's export of the same design
+PAIRS = {"pressure_sweep_direct": "pressure_sweep",
+         "legacy_mass_sweep_direct": "legacy_mass_sweep",
+         "iso_static_mass_sweep": "iso_static_mass_sweep",
+         "pair_sweep_error_string": "pair_sweep_error_string"}
+
+
+def other_library(other: Path):
+    """The other checkout's pair_sweep.cu built here, its exports of PAIRS
+    under this checkout's names and signatures."""
+    from sph_mountain_waves_tpu_torch.ops import _build
+    out = ROOT / "build" / "other_kernels" / "pair_sweep.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = other / "sph_mountain_waves_tpu_torch" / "csrc" / "pair_sweep.cu"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    shim = types.SimpleNamespace()
+    for mine, theirs in PAIRS.items():
+        fn = getattr(lib, theirs)
+        fn.argtypes, fn.restype = _build.SIGNATURES["pair_sweep"][mine]
+        setattr(shim, mine, fn)
+    return shim
+
+
+def main(other: Path) -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    import test_torch_cuda as t
+    from sph_mountain_waves_tpu_torch.models import (
+        full_hopkins_perturbed_witch as fh,
+    )
+    from sph_mountain_waves_tpu_torch.ops import _build, pair_sweeps as ps
+    dev = torch.device("cuda", 0)
+    theirs, mine = other_library(other), _build.load("pair_sweep")
+
+    def on_other(call):
+        _build.load = lambda name: theirs
+        try:
+            return call()
+        finally:
+            _build.load = lambda name: mine
+
+    cases = []
+    for cap in (None, 24):
+        for self_pair in (True, False):
+            cfg = dataclasses.replace(t.BENCH, bucket_cap=cap,
+                                      self_density=self_pair)
+            eng, st = t._live_state(dev, fh, cfg)
+            cases.append((f"pressure_sweep cap {eng.cap} self_pair "
+                          f"{self_pair}", "pressure_sweep", eng, st, cfg))
+    for cap in (None, 24):
+        eng, st, cfg = t._terrain_live("isothermal_flow_config", dev,
+                                       bucket_cap=cap)
+        cases.append((f"legacy_mass_sweep cap {eng.cap}", "legacy_mass_sweep",
+                      eng, st, cfg))
+    n = 0
+    for label, kernel, eng, st, cfg in cases:
+        runs = ps.tiled_yardsticks(kernel, eng, st, cfg)
+        got = on_other(runs["direct"])
+        for name in ("direct", "tiled"):
+            if not all(torch.equal(a, b) for a, b in zip(got, runs[name]())):
+                raise AssertionError(f"{label}: the other checkout's sweep "
+                                     f"differs from this one's {name}")
+            n += 1
+        print(f"{label}: the other checkout's sweep == this one's direct and "
+              f"tiled", flush=True)
+    for cap in (None, 24):
+        eng, st, cfg = t._terrain_live("isothermal_static_config", dev,
+                                       bucket_cap=cap)
+        got = on_other(lambda: ps.iso_static_mass_pass(eng, st, cfg))
+        if not torch.equal(got, ps.iso_static_mass_pass(eng, st, cfg)):
+            raise AssertionError(f"iso_static_mass_sweep cap {eng.cap} "
+                                 "differs from the other checkout's")
+        n += 1
+        print(f"iso_static_mass_sweep cap {eng.cap}: == the other "
+              f"checkout's", flush=True)
+    print(f"{n} comparisons bit for bit against {other}")
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    main(Path(sys.argv[1]).resolve())

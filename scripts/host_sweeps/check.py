@@ -1,8 +1,10 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D Pavelka pair, the 2-D flagship momentum, the Hopkins momentum in
-both forms, the terrain force with and without AV and the ISPH CG matvec in
-its prepared form) against the one-thread-per-slot design they replaced,
+the 2-D Pavelka pair, the 2-D flagship momentum, the Hopkins pressure root
+with and without the self pair, the Hopkins momentum in both forms, the
+terrain continuity, the terrain force with and without AV and the ISPH CG
+matvec in its prepared form) against the one-thread-per-slot design they
+replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -10,8 +12,8 @@ per-tile trip bound, the export names and arguments).
 
     python scripts/host_sweeps/check.py            # every tiled sweep
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
-    python scripts/host_sweeps/check.py momentum hopkins   # the 2-D momenta
-    python scripts/host_sweeps/check.py legacy isph   # terrain force, matvec
+    python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
+    python scripts/host_sweeps/check.py legacy isph   # terrain pair, matvec
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -125,7 +127,9 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
-        f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else "")
+        f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else
+        f" self_pair={cfg.self_density}" if kernel == "pressure_sweep" else
+        "")
     print(f"{kernel}{form} fast_math={ps._fast(cfg)}, lims {engine.lims}, "
           f"cap {engine.cap}: tiled == "
           f"{', '.join(runs)}; tiled == twin {same}; max |out| "
@@ -233,6 +237,15 @@ def main(which) -> None:
                                    ps.hopkins_momentum_pass_plain(e, s_, c_,
                                                                   split),
                                    background_split=split) or fm
+                    if fm:
+                        continue
+                    # the pressure root has exact divides only: its self
+                    # pair per self_density
+                    for self_pair in (True, False):
+                        ok &= held("pressure_sweep", system.engine, state,
+                                   dataclasses.replace(
+                                       c, self_density=self_pair),
+                                   ps.pressure_pass_plain)
     if "legacy" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
@@ -246,6 +259,9 @@ def main(which) -> None:
             system = lw.make_system(cfg)
             state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
                                rho=(0.99, 1.01, True), P=(0.99, 1.01, True))
+            # the continuity has no divide and no AV term: one form
+            ok &= held("legacy_mass_sweep", system.engine, state, cfg,
+                       ps.legacy_mass_pass_plain)
             for av in (0.0, 0.05):  # without AV: a null FLUID plane
                 for fm in (False, True):
                     c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)

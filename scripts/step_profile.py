@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Device time, device kernels and wall time per step of three paths of the
+PyTorch port on one card, under torch.profiler: full_hopkins (10 steps from
+the built flagship-size state), hopkins_total (10 steps after its
+hydrostatic packing) and the terrain baseline (10 steps after a 300-step
+frame, as ``chip_smoke.py`` builds it). Each path's kernels and their launch
+counts are those of the checkout it imports, so two checkouts can be
+compared on one card by running this script once for each, in turns:
+
+    python3 scripts/step_profile.py                      # this checkout
+    python3 scripts/step_profile.py --root build/parent  # another checkout
+
+Prints one line per path (device ms/step, device kernels per step, wall
+ms/step under the profiler, the device's idle share, the pair-sweep
+kernels' own ms/step) and the card (nvidia-smi name and power limit).
+Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_ROWS = 246       # the flagship size: N = 978,463, grid 1792 x 144, cap 8
+TERRAIN_WARM = 300  # steps before the terrain's profiled ones
+N_STEPS = 10
+
+
+def kernel_name(key: str) -> str:
+    """A demangled kernel name without its namespace, casts and argument
+    list: pair_sweep_tiled<Pressure, true, true>."""
+    key = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:bool|int)\)|"
+                 r"^void ", "", key)
+    return key.split("(")[0]
+
+
+def profiled(label, step, state, n_steps=N_STEPS):
+    """One line: the device time (CUDA activity), the kernels (copies and
+    fills left out), the wall time of ``n_steps`` steps under the profiler
+    and the pair sweeps' share of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if not cuda:
+        return f"{label}: not measured (torch.profiler recorded no kernel)"
+    device_ms = sum(e.self_device_time_total for e in cuda) / n_steps / 1e3
+    kernels = sum(e.count for e in cuda
+                  if not e.key.startswith(("Memcpy", "Memset"))) / n_steps
+    sweeps = {kernel_name(e.key): e.self_device_time_total / n_steps / 1e3
+              for e in cuda if "pair_sweep" in e.key}
+    return (f"{label}: device {device_ms:.4f} ms/step, {kernels:g} device "
+            f"kernels per step, wall {wall_ms:.3f} ms/step under the "
+            f"profiler, device idle {100 * (1 - device_ms / wall_ms):.1f} %; "
+            f"pair sweeps {sum(sweeps.values()):.4f} ms/step ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(sweeps.items()))
+            + ")")
+
+
+def main(root: Path) -> None:
+    sys.path.insert(0, str(root))
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this profile needs one GPU")
+    dev = torch.device("cuda", 0)
+    from sph_mountain_waves_tpu_torch.models import (
+        full_hopkins_perturbed_witch as fh, hopkins_total_witch as ht,
+        legacy_witch as lw,
+    )
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig
+    from sph_mountain_waves_tpu_torch.utils.packing import hydrostatic_packing
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"checkout {root}", flush=True)
+
+    cfg = WitchConfig(n_rows=N_ROWS, dtype="float32", self_density=True,
+                      layout="bucket", skin=0.15, use_pallas=True,
+                      lazy_diagnostics=True, lattice_cells=True,
+                      fast_math=True)
+    system = fh.make_system(cfg)
+    state = system.freeze(device=dev)
+    step = fh.make_step(cfg, system.engine)
+    step(state)  # warm-up: the kernels' build and first launches
+    print(profiled("full_hopkins", step, state), flush=True)
+    del state, system
+
+    system = ht.make_system(cfg)
+    state = system.freeze(device=dev)  # freeze makes system.engine
+    state = hydrostatic_packing(cfg, system.engine, state)
+    step = ht.make_step(cfg, system.engine)
+    step(state)
+    print(profiled("hopkins_total", step, state), flush=True)
+    del state, system
+
+    tcfg = lw.terrain_baseline_config(use_pallas=True, fast_math=True)
+    system = lw.run_system(tcfg)
+    state = system.freeze(device=dev)
+    step = lw.make_step(tcfg, system.engine)
+    state = frame_runner(step, TERRAIN_WARM)(state)
+    print(profiled("terrain", step, state), flush=True)
+    print(card, flush=True)
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", type=Path,
+                        default=Path(__file__).resolve().parent.parent,
+                        help="the checkout whose port is profiled")
+    main(parser.parse_args().root.resolve())

@@ -73,9 +73,10 @@
 // and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
 // 16-byte shared load, the distance and its test), not the staging, paces
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The two
-// Pavelka sweeps, the flagship momentum, the Hopkins momentum, the terrain
-// force with fixed h and the ISPH CG matvec run the same design in 2-D,
-// pair_sweep_tiled (9 cells); every other 2-D sweep still runs pair_sweep.
+// Pavelka sweeps, the flagship momentum, the Hopkins pressure root and
+// momentum, the terrain continuity and force with fixed h and the ISPH CG
+// matvec run the same design in 2-D, pair_sweep_tiled (9 cells); every other
+// 2-D sweep still runs pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,13 +109,14 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 }
 
 // q's fields as the accessor bodies read them (the 3-D bodies, the
-// dam-break bodies in 2-D, the 2-D momentum, Hopkins momentum and Pavelka
-// bodies): q[i] is plane i at q's
-// slot. PlaneQ reads the planes (pair_sweep, pair_sweep3); StagedQ reads the
-// copy that pair_sweep3_tiled staged in shared memory, planes lo.. at
-// ex[(i - lo) * nc + s]; StagedQ2 the copy that pair_sweep_tiled staged:
-// planes 0-3 (occupancy, x0, x1, h) as the candidate's float4 c4, the planes
-// of the body's QMASK as scalars, the j-th of them at ex[j * nc + s].
+// dam-break bodies in 2-D, the 2-D momentum, the Hopkins pressure root and
+// momentum, the Pavelka bodies, the legacy continuity and force and the ISPH
+// matvec): q[i] is plane i at q's slot. PlaneQ reads the planes
+// (pair_sweep, pair_sweep3); StagedQ reads the copy that pair_sweep3_tiled
+// staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
+// the copy that pair_sweep_tiled staged: planes 0-3 (occupancy, x0, x1 and
+// plane 3) as the candidate's float4 c4, the planes of the body's QMASK as
+// scalars, the j-th of them at ex[j * nc + s].
 template <int NIN, int NOUT>
 struct PlaneQ {
   const Planes<NIN, NOUT>& f;
@@ -237,18 +239,20 @@ struct Momentum {
 
 // Hopkins pressure root P_p = sum_q w_q W2(h_ij, r), h_ij = (h_p + h_q)/2,
 // with the exact divides of kernels.wendland2; fields: occ, x0, x1, h,
-// w = m A^(1/gamma).
+// w = m A^(1/gamma). q's planes read by the body beyond the occupancy and
+// position: h and QMASK (w: plane 4).
 struct Pressure {
   static constexpr int NIN = 5;
   static constexpr int NOUT = 1;
+  static constexpr unsigned QMASK = 0x10u;
   struct Params {
     float cw;  // 7/pi
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float hq = f.in[3][qi];
-    const float wq = f.in[4][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float hq = q[3];
+    const float wq = q[4];
     const float r = sqrtf(r2);
     const float hk = 0.5f * (p[3] + hq);
     const float x = r / hk;
@@ -256,6 +260,12 @@ struct Pressure {
     const float t2 = t * t;
     const float ker = prm.cw * (t2 * t2) * (1.0f + 4.0f * x) / (hk * hk);
     tot[0] += wq * ker;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -642,16 +652,20 @@ struct LegacyParams {
 //   per-particle h (ADAPTIVE_H true): ker = (dw t^3 / h_p^(D+2)) wq_q,
 //     t = max(1 - r/h_p, 0), 1/h_p streamed, wq = m / max(rho, 1e-12) (the
 //     caller multiplies the sum by rho_p); fields occ, x[D], 1/h, v[D], wq.
-// No divide.
+// No divide. q's planes read by the body beyond the occupancy and position:
+// v and m (or wq). With fixed h plane 3 is v0, which the tiled sweep stages
+// in the candidate's float4, so QMASK names the rest (planes 4..NIN-1); the
+// per-particle-h form is not tiled.
 template <int D, bool ADAPTIVE_H>
 struct LegacyMass {
   static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
   static constexpr int NIN = VO + D + 1;
   static constexpr int NOUT = 1;
+  static constexpr unsigned QMASK = ((1u << NIN) - 1u) & ~0xFu;
   using Params = LegacyParams;
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     float ker;
     if constexpr (ADAPTIVE_H) {
@@ -659,21 +673,21 @@ struct LegacyMass {
       const float t = fmaxf(1.0f - r * hinv, 0.0f);
       const float h2 = hinv * hinv;
       ker = prm.kc * t * t * t * (D == 2 ? h2 * h2 : h2 * h2 * hinv);
-      ker = ker * f.in[VO + D][qi];
+      ker = ker * q[VO + D];
     } else {
       const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
-      ker = prm.kc * t * t * t * f.in[VO + D][qi];
+      ker = prm.kc * t * t * t * q[VO + D];
     }
-    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+    float dot = d[0] * (p[VO] - q[VO]);
 #pragma unroll
-    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - q[VO + a]);
     tot[0] += ker * dot;
   }
   __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
                               int64_t qi, float d0, float d1, float r2,
                               const Params& prm, float* tot) {
     const float d[2] = {d0, d1};
-    pair(p, f, qi, d, r2, prm, tot);
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1250,22 +1264,22 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 }
 
 // The tiled 9-cell sweep of the Pavelka continuity and fused momentum +
-// entropy, the flagship momentum, the Hopkins momentum, the terrain force and
-// the ISPH CG matvec (pallas_pairs.py pavelka_mass_pass,
-// pavelka_momentum_entropy_pass, momentum_pass, hopkins_momentum_pass,
-// legacy_force_pass, isph_matvec_prepared): pair_sweep3_tiled's design in
-// 2-D. One block is TX consecutive x-cells of
-// one grid row cy times every p rank: thread (threadIdx.x, threadIdx.y) =
-// (tx, k) owns slot (rank k, cell x0 + tx). Blocks run x-tiles fastest, then
-// rows, so the three rows a tile reads stay in L2 for the tiles that share
-// them. The q loop runs to kmax[blockIdx.x], the tile's own bound
+// entropy, the flagship momentum, the Hopkins pressure root and momentum, the
+// terrain continuity and force and the ISPH CG matvec (pallas_pairs.py
+// pavelka_mass_pass, pavelka_momentum_entropy_pass, momentum_pass,
+// pressure_pass, hopkins_momentum_pass, legacy_mass_pass, legacy_force_pass,
+// isph_matvec_prepared): pair_sweep3_tiled's design in 2-D. One block is TX
+// consecutive x-cells of one grid row cy times every p rank: thread
+// (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx).
+// Blocks run x-tiles fastest, then rows, so the three rows a tile reads stay
+// in L2 for the tiles that share them. The q loop runs to kmax[blockIdx.x], the tile's own bound
 // (ops/pair_sweeps.py::tile_kmax: the largest count among the (TX+2) x 3
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
-// for all p ranks: occupancy, x0, x1 and plane 3 (h; v0 in the terrain force,
-// the iterate in the matvec) as one float4 per cell (a candidate is one
-// 16-byte shared load), the other q planes the body reads
-// (Body::QMASK) as scalars; 4-byte cp.async, cells outside the grid
+// for all p ranks: occupancy, x0, x1 and plane 3 (h; v0 in the terrain
+// continuity and force, the iterate in the matvec) as one float4 per cell
+// (a candidate is one 16-byte shared load), the other q planes the body
+// reads (Body::QMASK) as scalars; 4-byte cp.async, cells outside the grid
 // zero-filled so that they read as unoccupied. Two staging schemes, one
 // template each (EVERY_RANK):
 //   false: two stages, rank kq+1 copied while rank kq is summed, a barrier
@@ -1275,12 +1289,15 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 //          stage is small in 2-D: (TX+2) x 3 cells, 3.7 to 5.3 KB at TX 32
 //          for 9 to 13 staged planes, so cap 8 ranks take 29 to 42 KB).
 // The thread of an occupied p slot then takes its 9 cells per rank in
-// pair_sweep's order (dj, then di), skips the self pair by (di, dj, kq) ==
-// (0, 0, k) (none of these sweeps counts it) and an empty q cell before
-// any arithmetic on it, sums the pairs
-// into tot and adds tot to acc: the same operations in the same order, and
-// the ranks it skips would add exact zeros, so the outputs equal
-// pair_sweep's bit for bit. A tile with no occupied p slot (or bound 0)
+// pair_sweep's order (dj, then di), skips an empty q cell before any
+// arithmetic on it, sums the pairs into tot and adds tot to acc. The self
+// pair, (di, dj, kq) == (1, 1, k), is skipped unless SELF: the Hopkins
+// pressure root counts it (pressure_sweep with self_pair, the Hopkins paths'
+// self_density), every other sweep here does not. With SELF it is summed in
+// its place in the dj, di order of rank k, as pair_sweep<Body, true> sums
+// it. So the same operations run in the same order, the ranks a tile skips
+// would add exact zeros, and the outputs equal pair_sweep's (with the same
+// SELF) bit for bit. A tile with no occupied p slot (or bound 0)
 // writes its zeros and stages nothing; a ragged last tile masks its spare
 // threads; block 0 writes the trash column. No TMA, for the reason
 // pair_sweep3_tiled gives.
@@ -1298,8 +1315,12 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // cap 24 (N = 212,819, grid 256 x 72: TX 10, 240 threads, 1,872 blocks, a
 // ragged last tile of 6), the matvec at cap 8 (N = 207,672, grid 896 x 72:
 // TX 32, 2,016 blocks), each launch of the CG loop on the bound and plan
-// prepared once per solve.
-template <class Body, bool EVERY_RANK>
+// prepared once per solve. The pressure root runs on the full-Hopkins state
+// (cap 8: TX 32, 5 staged planes, 16,384 B for every rank at once), the
+// terrain continuity on the terrain force's (cap 24: TX 10, 6 planes,
+// 20,736 B): 0.055 ms (0.098 in pair_sweep) and 0.044 ms (0.081) of kernel
+// time on an H100, 17.5 and 5.3 % of the byte bound.
+template <class Body, bool SELF, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
                  Layout g, typename Body::Params prm, int stage_f4) {
@@ -1379,7 +1400,7 @@ pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
       for (int dj = 0; dj < 3; ++dj) {
 #pragma unroll
         for (int di = 0; di < 3; ++di) {
-          if (di == 1 && dj == 1 && kq == k) continue;
+          if (!SELF && di == 1 && dj == 1 && kq == k) continue;
           const int s = dj * W + tx + di;
           const float4 q = pos[s];
           if (!(q.x > 0.5f)) continue;
@@ -1422,12 +1443,12 @@ pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
   }
 }
 
-// Launch pair_sweep_tiled on the plan of ops/pair_sweeps.py::_tile_plan: tx
-// x-cells per block and smem_bytes of dynamic shared memory. Room for every
-// rank's stage (cap stages) takes the every-rank scheme, room for two the
-// two-stage pipeline (at cap <= 2 the two are one); a plan the kernel cannot
-// hold is refused.
-template <class Body>
+// Launch pair_sweep_tiled (with the self pair if SELF) on the plan of
+// ops/pair_sweeps.py::_tile_plan: tx x-cells per block and smem_bytes of
+// dynamic shared memory. Room for every rank's stage (cap stages) takes the
+// every-rank scheme, room for two the two-stage pipeline (at cap <= 2 the two
+// are one); a plan the kernel cannot hold is refused.
+template <class Body, bool SELF = false>
 int launch_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
                  const Layout& g, const typename Body::Params& prm, int tx,
                  int smem_bytes, cudaStream_t stream) {
@@ -1437,8 +1458,8 @@ int launch_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
       || smem_bytes < 2 * stage)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   auto kernel = smem_bytes >= g.cap * stage
-                    ? pair_sweep_tiled<Body, true>
-                    : pair_sweep_tiled<Body, false>;
+                    ? pair_sweep_tiled<Body, SELF, true>
+                    : pair_sweep_tiled<Body, SELF, false>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1451,15 +1472,16 @@ int launch_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 }
 
 // The tiled 2-D exports: the tiled launch (TILED) on the plan (tx,
-// smem_bytes), or pair_sweep (the "_direct" yardsticks, which take no plan).
-template <bool TILED, class Body>
+// smem_bytes), or pair_sweep (the "_direct" yardsticks, which take no plan),
+// each with the self pair if SELF.
+template <bool TILED, class Body, bool SELF = false>
 int launch2(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
             const Layout& g, const typename Body::Params& prm, int tx,
             int smem_bytes, cudaStream_t s) {
   if constexpr (TILED) {
-    return launch_tiled<Body>(f, kmax, g, prm, tx, smem_bytes, s);
+    return launch_tiled<Body, SELF>(f, kmax, g, prm, tx, smem_bytes, s);
   } else {
-    return launch<Body, false>(f, kmax, g, prm, s);
+    return launch<Body, SELF>(f, kmax, g, prm, s);
   }
 }
 
@@ -1492,6 +1514,29 @@ int legacy_force(const float* const* in, const int* kmax, float* dv0,
                   in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s)
             : legacy_force_launch<TILED, false, false>(
                   in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s);
+}
+
+// The legacy continuity's exports: the planes in order, and for the tiled
+// launch (TILED, fixed h only) its plan (tx, smem_bytes).
+template <bool TILED, bool ADAPTIVE_H>
+int legacy_mass_launch(const Planes<LegacyMass<2, ADAPTIVE_H>::NIN, 1>& f,
+                       const int* kmax, const Layout& g,
+                       const LegacyParams& prm, int tx, int smem_bytes,
+                       cudaStream_t s) {
+  static_assert(!(TILED && ADAPTIVE_H),
+                "the per-particle-h continuity is not tiled");
+  return launch2<TILED, LegacyMass<2, ADAPTIVE_H>>(f, kmax, g, prm, tx,
+                                                    smem_bytes, s);
+}
+
+// the pressure root, with the self pair if self_pair
+template <bool TILED>
+int pressure(const Planes<Pressure::NIN, Pressure::NOUT>& f, const int* kmax,
+             const Layout& g, float cw, int self_pair, int tx, int smem_bytes,
+             cudaStream_t s) {
+  return self_pair
+      ? launch2<TILED, Pressure, true>(f, kmax, g, {cw}, tx, smem_bytes, s)
+      : launch2<TILED, Pressure, false>(f, kmax, g, {cw}, tx, smem_bytes, s);
 }
 
 template <bool TILED>
@@ -1618,16 +1663,27 @@ int momentum_sweep_direct(const float* occ, const float* x0, const float* x1,
                          fast_math, 0, 0, static_cast<cudaStream_t>(stream));
 }
 
+// The pressure root launches pair_sweep_tiled, with the self pair if
+// self_pair, on the plan (tx, smem_bytes) the wrapper passes, one bound per
+// x-tile; its "_direct" export launches pair_sweep (kmax int32 [ny] per grid
+// row), the design the tiled one replaced: a yardstick, on no path.
 int pressure_sweep(const float* occ, const float* x0, const float* x1,
                    const float* h, const float* w, const int* kmax,
                    float* proot, int cap, int nx, int ny, float h2,
-                   int self_pair, float cw, void* stream) {
-  Planes<Pressure::NIN, Pressure::NOUT> f{{occ, x0, x1, h, w}, {proot}};
-  const Layout g{cap, nx, ny, h2};
-  const Pressure::Params prm{cw};
-  auto s = static_cast<cudaStream_t>(stream);
-  return self_pair ? launch<Pressure, true>(f, kmax, g, prm, s)
-                   : launch<Pressure, false>(f, kmax, g, prm, s);
+                   int self_pair, float cw, int tx, int smem_bytes,
+                   void* stream) {
+  return pressure<true>({{occ, x0, x1, h, w}, {proot}}, kmax,
+                        {cap, nx, ny, h2}, cw, self_pair, tx, smem_bytes,
+                        static_cast<cudaStream_t>(stream));
+}
+
+int pressure_sweep_direct(const float* occ, const float* x0, const float* x1,
+                          const float* h, const float* w, const int* kmax,
+                          float* proot, int cap, int nx, int ny, float h2,
+                          int self_pair, float cw, void* stream) {
+  return pressure<false>({{occ, x0, x1, h, w}, {proot}}, kmax,
+                         {cap, nx, ny, h2}, cw, self_pair, 0, 0,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // abg and pbe are read only with background_split (they may be null
@@ -1748,16 +1804,32 @@ int dambreak_force_sweep(const float* occ, const float* x0, const float* x1,
                                     static_cast<cudaStream_t>(stream));
 }
 
-// legacy (terrain) sweeps, 2-D: planes [cap, nx*ny+1], kmax int32 [ny]
+// legacy (terrain) sweeps, 2-D: planes [cap, nx*ny+1]. The fixed-h
+// continuity launches pair_sweep_tiled on the plan (tx, smem_bytes) the
+// wrapper passes, one bound per x-tile; its "_direct" export launches
+// pair_sweep (kmax int32 [ny] per grid row), the design the tiled one
+// replaced: a yardstick, on no path. The per-particle-h sweeps launch
+// pair_sweep (kmax int32 [ny]).
 int legacy_mass_sweep(const float* occ, const float* x0, const float* x1,
                       const float* v0, const float* v1, const float* m,
                       const int* kmax, float* drho, int cap, int nx, int ny,
-                      float h2, float kc, float hinv, void* stream) {
-  Planes<6, 1> f{{occ, x0, x1, v0, v1, m}, {drho}};
-  const Layout g{cap, nx, ny, h2};
-  const LegacyParams prm{kc, hinv, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return launch<LegacyMass<2, false>, false>(f, kmax, g, prm,
-                                              static_cast<cudaStream_t>(stream));
+                      float h2, float kc, float hinv, int tx, int smem_bytes,
+                      void* stream) {
+  return legacy_mass_launch<true, false>(
+      {{occ, x0, x1, v0, v1, m}, {drho}}, kmax, {cap, nx, ny, h2},
+      {kc, hinv, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int legacy_mass_sweep_direct(const float* occ, const float* x0,
+                             const float* x1, const float* v0,
+                             const float* v1, const float* m, const int* kmax,
+                             float* drho, int cap, int nx, int ny, float h2,
+                             float kc, float hinv, void* stream) {
+  return legacy_mass_launch<false, false>(
+      {{occ, x0, x1, v0, v1, m}, {drho}}, kmax, {cap, nx, ny, h2},
+      {kc, hinv, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int iso_static_mass_sweep(const float* occ, const float* x0, const float* x1,
@@ -1765,11 +1837,10 @@ int iso_static_mass_sweep(const float* occ, const float* x0, const float* x1,
                           const float* wq, const int* kmax, float* out,
                           int cap, int nx, int ny, float h2, float dw,
                           void* stream) {
-  Planes<7, 1> f{{occ, x0, x1, hinv, v0, v1, wq}, {out}};
-  const Layout g{cap, nx, ny, h2};
-  const LegacyParams prm{dw, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return launch<LegacyMass<2, true>, false>(f, kmax, g, prm,
-                                             static_cast<cudaStream_t>(stream));
+  return legacy_mass_launch<false, true>(
+      {{occ, x0, x1, hinv, v0, v1, wq}, {out}}, kmax, {cap, nx, ny, h2},
+      {dw, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // fluid is read only with av (it may be null otherwise). The terrain force

@@ -38,8 +38,12 @@ SIGNATURES = {
         # stream; kmax is one bound per x-tile
         "momentum_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5 + [_I] * 3 + [_P],
                            _I),
-        # occ, x0, x1, h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, stream
-        "pressure_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
+        # occ, x0, x1, h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, the
+        # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
+        # per x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "pressure_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _I, _I, _P],
+                           _I),
+        "pressure_sweep_direct": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
         # 13 planes (the last two null without the split), kmax, 2 outs, cap,
         # nx, ny, h2, dw, eps, -alpha, beta, background_split, fast_math,
         # the plan (TX, dynamic shared bytes), stream; one bound per x-tile
@@ -72,8 +76,13 @@ SIGNATURES = {
         # occ, x0, x1, v0, v1, P/rho^2, fluid, kmax, 2 outs, cap, nx, ny, h2,
         # kc, 1/h, 2mu/rho0^2, stream
         "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
-        # occ, x0, x1, v0, v1, m, kmax, out, cap, nx, ny, h2, kc, 1/h0, stream
-        "legacy_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, v0, v1, m, kmax, out, cap, nx, ny, h2, kc, 1/h0, the
+        # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
+        # per x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "legacy_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 3 + [_I, _I, _P],
+                              _I),
+        "legacy_mass_sweep_direct": ([_P] * 8 + [_I] * 3 + [_F] * 3 + [_P],
+                                     _I),
         # occ, x0, x1, 1/h, v0, v1, m/rho, kmax, out, cap, nx, ny, h2, dw,
         # stream
         "iso_static_mass_sweep": ([_P] * 9 + [_I] * 3 + [_F] * 2 + [_P], _I),

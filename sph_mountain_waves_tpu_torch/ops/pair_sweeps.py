@@ -46,8 +46,9 @@ Each sweep has two implementations:
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``. The 3-D density, momentum and dam-break
-  sweeps, the 2-D momentum and Hopkins momentum, the two Pavelka sweeps,
-  the terrain force (fixed h) and the ISPH CG matvec run the tiled design
+  sweeps, the 2-D momentum, the Hopkins pressure root and momentum, the two
+  Pavelka sweeps, the terrain continuity and force (fixed h) and the ISPH
+  CG matvec run the tiled design
   (``_tile_plan``: one block per x-tile of a grid row covering every p
   rank, q ranks staged in shared memory, each tile walking the q ranks to
   its own bound, ``tile_kmax``); ``tiled_yardsticks``
@@ -1143,17 +1144,21 @@ _MAX_SHARED_BYTES = 232_448
 # P/ρ_f² and the FLUID gate (T_f is read on the p side only); the 2-D
 # momentum every plane of q; the Hopkins momentum every plane of q, 11 in
 # the total form and 13 with the background split (A_bg^{1/γ} and P_bg,e),
-# keyed by ``background_split``; the terrain force every plane of q (the
-# float4 of occupancy, x and v0, then v1, m, P/ρ_f², 1/ρ_f), 8 without AV
-# and 9 with it (the FLUID gate), keyed by the AV switch; the ISPH matvec
-# the float4 of occupancy, x and the iterate, nothing besides. A form's key
-# is ``_FORM_KEY``'s (``_staged``)
+# keyed by ``background_split``; the Hopkins pressure root h and w (the
+# float4 of occupancy, x and h, then w), in either self-pair form; the
+# terrain continuity every plane of q (the float4 of occupancy, x and v0,
+# then v1 and m); the terrain force every plane of q (the float4, then v1,
+# m, P/ρ_f², 1/ρ_f), 8 without AV and 9 with it (the FLUID gate), keyed by
+# the AV switch; the ISPH matvec the float4 of occupancy, x and the iterate,
+# nothing besides. A form's key is ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
                  "pavelka_momentum_entropy_sweep": 11,
                  "momentum_sweep": 10,
+                 "pressure_sweep": 5,
                  "hopkins_momentum_sweep": {False: 11, True: 13},
+                 "legacy_mass_sweep": 6,
                  "legacy_force_sweep": {False: 8, True: 9},
                  "isph_matvec_sweep": 4}
 # the tiled exports with two forms, and what names the form: the Hopkins
@@ -1348,9 +1353,11 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     per ``cfg.self_density``, ``"momentum_sweep_3d"``,
     ``"dambreak_mass_sweep_3d"``, ``"dambreak_force_sweep_3d"``,
     ``"pavelka_mass_sweep"``, ``"pavelka_momentum_entropy_sweep"``, the 2-D
-    ``"momentum_sweep"``, ``"hopkins_momentum_sweep"`` in the form
-    ``background_split`` names, ``"legacy_force_sweep"`` in the form
-    ``cfg.av_alpha`` names, or ``"isph_matvec_sweep"``) on planes and trip
+    ``"momentum_sweep"``, ``"pressure_sweep"`` with the self pair per
+    ``cfg.self_density``, ``"hopkins_momentum_sweep"`` in the form
+    ``background_split`` names, ``"legacy_mass_sweep"``,
+    ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names, or
+    ``"isph_matvec_sweep"``) on planes and trip
     bounds prepared once from ``state``, by design:
     ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
     ``"tiled_row_band"`` (the same export with each tile's bound its row's
@@ -1381,7 +1388,8 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel == "pavelka_momentum_entropy_sweep":
         planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
         args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
-    elif kernel in ("momentum_sweep", "hopkins_momentum_sweep",
+    elif kernel in ("momentum_sweep", "pressure_sweep",
+                    "hopkins_momentum_sweep", "legacy_mass_sweep",
                     "legacy_force_sweep", "isph_matvec_sweep"):
         # 2-D exports: a 3-D engine's momentum is "momentum_sweep_3d", and
         # the others have no 3-D form
@@ -1390,6 +1398,12 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         if kernel == "momentum_sweep":
             planes, _ = _momentum_inputs(engine, state, cfg)
             args = _momentum_scalars(cfg) + [_fast(cfg)]
+        elif kernel == "pressure_sweep":
+            planes, _ = _pressure_inputs(engine, state, cfg)
+            args, n_out = _pressure_scalars(cfg), 1
+        elif kernel == "legacy_mass_sweep":
+            planes, _ = _legacy_mass_inputs(engine, state)
+            args, n_out = _legacy_mass_scalars(cfg, 2, False), 1
         elif kernel == "hopkins_momentum_sweep":
             planes, args = _hopkins_launch_inputs(engine, state, cfg,
                                                   background_split)
@@ -1440,11 +1454,17 @@ def pressure_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return pressure_pass_plain(engine, state, cfg)
     planes, _ = _pressure_inputs(engine, state, cfg)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("pressure_sweep", engine, state)
     (out,) = _launch("pressure_sweep", engine, planes, band, 1,
-                     [int(bool(cfg.self_density)), ctypes.c_float(C_W2)])
+                     _pressure_scalars(cfg))
     pressure_pass.launches += 1
     return out
+
+
+def _pressure_scalars(cfg):
+    """(self_pair, 7/π) of the pressure root: the self term per
+    ``cfg.self_density``."""
+    return [int(bool(cfg.self_density)), ctypes.c_float(C_W2)]
 
 
 def hopkins_momentum_pass(engine, state: ParticleState, cfg,
@@ -1640,7 +1660,7 @@ def legacy_mass_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return legacy_mass_pass_plain(engine, state, cfg)
     planes, _ = _legacy_mass_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("legacy_mass_sweep", engine, state)
     (out,) = _launch("legacy_mass_sweep", engine, planes, band, 1,
                      _legacy_mass_scalars(cfg, engine.dim, False))
     legacy_mass_pass.launches += 1

@@ -100,13 +100,20 @@ def test_kernel_steps_match_cpu_twins(card):
 
 
 @pytest.mark.cuda
-def test_pressure_kernel_matches_twin(card):
+@pytest.mark.parametrize("self_pair", [True, False], ids=["self", "no_self"])
+def test_pressure_kernel_matches_twin(card, self_pair):
+    """The tiled pressure root with the self pair (the Hopkins paths'
+    ``self_density``) and without it: one launch counted, bit for bit
+    against the direct design, the row band and the other staging scheme,
+    reruns bitwise equal, and the twin's gate rtol 1e-5 / atol 1e-6."""
+    cfg = dataclasses.replace(BENCH, self_density=self_pair)
     eng, st = _live_state(card, fh)
     before = ps.pressure_pass.launches
-    got = ps.pressure_pass(eng, st, BENCH)
+    got = ps.pressure_pass(eng, st, cfg)
     assert ps.pressure_pass.launches == before + 1
-    assert torch.equal(got, ps.pressure_pass(eng, st, BENCH))
-    torch.testing.assert_close(got, ps.pressure_pass_plain(eng, st, BENCH),
+    _held_to_designs("pressure_sweep", eng, st, cfg, [got])
+    assert torch.equal(got, ps.pressure_pass(eng, st, cfg))
+    torch.testing.assert_close(got, ps.pressure_pass_plain(eng, st, cfg),
                                rtol=1e-5, atol=1e-6)
 
 
@@ -287,6 +294,23 @@ def test_tiled_hopkins_reaches_every_edge(card, split, fast_math):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("self_pair", [True, False], ids=["self", "no_self"])
+def test_tiled_pressure_reaches_every_edge(card, self_pair):
+    """The tiled pressure root at cap 24 (``_reaches_every_edge`` on the
+    full-Hopkins state) with the self pair and without it: bit for bit
+    against the direct design, the row band and the other staging scheme,
+    and within its twin's gate."""
+    cfg = dataclasses.replace(BENCH, bucket_cap=24, self_density=self_pair)
+    eng, st = _live_state(card, fh, cfg)
+    _reaches_every_edge(eng, st, "pressure_sweep")
+    got = ps.pressure_pass(eng, st, cfg)
+    _held_to_designs("pressure_sweep", eng, st, cfg, [got])
+    assert torch.equal(got, ps.pressure_pass(eng, st, cfg))
+    torch.testing.assert_close(got, ps.pressure_pass_plain(eng, st, cfg),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_gamma_grad_kernel_matches_twin(card):
     """The Colagrossi packing's ∇Γ sweep, on a state whose h varies."""
     eng, st = _live_state(card, pv, PV_BENCH)
@@ -397,7 +421,9 @@ _TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
                   "pavelka_momentum_entropy_sweep":
                       ps.pavelka_momentum_entropy_pass,
                   "momentum_sweep": ps.momentum_pass,
+                  "pressure_sweep": ps.pressure_pass,
                   "hopkins_momentum_sweep": ps.hopkins_momentum_pass,
+                  "legacy_mass_sweep": ps.legacy_mass_pass,
                   "legacy_force_sweep": ps.legacy_force_pass,
                   "isph_matvec_sweep": ps.isph_matvec_pass}
 
@@ -698,24 +724,34 @@ def test_terrain_kernel_steps_match_cpu_twins(card, factory, extra):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast_math"])
-@pytest.mark.parametrize("av", [0.0, 0.05], ids=["no_av", "av"])
-def test_tiled_legacy_force_reaches_every_edge(card, av, fast_math):
-    """The tiled terrain force at cap 24 (``_reaches_every_edge`` on the
-    n_rows=14 terrain state: a ragged last tile, idle tiles, empty q slots
-    beside full ones), without AV (a null FLUID plane, 8 staged planes) and
-    with it (9), each form on its own plan: one launch counted, bit for bit
-    against the direct design, the row band and the other staging scheme,
-    and within its twin's gate."""
+@pytest.mark.parametrize("kernel,av,fast_math", [
+    ("legacy_force_sweep", 0.0, False), ("legacy_force_sweep", 0.0, True),
+    ("legacy_force_sweep", 0.05, False), ("legacy_force_sweep", 0.05, True),
+    ("legacy_mass_sweep", 0.0, False)],
+    ids=["no_av-exact", "no_av-fast_math", "av-exact", "av-fast_math",
+         "mass"])
+def test_tiled_legacy_force_reaches_every_edge(card, kernel, av, fast_math):
+    """The tiled terrain force and continuity at cap 24
+    (``_reaches_every_edge`` on the n_rows=14 terrain state: a ragged last
+    tile, idle tiles, empty q slots beside full ones): the force without AV
+    (a null FLUID plane, 8 staged planes) and with it (9), each form on its
+    own plan, and the continuity (6 planes; it has neither AV nor a divide):
+    one launch counted, bit for bit against the direct design, the row band
+    and the other staging scheme, and within its twin's gate."""
     eng, st, cfg = _terrain_live("isothermal_flow_config", card, bucket_cap=24,
                                  av_alpha=av, fast_math=fast_math)
-    _reaches_every_edge(eng, st, "legacy_force_sweep")
-    before = ps.legacy_force_pass.launches
-    got = ps.legacy_force_pass(eng, st, cfg)
-    assert ps.legacy_force_pass.launches == before + 1
-    _held_to_designs("legacy_force_sweep", eng, st, cfg, got)
-    _held_to_twin(got, ps.legacy_force_pass(eng, st, cfg),
-                  ps.legacy_force_pass_plain(eng, st, cfg), fast_math)
+    _reaches_every_edge(eng, st, kernel)
+    wrapper = _TILED_WRAPPER[kernel]
+    twin = getattr(ps, wrapper.__name__ + "_plain")
+
+    def as_list(out):
+        return out if isinstance(out, list) else [out]
+    before = wrapper.launches
+    got = as_list(wrapper(eng, st, cfg))
+    assert wrapper.launches == before + 1
+    _held_to_designs(kernel, eng, st, cfg, got)
+    _held_to_twin(got, as_list(wrapper(eng, st, cfg)),
+                  as_list(twin(eng, st, cfg)), fast_math)
 
 
 ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2,

@@ -240,8 +240,9 @@ def test_tile_kmax_matches_a_brute_force_count(case):
 @pytest.mark.parametrize("case", ["pavelka", "hand-made", "empty"])
 def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
-    the flagship momentum, the Hopkins momentum, the terrain force and the
-    ISPH matvec: each export's ``_trip_bound``) equals the largest count
+    the flagship momentum, the Hopkins pressure root and momentum, the
+    terrain continuity and force and the ISPH matvec: each export's
+    ``_trip_bound``) equals the largest count
     among each tile's (TX+2)×3 cells, exactly, and is never above the row
     band of its row: on the tiny Pavelka state (cap 8, TX 32), on a
     hand-made occupancy at cap 24 (TX 10: 128 x-cells leave
@@ -271,7 +272,8 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     got = tps.tile_kmax(engine, state, tx)
     assert got.dtype == torch.int32
     for name in ("pavelka_mass_sweep", kernel, "momentum_sweep",
-                 "hopkins_momentum_sweep", "legacy_force_sweep",
+                 "pressure_sweep", "hopkins_momentum_sweep",
+                 "legacy_mass_sweep", "legacy_force_sweep",
                  "isph_matvec_sweep"):
         assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
