@@ -31,8 +31,9 @@ Phases, each printing one or more lines:
   3. flagship build and shape checks;
   4. a forced rescatter of the frozen state, which must be the identity;
   5. the flagship's kernels against their plain PyTorch twins at full size
-     (fast_math off and on), plus bitwise-equal reruns; the momentum (the
-     tiled 9-cell design) with its tile plan, bit for bit against the
+     (fast_math off and on), plus bitwise-equal reruns; the density (with
+     the self pair and without it) and the momentum (the tiled 9-cell
+     design) with their tile plans, bit for bit against the
      one-thread-per-slot design (``_direct``), the tiled export on the row
      band and its other staging scheme;
   6. a small-input check: 8 flagship kernel steps on the card against 8
@@ -52,10 +53,10 @@ Phases, each printing one or more lines:
      1 timed frame;
  12. hopkins_perturbed: 1 frame of 100 steps;
  13. the Pavelka kernels (continuity with both diffusion forms, fused
-     momentum + entropy: the tiled 9-cell design) and the packing's
-     gradient sweep against their twins at full size on a live Pavelka
-     state, fast_math off and on; reruns bitwise equal; the tiled pair with
-     its tile plan (TX, threads, blocks, dynamic shared bytes of both
+     momentum + entropy) and the packing's gradient sweep (each the tiled
+     9-cell design) against their twins at full size on a live Pavelka
+     state, fast_math off and on; reruns bitwise equal; the three with
+     their tile plan (TX, threads, blocks, dynamic shared bytes of both
      staging schemes, tiles with a non-zero bound, the mean per-tile bound
      against the mean row band, the warps of the working blocks that hold
      no occupied p slot), bit for bit against the one-thread-per-slot
@@ -107,16 +108,20 @@ Phases, each printing one or more lines:
      isothermal and adiabatic static configs' default sizes; exact divides,
      fast_math, and the AV term with both; reruns bitwise equal; the
      terrain continuity and force (the tiled 9-cell design, the force each
-     AV form on its own plan) with their tile plans, bit for bit against the
-     one-thread-per-slot design (``_direct``), the tiled export on the row
-     band and its other staging scheme;
+     AV form on its own plan) and the adiabatic density (the tiled density
+     with the self pair and the gated weight, cap 8) with their tile plans,
+     bit for bit against the one-thread-per-slot design (``_direct``), the
+     tiled export on the row band and its other staging scheme;
  26. 8 small steps of each terrain variant, card against CPU twins;
  27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
      the first inflow spawn event), with the spawn events, spawn_drops, the
      INFLOW and active counts, drag/lift and the rescatters;
  28. one 100-step run (warm-up and timed halves) of each other terrain
      variant at its default size, the adiabatic flow with the corrected
-     bundle (Rayleigh sponge, consistent entropy, OUTFLOW buffer, AV);
+     bundle (Rayleigh sponge, consistent entropy, OUTFLOW buffer, AV); then
+     the adiabatic density on that flow's final state (cap 16, TX 16) with
+     its tile plan, bit for bit against its designs and within its twin's
+     gate;
  29. ``legacy_witch.run(cfg, out_path=..., device="cuda")`` of a small flow
      config through a spawn event, a checkpoint every frame: the file set,
      the data.csv columns, and a resumed run bit for bit;
@@ -147,11 +152,12 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the thirteen tiled kernels (the flagship momentum, the Hopkins
-     pressure root and momentum in both forms, the two Pavelka sweeps, the
-     terrain continuity, the terrain force in both AV forms, the ISPH matvec
-     in its prepared form, witch3d's density and momentum, collapse3d's
-     dam-break continuity and force) in turns with the design they replaced
+     the seventeen tiled kernels (the flagship density and momentum, the
+     adiabatic density, the Hopkins pressure root and momentum in both
+     forms, the two Pavelka sweeps, the packing's gradient, the terrain
+     continuity, the terrain force in both AV forms, the ISPH matvec in its
+     prepared form, witch3d's density and momentum, collapse3d's dam-break
+     continuity and force) in turns with the design they replaced
      and with each tile's bound its row's band (direct, tiled, row band, row
      band, tiled, direct; the 2-D ones with their other staging scheme after
      each tiled turn), each beside its bound, and each design's kernel time
@@ -476,7 +482,8 @@ def profile_steps(phase, label, step, state, n_steps=10, table=True):
                f" % of them; {launched / n_steps:g} device kernels per step")
 
 
-FORMS = {"split": True, "total": False, "av": True, "no_av": False}
+FORMS = {"split": True, "total": False, "av": True, "no_av": False,
+         "adia": None}
 
 
 def tiled_label(kernel):
@@ -484,11 +491,14 @@ def tiled_label(kernel):
     tiled sweep's label: the Hopkins momentum's carries its form
     ("hopkins_momentum_sweep split" or "... total": ``background_split``,
     a keyword), the terrain force's its AV switch ("legacy_force_sweep av"
-    or "... no_av": the config's, so no keyword); the others are export
-    names (form None)."""
+    or "... no_av": the config's, so no keyword), the adiabatic density
+    ("density_sweep adia": the density's one plan, the keyword
+    ``adiabatic``); the others are export names (form None). The ∇Γ
+    sweep's ``V0`` comes from its state, not its label."""
     name, _, label = kernel.partition(" ")
     form = FORMS[label] if label else None
-    kw = {"background_split": form} if name == "hopkins_momentum_sweep" else {}
+    kw = ({"background_split": form} if name == "hopkins_momentum_sweep" else
+          {"adiabatic": True} if label == "adia" else {})
     return name, form, kw
 
 
@@ -1123,7 +1133,8 @@ def main(profile: bool) -> None:
     def designs_equal(label, kernel, e, s_, c, got, **kw):
         """The wrapper's outputs bit for bit against every other design of a
         tiled sweep (``tiled_yardsticks``; ``kw``: the Hopkins momentum's
-        ``background_split``); returns their names."""
+        ``background_split``, the density's ``adiabatic``, the ∇Γ sweep's
+        ``V0``); returns their names."""
         others = {name: run() for name, run in
                   ps.tiled_yardsticks(kernel, e, s_, c, **kw).items()}
         bad = [name for name, out in others.items()
@@ -1134,18 +1145,25 @@ def main(profile: bool) -> None:
         return ", ".join(others)
 
     # 5: the flagship's kernels against their twins on a live state: one
-    # step in, then v and h perturbed from a seeded generator; the momentum
-    # runs the tiled design: held bit for bit against the direct one, the
-    # row band and the other staging scheme, then against its twin
+    # step in, then v and h perturbed from a seeded generator; the density
+    # (with the self pair, the flagship's self_density, and without it) and
+    # the momentum run the tiled design: held bit for bit against the direct
+    # one, the row band and the other staging scheme, then against the twin
     st = perturbed(w.make_step(cfg, eng)(state0), dev)
-    say(5, tile_plan_line(ps, eng, st, ("momentum_sweep",)))
+    say(5, tile_plan_line(ps, eng, st, ("density_sweep", "momentum_sweep")))
     errs = {}
-    errs["density"] = kernel_vs_twin(
-        "density", [ps.density_pass(eng, st, cfg)],
-        [ps.density_pass(eng, st, cfg)], [ps.density_pass_plain(eng, st, cfg)],
-        fast=False)
-    say(5, f"density kernel vs twin: max abs err {errs['density'][0]:.3e} "
-           f"(max |rho| {errs['density'][1]:.4f}), rerun bitwise equal")
+    for self_pair in (True, False):
+        c = dataclasses.replace(cfg, self_density=self_pair)
+        label = f"density self_pair={self_pair}"
+        kern = [ps.density_pass(eng, st, c)]
+        held = designs_equal(label, "density_sweep", eng, st, c, kern)
+        err, scale = errs[f"density_self{int(self_pair)}"] = kernel_vs_twin(
+            label, kern, [ps.density_pass(eng, st, c)],
+            [ps.density_pass_plain(eng, st, c)], fast=False)
+        say(5, f"density kernel (tiled), self_pair={self_pair}: bit for bit "
+               f"equal to {held}; vs twin max abs err {err:.3e} (max |rho| "
+               f"{scale:.4f}), gate rtol {RTOL} atol {ATOL}, rerun bitwise "
+               f"equal")
     for fm in (False, True):
         c = dataclasses.replace(cfg, fast_math=fm)
         label = f"momentum fast_math={fm}"
@@ -1307,7 +1325,8 @@ def main(profile: bool) -> None:
     # the direct one, the row band and the other staging scheme, then
     # against their twins at the gate
     say(13, tile_plan_line(ps, e13, st, ("pavelka_mass_sweep",
-                                         "pavelka_momentum_entropy_sweep")))
+                                         "pavelka_momentum_entropy_sweep",
+                                         "gamma_grad_sweep")))
     for fixed in (True, False):
         for fm in (False, True):
             c = dataclasses.replace(pcfg, fixed_diffusion=fixed, fast_math=fm)
@@ -1344,14 +1363,19 @@ def main(profile: bool) -> None:
                 f"|dS| {scale_ds:.4e}, rel {err_ds / scale_ds:.3e})"
                 + ("" if fm else f", gate rtol {RTOL} atol {ATOL} x max")
                 + ", rerun bitwise equal")
+    # the packing's gradient (the self pair, an exact divide) runs the tiled
+    # design too
     V0 = float((st.fields["m"][st.active] / st.fields["rho"][st.active]).mean())
+    kern = ps.gamma_grad_pass(e13, st, V0)
+    held = designs_equal("gamma_grad", "gamma_grad_sweep", e13, st, None, kern,
+                         V0=V0)
     errs["gamma"] = kernel_vs_twin(
-        "gamma_grad", ps.gamma_grad_pass(e13, st, V0),
-        ps.gamma_grad_pass(e13, st, V0), ps.gamma_grad_pass_plain(e13, st, V0),
-        fast=False, scaled=True)
-    say(13, f"gamma_grad kernel vs twin (V0 {V0:.4e}, h varying): max abs err "
-            f"{errs['gamma'][0]:.3e} (max |gGamma| {errs['gamma'][1]:.4e}), "
-            f"gate rtol {RTOL} atol {ATOL} x max, rerun bitwise equal")
+        "gamma_grad", kern, ps.gamma_grad_pass(e13, st, V0),
+        ps.gamma_grad_pass_plain(e13, st, V0), fast=False, scaled=True)
+    say(13, f"gamma_grad kernel (tiled), V0 {V0:.4e}, h varying: bit for bit "
+            f"equal to {held}; vs twin max abs err {errs['gamma'][0]:.3e} (max "
+            f"|gGamma| {errs['gamma'][1]:.4e}), gate rtol {RTOL} atol {ATOL} x "
+            f"max, rerun bitwise equal")
     del st
 
     # 14: 8 small Pavelka steps, card against CPU twins
@@ -1785,10 +1809,17 @@ def main(profile: bool) -> None:
         ("adia_entropy_force_sweep", "adiabatic static",
          ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
     # the terrain continuity and force run the tiled design, the force each
-    # AV form on its own plan
+    # AV form on its own plan, and so does the adiabatic density (the
+    # density's export with the self pair and the gated weight)
     say(25, tile_plan_line(ps, e24, live["terrain"][1],
                            ("legacy_mass_sweep", "legacy_force_sweep no_av",
                             "legacy_force_sweep av")))
+    say(25, tile_plan_line(ps, live["adiabatic static"][0],
+                           live["adiabatic static"][1],
+                           ("density_sweep adia",)))
+    tiled = {"legacy_mass_sweep": "legacy_mass_sweep",  # key: tiled label
+             "legacy_force_sweep": "legacy_force_sweep",
+             "adia_density_pass": "density_sweep adia"}
     for key, where, kern, twin, divides in cases:
         e, st, base_cfg = live[where]
         variants = ((0.0, False), (0.0, True), (0.05, False),
@@ -1798,10 +1829,11 @@ def main(profile: bool) -> None:
             as_list = (lambda o: o if isinstance(o, list) else [o])
             label = f"{key} av={av} fast_math={fm}"
             got = as_list(kern(e, st, c))
-            held = ("" if key not in ("legacy_mass_sweep",
-                                      "legacy_force_sweep") else
-                    " (tiled), bit for bit equal to "
-                    + designs_equal(label, key, e, st, c, got))
+            held = ""
+            if key in tiled:
+                name, _, kw = tiled_label(tiled[key])
+                held = (" (tiled), bit for bit equal to "
+                        + designs_equal(label, name, e, st, c, got, **kw))
             err, scale = kernel_vs_twin(
                 label, got, as_list(kern(e, st, c)), as_list(twin(e, st, c)),
                 fm, scaled=True)
@@ -1871,6 +1903,22 @@ def main(profile: bool) -> None:
             {k: 100 for k in kernels}, card, other_sys[label].n_built,
             steps_per_frame=50)
     del other_state0
+    # the adiabatic density once more, on the corrected adiabatic flow's
+    # final state: cap 16, TX 16 (the template at another cap than phase
+    # 25's 8)
+    label = "adiabatic flow, corrected"
+    oe, ost, ocfg = other_sys[label].engine, other_state[label], others[label]
+    say(28, tile_plan_line(ps, oe, ost, ("density_sweep adia",)))
+    kern = [ps.adia_density_pass(oe, ost, ocfg)]
+    held = designs_equal(f"adia_density_pass on the {label} state",
+                         "density_sweep", oe, ost, ocfg, kern, adiabatic=True)
+    err, scale = errs["adia_density_cap16"] = kernel_vs_twin(
+        "adia_density_pass cap 16", kern, [ps.adia_density_pass(oe, ost, ocfg)],
+        [ps.adia_density_pass_plain(oe, ost, ocfg)], False, scaled=True)
+    say(28, f"adia_density_pass kernel (tiled) on the {label} state (cap "
+            f"{oe.cap}): bit for bit equal to {held}; vs twin max abs err "
+            f"{err:.3e} (max |rho| {scale:.4e}), gate rtol {RTOL} atol {ATOL} "
+            f"x max, rerun bitwise equal")
 
     # 29: run(out_path=...) of a small flow config on the card through a
     # spawn event, a checkpoint every frame: the file set, the data.csv
@@ -2035,9 +2083,8 @@ def main(profile: bool) -> None:
                 ps._pavelka_momentum_entropy_body(c), 3, False)
         elif kernel == "gamma_grad_sweep":
             planes, pads = ps._gamma_grad_inputs(e, s)
-            coef = V0 * ps._rdw_const(2)
             args, body, n_out, self_pair = (
-                [ps.ctypes.c_float(coef)], ps._gamma_grad_body(V0), 2, True)
+                ps._gamma_grad_scalars(V0), ps._gamma_grad_body(V0), 2, True)
         else:
             split = kernel.endswith("split")
             planes, pads = ps._hopkins_inputs(e, s, c, split)
@@ -2146,6 +2193,9 @@ def main(profile: bool) -> None:
     # the tiled sweeps against the design they replaced, in turns on one
     # card (the 2-D ones with their other staging scheme too)
     for kernel, e, s, c in (
+            ("density_sweep", eng, flag_state, cfg),
+            ("density_sweep adia", adia_e, other_state[ADIA], others[ADIA]),
+            ("gamma_grad_sweep", e13, pv_state, None),
             ("momentum_sweep", eng, flag_state, cfg),
             ("pressure_sweep", e8, fh_state, cfg),
             ("hopkins_momentum_sweep split", e8, fh_state, cfg),
@@ -2164,6 +2214,8 @@ def main(profile: bool) -> None:
              c3_cfg)):
         say(30, tile_plan_line(ps, e, s, (kernel,)) + " (the timed state)")
         name, _, kw = tiled_label(kernel)
+        if name == "gamma_grad_sweep":  # phase 13's V0, as in its row above
+            kw = {"V0": V0}
         runs = ps.tiled_yardsticks(name, e, s, c, **kw)
         # the terrain force's AV form has no row of its own: the main path's
         # bound (without the AV term's operations) stands beside it
@@ -2232,7 +2284,8 @@ def main(profile: bool) -> None:
                                             "isph_matvec_sweep",
                                             "isph_grad_sweep")},
                 "rb_mass_heat_sweep": r_counts["rb_mass_heat_sweep"]}
-    err_of = {"density_sweep": errs["density"][0],
+    err_of = {"density_sweep": max(errs["density_self1"][0],
+                                   errs["density_self0"][0]),
               "momentum_sweep": errs["momentum_fm1"][0],
               "pressure_sweep": max(errs["pressure_self1"][0],
                                     errs["pressure_self0"][0]),

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Hold this checkout's sweeps of the Hopkins pressure root and the legacy
-continuity against another checkout's build of ``csrc/pair_sweep.cu`` on the
-card, bit for bit: the other checkout's ``pressure_sweep`` and
-``legacy_mass_sweep`` (one thread per slot, where they ran on
-``pair_sweep``) against this one's ``_direct`` yardsticks and tiled exports,
-and ``iso_static_mass_sweep`` (the per-particle-h continuity, which shares
-its body with the terrain continuity) against itself. Tiny live states of
-the card tests (``tests/test_torch_cuda.py``): full_hopkins at caps 8 and 24
-with the self pair and without it, the terrain flow at caps 16 and 24, the
-isothermal static state at its own cap and at 24.
+"""Hold this checkout's sweeps of the 2-D density, the Colagrossi packing's
+gradient, the Hopkins pressure root and the legacy continuity against
+another checkout's build of ``csrc/pair_sweep.cu`` on the card, bit for
+bit: the other checkout's one-thread-per-slot design of each (its
+``_direct`` yardstick where it has one, else the export itself, which then
+ran on ``pair_sweep``) against this one's ``_direct`` yardsticks and tiled
+exports, and ``iso_static_mass_sweep`` (the per-particle-h continuity,
+which shares its body with the terrain continuity) against itself. Tiny live states of the card tests (``tests/test_torch_cuda.py``):
+the flagship and full_hopkins at caps 8 and 24 with the self pair and
+without it, the adiabatic density on the adiabatic flow (cap 16, gated and
+corrected), the Pavelka state at caps 8 and 24, the terrain flow at caps 16
+and 24, the isothermal static state at its own cap and at 24.
 
     python3 scripts/hold_against_checkout.py build/parent
 
 The other checkout's source is built with this checkout's nvcc flags into
 ``build/other_kernels/`` and called with this checkout's argument lists
-(the other's ``pressure_sweep`` and ``legacy_mass_sweep`` take those of the
-``_direct`` exports). Prints one line per case and a count; exits non-zero
-on the first difference.
+(an export of the other's that ran on ``pair_sweep`` takes those of this
+checkout's ``_direct`` export). Prints one line per case and a count;
+exits non-zero on the first difference.
 """
 from __future__ import annotations
 
@@ -30,15 +32,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
-# export of this checkout -> the other checkout's export of the same design
-PAIRS = {"pressure_sweep_direct": "pressure_sweep",
-         "legacy_mass_sweep_direct": "legacy_mass_sweep",
-         "iso_static_mass_sweep": "iso_static_mass_sweep",
-         "pair_sweep_error_string": "pair_sweep_error_string"}
+# exports of this checkout taken from the other checkout's build: under the
+# same name there, or (a "_direct" yardstick the other lacks) under the name
+# without "_direct", the export that ran the same design there
+SHARED = ("density_sweep_direct", "gamma_grad_sweep_direct",
+          "pressure_sweep_direct", "legacy_mass_sweep_direct",
+          "iso_static_mass_sweep", "pair_sweep_error_string")
 
 
 def other_library(other: Path):
-    """The other checkout's pair_sweep.cu built here, its exports of PAIRS
+    """The other checkout's pair_sweep.cu built here, its exports of SHARED
     under this checkout's names and signatures."""
     from sph_mountain_waves_tpu_torch.ops import _build
     out = ROOT / "build" / "other_kernels" / "pair_sweep.so"
@@ -48,8 +51,11 @@ def other_library(other: Path):
                     str(src)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     shim = types.SimpleNamespace()
-    for mine, theirs in PAIRS.items():
-        fn = getattr(lib, theirs)
+    for mine in SHARED:
+        try:
+            fn = getattr(lib, mine)
+        except AttributeError:
+            fn = getattr(lib, mine.removesuffix("_direct"))
         fn.argtypes, fn.restype = _build.SIGNATURES["pair_sweep"][mine]
         setattr(shim, mine, fn)
     return shim
@@ -61,7 +67,8 @@ def main(other: Path) -> None:
         raise RuntimeError("no CUDA device")
     import test_torch_cuda as t
     from sph_mountain_waves_tpu_torch.models import (
-        full_hopkins_perturbed_witch as fh,
+        full_hopkins_perturbed_witch as fh, pavelka_total_witch as pv,
+        wcsph_perturbed_witch as w,
     )
     from sph_mountain_waves_tpu_torch.ops import _build, pair_sweeps as ps
     dev = torch.device("cuda", 0)
@@ -74,22 +81,36 @@ def main(other: Path) -> None:
         finally:
             _build.load = lambda name: mine
 
-    cases = []
+    cases = []  # (label, kernel, engine, state, config, tiled_yardsticks' kw)
     for cap in (None, 24):
         for self_pair in (True, False):
             cfg = dataclasses.replace(t.BENCH, bucket_cap=cap,
                                       self_density=self_pair)
-            eng, st = t._live_state(dev, fh, cfg)
-            cases.append((f"pressure_sweep cap {eng.cap} self_pair "
-                          f"{self_pair}", "pressure_sweep", eng, st, cfg))
+            for kernel, module in (("density_sweep", w),
+                                   ("pressure_sweep", fh)):
+                eng, st = t._live_state(dev, module, cfg)
+                cases.append((f"{kernel} cap {eng.cap} self_pair "
+                              f"{self_pair}", kernel, eng, st, cfg, {}))
+    for extra in ({}, dict(true_rayleigh=True, consistent_entropy=True,
+                           outflow_buffer=2 * 1.8 * (26e3 / 14),
+                           av_alpha=0.05)):
+        eng, st, cfg = t._terrain_live("adiabatic_flow_config", dev, **extra)
+        cases.append((f"density_sweep adiabatic cap {eng.cap}"
+                      + (" corrected" if extra else ""), "density_sweep",
+                      eng, st, cfg, {"adiabatic": True}))
+    for cap in (None, 24):
+        cfg = dataclasses.replace(t.PV_BENCH, bucket_cap=cap)
+        eng, st = t._live_state(dev, pv, cfg)
+        cases.append((f"gamma_grad_sweep cap {eng.cap}", "gamma_grad_sweep",
+                      eng, st, None, {"V0": 6.0e6}))
     for cap in (None, 24):
         eng, st, cfg = t._terrain_live("isothermal_flow_config", dev,
                                        bucket_cap=cap)
         cases.append((f"legacy_mass_sweep cap {eng.cap}", "legacy_mass_sweep",
-                      eng, st, cfg))
+                      eng, st, cfg, {}))
     n = 0
-    for label, kernel, eng, st, cfg in cases:
-        runs = ps.tiled_yardsticks(kernel, eng, st, cfg)
+    for label, kernel, eng, st, cfg, kw in cases:
+        runs = ps.tiled_yardsticks(kernel, eng, st, cfg, **kw)
         got = on_other(runs["direct"])
         for name in ("direct", "tiled"):
             if not all(torch.equal(a, b) for a, b in zip(got, runs[name]())):

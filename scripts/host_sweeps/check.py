@@ -1,10 +1,11 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D Pavelka pair, the 2-D flagship momentum, the Hopkins pressure root
-with and without the self pair, the Hopkins momentum in both forms, the
-terrain continuity, the terrain force with and without AV and the ISPH CG
-matvec in its prepared form) against the one-thread-per-slot design they
-replaced,
+the 2-D Pavelka pair, the 2-D flagship density with and without the self
+pair and the adiabatic density, the 2-D flagship momentum, the Hopkins
+pressure root with and without the self pair, the Hopkins momentum in both
+forms, the Colagrossi packing's gradient, the terrain continuity, the
+terrain force with and without AV and the ISPH CG matvec in its prepared
+form) against the one-thread-per-slot design they replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -14,6 +15,7 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
     python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
     python scripts/host_sweeps/check.py legacy isph   # terrain pair, matvec
+    python scripts/host_sweeps/check.py density gamma  # densities, packing
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -113,7 +115,9 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     """The tiled launch bit for bit against every other design
     (``tiled_yardsticks``: the direct one, the row band, the other 2-D
     staging scheme; raises otherwise); returns whether it also equals the
-    twin bit for bit. ``kw``: the Hopkins momentum's ``background_split``."""
+    twin bit for bit. ``kw``: ``tiled_yardsticks``' keywords (the Hopkins
+    momentum's ``background_split``, the density's ``adiabatic``, the
+    packing gradient's ``V0``)."""
     runs = ps.tiled_yardsticks(kernel, engine, state, cfg, **kw)
     t0 = time.perf_counter()
     tiled = runs.pop("tiled")()
@@ -128,9 +132,11 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
         f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else
-        f" self_pair={cfg.self_density}" if kernel == "pressure_sweep" else
-        "")
-    print(f"{kernel}{form} fast_math={ps._fast(cfg)}, lims {engine.lims}, "
+        f" self_pair={cfg.self_density}"
+        if kernel in ("pressure_sweep", "density_sweep")
+        and not kw.get("adiabatic") else "")
+    fast = "" if cfg is None else f" fast_math={ps._fast(cfg)}"
+    print(f"{kernel}{form}{fast}, lims {engine.lims}, "
           f"cap {engine.cap}: tiled == "
           f"{', '.join(runs)}; tiled == twin {same}; max |out| "
           f"{max(float(a.abs().max()) for a in tiled):.4e}; "
@@ -198,6 +204,63 @@ def main(which) -> None:
                 ok &= held("pavelka_momentum_entropy_sweep", system.engine,
                            state, c, ps.pavelka_momentum_entropy_pass_plain
                            ) or fm
+    if "density" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import (
+            legacy_witch as lw, wcsph_perturbed_witch as w,
+        )
+        from sph_mountain_waves_tpu_torch.models.witch_common import (
+            WitchConfig,
+        )
+        # the tiny flagship state, h varied; cap 8: TX 32 on 128 x-cells;
+        # cap 24: TX 10, a ragged last tile of 8. The density has no divide:
+        # one form, with the self pair or without it
+        for cap in (None, 24):
+            cfg = WitchConfig(n_rows=10, dtype="float32", self_density=True,
+                              layout="bucket", skin=0.15, use_pallas=True,
+                              lazy_diagnostics=True, lattice_cells=True,
+                              bucket_cap=cap)
+            system = w.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"),
+                               h=(0.99, 1.01, True), m=(0.99, 1.01, True))
+            for self_pair in (True, False):
+                ok &= held("density_sweep", system.engine, state,
+                           dataclasses.replace(cfg, self_density=self_pair),
+                           ps.density_pass_plain)
+        # the adiabatic density (the self pair, the FLUID-gated weight; m
+        # on every row under the corrected bundle's OUTFLOW buffer) on the
+        # tiny adiabatic flow: cap 16, TX 16 on 128 x-cells
+        terrain = dict(n_rows=14, dom_length=40e3, h_m=2000.0, a=6e3,
+                       dtype="float32", layout="bucket", skin=0.15,
+                       use_pallas=True)
+        for extra in ({}, dict(true_rayleigh=True, consistent_entropy=True,
+                               outflow_buffer=2 * 1.8 * (26e3 / 14),
+                               av_alpha=0.05)):
+            cfg = lw.adiabatic_flow_config(**terrain, **extra)
+            system = lw.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"),
+                               h=(0.99, 1.01, True), m=(0.99, 1.01, True))
+            ok &= held("density_sweep", system.engine, state, cfg,
+                       ps.adia_density_pass_plain, adiabatic=True)
+    if "gamma" in which:
+        from sph_mountain_waves_tpu_torch.models import (
+            pavelka_total_witch as pv,
+        )
+        # the tiny Pavelka state, h varied; cap 8: TX 32; cap 24: TX 10, a
+        # ragged last tile of 8. One form (the self pair, an exact divide)
+        for cap in (None, 24):
+            cfg = pv.PavelkaConfig(
+                n_rows=10, dtype="float32", self_density=True,
+                layout="bucket", skin=0.15, use_pallas=True,
+                lattice_cells=True, bucket_cap=cap)
+            system = pv.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"),
+                               h=(0.99, 1.01, True))
+            V0 = float((state.fields["m"][state.active]
+                        / state.fields["rho"][state.active]).mean())
+            ok &= held("gamma_grad_sweep", system.engine, state, None,
+                       lambda e, s_, c_, V0=V0: ps.gamma_grad_pass_plain(
+                           e, s_, V0), V0=V0)
     if "momentum" in which or "hopkins" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import (
@@ -287,5 +350,5 @@ def main(which) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["dam", "witch", "pavelka", "momentum", "hopkins",
-                          "legacy", "isph"])
+    main(sys.argv[1:] or ["dam", "witch", "pavelka", "density", "gamma",
+                          "momentum", "hopkins", "legacy", "isph"])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device time, device kernels and wall time per step of three paths of the
-PyTorch port on one card, under torch.profiler: full_hopkins (10 steps from
-the built flagship-size state), hopkins_total (10 steps after its
-hydrostatic packing) and the terrain baseline (10 steps after a 300-step
-frame, as ``chip_smoke.py`` builds it). Each path's kernels and their launch
+"""Device time, device kernels and wall time per step of four paths of the
+PyTorch port on one card, under torch.profiler: the WCSPH flagship and
+full_hopkins (10 steps each from the built flagship-size state),
+hopkins_total (10 steps after its hydrostatic packing) and the terrain
+baseline (10 steps after a 300-step frame, as ``chip_smoke.py`` builds
+it). Each path's kernels and their launch
 counts are those of the checkout it imports, so two checkouts can be
 compared on one card by running this script once for each, in turns:
 
@@ -76,7 +77,7 @@ def main(root: Path) -> None:
     dev = torch.device("cuda", 0)
     from sph_mountain_waves_tpu_torch.models import (
         full_hopkins_perturbed_witch as fh, hopkins_total_witch as ht,
-        legacy_witch as lw,
+        legacy_witch as lw, wcsph_perturbed_witch as w,
     )
     from sph_mountain_waves_tpu_torch.models.common import frame_runner
     from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig
@@ -90,12 +91,13 @@ def main(root: Path) -> None:
                       layout="bucket", skin=0.15, use_pallas=True,
                       lazy_diagnostics=True, lattice_cells=True,
                       fast_math=True)
-    system = fh.make_system(cfg)
-    state = system.freeze(device=dev)
-    step = fh.make_step(cfg, system.engine)
-    step(state)  # warm-up: the kernels' build and first launches
-    print(profiled("full_hopkins", step, state), flush=True)
-    del state, system
+    for label, module in (("flagship", w), ("full_hopkins", fh)):
+        system = module.make_system(cfg)
+        state = system.freeze(device=dev)
+        step = module.make_step(cfg, system.engine)
+        step(state)  # warm-up: the kernels' build and first launches
+        print(profiled(label, step, state), flush=True)
+        del state, system
 
     system = ht.make_system(cfg)
     state = system.freeze(device=dev)  # freeze makes system.engine

@@ -72,11 +72,15 @@
 // stride is not a multiple of 16 bytes). The density and momentum take 0.65
 // and 0.99 ms there (15 and 14 % of the bound); their candidate loop (a
 // 16-byte shared load, the distance and its test), not the staging, paces
-// them (PERF.md has the breakdown, and the dam-break sweeps' times). The two
-// Pavelka sweeps, the flagship momentum, the Hopkins pressure root and
-// momentum, the terrain continuity and force with fixed h and the ISPH CG
-// matvec run the same design in 2-D, pair_sweep_tiled (9 cells); every other
-// 2-D sweep still runs pair_sweep.
+// them (PERF.md has the breakdown, and the dam-break sweeps' times). The
+// flagship density (and the adiabatic density on it) and momentum, the
+// Hopkins pressure root and momentum, the two Pavelka sweeps, the packing
+// gradient, the terrain continuity and force with fixed h and the ISPH CG
+// matvec run the same design in 2-D, pair_sweep_tiled (9 cells); the density,
+// the pressure root and the packing gradient count the self pair there. The
+// other 2-D sweeps (the dam-break and Rayleigh-Benard sweeps, the
+// per-particle-h terrain sweeps, the fused adiabatic sweep, the ISPH
+// divergence and gradient) still run pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,9 +113,9 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 }
 
 // q's fields as the accessor bodies read them (the 3-D bodies, the
-// dam-break bodies in 2-D, the 2-D momentum, the Hopkins pressure root and
-// momentum, the Pavelka bodies, the legacy continuity and force and the ISPH
-// matvec): q[i] is plane i at q's slot. PlaneQ reads the planes
+// dam-break bodies in 2-D, the 2-D density and momentum, the Hopkins pressure
+// root and momentum, the Pavelka bodies, the packing gradient, the legacy
+// continuity and force and the ISPH matvec): q[i] is plane i at q's slot. PlaneQ reads the planes
 // (pair_sweep, pair_sweep3); StagedQ reads the copy that pair_sweep3_tiled
 // staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
 // the copy that pair_sweep_tiled staged: planes 0-3 (occupancy, x0, x1 and
@@ -165,17 +169,20 @@ struct StagedQ2 {
   }
 };
 
-// rho_p = sum_q w_q W2(h_p, r); fields: occ, x0, x1, 1/h, w.
+// rho_p = sum_q w_q W2(h_p, r); fields: occ, x0, x1, 1/h, w. q's planes
+// read by the body beyond the occupancy and position: QMASK (w: plane 4; q's
+// 1/h rides in the staged float4 unread).
 struct Density {
   static constexpr int NIN = 5;
   static constexpr int NOUT = 1;
+  static constexpr unsigned QMASK = 0x10u;
   struct Params {
     float cw;  // 7/pi
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
-    const float wq = f.in[4][qi];
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float wq = q[4];
     const float r = sqrtf(r2);
     const float hinv = p[3];
     const float x = r * hinv;
@@ -184,6 +191,12 @@ struct Density {
     const float hpow = hinv * hinv;
     const float ker = prm.cw * t2 * t2 * (1.0f + 4.0f * x) * hpow;
     tot[0] += wq * ker;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -451,23 +464,32 @@ struct PavelkaMomentumEntropy {
 
 // Colagrossi packing gradient: gGamma_p = sum_q coef t^3 / h_p^4 x_pq,
 // t = max(1 - r/h_p, 0), coef = V0 (-140/pi), exact divide; fields: occ, x0,
-// x1, h. Includes the self pair, whose term is exactly 0.
+// x1, h. Includes the self pair, whose term is exactly 0. The body reads no
+// q plane beyond the occupancy and position (QMASK 0: the staged float4
+// alone).
 struct GammaGrad {
   static constexpr int NIN = 4;
   static constexpr int NOUT = 2;
+  static constexpr unsigned QMASK = 0u;
   struct Params {
     float coef;  // V0 * (-140/pi)
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q&, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     const float hinv = 1.0f / p[3];
     const float t = fmaxf(1.0f - r * hinv, 0.0f);
     const float hinv2 = hinv * hinv;
     const float ker = prm.coef * t * t * t * (hinv2 * hinv2);
-    tot[0] += ker * d0;
-    tot[1] += ker * d1;
+    tot[0] += ker * d[0];
+    tot[1] += ker * d[1];
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1263,12 +1285,14 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiled 9-cell sweep of the Pavelka continuity and fused momentum +
-// entropy, the flagship momentum, the Hopkins pressure root and momentum, the
-// terrain continuity and force and the ISPH CG matvec (pallas_pairs.py
-// pavelka_mass_pass, pavelka_momentum_entropy_pass, momentum_pass,
-// pressure_pass, hopkins_momentum_pass, legacy_mass_pass, legacy_force_pass,
-// isph_matvec_prepared): pair_sweep3_tiled's design in 2-D. One block is TX
+// The tiled 9-cell sweep of the 2-D density, the Pavelka continuity and
+// fused momentum + entropy, the flagship momentum, the Hopkins pressure root
+// and momentum, the Colagrossi packing's gradient, the terrain continuity and
+// force and the ISPH CG matvec (pallas_pairs.py density_pass and
+// adia_density_pass, pavelka_mass_pass, pavelka_momentum_entropy_pass,
+// momentum_pass, pressure_pass, hopkins_momentum_pass, legacy_mass_pass,
+// legacy_force_pass, isph_matvec_prepared; utils/packing.py find_gGamma):
+// pair_sweep3_tiled's design in 2-D. One block is TX
 // consecutive x-cells of one grid row cy times every p rank: thread
 // (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx).
 // Blocks run x-tiles fastest, then rows, so the three rows a tile reads stay
@@ -1276,24 +1300,26 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // (ops/pair_sweeps.py::tile_kmax: the largest count among the (TX+2) x 3
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
-// for all p ranks: occupancy, x0, x1 and plane 3 (h; v0 in the terrain
-// continuity and force, the iterate in the matvec) as one float4 per cell
-// (a candidate is one 16-byte shared load), the other q planes the body
-// reads (Body::QMASK) as scalars; 4-byte cp.async, cells outside the grid
-// zero-filled so that they read as unoccupied. Two staging schemes, one
-// template each (EVERY_RANK):
+// for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density, v0
+// in the terrain continuity and force, the iterate in the matvec) as one
+// float4 per cell (a candidate is one 16-byte shared load), the other q
+// planes the body reads (Body::QMASK: none in the packing gradient, w in the
+// density) as scalars; 4-byte cp.async, cells outside the grid zero-filled so
+// that they read as unoccupied. Two staging schemes, one template each
+// (EVERY_RANK):
 //   false: two stages, rank kq+1 copied while rank kq is summed, a barrier
 //          between a copy and its use and another before a stage is
 //          overwritten (pair_sweep3_tiled's pipeline);
 //   true:  every rank up to the bound copied in one go, one barrier (a
-//          stage is small in 2-D: (TX+2) x 3 cells, 3.7 to 5.3 KB at TX 32
-//          for 9 to 13 staged planes, so cap 8 ranks take 29 to 42 KB).
+//          stage is small in 2-D: (TX+2) x 3 cells, 1.6 to 5.3 KB at TX 32
+//          for 4 to 13 staged planes, so cap 8 ranks take 13 to 42 KB).
 // The thread of an occupied p slot then takes its 9 cells per rank in
 // pair_sweep's order (dj, then di), skips an empty q cell before any
 // arithmetic on it, sums the pairs into tot and adds tot to acc. The self
 // pair, (di, dj, kq) == (1, 1, k), is skipped unless SELF: the Hopkins
-// pressure root counts it (pressure_sweep with self_pair, the Hopkins paths'
-// self_density), every other sweep here does not. With SELF it is summed in
+// pressure root and the density count it per self_pair (the paths'
+// self_density; the adiabatic density always), the packing gradient always
+// (its term is 0), every other sweep here never. With SELF it is summed in
 // its place in the dj, di order of rank k, as pair_sweep<Body, true> sums
 // it. So the same operations run in the same order, the ranks a tile skips
 // would add exact zeros, and the outputs equal pair_sweep's (with the same
@@ -1319,7 +1345,11 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // (cap 8: TX 32, 5 staged planes, 16,384 B for every rank at once), the
 // terrain continuity on the terrain force's (cap 24: TX 10, 6 planes,
 // 20,736 B): 0.055 ms (0.098 in pair_sweep) and 0.044 ms (0.081) of kernel
-// time on an H100, 17.5 and 5.3 % of the byte bound.
+// time on an H100, 17.5 and 5.3 % of the byte bound. The flagship density
+// takes the pressure root's plan (5 planes: the float4 of occupancy, x and
+// 1/h, then w; 16,384 B), the packing gradient on the Pavelka state 4 planes
+// (the float4 alone; 13,056 B), the adiabatic density of the corrected
+// adiabatic flow (grid 640 x 48) cap 16: TX 16, 17,408 B.
 template <class Body, bool SELF, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1529,14 +1559,16 @@ int legacy_mass_launch(const Planes<LegacyMass<2, ADAPTIVE_H>::NIN, 1>& f,
                                                     smem_bytes, s);
 }
 
-// the pressure root, with the self pair if self_pair
-template <bool TILED>
-int pressure(const Planes<Pressure::NIN, Pressure::NOUT>& f, const int* kmax,
-             const Layout& g, float cw, int self_pair, int tx, int smem_bytes,
-             cudaStream_t s) {
+// the one-output weighted sums (pallas_pairs.py weighted_w_pass): the
+// Hopkins pressure root (Pressure) and the 2-D density (Density), with the
+// self pair if self_pair
+template <bool TILED, class Body>
+int weighted_w(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
+               const Layout& g, float cw, int self_pair, int tx, int smem_bytes,
+               cudaStream_t s) {
   return self_pair
-      ? launch2<TILED, Pressure, true>(f, kmax, g, {cw}, tx, smem_bytes, s)
-      : launch2<TILED, Pressure, false>(f, kmax, g, {cw}, tx, smem_bytes, s);
+      ? launch2<TILED, Body, true>(f, kmax, g, {cw}, tx, smem_bytes, s)
+      : launch2<TILED, Body, false>(f, kmax, g, {cw}, tx, smem_bytes, s);
 }
 
 template <bool TILED>
@@ -1617,17 +1649,29 @@ const char* pair_sweep_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Inputs and outputs are [cap, nx*ny+1] f32 planes; kmax is int32 [ny].
+// Inputs and outputs are [cap, nx*ny+1] f32 planes. The 2-D density
+// launches pair_sweep_tiled, with the self pair if self_pair, on the plan
+// (tx, smem_bytes) the wrapper passes, kmax int32 [ny*ntiles] (one bound per
+// x-tile); its "_direct" export launches pair_sweep (kmax int32 [ny] per grid
+// row), the design the tiled one replaced: a yardstick, on no path.
 int density_sweep(const float* occ, const float* x0, const float* x1,
                   const float* hinv, const float* w, const int* kmax,
                   float* rho, int cap, int nx, int ny, float h2,
-                  int self_pair, float cw, void* stream) {
-  Planes<Density::NIN, Density::NOUT> f{{occ, x0, x1, hinv, w}, {rho}};
-  const Layout g{cap, nx, ny, h2};
-  const Density::Params prm{cw};
-  auto s = static_cast<cudaStream_t>(stream);
-  return self_pair ? launch<Density, true>(f, kmax, g, prm, s)
-                   : launch<Density, false>(f, kmax, g, prm, s);
+                  int self_pair, float cw, int tx, int smem_bytes,
+                  void* stream) {
+  return weighted_w<true, Density>({{occ, x0, x1, hinv, w}, {rho}}, kmax,
+                                   {cap, nx, ny, h2}, cw, self_pair, tx,
+                                   smem_bytes,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+int density_sweep_direct(const float* occ, const float* x0, const float* x1,
+                         const float* hinv, const float* w, const int* kmax,
+                         float* rho, int cap, int nx, int ny, float h2,
+                         int self_pair, float cw, void* stream) {
+  return weighted_w<false, Density>({{occ, x0, x1, hinv, w}, {rho}}, kmax,
+                                    {cap, nx, ny, h2}, cw, self_pair, 0, 0,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // The flagship momentum, the Hopkins momentum and the Pavelka sweeps launch
@@ -1672,18 +1716,19 @@ int pressure_sweep(const float* occ, const float* x0, const float* x1,
                    float* proot, int cap, int nx, int ny, float h2,
                    int self_pair, float cw, int tx, int smem_bytes,
                    void* stream) {
-  return pressure<true>({{occ, x0, x1, h, w}, {proot}}, kmax,
-                        {cap, nx, ny, h2}, cw, self_pair, tx, smem_bytes,
-                        static_cast<cudaStream_t>(stream));
+  return weighted_w<true, Pressure>({{occ, x0, x1, h, w}, {proot}}, kmax,
+                                    {cap, nx, ny, h2}, cw, self_pair, tx,
+                                    smem_bytes,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int pressure_sweep_direct(const float* occ, const float* x0, const float* x1,
                           const float* h, const float* w, const int* kmax,
                           float* proot, int cap, int nx, int ny, float h2,
                           int self_pair, float cw, void* stream) {
-  return pressure<false>({{occ, x0, x1, h, w}, {proot}}, kmax,
-                         {cap, nx, ny, h2}, cw, self_pair, 0, 0,
-                         static_cast<cudaStream_t>(stream));
+  return weighted_w<false, Pressure>({{occ, x0, x1, h, w}, {proot}}, kmax,
+                                     {cap, nx, ny, h2}, cw, self_pair, 0, 0,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // abg and pbe are read only with background_split (they may be null
@@ -1771,14 +1816,27 @@ int pavelka_momentum_entropy_sweep_direct(
       static_cast<cudaStream_t>(stream));
 }
 
+// The packing gradient (with the self pair) launches pair_sweep_tiled on the
+// plan (tx, smem_bytes) the wrapper passes, one bound per x-tile; its
+// "_direct" export launches pair_sweep (kmax int32 [ny] per grid row), the
+// design the tiled one replaced: a yardstick, on no path.
 int gamma_grad_sweep(const float* occ, const float* x0, const float* x1,
                      const float* h, const int* kmax, float* g0, float* g1,
-                     int cap, int nx, int ny, float h2, float coef,
-                     void* stream) {
-  Planes<GammaGrad::NIN, GammaGrad::NOUT> f{{occ, x0, x1, h}, {g0, g1}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<GammaGrad, true>(f, kmax, g, {coef},
-                                 static_cast<cudaStream_t>(stream));
+                     int cap, int nx, int ny, float h2, float coef, int tx,
+                     int smem_bytes, void* stream) {
+  return launch2<true, GammaGrad, true>({{occ, x0, x1, h}, {g0, g1}}, kmax,
+                                        {cap, nx, ny, h2}, {coef}, tx,
+                                        smem_bytes,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+int gamma_grad_sweep_direct(const float* occ, const float* x0,
+                            const float* x1, const float* h, const int* kmax,
+                            float* g0, float* g1, int cap, int nx, int ny,
+                            float h2, float coef, void* stream) {
+  return launch2<false, GammaGrad, true>({{occ, x0, x1, h}, {g0, g1}}, kmax,
+                                         {cap, nx, ny, h2}, {coef}, 0, 0,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // dam-break sweeps, 2-D: planes [cap, nx*ny+1], kmax int32 [ny]

@@ -31,8 +31,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pair_sweep": {
         "pair_sweep_error_string": ([_I], ctypes.c_char_p),
-        # occ, x0, x1, 1/h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, stream
-        "density_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
+        # occ, x0, x1, 1/h, w, kmax, out, cap, nx, ny, h2, self_pair, cw, the
+        # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
+        # per x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "density_sweep": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _I, _I, _P], _I),
+        "density_sweep_direct": ([_P] * 7 + [_I] * 3 + [_F, _I, _F, _P], _I),
         # 10 planes, kmax, 2 outs, cap, nx, ny, h2, dw, eps, -alpha, beta,
         # fast_math, the tiled sweep's plan (TX, dynamic shared bytes),
         # stream; kmax is one bound per x-tile
@@ -68,8 +71,12 @@ SIGNATURES = {
                                       + [_I, _I, _P], _I),
         "pavelka_momentum_entropy_sweep_direct": ([_P] * 16 + [_I] * 3
                                                   + [_F] * 4 + [_I, _P], _I),
-        # occ, x0, x1, h, kmax, 2 outs, cap, nx, ny, h2, coef, stream
-        "gamma_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        # occ, x0, x1, h, kmax, 2 outs, cap, nx, ny, h2, coef, the tiled
+        # sweep's plan (TX, dynamic shared bytes), stream; one bound per
+        # x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "gamma_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_I, _I, _P],
+                             _I),
+        "gamma_grad_sweep_direct": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
         # occ, x0, x1, v0, v1, rho, kmax, out, cap, nx, ny, h2, kc, 1/h, 2nu,
         # stream
         "dambreak_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_P], _I),

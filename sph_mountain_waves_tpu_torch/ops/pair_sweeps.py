@@ -46,9 +46,10 @@ Each sweep has two implementations:
   counts its launches in ``<wrapper>.launches``; ``density_pass``,
   ``momentum_pass`` and the dam-break wrappers take the 2-D or the 3-D
   kernel by ``engine.dim``. The 3-D density, momentum and dam-break
-  sweeps, the 2-D momentum, the Hopkins pressure root and momentum, the two
-  Pavelka sweeps, the terrain continuity and force (fixed h) and the ISPH
-  CG matvec run the tiled design
+  sweeps, the 2-D density (the adiabatic density on it) and momentum, the
+  Hopkins pressure root and momentum, the two Pavelka sweeps, the packing's
+  ∇Γ sum, the terrain continuity and force (fixed h) and the ISPH CG matvec
+  run the tiled design
   (``_tile_plan``: one block per x-tile of a grid row covering every p
   rank, q ranks staged in shared memory, each tile walking the q ranks to
   its own bound, ``tile_kmax``); ``tiled_yardsticks``
@@ -1150,7 +1151,10 @@ _MAX_SHARED_BYTES = 232_448
 # then v1 and m); the terrain force every plane of q (the float4, then v1,
 # m, P/ρ_f², 1/ρ_f), 8 without AV and 9 with it (the FLUID gate), keyed by
 # the AV switch; the ISPH matvec the float4 of occupancy, x and the iterate,
-# nothing besides. A form's key is ``_FORM_KEY``'s (``_staged``)
+# nothing besides; the 2-D density the float4 of occupancy, x and 1/h, then w
+# (with the self pair or without it; the adiabatic density is the same
+# export with the gated w); the packing's ∇Γ sum the float4 of occupancy, x
+# and h, nothing besides. A form's key is ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
@@ -1160,7 +1164,9 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "hopkins_momentum_sweep": {False: 11, True: 13},
                  "legacy_mass_sweep": 6,
                  "legacy_force_sweep": {False: 8, True: 9},
-                 "isph_matvec_sweep": 4}
+                 "isph_matvec_sweep": 4,
+                 "density_sweep": 5,
+                 "gamma_grad_sweep": 4}
 # the tiled exports with two forms, and what names the form: the Hopkins
 # momentum's ``background_split`` argument, the terrain force's AV switch
 # (``cfg.av_alpha > 0``)
@@ -1348,14 +1354,20 @@ def momentum_pass(engine, state: ParticleState, cfg):
 
 
 def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
-                     background_split: bool | None = None):
+                     background_split: bool | None = None,
+                     adiabatic: bool = False, V0: float | None = None):
     """Launches of a tiled sweep (``"density_sweep_3d"``, with the self pair
     per ``cfg.self_density``, ``"momentum_sweep_3d"``,
     ``"dambreak_mass_sweep_3d"``, ``"dambreak_force_sweep_3d"``,
     ``"pavelka_mass_sweep"``, ``"pavelka_momentum_entropy_sweep"``, the 2-D
+    ``"density_sweep"`` with the self pair per ``cfg.self_density`` or, with
+    ``adiabatic``, in the adiabatic density's form (the self pair and the
+    FLUID-gated weight of ``adia_density_pass``), the 2-D
     ``"momentum_sweep"``, ``"pressure_sweep"`` with the self pair per
     ``cfg.self_density``, ``"hopkins_momentum_sweep"`` in the form
-    ``background_split`` names, ``"legacy_mass_sweep"``,
+    ``background_split`` names, ``"gamma_grad_sweep"``, which takes the
+    packing's ``V0`` (a keyword, as ``background_split`` is) and no config
+    (``cfg`` may be None), ``"legacy_mass_sweep"``,
     ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names, or
     ``"isph_matvec_sweep"``) on planes and trip
     bounds prepared once from ``state``, by design:
@@ -1388,19 +1400,31 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel == "pavelka_momentum_entropy_sweep":
         planes, _ = _pavelka_momentum_entropy_inputs(engine, state, cfg)
         args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
-    elif kernel in ("momentum_sweep", "pressure_sweep",
-                    "hopkins_momentum_sweep", "legacy_mass_sweep",
-                    "legacy_force_sweep", "isph_matvec_sweep"):
-        # 2-D exports: a 3-D engine's momentum is "momentum_sweep_3d", and
-        # the others have no 3-D form
+    elif kernel in ("density_sweep", "momentum_sweep", "pressure_sweep",
+                    "hopkins_momentum_sweep", "gamma_grad_sweep",
+                    "legacy_mass_sweep", "legacy_force_sweep",
+                    "isph_matvec_sweep"):
+        # 2-D exports: a 3-D engine's density and momentum are
+        # "density_sweep_3d" and "momentum_sweep_3d", and the others have no
+        # 3-D form
         _check_2d(engine, kernel)
         n_out = 2
-        if kernel == "momentum_sweep":
+        if kernel == "density_sweep":
+            weight = (_adia_density_weight(state, cfg) if adiabatic
+                      else state.fields["m"])
+            planes, _ = _density_inputs(engine, state, weight)
+            args = [int(adiabatic or bool(cfg.self_density)),
+                    ctypes.c_float(C_W2)]
+            n_out = 1
+        elif kernel == "momentum_sweep":
             planes, _ = _momentum_inputs(engine, state, cfg)
             args = _momentum_scalars(cfg) + [_fast(cfg)]
         elif kernel == "pressure_sweep":
             planes, _ = _pressure_inputs(engine, state, cfg)
             args, n_out = _pressure_scalars(cfg), 1
+        elif kernel == "gamma_grad_sweep":
+            planes, _ = _gamma_grad_inputs(engine, state)
+            args = _gamma_grad_scalars(V0)
         elif kernel == "legacy_mass_sweep":
             planes, _ = _legacy_mass_inputs(engine, state)
             args, n_out = _legacy_mass_scalars(cfg, 2, False), 1
@@ -1554,11 +1578,16 @@ def gamma_grad_pass(engine, state: ParticleState, V0: float):
     if not _on_cuda(state.active):
         return gamma_grad_pass_plain(engine, state, V0)
     planes, _ = _gamma_grad_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("gamma_grad_sweep", engine, state)
     outs = _launch("gamma_grad_sweep", engine, planes, band, 2,
-                   [ctypes.c_float(V0 * _rdw_const(2))])
+                   _gamma_grad_scalars(V0))
     gamma_grad_pass.launches += 1
     return outs
+
+
+def _gamma_grad_scalars(V0: float):
+    """(V0·(−C of rDW)) of the ∇Γ body."""
+    return [ctypes.c_float(V0 * _rdw_const(2))]
 
 
 def _dambreak_mass_scalars(cfg, dim: int):

@@ -52,10 +52,15 @@ def _live_state(device, module=w, cfg=BENCH):
 
 @pytest.mark.cuda
 def test_density_kernel_matches_twin(card):
+    """The tiled 2-D density with the self pair (the flagship's
+    ``self_density``): one launch counted, bit for bit against the direct
+    design, the row band and the other staging scheme, reruns bitwise
+    equal, and the twin's gate rtol 1e-5 / atol 1e-6."""
     eng, st = _live_state(card)
     before = ps.density_pass.launches
     got = ps.density_pass(eng, st, BENCH)
     assert ps.density_pass.launches == before + 1
+    _held_to_designs("density_sweep", eng, st, BENCH, [got])
     assert torch.equal(got, ps.density_pass(eng, st, BENCH))
     torch.testing.assert_close(got, ps.density_pass_plain(eng, st, BENCH),
                                rtol=1e-5, atol=1e-6)
@@ -312,14 +317,50 @@ def test_tiled_pressure_reaches_every_edge(card, self_pair):
 
 @pytest.mark.cuda
 def test_gamma_grad_kernel_matches_twin(card):
-    """The Colagrossi packing's ∇Γ sweep, on a state whose h varies."""
+    """The tiled Colagrossi packing's ∇Γ sweep (the self pair, an exact
+    divide), on a state whose h varies: bit for bit against the direct
+    design, the row band and the other staging scheme, and within its
+    twin's gate."""
     eng, st = _live_state(card, pv, PV_BENCH)
     V0 = 6.0e6
     before = ps.gamma_grad_pass.launches
     got = ps.gamma_grad_pass(eng, st, V0)
     assert ps.gamma_grad_pass.launches == before + 1
+    _held_to_designs("gamma_grad_sweep", eng, st, None, got, V0=V0)
     _held_to_twin(got, ps.gamma_grad_pass(eng, st, V0),
                   ps.gamma_grad_pass_plain(eng, st, V0), False)
+
+
+@pytest.mark.cuda
+def test_tiled_gamma_grad_reaches_every_edge(card):
+    """The tiled ∇Γ sweep at cap 24 (``_reaches_every_edge`` on the Pavelka
+    state): bit for bit against the direct design, the row band and the
+    other staging scheme, and within its twin's gate."""
+    cfg = dataclasses.replace(PV_BENCH, bucket_cap=24)
+    eng, st = _live_state(card, pv, cfg)
+    _reaches_every_edge(eng, st, "gamma_grad_sweep")
+    V0 = 6.0e6
+    got = ps.gamma_grad_pass(eng, st, V0)
+    _held_to_designs("gamma_grad_sweep", eng, st, None, got, V0=V0)
+    _held_to_twin(got, ps.gamma_grad_pass(eng, st, V0),
+                  ps.gamma_grad_pass_plain(eng, st, V0), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_pair", [True, False], ids=["self", "no_self"])
+def test_tiled_density_reaches_every_edge(card, self_pair):
+    """The tiled 2-D density at cap 24 (``_reaches_every_edge`` on the
+    flagship state) with the self pair and without it: bit for bit against
+    the direct design, the row band and the other staging scheme, and
+    within its twin's gate."""
+    cfg = dataclasses.replace(BENCH, bucket_cap=24, self_density=self_pair)
+    eng, st = _live_state(card, w, cfg)
+    _reaches_every_edge(eng, st, "density_sweep")
+    got = ps.density_pass(eng, st, cfg)
+    _held_to_designs("density_sweep", eng, st, cfg, [got])
+    assert torch.equal(got, ps.density_pass(eng, st, cfg))
+    torch.testing.assert_close(got, ps.density_pass_plain(eng, st, cfg),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -413,7 +454,9 @@ def _tiled_edges(eng, st, kernel="momentum_sweep_3d"):
 
 
 # the wrapper that launches each tiled export
-_TILED_WRAPPER = {"density_sweep_3d": ps.density_pass,
+_TILED_WRAPPER = {"density_sweep": ps.density_pass,
+                  "density_sweep_3d": ps.density_pass,
+                  "gamma_grad_sweep": ps.gamma_grad_pass,
                   "momentum_sweep_3d": ps.momentum_pass,
                   "dambreak_mass_sweep_3d": ps.dambreak_mass_pass,
                   "dambreak_force_sweep_3d": ps.dambreak_force_pass,
@@ -433,8 +476,9 @@ def _held_to_designs(kernel, eng, st, cfg, got, **kw):
     one it launches (with the per-tile trip bound, and on the row band), the
     one-thread-per-slot sweep it replaced (with the row band) and, in 2-D,
     the tiled sweep's other staging scheme. The yardsticks count no
-    launch. ``kw``: the Hopkins momentum's ``background_split`` (the
-    terrain force takes its form from ``cfg``)."""
+    launch. ``kw``: the Hopkins momentum's ``background_split``, the
+    density's ``adiabatic``, the ∇Γ sweep's ``V0`` (the terrain force takes
+    its form from ``cfg``)."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
     for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg, **kw).items():
@@ -690,6 +734,28 @@ def test_terrain_kernel_matches_twin(card, name, av, fast_math):
     ref = ref if isinstance(ref, list) else [ref]
     assert len(got) == len(ref)
     _held_to_twin(got, rerun, ref, fast_math)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {}, dict(true_rayleigh=True, consistent_entropy=True,
+             outflow_buffer=2 * 1.8 * (26e3 / 14), av_alpha=0.05)],
+    ids=["gated", "corrected"])
+def test_tiled_adia_density_at_cap_16(card, extra):
+    """The adiabatic density (the density kernel with the self pair and the
+    FLUID-gated weight; m on every row under the corrected bundle's OUTFLOW
+    buffer) on the n_rows=14 adiabatic flow, cap 16 (TX 16, 17,408 B every
+    rank at once): one launch counted by its own wrapper, bit for bit
+    against the direct design, the row band and the other staging scheme,
+    and within its twin's gate."""
+    eng, st, cfg = _terrain_live("adiabatic_flow_config", card, **extra)
+    assert eng.cap == 16 and ps._tile_tx(eng) == 16
+    before = ps.adia_density_pass.launches
+    got = ps.adia_density_pass(eng, st, cfg)
+    assert ps.adia_density_pass.launches == before + 1
+    _held_to_designs("density_sweep", eng, st, cfg, [got], adiabatic=True)
+    _held_to_twin([got], [ps.adia_density_pass(eng, st, cfg)],
+                  [ps.adia_density_pass_plain(eng, st, cfg)], False)
 
 
 @pytest.mark.cuda

@@ -207,12 +207,15 @@ def _active_of(engine, counts):
     return torch.from_numpy(occ.reshape(-1))
 
 
-@pytest.mark.parametrize("case", ["collapse3d", "hand-made", "empty"])
+@pytest.mark.parametrize("case", ["collapse3d", "hand-made", "empty",
+                                  "density-3d"])
 def test_tile_kmax_matches_a_brute_force_count(case):
     """The per-tile trip bound of the tiled 3-D sweep at cap 40 (TX = 6:
     128 x-cells leave a ragged last tile of 2) equals the largest count
     among each tile's (6+2)×3×3 cells, exactly, and is never above the row
-    band of its row."""
+    band of its row. "density-3d": the hand-made occupancy through
+    ``_trip_bound("density_sweep", …)``, which names the tiled 2-D export
+    too: a 3-D engine still takes ``density_sweep_3d`` and its 3-D bound."""
     if case == "collapse3d":
         system = tc3.make_system(tc3.Config(**C3D))
         state = system.freeze(device="cpu")
@@ -220,29 +223,34 @@ def test_tile_kmax_matches_a_brute_force_count(case):
     else:
         engine = NeighborEngine.create(Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0),
                                        0.1, 3, cap=40)
-        counts = (_hand_made_occupancy(engine) if case == "hand-made"
-                  else np.zeros(tuple(reversed(engine.lims)), np.int64))
+        counts = (np.zeros(tuple(reversed(engine.lims)), np.int64)
+                  if case == "empty" else _hand_made_occupancy(engine))
         state = types.SimpleNamespace(active=_active_of(engine, counts))
     counts = engine.grid_view(state.active).sum(dim=0).numpy()
     tx = tps._tile_plan(engine, tps._TILED_STAGED["dambreak_mass_sweep_3d"]).tx
     assert engine.cap == 40 and tx == 6 and engine.lims[0] % tx == 2
     got = tps.tile_kmax(engine, state, tx)
+    if case == "density-3d":
+        assert tps._export("density_sweep", engine) == "density_sweep_3d"
+        assert torch.equal(tps._trip_bound("density_sweep", engine, state),
+                           got)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), _tile_kmax_brute(counts, tx))
     band, _ = tps.row_kmax(engine, state)
     ntiles = -(-engine.lims[0] // tx)
     assert bool((got.reshape(-1, ntiles) <= band[:, None]).all())
     assert int(got.max()) == int(counts.max())
-    if case == "hand-made":  # the wall cell bounds its tile and the next
+    if case != "empty" and case != "collapse3d":
+        # the wall cell bounds its tile and the next
         assert int((got == 27).sum()) == 3 * 3 * 2
 
 
 @pytest.mark.parametrize("case", ["pavelka", "hand-made", "empty"])
 def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
-    the flagship momentum, the Hopkins pressure root and momentum, the
-    terrain continuity and force and the ISPH matvec: each export's
-    ``_trip_bound``) equals the largest count
+    the flagship density and momentum, the Hopkins pressure root and
+    momentum, the packing's ∇Γ sum, the terrain continuity and force and the
+    ISPH matvec: each export's ``_trip_bound``) equals the largest count
     among each tile's (TX+2)×3 cells, exactly, and is never above the row
     band of its row: on the tiny Pavelka state (cap 8, TX 32), on a
     hand-made occupancy at cap 24 (TX 10: 128 x-cells leave
@@ -274,7 +282,7 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     for name in ("pavelka_mass_sweep", kernel, "momentum_sweep",
                  "pressure_sweep", "hopkins_momentum_sweep",
                  "legacy_mass_sweep", "legacy_force_sweep",
-                 "isph_matvec_sweep"):
+                 "isph_matvec_sweep", "density_sweep", "gamma_grad_sweep"):
         assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
                                   _tile_kmax_brute(counts[None], tx))
