@@ -88,12 +88,13 @@ Phases, each printing one or more lines:
      of 20 steps, and the device and wall time of 10 more steps under
      torch.profiler, with the device's idle share of those steps;
  21. the dam-break continuity and force kernels, 2-D and 3-D, against their
-     twins on live collapse_dry and collapse3d states at full size; the 3-D
-     pair (the tiled design) with its tile plan (TX, threads, blocks,
-     dynamic shared bytes, tiles with a non-zero bound, the mean per-tile
-     bound against the mean row band), bit for bit against the
-     one-thread-per-slot design (``_direct``), the tiled export on the row
-     band and their twins;
+     twins on live collapse_dry and collapse3d states at full size; the
+     tiled ones (the 3-D pair, the 2-D continuity) with their tile plan
+     (TX, threads, blocks, dynamic shared bytes, tiles with a non-zero
+     bound, the mean per-tile bound against the mean row band), bit for bit
+     against the one-thread-per-slot design (``_direct``), the tiled export
+     on the row band, (2-D) the other staging scheme and their twins; the
+     2-D force within its twin's gate;
  22. 8 small steps of each dam break, card against CPU twins;
  23. the dam-break main paths: 1 warm-up and 1 timed frame of 100 steps
      (collapse_dry after init_forces), with the energy; then the device and
@@ -139,12 +140,19 @@ Phases, each printing one or more lines:
      iteration (torch.profiler) and the host syncs per step (sync debug
      mode);
  32. the Rayleigh–Bénard baseline: its fused continuity + conduction
-     kernel against the twin with conducting and adiabatic sidewalls, max
-     abs err 0, reruns bitwise; 6 small steps card against CPU twins; the
-     main path: a warm-up frame and 2 timed frames of 500 steps, KE and Nu;
+     kernel (the tiled design) with its tile plan, bit for bit against
+     ``_direct``, the row band and the other staging scheme and against the
+     twin (max abs err 0) with conducting and adiabatic sidewalls, reruns
+     bitwise; 6 small steps card against CPU twins; the main path: a
+     warm-up frame and 2 timed frames of 500 steps, KE and Nu;
  33. ``run(cfg, out_path=..., device="cuda")`` of both baselines at full
      width, a checkpoint every frame: the file set, the data.csv columns and
      a resumed run bit for bit;
+ 34. the reference's slow dam-break gate on the port's f32 bucket path:
+     ``collapse_dry.run`` at dr 0.02 to t_end 1.2 s (10,000 steps), the
+     wavefront X against the digitised Violeau curve
+     (tests/reference_data/dambreak_X_Violeau.csv), max relative error
+     < 0.016 and mean < 0.005, with the seconds it took;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound, and the kernels' own
      time that torch.profiler records over 50 more runs (``device_ms``;
@@ -152,12 +160,13 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the seventeen tiled kernels (the flagship density and momentum, the
+     the nineteen tiled kernels (the flagship density and momentum, the
      adiabatic density, the Hopkins pressure root and momentum in both
      forms, the two Pavelka sweeps, the packing's gradient, the terrain
      continuity, the terrain force in both AV forms, the ISPH matvec in its
-     prepared form, witch3d's density and momentum, collapse3d's dam-break
-     continuity and force) in turns with the design they replaced
+     prepared form, collapse_dry's dam-break continuity, the Rayleigh–Bénard
+     continuity + conduction, witch3d's density and momentum, collapse3d's
+     dam-break continuity and force) in turns with the design they replaced
      and with each tile's bound its row's band (direct, tiled, row band, row
      band, tiled, direct; the 2-D ones with their other staging scheme after
      each tiled turn), each beside its bound, and each design's kernel time
@@ -653,6 +662,24 @@ def exact(label, kern, rerun, twin):
     return err, scale
 
 
+def designs_equal(label, kernel, e, s_, c, got, **kw):
+    """The wrapper's outputs bit for bit against every other design of a
+    tiled sweep (``tiled_yardsticks``; ``kw``: the Hopkins momentum's
+    ``background_split``, the density's ``adiabatic``, the ∇Γ sweep's
+    ``V0``); returns their names."""
+    import torch
+
+    from sph_mountain_waves_tpu_torch.ops import pair_sweeps as ps
+    others = {name: run() for name, run in
+              ps.tiled_yardsticks(kernel, e, s_, c, **kw).items()}
+    bad = [name for name, out in others.items()
+           if not all(torch.equal(a, b) for a, b in zip(got, out))]
+    if bad:
+        raise AssertionError(f"{label}: the wrapper's output differs from "
+                             f"{bad}")
+    return ", ".join(others)
+
+
 def figures_written() -> bool:
     """The runs write their figures only where matplotlib imports (a
     missing matplotlib is a warning, not a failure)."""
@@ -915,16 +942,23 @@ def rb_phase(dev, card, counters, errs, profile):
                                      f"{int(rstate0.n)}; expected {RB_EXPECT}")
         key = "rb_mass_heat_sweep" + ("" if sidewalls == "conducting"
                                       else " adiabatic")
-        errs[key] = exact(f"rb {sidewalls}", ps.rb_mass_heat_pass(e, st, rcfg),
+        if sidewalls == "conducting":
+            say(32, tile_plan_line(ps, e, st, ("rb_mass_heat_sweep",)))
+        got = ps.rb_mass_heat_pass(e, st, rcfg)
+        designs = designs_equal(f"rb {sidewalls}", "rb_mass_heat_sweep", e,
+                                st, rcfg, got)
+        errs[key] = exact(f"rb {sidewalls}", got,
                           ps.rb_mass_heat_pass(e, st, rcfg),
                           ps.rb_mass_heat_pass_plain(e, st, rcfg))
         n_adia = int((st.fields["type"] == rb.WALL_ADIA).sum())
         say(32, f"Rayleigh–Bénard baseline ({sidewalls} sidewalls, "
                 f"{n_adia} zero-flux wall rows) built in {b_s:.2f} s: "
                 f"N={rsys.n_built} lims={e.lims} cap={e.cap} slots={e.slots} "
-                f"dt={rcfg.dt:.4e}; continuity + conduction kernel vs twin: "
-                f"max abs err {errs[key][0]:.1e} (max |out| {errs[key][1]:.4e}),"
-                f" rerun bitwise equal")
+                f"dt={rcfg.dt:.4e}; continuity + conduction kernel (tiled) bit "
+                f"for bit equal to {designs}; vs twin: max abs err "
+                f"{errs[key][0]:.1e} (max |out| {errs[key][1]:.4e}), rerun "
+                f"bitwise equal")
+        del got
         del st
     e = system.engine
     n = system.n_built
@@ -1070,6 +1104,46 @@ def matvec_library(e, s, cfg):
         A.values().numel()
 
 
+# the reference's slow dam-break gate (tests/test_collapse_dry.py
+# test_collapse_dry_vs_violeau): the wavefront X(t) of collapse_dry at dr 0.02
+# to t_end 1.2 s against the digitised Violeau curve, max and mean relative
+# error
+VIOLEAU_CSV = os.path.join("tests", "reference_data", "dambreak_X_Violeau.csv")
+VIOLEAU_MAX, VIOLEAU_MEAN = 0.016, 0.005
+
+
+def violeau_errors(dev):
+    """(max, mean relative error of X against the Violeau curve at its
+    digitised times, seconds, steps) of ``collapse_dry.run`` on the port's
+    f32 bucket path (skin 0.15, the kernels), the reference's slow gate."""
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.models import collapse_dry as cd
+    vcfg = cd.Config(dr=0.02, t_end=1.2, n_frames=40, dtype="float32",
+                     layout="bucket", skin=0.15, use_pallas=True)
+    t0 = time.perf_counter()
+    out = cd.run(vcfg, device=dev)
+    secs = time.perf_counter() - t0
+    ref = np.genfromtxt(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), VIOLEAU_CSV), delimiter=",", names=True)
+    sel = ref["time"] <= out["t"][-1]
+    ours = np.interp(ref["time"][sel], out["t"], out["X"])
+    err = np.abs(ours - ref["X"][sel]) / ref["X"][sel]
+    return (float(err.max()), float(err.mean()), secs,
+            int(round(vcfg.t_end / vcfg.dt)))
+
+
+def violeau_phase(dev, card) -> None:
+    """Phase 34: the Violeau gate, its errors beside its limits; raises if
+    it misses."""
+    mx, mean, secs, steps = violeau_errors(dev)
+    say(34, f"collapse_dry vs Violeau (dr 0.02, {steps} steps, f32 bucket): "
+            f"max rel err {mx:.6f} (limit {VIOLEAU_MAX}), mean {mean:.6f} "
+            f"(limit {VIOLEAU_MEAN}); {secs:.1f} s ({card})")
+    if not (mx < VIOLEAU_MAX and mean < VIOLEAU_MEAN):
+        raise AssertionError("collapse_dry misses the Violeau gate")
+
+
 def main(profile: bool) -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1129,20 +1203,6 @@ def main(profile: bool) -> None:
         ms = cuda_ms(lambda: e._stencil_rescatter(state0), 3)
         say(4, f"forced rescatter ({label}): identical, 0 dropped; "
                f"{ms:.2f} ms per rescatter ({card})")
-
-    def designs_equal(label, kernel, e, s_, c, got, **kw):
-        """The wrapper's outputs bit for bit against every other design of a
-        tiled sweep (``tiled_yardsticks``; ``kw``: the Hopkins momentum's
-        ``background_split``, the density's ``adiabatic``, the ∇Γ sweep's
-        ``V0``); returns their names."""
-        others = {name: run() for name, run in
-                  ps.tiled_yardsticks(kernel, e, s_, c, **kw).items()}
-        bad = [name for name, out in others.items()
-               if not all(torch.equal(a, b) for a, b in zip(got, out))]
-        if bad:
-            raise AssertionError(f"{label}: the wrapper's output differs from "
-                                 f"{bad}")
-        return ", ".join(others)
 
     # 5: the flagship's kernels against their twins on a live state: one
     # step in, then v and h perturbed from a seeded generator; the density
@@ -1619,14 +1679,13 @@ def main(profile: bool) -> None:
                 act.shape, generator=gen, device=dev)), 0.0),
             P=torch.where(act, torch.rand(act.shape, generator=gen,
                                           device=dev) * 5e3, 0.0))
-        # 3-D: the tiled design, bit for bit against the direct one and the
-        # twin; 2-D: the twin's gate
-        tiled = module is c3
-        if tiled:
-            say(21, tile_plan_line(ps, de, ds, ("dambreak_mass_sweep_3d",
-                                                "dambreak_force_sweep_3d")))
-        held = ("bit for bit equal to the direct design and the twin" if tiled
-                else f"gate rtol {RTOL} atol {ATOL} x max")
+        # the tiled design (the 3-D pair, the 2-D continuity): bit for bit
+        # against its other designs and the twin; the 2-D force (pair_sweep):
+        # the twin's gate
+        tiled = [k + suffix for k in ("dambreak_mass_sweep",
+                                      "dambreak_force_sweep")
+                 if k + suffix in ps._TILED_STAGED]
+        say(21, tile_plan_line(ps, de, ds, tiled))
         for kernel, what, scale_of, wrapper, twin_of in (
                 ("dambreak_mass_sweep", "continuity", "Drho",
                  ps.dambreak_mass_pass, ps.dambreak_mass_pass_plain),
@@ -1637,12 +1696,15 @@ def main(profile: bool) -> None:
             if kernel == "dambreak_mass_sweep":
                 kern, rerun, twin = [kern], [rerun], [twin]
             label = f"{name} {what}"
-            if tiled:
-                designs_equal(label, kernel + suffix, de, st, dcfg, kern)
+            if kernel + suffix in tiled:
+                designs = designs_equal(label, kernel + suffix, de, st, dcfg,
+                                        kern)
                 err, scale = exact(label, kern, rerun, twin)
+                held = f"bit for bit equal to {designs} and the twin"
             else:
                 err, scale = kernel_vs_twin(label, kern, rerun, twin, False,
                                             scaled=True)
+                held = f"gate rtol {RTOL} atol {ATOL} x max"
             errs[kernel + suffix] = (err, scale)
             extra = ""
             if what == "force":
@@ -1968,6 +2030,8 @@ def main(profile: bool) -> None:
                                                      profile)
     rcfg, e32, r_state, r_counts = rb_phase(dev, card, counters, errs, profile)
     full_runs_phase(dev)
+    # 34: the dam break against the Violeau curve
+    violeau_phase(dev, card)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
@@ -2207,6 +2271,8 @@ def main(profile: bool) -> None:
             ("legacy_force_sweep av", e24, t_state,
              dataclasses.replace(tcfg, av_alpha=0.05)),
             ("isph_matvec_sweep", e31, i_state, icfg),
+            ("dambreak_mass_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
+            ("rb_mass_heat_sweep", e32, r_state, rcfg),
             ("density_sweep_3d", e17, w3_state, wcfg),
             ("momentum_sweep_3d", e17, w3_state, wcfg),
             ("dambreak_mass_sweep_3d", c3_e, dam_state["collapse3d"], c3_cfg),

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Hold this checkout's sweeps of the 2-D density, the Colagrossi packing's
-gradient, the Hopkins pressure root and the legacy continuity against
-another checkout's build of ``csrc/pair_sweep.cu`` on the card, bit for
-bit: the other checkout's one-thread-per-slot design of each (its
-``_direct`` yardstick where it has one, else the export itself, which then
-ran on ``pair_sweep``) against this one's ``_direct`` yardsticks and tiled
-exports, and ``iso_static_mass_sweep`` (the per-particle-h continuity,
-which shares its body with the terrain continuity) against itself. Tiny live states of the card tests (``tests/test_torch_cuda.py``):
+gradient, the Hopkins pressure root, the legacy continuity, the dam-break
+continuity (2-D and 3-D, one body) and the Rayleigh–Bénard continuity +
+conduction against another checkout's build of ``csrc/pair_sweep.cu`` on
+the card, bit for bit: the other checkout's one-thread-per-slot design of
+each (its ``_direct`` yardstick where it has one, else the export itself,
+which then ran on ``pair_sweep``) against this one's ``_direct`` yardsticks
+and tiled exports, and ``iso_static_mass_sweep`` (the per-particle-h
+continuity, which shares its body with the terrain continuity) against
+itself. Tiny live states of the card tests (``tests/test_torch_cuda.py``):
 the flagship and full_hopkins at caps 8 and 24 with the self pair and
 without it, the adiabatic density on the adiabatic flow (cap 16, gated and
 corrected), the Pavelka state at caps 8 and 24, the terrain flow at caps 16
-and 24, the isothermal static state at its own cap and at 24.
+and 24, the isothermal static state at its own cap and at 24, collapse_dry
+at dr 0.08 and at the timed size (dr 0.014, cap 24), collapse3d at dr 0.02
+(cap 40), Rayleigh–Bénard at n_rows 16 with both sidewalls at its own cap
+16 and at cap 24.
 
     python3 scripts/hold_against_checkout.py build/parent
 
@@ -37,7 +42,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 # without "_direct", the export that ran the same design there
 SHARED = ("density_sweep_direct", "gamma_grad_sweep_direct",
           "pressure_sweep_direct", "legacy_mass_sweep_direct",
-          "iso_static_mass_sweep", "pair_sweep_error_string")
+          "dambreak_mass_sweep_direct", "dambreak_mass_sweep_3d_direct",
+          "rb_mass_heat_sweep_direct", "iso_static_mass_sweep",
+          "pair_sweep_error_string")
 
 
 def other_library(other: Path):
@@ -108,6 +115,17 @@ def main(other: Path) -> None:
                                        bucket_cap=cap)
         cases.append((f"legacy_mass_sweep cap {eng.cap}", "legacy_mass_sweep",
                       eng, st, cfg, {}))
+    for name, over in (("2d", {}), ("2d", dict(dr=0.014, skin=0.15)),
+                       ("3d", {})):
+        eng, cfg, st = t._live_dam(dev, name, **over)
+        kernel = "dambreak_mass_sweep" + ("_3d" if name == "3d" else "")
+        cases.append((f"{kernel} dr {cfg.dr} cap {eng.cap}", kernel, eng, st,
+                      cfg, {}))
+    for cap in (None, 24):
+        for sidewalls in ("conducting", "adiabatic"):
+            cfg, eng, st = t._live_rb(dev, sidewalls, cap)
+            cases.append((f"rb_mass_heat_sweep {sidewalls} cap {eng.cap}",
+                          "rb_mass_heat_sweep", eng, st, cfg, {}))
     n = 0
     for label, kernel, eng, st, cfg, kw in cases:
         runs = ps.tiled_yardsticks(kernel, eng, st, cfg, **kw)

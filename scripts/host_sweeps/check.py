@@ -1,6 +1,7 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D Pavelka pair, the 2-D flagship density with and without the self
+the 2-D dam-break continuity, the Rayleigh–Bénard continuity + conduction
+with both sidewalls, the 2-D Pavelka pair, the 2-D flagship density with and without the self
 pair and the adiabatic density, the 2-D flagship momentum, the Hopkins
 pressure root with and without the self pair, the Hopkins momentum in both
 forms, the Colagrossi packing's gradient, the terrain continuity, the
@@ -16,6 +17,7 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
     python scripts/host_sweeps/check.py legacy isph   # terrain pair, matvec
     python scripts/host_sweeps/check.py density gamma  # densities, packing
+    python scripts/host_sweeps/check.py dam2 rb dam   # dam continuity, RB
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -132,6 +134,7 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
         f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else
+        f" sidewalls={cfg.sidewalls}" if kernel == "rb_mass_heat_sweep" else
         f" self_pair={cfg.self_density}"
         if kernel in ("pressure_sweep", "density_sweep")
         and not kw.get("adiabatic") else "")
@@ -164,6 +167,38 @@ def main(which) -> None:
                 ("dambreak_mass_sweep_3d", ps.dambreak_mass_pass_plain),
                 ("dambreak_force_sweep_3d", ps.dambreak_force_pass_plain)):
             ok &= held(kernel, system.engine, state, cfg, twin)
+    if "dam2" in which:
+        from sph_mountain_waves_tpu_torch.models import collapse_dry as cd
+        # the tiny collapse_dry of the card's small steps (dr 0.08) and the
+        # card's timed state (dr 0.014: 11,702 particles, 128 x 64 cells);
+        # cap 24 (the engine's own) in both: TX 10, a ragged last tile of 8
+        for dr, skin in ((0.08, 0.2), (0.014, 0.15)):
+            cfg = cd.Config(dr=dr, dtype="float32", layout="bucket",
+                            skin=skin, use_pallas=True)
+            system = cd.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               rho=(0.99, 1.01, True), P=(0, 5e3, False))
+            ok &= held("dambreak_mass_sweep", system.engine, state, cfg,
+                       ps.dambreak_mass_pass_plain)
+    if "rb" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+        # n_rows 16 at its own cap 16 (TX 16 on 128 x-cells) and at cap 24
+        # (TX 10, a ragged last tile of 8), and the baseline (n_rows 160: cap
+        # 16, 256 x 80 cells); each after one step, with both sidewalls
+        for n_rows, cap in ((16, None), (16, 24), (160, None)):
+            for sidewalls in ("conducting", "adiabatic"):
+                cfg = rb.baseline_config(n_rows=n_rows, sidewalls=sidewalls,
+                                         skin=0.2 if n_rows < 160 else 0.15)
+                system = rb.make_system(cfg)
+                if cap:
+                    system.freeze_opts["cap"] = cap
+                state = system.freeze(device="cpu")
+                state = rb.make_step(cfg, system.engine)(state)
+                state = _perturbed(state, v=(-1, 1, False),
+                                   T=(0.99, 1.01, True))
+                ok &= held("rb_mass_heat_sweep", system.engine, state, cfg,
+                           ps.rb_mass_heat_pass_plain)
     if "witch" in which:
         from sph_mountain_waves_tpu_torch.models import witch3d as w3
         for cap in (None, 24):
@@ -350,5 +385,6 @@ def main(which) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["dam", "witch", "pavelka", "density", "gamma",
-                          "momentum", "hopkins", "legacy", "isph"])
+    main(sys.argv[1:] or ["dam", "dam2", "rb", "witch", "pavelka",
+                          "density", "gamma", "momentum", "hopkins", "legacy",
+                          "isph"])

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Device time, device kernels and wall time per step of four paths of the
+"""Device time, device kernels and wall time per step of seven paths of the
 PyTorch port on one card, under torch.profiler: the WCSPH flagship and
 full_hopkins (10 steps each from the built flagship-size state),
-hopkins_total (10 steps after its hydrostatic packing) and the terrain
+hopkins_total (10 steps after its hydrostatic packing), the terrain
 baseline (10 steps after a 300-step frame, as ``chip_smoke.py`` builds
-it). Each path's kernels and their launch
-counts are those of the checkout it imports, so two checkouts can be
-compared on one card by running this script once for each, in turns:
+it), collapse_dry (dr 0.014) and collapse3d (dr 5e-3, cap 40) at
+``chip_smoke.py``'s sizes (10 steps after init_forces where the path has
+it and 100 steps) and the Rayleigh–Bénard baseline (10 steps after 100).
+Each path's kernels and their launch counts are those of the checkout it
+imports, so two checkouts can be compared on one card by running this
+script once for each, in turns:
 
     python3 scripts/step_profile.py                      # this checkout
     python3 scripts/step_profile.py --root build/parent  # another checkout
+    python3 scripts/step_profile.py --paths collapse_dry rayleigh_benard
 
 Prints one line per path (device ms/step, device kernels per step, wall
 ms/step under the profiler, the device's idle share, the pair-sweep
@@ -27,7 +31,10 @@ from pathlib import Path
 
 N_ROWS = 246       # the flagship size: N = 978,463, grid 1792 x 144, cap 8
 TERRAIN_WARM = 300  # steps before the terrain's profiled ones
+DAM_WARM = 100      # steps before the dam breaks' and Rayleigh–Bénard's
 N_STEPS = 10
+PATHS = ("flagship", "full_hopkins", "hopkins_total", "terrain",
+         "collapse_dry", "collapse3d", "rayleigh_benard")
 
 
 def kernel_name(key: str) -> str:
@@ -69,15 +76,16 @@ def profiled(label, step, state, n_steps=N_STEPS):
             + ")")
 
 
-def main(root: Path) -> None:
+def main(root: Path, paths) -> None:
     sys.path.insert(0, str(root))
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     dev = torch.device("cuda", 0)
     from sph_mountain_waves_tpu_torch.models import (
-        full_hopkins_perturbed_witch as fh, hopkins_total_witch as ht,
-        legacy_witch as lw, wcsph_perturbed_witch as w,
+        collapse3d as c3, collapse_dry as cd, full_hopkins_perturbed_witch as fh,
+        hopkins_total_witch as ht, legacy_witch as lw, rayleigh_benard as rb,
+        wcsph_perturbed_witch as w,
     )
     from sph_mountain_waves_tpu_torch.models.common import frame_runner
     from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig
@@ -92,6 +100,8 @@ def main(root: Path) -> None:
                       lazy_diagnostics=True, lattice_cells=True,
                       fast_math=True)
     for label, module in (("flagship", w), ("full_hopkins", fh)):
+        if label not in paths:
+            continue
         system = module.make_system(cfg)
         state = system.freeze(device=dev)
         step = module.make_step(cfg, system.engine)
@@ -99,20 +109,43 @@ def main(root: Path) -> None:
         print(profiled(label, step, state), flush=True)
         del state, system
 
-    system = ht.make_system(cfg)
-    state = system.freeze(device=dev)  # freeze makes system.engine
-    state = hydrostatic_packing(cfg, system.engine, state)
-    step = ht.make_step(cfg, system.engine)
-    step(state)
-    print(profiled("hopkins_total", step, state), flush=True)
-    del state, system
+    if "hopkins_total" in paths:
+        system = ht.make_system(cfg)
+        state = system.freeze(device=dev)  # freeze makes system.engine
+        state = hydrostatic_packing(cfg, system.engine, state)
+        step = ht.make_step(cfg, system.engine)
+        step(state)
+        print(profiled("hopkins_total", step, state), flush=True)
+        del state, system
 
-    tcfg = lw.terrain_baseline_config(use_pallas=True, fast_math=True)
-    system = lw.run_system(tcfg)
-    state = system.freeze(device=dev)
-    step = lw.make_step(tcfg, system.engine)
-    state = frame_runner(step, TERRAIN_WARM)(state)
-    print(profiled("terrain", step, state), flush=True)
+    if "terrain" in paths:
+        tcfg = lw.terrain_baseline_config(use_pallas=True, fast_math=True)
+        system = lw.run_system(tcfg)
+        state = system.freeze(device=dev)
+        step = lw.make_step(tcfg, system.engine)
+        state = frame_runner(step, TERRAIN_WARM)(state)
+        print(profiled("terrain", step, state), flush=True)
+        del state, system
+
+    # the dam breaks and Rayleigh–Bénard at chip_smoke.py's sizes
+    others = {"collapse_dry": (cd, cd.Config(dr=0.014, dtype="float32",
+                                             layout="bucket", skin=0.15,
+                                             use_pallas=True)),
+              "collapse3d": (c3, c3.Config(dtype="float32", layout="bucket",
+                                           skin=0.15, use_pallas=True)),
+              "rayleigh_benard": (rb, rb.baseline_config())}
+    for label, (module, mcfg) in others.items():
+        if label not in paths:
+            continue
+        system = module.make_system(mcfg)
+        state = system.freeze(device=dev)
+        step = module.make_step(mcfg, system.engine)
+        if module is cd:
+            step, init_forces = step
+            state = init_forces(state)
+        state = frame_runner(step, DAM_WARM)(state)
+        print(profiled(label, step, state), flush=True)
+        del state, system
     print(card, flush=True)
 
 
@@ -121,4 +154,7 @@ if __name__ == "__main__":
     parser.add_argument("--root", type=Path,
                         default=Path(__file__).resolve().parent.parent,
                         help="the checkout whose port is profiled")
-    main(parser.parse_args().root.resolve())
+    parser.add_argument("--paths", nargs="+", choices=PATHS, default=PATHS,
+                        help="the paths to profile (default: all)")
+    args = parser.parse_args()
+    main(args.root.resolve(), args.paths)

@@ -75,12 +75,13 @@
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The
 // flagship density (and the adiabatic density on it) and momentum, the
 // Hopkins pressure root and momentum, the two Pavelka sweeps, the packing
-// gradient, the terrain continuity and force with fixed h and the ISPH CG
-// matvec run the same design in 2-D, pair_sweep_tiled (9 cells); the density,
-// the pressure root and the packing gradient count the self pair there. The
-// other 2-D sweeps (the dam-break and Rayleigh-Benard sweeps, the
-// per-particle-h terrain sweeps, the fused adiabatic sweep, the ISPH
-// divergence and gradient) still run pair_sweep.
+// gradient, the terrain continuity and force with fixed h, the ISPH CG
+// matvec, the dam-break continuity and the Rayleigh-Benard continuity +
+// conduction run the same design in 2-D, pair_sweep_tiled (9 cells); the
+// density, the pressure root and the packing gradient count the self pair
+// there. The other 2-D sweeps (the dam-break force, the per-particle-h
+// terrain sweeps, the fused adiabatic sweep, the ISPH divergence and
+// gradient) still run pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,8 +116,9 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 // q's fields as the accessor bodies read them (the 3-D bodies, the
 // dam-break bodies in 2-D, the 2-D density and momentum, the Hopkins pressure
 // root and momentum, the Pavelka bodies, the packing gradient, the legacy
-// continuity and force and the ISPH matvec): q[i] is plane i at q's slot. PlaneQ reads the planes
-// (pair_sweep, pair_sweep3); StagedQ reads the copy that pair_sweep3_tiled
+// continuity and force, the ISPH matvec and the Rayleigh-Benard body): q[i]
+// is plane i at q's slot. PlaneQ reads the planes (pair_sweep, pair_sweep3);
+// StagedQ reads the copy that pair_sweep3_tiled
 // staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
 // the copy that pair_sweep_tiled staged: planes 0-3 (occupancy, x0, x1 and
 // plane 3) as the candidate's float4 c4, the planes of the body's QMASK as
@@ -576,14 +578,17 @@ struct Momentum3 {
 
 // Dam-break continuity with fixed h: Drho_p = sum_q kc t^3 (x_pq . v_pq
 // + 2 nu (rho_p - rho_q)), t = max(1 - r/h, 0), kc = m (-C of rDW) / h^(D+2);
-// fields: occ, x[D], v[D], rho. No divide. q's planes read by the body:
-// QLO..QHI-1 (v and rho).
+// fields: occ, x[D], v[D], rho. No divide. q's planes read by the body: v
+// and rho, QLO..QHI-1 for pair_sweep3_tiled; in 2-D plane 3 is v0, which
+// pair_sweep_tiled stages in the candidate's float4, so QMASK names the rest
+// (planes 4..NIN-1: v1 and rho, 0x30).
 template <int D>
 struct DamMass {
   static constexpr int NIN = 2 + 2 * D;
   static constexpr int NOUT = 1;
   static constexpr int QLO = 1 + D;
   static constexpr int QHI = 2 + 2 * D;
+  static constexpr unsigned QMASK = ((1u << NIN) - 1u) & ~0xFu;
   struct Params {
     float kc;
     float hinv;    // 1/h
@@ -910,25 +915,35 @@ struct IsphGrad {
 //   DT_p   = sum_q ((2 kappa ri_q) kc t^3) (T_p - T_q)
 // t = max(1 - r/h, 0), kc = m (-C of rDW2) / h^4, ri = 1/max(rho, 0.01 rho0)
 // (zero on zero-flux wall rows); fields: occ, x0, x1, v0, v1, T, ri. No
-// divide. The caller applies the p-side FLUID gate to DT.
+// divide. The caller applies the p-side FLUID gate to DT. q's planes read by
+// the body beyond the occupancy and position: v, T and ri; plane 3 is v0,
+// which the tiled sweep stages in the candidate's float4, so QMASK names the
+// rest (planes 4..6: v1, T and ri, 0x70).
 struct RbMassHeat {
   static constexpr int NIN = 7;
   static constexpr int NOUT = 2;
+  static constexpr unsigned QMASK = 0x70u;
   struct Params {
     float kc;
     float hinv;    // 1/h
     float twokap;  // 2 kappa
   };
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
     const float ker = prm.kc * t * t * t;
-    const float dot = d0 * (p[3] - f.in[3][qi]) + d1 * (p[4] - f.in[4][qi]);
-    const float dT = p[5] - f.in[5][qi];
+    const float dot = d[0] * (p[3] - q[3]) + d[1] * (p[4] - q[4]);
+    const float dT = p[5] - q[5];
     tot[0] += ker * dot;
-    tot[1] += prm.twokap * f.in[6][qi] * ker * dT;
+    tot[1] += prm.twokap * q[6] * ker * dT;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1288,10 +1303,12 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // The tiled 9-cell sweep of the 2-D density, the Pavelka continuity and
 // fused momentum + entropy, the flagship momentum, the Hopkins pressure root
 // and momentum, the Colagrossi packing's gradient, the terrain continuity and
-// force and the ISPH CG matvec (pallas_pairs.py density_pass and
+// force, the ISPH CG matvec, the 2-D dam-break continuity and the
+// Rayleigh-Benard continuity + conduction (pallas_pairs.py density_pass and
 // adia_density_pass, pavelka_mass_pass, pavelka_momentum_entropy_pass,
 // momentum_pass, pressure_pass, hopkins_momentum_pass, legacy_mass_pass,
-// legacy_force_pass, isph_matvec_prepared; utils/packing.py find_gGamma):
+// legacy_force_pass, isph_matvec_prepared, dambreak_mass_pass,
+// rb_mass_heat_pass; utils/packing.py find_gGamma):
 // pair_sweep3_tiled's design in 2-D. One block is TX
 // consecutive x-cells of one grid row cy times every p rank: thread
 // (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx).
@@ -1301,7 +1318,8 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
 // for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density, v0
-// in the terrain continuity and force, the iterate in the matvec) as one
+// in the terrain continuity and force, the dam-break continuity and the
+// Rayleigh-Benard sweep, the iterate in the matvec) as one
 // float4 per cell (a candidate is one 16-byte shared load), the other q
 // planes the body reads (Body::QMASK: none in the packing gradient, w in the
 // density) as scalars; 4-byte cp.async, cells outside the grid zero-filled so
@@ -1349,7 +1367,15 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // takes the pressure root's plan (5 planes: the float4 of occupancy, x and
 // 1/h, then w; 16,384 B), the packing gradient on the Pavelka state 4 planes
 // (the float4 alone; 13,056 B), the adiabatic density of the corrected
-// adiabatic flow (grid 640 x 48) cap 16: TX 16, 17,408 B.
+// adiabatic flow (grid 640 x 48) cap 16: TX 16, 17,408 B. The small states
+// of the dam break and Rayleigh-Benard: collapse_dry (N = 11,702, grid 128 x
+// 64, cap 24, 6 % of slots filled: TX 10, 832 blocks of 240 threads, a
+// ragged last tile of 8, 6 planes, 20,736 B) and the Rayleigh-Benard
+// baseline (N = 53,621, grid 256 x 80, cap 16, 16 % filled: TX 16, 1,280
+// blocks of 256 threads, 7 planes, 24,320 B): under one and about 1.2 waves
+// of blocks, where pair_sweep's threads each waited on a chain of dependent
+// gathers from L2; 0.018 ms (0.051 in pair_sweep) and 0.017 ms (0.043) of
+// kernel time on an H100.
 template <class Body, bool SELF, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1839,15 +1865,31 @@ int gamma_grad_sweep_direct(const float* occ, const float* x0,
                                          static_cast<cudaStream_t>(stream));
 }
 
-// dam-break sweeps, 2-D: planes [cap, nx*ny+1], kmax int32 [ny]
+// dam-break sweeps, 2-D: planes [cap, nx*ny+1]. The continuity launches
+// pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper passes, kmax
+// int32 [ny*ntiles] (one bound per x-tile); its "_direct" export launches
+// pair_sweep (kmax int32 [ny] per grid row), the design the tiled one
+// replaced: a yardstick, on no path. The force launches pair_sweep (kmax
+// int32 [ny]).
 int dambreak_mass_sweep(const float* occ, const float* x0, const float* x1,
                         const float* v0, const float* v1, const float* rho,
                         const int* kmax, float* drho, int cap, int nx, int ny,
-                        float h2, float kc, float hinv, float two_nu,
-                        void* stream) {
-  Planes<6, 1> f{{occ, x0, x1, v0, v1, rho}, {drho}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<DamMass<2>, false>(f, kmax, g, {kc, hinv, two_nu},
+                        float h2, float kc, float hinv, float two_nu, int tx,
+                        int smem_bytes, void* stream) {
+  return launch_tiled<DamMass<2>>({{occ, x0, x1, v0, v1, rho}, {drho}}, kmax,
+                                  {cap, nx, ny, h2}, {kc, hinv, two_nu}, tx,
+                                  smem_bytes,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_mass_sweep_direct(const float* occ, const float* x0,
+                               const float* x1, const float* v0,
+                               const float* v1, const float* rho,
+                               const int* kmax, float* drho, int cap, int nx,
+                               int ny, float h2, float kc, float hinv,
+                               float two_nu, void* stream) {
+  return launch<DamMass<2>, false>({{occ, x0, x1, v0, v1, rho}, {drho}}, kmax,
+                                   {cap, nx, ny, h2}, {kc, hinv, two_nu},
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -2020,15 +2062,34 @@ int isph_grad_sweep(const float* occ, const float* x0, const float* x1,
                                  static_cast<cudaStream_t>(stream));
 }
 
+// The Rayleigh-Benard continuity + conduction launches pair_sweep_tiled on
+// the plan (tx, smem_bytes) the wrapper passes, kmax int32 [ny*ntiles] (one
+// bound per x-tile); its "_direct" export launches pair_sweep (kmax int32
+// [ny] per grid row), the design the tiled one replaced: a yardstick, on no
+// path.
 int rb_mass_heat_sweep(const float* occ, const float* x0, const float* x1,
                        const float* v0, const float* v1, const float* temp,
                        const float* rinv, const int* kmax, float* drho,
                        float* dtemp, int cap, int nx, int ny, float h2,
-                       float kc, float hinv, float twokap, void* stream) {
-  Planes<7, 2> f{{occ, x0, x1, v0, v1, temp, rinv}, {drho, dtemp}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<RbMassHeat, false>(f, kmax, g, {kc, hinv, twokap},
-                                   static_cast<cudaStream_t>(stream));
+                       float kc, float hinv, float twokap, int tx,
+                       int smem_bytes, void* stream) {
+  return launch_tiled<RbMassHeat>(
+      {{occ, x0, x1, v0, v1, temp, rinv}, {drho, dtemp}}, kmax,
+      {cap, nx, ny, h2}, {kc, hinv, twokap}, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int rb_mass_heat_sweep_direct(const float* occ, const float* x0,
+                              const float* x1, const float* v0,
+                              const float* v1, const float* temp,
+                              const float* rinv, const int* kmax, float* drho,
+                              float* dtemp, int cap, int nx, int ny, float h2,
+                              float kc, float hinv, float twokap,
+                              void* stream) {
+  return launch<RbMassHeat, false>(
+      {{occ, x0, x1, v0, v1, temp, rinv}, {drho, dtemp}}, kmax,
+      {cap, nx, ny, h2}, {kc, hinv, twokap},
+      static_cast<cudaStream_t>(stream));
 }
 
 // 3-D sweeps: planes [cap, nx*ny*nz+1]. The density, momentum and

@@ -78,8 +78,13 @@ SIGNATURES = {
                              _I),
         "gamma_grad_sweep_direct": ([_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
         # occ, x0, x1, v0, v1, rho, kmax, out, cap, nx, ny, h2, kc, 1/h, 2nu,
-        # stream
-        "dambreak_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # the tiled sweep's plan (TX, dynamic shared bytes), stream; one
+        # bound per x-tile (the "_direct" yardstick: no plan, one per grid
+        # row)
+        "dambreak_mass_sweep": ([_P] * 8 + [_I] * 3 + [_F] * 4
+                                + [_I, _I, _P], _I),
+        "dambreak_mass_sweep_direct": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_P],
+                                       _I),
         # occ, x0, x1, v0, v1, P/rho^2, fluid, kmax, 2 outs, cap, nx, ny, h2,
         # kc, 1/h, 2mu/rho0^2, stream
         "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
@@ -121,8 +126,13 @@ SIGNATURES = {
         # occ, x0, x1, P, kmax, 2 outs, cap, nx, ny, h2, 1/h0, kw, stream
         "isph_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_P], _I),
         # occ, x0, x1, v0, v1, T, 1/rho, kmax, 2 outs, cap, nx, ny, h2, kc,
-        # 1/h, 2 kappa, stream
-        "rb_mass_heat_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # 1/h, 2 kappa, the tiled sweep's plan (TX, dynamic shared bytes),
+        # stream; one bound per x-tile (the "_direct" yardstick: no plan, one
+        # per grid row)
+        "rb_mass_heat_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4
+                               + [_I, _I, _P], _I),
+        "rb_mass_heat_sweep_direct": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P],
+                                      _I),
         # the 3-D forms take x2 (and v2) planes, one more output for the
         # vector sweeps, and nz after ny; the 3-D density, momentum and
         # dam-break sweeps take the tiled sweep's plan (TX, dynamic shared

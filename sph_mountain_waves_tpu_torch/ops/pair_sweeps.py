@@ -1154,7 +1154,11 @@ _MAX_SHARED_BYTES = 232_448
 # nothing besides; the 2-D density the float4 of occupancy, x and 1/h, then w
 # (with the self pair or without it; the adiabatic density is the same
 # export with the gated w); the packing's ∇Γ sum the float4 of occupancy, x
-# and h, nothing besides. A form's key is ``_FORM_KEY``'s (``_staged``)
+# and h, nothing besides; the 2-D dam-break continuity the float4 of
+# occupancy, x and v0, then v1 and ρ (its 3-D form is
+# ``dambreak_mass_sweep_3d``); the Rayleigh–Bénard continuity + conduction
+# the float4 of occupancy, x and v0, then v1, T and 1/ρ. A form's key is
+# ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
@@ -1166,7 +1170,9 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "legacy_force_sweep": {False: 8, True: 9},
                  "isph_matvec_sweep": 4,
                  "density_sweep": 5,
-                 "gamma_grad_sweep": 4}
+                 "gamma_grad_sweep": 4,
+                 "dambreak_mass_sweep": 6,
+                 "rb_mass_heat_sweep": 7}
 # the tiled exports with two forms, and what names the form: the Hopkins
 # momentum's ``background_split`` argument, the terrain force's AV switch
 # (``cfg.av_alpha > 0``)
@@ -1368,9 +1374,10 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     ``background_split`` names, ``"gamma_grad_sweep"``, which takes the
     packing's ``V0`` (a keyword, as ``background_split`` is) and no config
     (``cfg`` may be None), ``"legacy_mass_sweep"``,
-    ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names, or
-    ``"isph_matvec_sweep"``) on planes and trip
-    bounds prepared once from ``state``, by design:
+    ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names,
+    ``"isph_matvec_sweep"``, the 2-D ``"dambreak_mass_sweep"`` or
+    ``"rb_mass_heat_sweep"``, whose sidewalls are ``cfg``'s) on planes and
+    trip bounds prepared once from ``state``, by design:
     ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
     ``"tiled_row_band"`` (the same export with each tile's bound its row's
     band), ``"direct"`` (the one-thread-per-slot design it replaced, with
@@ -1403,10 +1410,11 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel in ("density_sweep", "momentum_sweep", "pressure_sweep",
                     "hopkins_momentum_sweep", "gamma_grad_sweep",
                     "legacy_mass_sweep", "legacy_force_sweep",
-                    "isph_matvec_sweep"):
-        # 2-D exports: a 3-D engine's density and momentum are
-        # "density_sweep_3d" and "momentum_sweep_3d", and the others have no
-        # 3-D form
+                    "isph_matvec_sweep", "dambreak_mass_sweep",
+                    "rb_mass_heat_sweep"):
+        # 2-D exports: a 3-D engine's density, momentum and dam-break
+        # continuity are "density_sweep_3d", "momentum_sweep_3d" and
+        # "dambreak_mass_sweep_3d", and the others have no 3-D form
         _check_2d(engine, kernel)
         n_out = 2
         if kernel == "density_sweep":
@@ -1428,6 +1436,12 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         elif kernel == "legacy_mass_sweep":
             planes, _ = _legacy_mass_inputs(engine, state)
             args, n_out = _legacy_mass_scalars(cfg, 2, False), 1
+        elif kernel == "dambreak_mass_sweep":
+            planes, _ = _dambreak_mass_inputs(engine, state)
+            args, n_out = _dambreak_mass_scalars(cfg, 2), 1
+        elif kernel == "rb_mass_heat_sweep":
+            planes, _ = _rb_mass_heat_inputs(engine, state, cfg)
+            args = _rb_mass_heat_scalars(cfg)
         elif kernel == "hopkins_momentum_sweep":
             planes, args = _hopkins_launch_inputs(engine, state, cfg,
                                                   background_split)
@@ -1904,13 +1918,16 @@ def rb_mass_heat_pass(engine, state: ParticleState, cfg):
         return rb_mass_heat_pass_plain(engine, state, cfg)
     _check_2d(engine, "rb_mass_heat_pass")
     planes, _ = _rb_mass_heat_inputs(engine, state, cfg)
-    band, _ = row_kmax(engine, state)
-    kc, hinv, twokap = _rb_consts(cfg, engine.dim)
+    band = _trip_bound("rb_mass_heat_sweep", engine, state)
     outs = _launch("rb_mass_heat_sweep", engine, planes, band, 2,
-                   [ctypes.c_float(kc), ctypes.c_float(hinv),
-                    ctypes.c_float(twokap)])
+                   _rb_mass_heat_scalars(cfg))
     rb_mass_heat_pass.launches += 1
     return outs
+
+
+def _rb_mass_heat_scalars(cfg):
+    """(kc, 1/h, 2κ) of the 2-D Rayleigh–Bénard body."""
+    return [ctypes.c_float(v) for v in _rb_consts(cfg, 2)]
 
 
 density_pass.launches = 0

@@ -468,7 +468,9 @@ _TILED_WRAPPER = {"density_sweep": ps.density_pass,
                   "hopkins_momentum_sweep": ps.hopkins_momentum_pass,
                   "legacy_mass_sweep": ps.legacy_mass_pass,
                   "legacy_force_sweep": ps.legacy_force_pass,
-                  "isph_matvec_sweep": ps.isph_matvec_pass}
+                  "isph_matvec_sweep": ps.isph_matvec_pass,
+                  "dambreak_mass_sweep": ps.dambreak_mass_pass,
+                  "rb_mass_heat_sweep": ps.rb_mass_heat_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got, **kw):
@@ -564,9 +566,11 @@ def test_tiled_momentum_reaches_every_edge_in_3d(card, fast_math):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["2d", "3d"])
 def test_dambreak_mass_kernel_matches_twin(card, name):
-    """2-D: the twin's gate. 3-D (the tiled design; cap 40, a tile of 6
-    x-cells, a ragged last tile of 2): bit for bit against the direct design
-    and the twin. Reruns bitwise equal."""
+    """The tiled design in 2-D (cap 24, a tile of 10 x-cells, a ragged last
+    tile of 8) and 3-D (cap 40, a tile of 6 x-cells, a ragged last tile of
+    2): bit for bit against its other designs (the direct one, the row band
+    and, in 2-D, the other staging scheme) and the twin. Reruns bitwise
+    equal."""
     eng, cfg, st = _live_dam(card, name)
     before = ps.dambreak_mass_pass.launches
     got = ps.dambreak_mass_pass(eng, st, cfg)
@@ -574,10 +578,24 @@ def test_dambreak_mass_kernel_matches_twin(card, name):
     assert float(got.abs().max()) > 1.0
     ref = ps.dambreak_mass_pass_plain(eng, st, cfg)
     _held_to_twin([got], [ps.dambreak_mass_pass(eng, st, cfg)], [ref], False)
-    if name == "3d":
-        assert all(_tiled_edges(eng, st, "dambreak_mass_sweep_3d"))
-        _held_to_designs("dambreak_mass_sweep_3d", eng, st, cfg, [got])
-        assert torch.equal(got, ref)
+    kernel = {"2d": "dambreak_mass_sweep", "3d": "dambreak_mass_sweep_3d"}[name]
+    assert all(_tiled_edges(eng, st, kernel))
+    _held_to_designs(kernel, eng, st, cfg, [got])
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_tiled_dambreak_mass_reaches_every_edge(card):
+    """The tiled 2-D dam-break continuity at cap 24 (``_reaches_every_edge``
+    on the tiny collapse_dry: a ragged last tile of 8, tiles with a bound of
+    0 and tiles with a bound but no occupied p slot): bit for bit against
+    its other designs and the twin."""
+    eng, cfg, st = _live_dam(card, "2d")
+    _reaches_every_edge(eng, st, "dambreak_mass_sweep")
+    assert _tiled_edges(eng, st, "dambreak_mass_sweep")[2] > 0
+    got = ps.dambreak_mass_pass(eng, st, cfg)
+    _held_to_designs("dambreak_mass_sweep", eng, st, cfg, [got])
+    assert torch.equal(got, ps.dambreak_mass_pass_plain(eng, st, cfg))
 
 
 @pytest.mark.cuda
@@ -907,20 +925,50 @@ def test_prepared_tiled_matvec_takes_every_iterate(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sidewalls", ["conducting", "adiabatic"])
 def test_rb_kernel_matches_twin_bitwise(card, sidewalls):
+    """The tiled Rayleigh–Bénard continuity + conduction (cap 16, TX 16):
+    one launch counted, bit for bit against its other designs and the
+    twin."""
+    cfg, eng, st = _live_rb(card, sidewalls)
+    before = ps.rb_mass_heat_pass.launches
+    got = ps.rb_mass_heat_pass(eng, st, cfg)
+    assert ps.rb_mass_heat_pass.launches == before + 1
+    _held_to_designs("rb_mass_heat_sweep", eng, st, cfg, got)
+    ref = ps.rb_mass_heat_pass_plain(eng, st, cfg)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r) and r.abs().max() > 0
+
+
+def _live_rb(device, sidewalls, cap=None):
+    """Rayleigh–Bénard at n_rows 16 (at ``cap`` ranks a cell, or the
+    engine's own 16) after one step, with v ±0.01 m/s seeded."""
     from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
     cfg = rb.Config(**RB, sidewalls=sidewalls)
     sys_ = rb.make_system(cfg)
-    st = sys_.freeze(device=card)
+    if cap:
+        sys_.freeze_opts["cap"] = cap
+    st = sys_.freeze(device=device)
     st = rb.make_step(cfg, sys_.engine)(st)
-    gen = torch.Generator(device=card).manual_seed(0)
-    dv = (torch.rand(st.fields["v"].shape, generator=gen, device=card) - 0.5)
-    st = st.replace(v=torch.where(st.active[:, None], 0.02 * dv, 0.0))
-    before = ps.rb_mass_heat_pass.launches
-    got = ps.rb_mass_heat_pass(sys_.engine, st, cfg)
-    assert ps.rb_mass_heat_pass.launches == before + 1
-    ref = ps.rb_mass_heat_pass_plain(sys_.engine, st, cfg)
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r) and r.abs().max() > 0
+    gen = torch.Generator(device=device).manual_seed(0)
+    dv = (torch.rand(st.fields["v"].shape, generator=gen, device=device) - 0.5)
+    return cfg, sys_.engine, st.replace(
+        v=torch.where(st.active[:, None], 0.02 * dv, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sidewalls", ["conducting", "adiabatic"])
+def test_tiled_rb_mass_heat_reaches_every_edge(card, sidewalls):
+    """The tiled Rayleigh–Bénard sweep at cap 24 (its grid is 128 x-cells
+    wide, so only a cap whose tile does not divide 128 leaves a ragged last
+    tile: TX 10, a last tile of 8), with tiles of bound 0 and tiles with a
+    bound but no occupied p slot (``_reaches_every_edge``): bit for bit
+    against its other designs and the twin, with both sidewalls."""
+    cfg, eng, st = _live_rb(card, sidewalls, cap=24)
+    _reaches_every_edge(eng, st, "rb_mass_heat_sweep")
+    assert _tiled_edges(eng, st, "rb_mass_heat_sweep")[2] > 0
+    got = ps.rb_mass_heat_pass(eng, st, cfg)
+    _held_to_designs("rb_mass_heat_sweep", eng, st, cfg, got)
+    ref = ps.rb_mass_heat_pass_plain(eng, st, cfg)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.cuda
