@@ -88,13 +88,13 @@ Phases, each printing one or more lines:
      of 20 steps, and the device and wall time of 10 more steps under
      torch.profiler, with the device's idle share of those steps;
  21. the dam-break continuity and force kernels, 2-D and 3-D, against their
-     twins on live collapse_dry and collapse3d states at full size; the
-     tiled ones (the 3-D pair, the 2-D continuity) with their tile plan
-     (TX, threads, blocks, dynamic shared bytes, tiles with a non-zero
-     bound, the mean per-tile bound against the mean row band), bit for bit
-     against the one-thread-per-slot design (``_direct``), the tiled export
-     on the row band, (2-D) the other staging scheme and their twins; the
-     2-D force within its twin's gate;
+     twins on live collapse_dry and collapse3d states at full size: the
+     tiled design of each pair with its tile plan (TX, threads, blocks,
+     dynamic shared bytes, tiles with a non-zero bound, the mean per-tile
+     bound against the mean row band), bit for bit against the
+     one-thread-per-slot design (``_direct``), the tiled export on the row
+     band, (2-D) the other staging scheme and their twins; the force exactly
+     0 on WALL slots;
  22. 8 small steps of each dam break, card against CPU twins;
  23. the dam-break main paths: 1 warm-up and 1 timed frame of 100 steps
      (collapse_dry after init_forces), with the energy; then the device and
@@ -130,9 +130,10 @@ Phases, each printing one or more lines:
      coarse stencil's and one V-cycle's time; the three ISPH kernels
      (divergence/viscous, CG matvec on the first solve's P, pressure
      gradient) against their twins at full width, max abs err 0, reruns
-     bitwise; the matvec (the tiled design, prepared once per solve) with its
-     tile plan, bit for bit against ``_direct``, the row band and the other
-     staging scheme, each prepared once; 2 small kicked steps card against
+     bitwise; the matvec (the tiled design, prepared once per solve) and the
+     divergence/viscous sweep (tiled) with their tile plans, bit for bit
+     against ``_direct``, the row band and the other staging scheme (the
+     matvec's each prepared once); 2 small kicked steps card against
      CPU twins; the main path:
      a warm-up frame of 5 steps and 20 timed steps with every launch
      counted, cg_it per step (matvec launches = sum of (cg_it + 1)), the
@@ -140,11 +141,12 @@ Phases, each printing one or more lines:
      iteration (torch.profiler) and the host syncs per step (sync debug
      mode);
  32. the Rayleigh–Bénard baseline: its fused continuity + conduction
-     kernel (the tiled design) with its tile plan, bit for bit against
-     ``_direct``, the row band and the other staging scheme and against the
-     twin (max abs err 0) with conducting and adiabatic sidewalls, reruns
-     bitwise; 6 small steps card against CPU twins; the main path: a
-     warm-up frame and 2 timed frames of 500 steps, KE and Nu;
+     kernel and its dam-break force (both the tiled design) with their tile
+     plans, bit for bit against ``_direct``, the row band and the other
+     staging scheme and against the twin (max abs err 0) with conducting
+     and adiabatic sidewalls, reruns bitwise; 6 small steps card against
+     CPU twins; the main path: a warm-up frame and 2 timed frames of 500
+     steps, KE and Nu;
  33. ``run(cfg, out_path=..., device="cuda")`` of both baselines at full
      width, a checkpoint every frame: the file set, the data.csv columns and
      a resumed run bit for bit;
@@ -160,13 +162,14 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the nineteen tiled kernels (the flagship density and momentum, the
+     the twenty-one tiled kernels (the flagship density and momentum, the
      adiabatic density, the Hopkins pressure root and momentum in both
      forms, the two Pavelka sweeps, the packing's gradient, the terrain
      continuity, the terrain force in both AV forms, the ISPH matvec in its
-     prepared form, collapse_dry's dam-break continuity, the Rayleigh–Bénard
-     continuity + conduction, witch3d's density and momentum, collapse3d's
-     dam-break continuity and force) in turns with the design they replaced
+     prepared form and the ISPH divergence/viscous sweep, collapse_dry's
+     dam-break continuity and force, the Rayleigh–Bénard continuity +
+     conduction, witch3d's density and momentum, collapse3d's dam-break
+     continuity and force) in turns with the design they replaced
      and with each tile's bound its row's band (direct, tiled, row band, row
      band, tiled, direct; the 2-D ones with their other staging scheme after
      each tiled turn), each beside its bound, and each design's kernel time
@@ -775,16 +778,22 @@ def isph_phase(dev, card, counters, errs, profile):
             f"coarse stencil {stencil_ms:.3f} ms, one V-cycle {vcycle_ms:.3f} "
             f"ms ({card})")
 
+    # the divergence/viscous sweep and the matvec run the tiled design: held
+    # bit for bit against every other design
+    say(31, tile_plan_line(ps, e, st, ("isph_matvec_sweep",
+                                       "isph_div_visc_sweep")))
+    got = ps.isph_div_visc_pass(e, st, cfg)
+    div_designs = designs_equal("isph div/visc", "isph_div_visc_sweep", e, st,
+                                cfg, got)
     errs["isph_div_visc_sweep"] = exact(
-        "isph div/visc", ps.isph_div_visc_pass(e, st, cfg),
-        ps.isph_div_visc_pass(e, st, cfg),
+        "isph div/visc", got, ps.isph_div_visc_pass(e, st, cfg),
         ps.isph_div_visc_pass_plain(e, st, cfg))
+    del got
     errs["isph_grad_sweep"] = exact(
         "isph grad", ps.isph_grad_pass(e, st, cfg), ps.isph_grad_pass(e, st, cfg),
         ps.isph_grad_pass_plain(e, st, cfg))
-    # the matvec runs the tiled design, prepared once per solve: held bit for
-    # bit against every other design, each prepared once as well
-    say(31, tile_plan_line(ps, e, st, ("isph_matvec_sweep",)))
+    # the matvec is prepared once per solve: each other design prepared once
+    # as well
     mv = ps.isph_matvec_prepared(e, st, cfg)
     got = mv(f["P"]).clone()
     errs["isph_matvec_sweep"] = exact(
@@ -797,7 +806,9 @@ def isph_phase(dev, card, counters, errs, profile):
         raise AssertionError(f"isph matvec: the prepared tiled kernel differs "
                              f"from {bad}")
     held = {"isph_matvec_sweep": " (tiled, prepared), bit for bit equal to "
-                                 + ", ".join(designs) + ";"}
+                                 + ", ".join(designs) + ";",
+            "isph_div_visc_sweep": " (tiled), bit for bit equal to "
+                                   + div_designs + ";"}
     for k, label in (("isph_div_visc_sweep", "div/visc (5 sums)"),
                      ("isph_grad_sweep", "pressure gradient"),
                      ("isph_matvec_sweep", "CG matvec on the first solve's P")):
@@ -943,7 +954,8 @@ def rb_phase(dev, card, counters, errs, profile):
         key = "rb_mass_heat_sweep" + ("" if sidewalls == "conducting"
                                       else " adiabatic")
         if sidewalls == "conducting":
-            say(32, tile_plan_line(ps, e, st, ("rb_mass_heat_sweep",)))
+            say(32, tile_plan_line(ps, e, st, ("rb_mass_heat_sweep",
+                                               "dambreak_force_sweep")))
         got = ps.rb_mass_heat_pass(e, st, rcfg)
         designs = designs_equal(f"rb {sidewalls}", "rb_mass_heat_sweep", e,
                                 st, rcfg, got)
@@ -958,6 +970,16 @@ def rb_phase(dev, card, counters, errs, profile):
                 f"for bit equal to {designs}; vs twin: max abs err "
                 f"{errs[key][0]:.1e} (max |out| {errs[key][1]:.4e}), rerun "
                 f"bitwise equal")
+        # its force: the dam-break force's tiled export on the RB state
+        got = ps.dambreak_force_pass(e, st, rcfg)
+        designs = designs_equal(f"rb {sidewalls} force",
+                                "dambreak_force_sweep", e, st, rcfg, got)
+        err, scale = exact(f"rb {sidewalls} force", got,
+                           ps.dambreak_force_pass(e, st, rcfg),
+                           ps.dambreak_force_pass_plain(e, st, rcfg))
+        say(32, f"Rayleigh–Bénard ({sidewalls} sidewalls) force kernel "
+                f"(tiled) bit for bit equal to {designs}; vs twin: max abs "
+                f"err {err:.1e} (max |out| {scale:.4e}), rerun bitwise equal")
         del got
         del st
     e = system.engine
@@ -1679,13 +1701,11 @@ def main(profile: bool) -> None:
                 act.shape, generator=gen, device=dev)), 0.0),
             P=torch.where(act, torch.rand(act.shape, generator=gen,
                                           device=dev) * 5e3, 0.0))
-        # the tiled design (the 3-D pair, the 2-D continuity): bit for bit
-        # against its other designs and the twin; the 2-D force (pair_sweep):
-        # the twin's gate
-        tiled = [k + suffix for k in ("dambreak_mass_sweep",
-                                      "dambreak_force_sweep")
-                 if k + suffix in ps._TILED_STAGED]
-        say(21, tile_plan_line(ps, de, ds, tiled))
+        # the tiled design of both (2-D and 3-D): bit for bit against its
+        # other designs and the twin
+        say(21, tile_plan_line(ps, de, ds, [
+            k + suffix for k in ("dambreak_mass_sweep",
+                                 "dambreak_force_sweep")]))
         for kernel, what, scale_of, wrapper, twin_of in (
                 ("dambreak_mass_sweep", "continuity", "Drho",
                  ps.dambreak_mass_pass, ps.dambreak_mass_pass_plain),
@@ -1696,15 +1716,9 @@ def main(profile: bool) -> None:
             if kernel == "dambreak_mass_sweep":
                 kern, rerun, twin = [kern], [rerun], [twin]
             label = f"{name} {what}"
-            if kernel + suffix in tiled:
-                designs = designs_equal(label, kernel + suffix, de, st, dcfg,
-                                        kern)
-                err, scale = exact(label, kern, rerun, twin)
-                held = f"bit for bit equal to {designs} and the twin"
-            else:
-                err, scale = kernel_vs_twin(label, kern, rerun, twin, False,
-                                            scaled=True)
-                held = f"gate rtol {RTOL} atol {ATOL} x max"
+            designs = designs_equal(label, kernel + suffix, de, st, dcfg, kern)
+            err, scale = exact(label, kern, rerun, twin)
+            held = f"bit for bit equal to {designs} and the twin"
             errs[kernel + suffix] = (err, scale)
             extra = ""
             if what == "force":
@@ -2271,7 +2285,9 @@ def main(profile: bool) -> None:
             ("legacy_force_sweep av", e24, t_state,
              dataclasses.replace(tcfg, av_alpha=0.05)),
             ("isph_matvec_sweep", e31, i_state, icfg),
+            ("isph_div_visc_sweep", e31, i_state, icfg),
             ("dambreak_mass_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
+            ("dambreak_force_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
             ("rb_mass_heat_sweep", e32, r_state, rcfg),
             ("density_sweep_3d", e17, w3_state, wcfg),
             ("momentum_sweep_3d", e17, w3_state, wcfg),

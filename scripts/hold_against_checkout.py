@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Hold this checkout's sweeps of the 2-D density, the Colagrossi packing's
 gradient, the Hopkins pressure root, the legacy continuity, the dam-break
-continuity (2-D and 3-D, one body) and the Rayleigh–Bénard continuity +
-conduction against another checkout's build of ``csrc/pair_sweep.cu`` on
-the card, bit for bit: the other checkout's one-thread-per-slot design of
+continuity and force (2-D and 3-D, one body each), the Rayleigh–Bénard
+continuity + conduction and the ISPH divergence/viscous sweep against
+another checkout's build of ``csrc/pair_sweep.cu`` on the card, bit for
+bit: the other checkout's one-thread-per-slot design of
 each (its ``_direct`` yardstick where it has one, else the export itself,
 which then ran on ``pair_sweep``) against this one's ``_direct`` yardsticks
 and tiled exports, and ``iso_static_mass_sweep`` (the per-particle-h
@@ -14,8 +15,10 @@ without it, the adiabatic density on the adiabatic flow (cap 16, gated and
 corrected), the Pavelka state at caps 8 and 24, the terrain flow at caps 16
 and 24, the isothermal static state at its own cap and at 24, collapse_dry
 at dr 0.08 and at the timed size (dr 0.014, cap 24), collapse3d at dr 0.02
-(cap 40), Rayleigh–Bénard at n_rows 16 with both sidewalls at its own cap
-16 and at cap 24.
+(cap 40), each with its continuity and force, Rayleigh–Bénard at n_rows 16
+with both sidewalls at its own cap 16 and at cap 24, its continuity +
+conduction and its force, the kicked ISPH state at its own cap 16 and at
+cap 24.
 
     python3 scripts/hold_against_checkout.py build/parent
 
@@ -43,8 +46,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 SHARED = ("density_sweep_direct", "gamma_grad_sweep_direct",
           "pressure_sweep_direct", "legacy_mass_sweep_direct",
           "dambreak_mass_sweep_direct", "dambreak_mass_sweep_3d_direct",
-          "rb_mass_heat_sweep_direct", "iso_static_mass_sweep",
-          "pair_sweep_error_string")
+          "dambreak_force_sweep_direct", "dambreak_force_sweep_3d_direct",
+          "rb_mass_heat_sweep_direct", "isph_div_visc_sweep_direct",
+          "iso_static_mass_sweep", "pair_sweep_error_string")
 
 
 def other_library(other: Path):
@@ -118,14 +122,20 @@ def main(other: Path) -> None:
     for name, over in (("2d", {}), ("2d", dict(dr=0.014, skin=0.15)),
                        ("3d", {})):
         eng, cfg, st = t._live_dam(dev, name, **over)
-        kernel = "dambreak_mass_sweep" + ("_3d" if name == "3d" else "")
-        cases.append((f"{kernel} dr {cfg.dr} cap {eng.cap}", kernel, eng, st,
-                      cfg, {}))
+        for body in ("dambreak_mass_sweep", "dambreak_force_sweep"):
+            kernel = body + ("_3d" if name == "3d" else "")
+            cases.append((f"{kernel} dr {cfg.dr} cap {eng.cap}", kernel, eng,
+                          st, cfg, {}))
     for cap in (None, 24):
         for sidewalls in ("conducting", "adiabatic"):
             cfg, eng, st = t._live_rb(dev, sidewalls, cap)
-            cases.append((f"rb_mass_heat_sweep {sidewalls} cap {eng.cap}",
-                          "rb_mass_heat_sweep", eng, st, cfg, {}))
+            for kernel in ("rb_mass_heat_sweep", "dambreak_force_sweep"):
+                cases.append((f"{kernel} {sidewalls} cap {eng.cap}", kernel,
+                              eng, st, cfg, {}))
+    for cap in (None, 24):
+        cfg, eng, st = t._isph_live(dev, cap)
+        cases.append((f"isph_div_visc_sweep cap {eng.cap}",
+                      "isph_div_visc_sweep", eng, st, cfg, {}))
     n = 0
     for label, kernel, eng, st, cfg, kw in cases:
         runs = ps.tiled_yardsticks(kernel, eng, st, cfg, **kw)

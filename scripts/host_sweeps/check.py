@@ -1,12 +1,14 @@
 """Build ``sph_mountain_waves_tpu_torch/csrc/pair_sweep.cu`` for the host
 with g++ and hold its tiled sweeps (the 3-D dam-break and witch3d pairs,
-the 2-D dam-break continuity, the Rayleigh–Bénard continuity + conduction
-with both sidewalls, the 2-D Pavelka pair, the 2-D flagship density with and without the self
-pair and the adiabatic density, the 2-D flagship momentum, the Hopkins
-pressure root with and without the self pair, the Hopkins momentum in both
-forms, the Colagrossi packing's gradient, the terrain continuity, the
-terrain force with and without AV and the ISPH CG matvec in its prepared
-form) against the one-thread-per-slot design they replaced,
+the 2-D dam-break continuity and force, the Rayleigh–Bénard continuity +
+conduction and its dam-break force with both sidewalls, the 2-D Pavelka
+pair, the 2-D flagship density with and without the self pair and the
+adiabatic density, the 2-D flagship momentum, the Hopkins pressure root
+with and without the self pair, the Hopkins momentum in both forms, the
+Colagrossi packing's gradient, the terrain continuity, the terrain force
+with and without AV, the ISPH CG matvec in its prepared form and the ISPH
+divergence/viscous sweep) against the one-thread-per-slot design they
+replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -15,9 +17,9 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py            # every tiled sweep
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
     python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
-    python scripts/host_sweeps/check.py legacy isph   # terrain pair, matvec
+    python scripts/host_sweeps/check.py legacy isph   # terrain pair, ISPH
     python scripts/host_sweeps/check.py density gamma  # densities, packing
-    python scripts/host_sweeps/check.py dam2 rb dam   # dam continuity, RB
+    python scripts/host_sweeps/check.py dam2 rb dam   # dam pairs, RB
 
 No card and no nvcc: the source is rewritten for g++ 12 (-std=c++20) with
 the stand-in runtime ``cuda_runtime.h`` beside this file. A launch runs its
@@ -134,7 +136,7 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
         f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else
-        f" sidewalls={cfg.sidewalls}" if kernel == "rb_mass_heat_sweep" else
+        f" sidewalls={cfg.sidewalls}" if hasattr(cfg, "sidewalls") else
         f" self_pair={cfg.self_density}"
         if kernel in ("pressure_sweep", "density_sweep")
         and not kw.get("adiabatic") else "")
@@ -178,14 +180,17 @@ def main(which) -> None:
             system = cd.make_system(cfg)
             state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
                                rho=(0.99, 1.01, True), P=(0, 5e3, False))
-            ok &= held("dambreak_mass_sweep", system.engine, state, cfg,
-                       ps.dambreak_mass_pass_plain)
+            for kernel, twin in (
+                    ("dambreak_mass_sweep", ps.dambreak_mass_pass_plain),
+                    ("dambreak_force_sweep", ps.dambreak_force_pass_plain)):
+                ok &= held(kernel, system.engine, state, cfg, twin)
     if "rb" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
         # n_rows 16 at its own cap 16 (TX 16 on 128 x-cells) and at cap 24
         # (TX 10, a ragged last tile of 8), and the baseline (n_rows 160: cap
-        # 16, 256 x 80 cells); each after one step, with both sidewalls
+        # 16, 256 x 80 cells); each after one step, with both sidewalls: the
+        # continuity + conduction and the force
         for n_rows, cap in ((16, None), (16, 24), (160, None)):
             for sidewalls in ("conducting", "adiabatic"):
                 cfg = rb.baseline_config(n_rows=n_rows, sidewalls=sidewalls,
@@ -197,8 +202,11 @@ def main(which) -> None:
                 state = rb.make_step(cfg, system.engine)(state)
                 state = _perturbed(state, v=(-1, 1, False),
                                    T=(0.99, 1.01, True))
-                ok &= held("rb_mass_heat_sweep", system.engine, state, cfg,
-                           ps.rb_mass_heat_pass_plain)
+                for kernel, twin in (
+                        ("rb_mass_heat_sweep", ps.rb_mass_heat_pass_plain),
+                        ("dambreak_force_sweep",
+                         ps.dambreak_force_pass_plain)):
+                    ok &= held(kernel, system.engine, state, cfg, twin)
     if "witch" in which:
         from sph_mountain_waves_tpu_torch.models import witch3d as w3
         for cap in (None, 24):
@@ -368,17 +376,20 @@ def main(which) -> None:
     if "isph" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import isph_witch as iw
-        # the tiny ISPH state, P drawn as the iterate; cap 16 (its own): TX
-        # 16; cap 8: TX 32
+        # the tiny ISPH state, P drawn as the iterate and v as the velocity;
+        # cap 16 (its own): TX 16; cap 8: TX 32
         for cap in (None, 8):
             cfg = iw.ISPHWitchConfig(n_rows=10, dtype="float32",
                                      layout="bucket", skin=0.2,
                                      use_pallas=True, bucket_cap=cap)
             system = iw.make_system(cfg)
-            state = _perturbed(system.freeze(device="cpu"), P=(-1, 1, False))
+            state = _perturbed(system.freeze(device="cpu"), P=(-1, 1, False),
+                               v=(-1, 1, False))
             ok &= held("isph_matvec_sweep", system.engine, state, cfg,
                        lambda e, s_, c_: ps.isph_matvec_pass_plain(
                            e, s_, c_, s_.fields["P"]))
+            ok &= held("isph_div_visc_sweep", system.engine, state, cfg,
+                       ps.isph_div_visc_pass_plain)
     if not ok:
         raise AssertionError("a tiled sweep differs from its twin")
     print("host check passed")

@@ -76,11 +76,11 @@
 // flagship density (and the adiabatic density on it) and momentum, the
 // Hopkins pressure root and momentum, the two Pavelka sweeps, the packing
 // gradient, the terrain continuity and force with fixed h, the ISPH CG
-// matvec, the dam-break continuity and the Rayleigh-Benard continuity +
-// conduction run the same design in 2-D, pair_sweep_tiled (9 cells); the
-// density, the pressure root and the packing gradient count the self pair
-// there. The other 2-D sweeps (the dam-break force, the per-particle-h
-// terrain sweeps, the fused adiabatic sweep, the ISPH divergence and
+// matvec and divergence/viscous sweep, the dam-break continuity and force
+// and the Rayleigh-Benard continuity + conduction run the same design in
+// 2-D, pair_sweep_tiled (9 cells); the density, the pressure root and the
+// packing gradient count the self pair there. The other 2-D sweeps (the
+// per-particle-h terrain sweeps, the fused adiabatic sweep, the ISPH
 // gradient) still run pair_sweep.
 
 #include <cuda_runtime.h>
@@ -116,7 +116,8 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 // q's fields as the accessor bodies read them (the 3-D bodies, the
 // dam-break bodies in 2-D, the 2-D density and momentum, the Hopkins pressure
 // root and momentum, the Pavelka bodies, the packing gradient, the legacy
-// continuity and force, the ISPH matvec and the Rayleigh-Benard body): q[i]
+// continuity and force, the ISPH divergence/viscous sweep and matvec and the
+// Rayleigh-Benard body): q[i]
 // is plane i at q's slot. PlaneQ reads the planes (pair_sweep, pair_sweep3);
 // StagedQ reads the copy that pair_sweep3_tiled
 // staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
@@ -623,13 +624,17 @@ struct DamMass {
 // zeros): Dv_p = sum_q -ker (Pt_p + Pt_q) x_pq + ker visc_c v_pq with
 // ker = kc (fl_p t)^3, Pt = P / max(rho, 1e-12)^2, visc_c = 2 mu / rho0^2;
 // fields: occ, x[D], v[D], Pt, fl = [type == FLUID]. q's planes read by the
-// body: QLO..QHI-1 (v and Pt; fl is read on the p side only).
+// body: v and Pt, QLO..QHI-1 for pair_sweep3_tiled (fl is read on the p side
+// only); in 2-D plane 3 is v0, which pair_sweep_tiled stages in the
+// candidate's float4, so QMASK names the rest (planes 4..QHI-1: v1 and Pt,
+// 0x30).
 template <int D>
 struct DamForce {
   static constexpr int NIN = 3 + 2 * D;
   static constexpr int NOUT = D;
   static constexpr int QLO = 1 + D;
   static constexpr int QHI = 2 + 2 * D;
+  static constexpr unsigned QMASK = ((1u << QHI) - 1u) & ~0xFu;
   struct Params {
     float kc;
     float hinv;    // 1/h
@@ -852,23 +857,33 @@ __device__ __forceinline__ float rd_spline23(float r, const IsphParams& prm) {
 
 // ISPH fused divergence/L/lambda + viscous sweep: the raw spline sums
 //   sum_q w (x_pq . v_pq, 1, r^2, v_pq[0], v_pq[1]),  w = rD(h0, r);
-// fields: occ, x0, x1, v0, v1. The caller applies the physics factors.
+// fields: occ, x0, x1, v0, v1. The caller applies the physics factors. q's
+// planes read by the body beyond the occupancy and position: v; plane 3 is
+// v0, which the tiled sweep stages in the candidate's float4, so QMASK names
+// v1 alone (plane 4, 0x10).
 struct IsphDivVisc {
   static constexpr int NIN = 5;
   static constexpr int NOUT = 5;
+  static constexpr unsigned QMASK = 0x10u;
   using Params = IsphParams;
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, float d0, float d1, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float w = rd_spline23(sqrtf(r2), prm);
-    const float dv0 = p[3] - f.in[3][qi];
-    const float dv1 = p[4] - f.in[4][qi];
-    const float dot = d0 * dv0 + d1 * dv1;
+    const float dv0 = p[3] - q[3];
+    const float dv1 = p[4] - q[4];
+    const float dot = d[0] * dv0 + d[1] * dv1;
     tot[0] += w * dot;
     tot[1] += w;
     tot[2] += w * r2;
     tot[3] += w * dv0;
     tot[4] += w * dv1;
+  }
+  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
+                              int64_t qi, float d0, float d1, float r2,
+                              const Params& prm, float* tot) {
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1303,12 +1318,13 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // The tiled 9-cell sweep of the 2-D density, the Pavelka continuity and
 // fused momentum + entropy, the flagship momentum, the Hopkins pressure root
 // and momentum, the Colagrossi packing's gradient, the terrain continuity and
-// force, the ISPH CG matvec, the 2-D dam-break continuity and the
-// Rayleigh-Benard continuity + conduction (pallas_pairs.py density_pass and
-// adia_density_pass, pavelka_mass_pass, pavelka_momentum_entropy_pass,
-// momentum_pass, pressure_pass, hopkins_momentum_pass, legacy_mass_pass,
-// legacy_force_pass, isph_matvec_prepared, dambreak_mass_pass,
-// rb_mass_heat_pass; utils/packing.py find_gGamma):
+// force, the ISPH CG matvec and divergence/viscous sweep, the 2-D dam-break
+// continuity and force and the Rayleigh-Benard continuity + conduction
+// (pallas_pairs.py density_pass and adia_density_pass, pavelka_mass_pass,
+// pavelka_momentum_entropy_pass, momentum_pass, pressure_pass,
+// hopkins_momentum_pass, legacy_mass_pass, legacy_force_pass,
+// isph_matvec_prepared, isph_div_visc_pass, dambreak_mass_pass,
+// dambreak_force_pass, rb_mass_heat_pass; utils/packing.py find_gGamma):
 // pair_sweep3_tiled's design in 2-D. One block is TX
 // consecutive x-cells of one grid row cy times every p rank: thread
 // (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx).
@@ -1318,8 +1334,9 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
 // for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density, v0
-// in the terrain continuity and force, the dam-break continuity and the
-// Rayleigh-Benard sweep, the iterate in the matvec) as one
+// in the terrain continuity and force, the dam-break continuity and force,
+// the Rayleigh-Benard sweep and the ISPH divergence, the iterate in the
+// matvec) as one
 // float4 per cell (a candidate is one 16-byte shared load), the other q
 // planes the body reads (Body::QMASK: none in the packing gradient, w in the
 // density) as scalars; 4-byte cp.async, cells outside the grid zero-filled so
@@ -1375,7 +1392,9 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // blocks of 256 threads, 7 planes, 24,320 B): under one and about 1.2 waves
 // of blocks, where pair_sweep's threads each waited on a chain of dependent
 // gathers from L2; 0.018 ms (0.051 in pair_sweep) and 0.017 ms (0.043) of
-// kernel time on an H100.
+// kernel time on an H100. The dam-break force on the collapse_dry state (6
+// planes, the same plan) takes 0.019 ms (0.036), the ISPH divergence/viscous
+// sweep on the matvec's state (5 planes, 16,384 B) 0.018 ms (0.030).
 template <class Body, bool SELF, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1865,12 +1884,11 @@ int gamma_grad_sweep_direct(const float* occ, const float* x0,
                                          static_cast<cudaStream_t>(stream));
 }
 
-// dam-break sweeps, 2-D: planes [cap, nx*ny+1]. The continuity launches
-// pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper passes, kmax
-// int32 [ny*ntiles] (one bound per x-tile); its "_direct" export launches
-// pair_sweep (kmax int32 [ny] per grid row), the design the tiled one
-// replaced: a yardstick, on no path. The force launches pair_sweep (kmax
-// int32 [ny]).
+// dam-break sweeps, 2-D: planes [cap, nx*ny+1]. The continuity and the
+// force launch pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper
+// passes, kmax int32 [ny*ntiles] (one bound per x-tile); their "_direct"
+// exports launch pair_sweep (kmax int32 [ny] per grid row), the design the
+// tiled one replaced: yardsticks, on no path.
 int dambreak_mass_sweep(const float* occ, const float* x0, const float* x1,
                         const float* v0, const float* v1, const float* rho,
                         const int* kmax, float* drho, int cap, int nx, int ny,
@@ -1897,11 +1915,25 @@ int dambreak_force_sweep(const float* occ, const float* x0, const float* x1,
                          const float* v0, const float* v1, const float* pterm,
                          const float* fluid, const int* kmax, float* dv0,
                          float* dv1, int cap, int nx, int ny, float h2,
-                         float kc, float hinv, float visc_c, void* stream) {
-  Planes<7, 2> f{{occ, x0, x1, v0, v1, pterm, fluid}, {dv0, dv1}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<DamForce<2>, false>(f, kmax, g, {kc, hinv, visc_c},
-                                    static_cast<cudaStream_t>(stream));
+                         float kc, float hinv, float visc_c, int tx,
+                         int smem_bytes, void* stream) {
+  return launch_tiled<DamForce<2>>(
+      {{occ, x0, x1, v0, v1, pterm, fluid}, {dv0, dv1}}, kmax,
+      {cap, nx, ny, h2}, {kc, hinv, visc_c}, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int dambreak_force_sweep_direct(const float* occ, const float* x0,
+                                const float* x1, const float* v0,
+                                const float* v1, const float* pterm,
+                                const float* fluid, const int* kmax,
+                                float* dv0, float* dv1, int cap, int nx,
+                                int ny, float h2, float kc, float hinv,
+                                float visc_c, void* stream) {
+  return launch<DamForce<2>, false>(
+      {{occ, x0, x1, v0, v1, pterm, fluid}, {dv0, dv1}}, kmax,
+      {cap, nx, ny, h2}, {kc, hinv, visc_c},
+      static_cast<cudaStream_t>(stream));
 }
 
 // legacy (terrain) sweeps, 2-D: planes [cap, nx*ny+1]. The fixed-h
@@ -2017,17 +2049,32 @@ int adia_entropy_force_sweep(const float* occ, const float* x0,
 }
 
 
-// ISPH and Rayleigh-Benard sweeps, 2-D: planes [cap, nx*ny+1], kmax int32
-// [ny]
+// ISPH and Rayleigh-Benard sweeps, 2-D: planes [cap, nx*ny+1]. The
+// divergence/viscous sweep launches pair_sweep_tiled on the plan (tx,
+// smem_bytes) the wrapper passes, kmax int32 [ny*ntiles] (one bound per
+// x-tile); its "_direct" export launches pair_sweep (kmax int32 [ny] per
+// grid row), the design the tiled one replaced: a yardstick, on no path.
 int isph_div_visc_sweep(const float* occ, const float* x0, const float* x1,
                         const float* v0, const float* v1, const int* kmax,
                         float* s_divv, float* s_l, float* s_lam, float* s_dv0,
                         float* s_dv1, int cap, int nx, int ny, float h2,
-                        float hinv, float kw, void* stream) {
-  Planes<5, 5> f{{occ, x0, x1, v0, v1}, {s_divv, s_l, s_lam, s_dv0, s_dv1}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<IsphDivVisc, false>(f, kmax, g, {hinv, kw},
-                                    static_cast<cudaStream_t>(stream));
+                        float hinv, float kw, int tx, int smem_bytes,
+                        void* stream) {
+  return launch_tiled<IsphDivVisc>(
+      {{occ, x0, x1, v0, v1}, {s_divv, s_l, s_lam, s_dv0, s_dv1}}, kmax,
+      {cap, nx, ny, h2}, {hinv, kw}, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int isph_div_visc_sweep_direct(const float* occ, const float* x0,
+                               const float* x1, const float* v0,
+                               const float* v1, const int* kmax, float* s_divv,
+                               float* s_l, float* s_lam, float* s_dv0,
+                               float* s_dv1, int cap, int nx, int ny, float h2,
+                               float hinv, float kw, void* stream) {
+  return launch<IsphDivVisc, false>(
+      {{occ, x0, x1, v0, v1}, {s_divv, s_l, s_lam, s_dv0, s_dv1}}, kmax,
+      {cap, nx, ny, h2}, {hinv, kw}, static_cast<cudaStream_t>(stream));
 }
 
 // The CG matvec launches pair_sweep_tiled on the plan (tx, smem_bytes) the
@@ -2052,6 +2099,7 @@ int isph_matvec_sweep_direct(const float* occ, const float* x0,
                                    static_cast<cudaStream_t>(stream));
 }
 
+// The pressure gradient launches pair_sweep (kmax int32 [ny]).
 int isph_grad_sweep(const float* occ, const float* x0, const float* x1,
                     const float* pres, const int* kmax, float* g0, float* g1,
                     int cap, int nx, int ny, float h2, float hinv, float kw,

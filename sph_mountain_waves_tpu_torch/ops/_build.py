@@ -86,8 +86,13 @@ SIGNATURES = {
         "dambreak_mass_sweep_direct": ([_P] * 8 + [_I] * 3 + [_F] * 4 + [_P],
                                        _I),
         # occ, x0, x1, v0, v1, P/rho^2, fluid, kmax, 2 outs, cap, nx, ny, h2,
-        # kc, 1/h, 2mu/rho0^2, stream
-        "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4 + [_P], _I),
+        # kc, 1/h, 2mu/rho0^2, the tiled sweep's plan (TX, dynamic shared
+        # bytes), stream; one bound per x-tile (the "_direct" yardstick: no
+        # plan, one per grid row)
+        "dambreak_force_sweep": ([_P] * 10 + [_I] * 3 + [_F] * 4
+                                 + [_I, _I, _P], _I),
+        "dambreak_force_sweep_direct": ([_P] * 10 + [_I] * 3 + [_F] * 4
+                                        + [_P], _I),
         # occ, x0, x1, v0, v1, m, kmax, out, cap, nx, ny, h2, kc, 1/h0, the
         # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
         # per x-tile (the "_direct" yardstick: no plan, one per grid row)
@@ -114,8 +119,13 @@ SIGNATURES = {
         # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, stream
         "adia_entropy_force_sweep": ([_P] * 14 + [_I] * 3 + [_F] * 9
                                      + [_I, _I, _P], _I),
-        # occ, x0, x1, v0, v1, kmax, 5 outs, cap, nx, ny, h2, 1/h0, kw, stream
-        "isph_div_visc_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, v0, v1, kmax, 5 outs, cap, nx, ny, h2, 1/h0, kw, the
+        # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
+        # per x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "isph_div_visc_sweep": ([_P] * 11 + [_I] * 3 + [_F] * 3
+                                + [_I, _I, _P], _I),
+        "isph_div_visc_sweep_direct": ([_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],
+                                       _I),
         # occ, x0, x1, v, kmax, out, cap, nx, ny, h2, 1/h0, kw, the tiled
         # sweep's plan (TX, dynamic shared bytes), stream; one bound per
         # x-tile (the "_direct" yardstick: no plan, one per grid row)

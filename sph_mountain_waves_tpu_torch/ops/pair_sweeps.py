@@ -1156,9 +1156,12 @@ _MAX_SHARED_BYTES = 232_448
 # export with the gated w); the packing's ∇Γ sum the float4 of occupancy, x
 # and h, nothing besides; the 2-D dam-break continuity the float4 of
 # occupancy, x and v0, then v1 and ρ (its 3-D form is
-# ``dambreak_mass_sweep_3d``); the Rayleigh–Bénard continuity + conduction
-# the float4 of occupancy, x and v0, then v1, T and 1/ρ. A form's key is
-# ``_FORM_KEY``'s (``_staged``)
+# ``dambreak_mass_sweep_3d``); the 2-D dam-break force the float4 of
+# occupancy, x and v0, then v1 and P/ρ² (the FLUID gate is read on the p side
+# only; its 3-D form is ``dambreak_force_sweep_3d``); the Rayleigh–Bénard
+# continuity + conduction the float4 of occupancy, x and v0, then v1, T and
+# 1/ρ; the ISPH divergence/viscous sweep the float4 of occupancy, x and v0,
+# then v1. A form's key is ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
@@ -1172,7 +1175,9 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "density_sweep": 5,
                  "gamma_grad_sweep": 4,
                  "dambreak_mass_sweep": 6,
-                 "rb_mass_heat_sweep": 7}
+                 "dambreak_force_sweep": 6,
+                 "rb_mass_heat_sweep": 7,
+                 "isph_div_visc_sweep": 5}
 # the tiled exports with two forms, and what names the form: the Hopkins
 # momentum's ``background_split`` argument, the terrain force's AV switch
 # (``cfg.av_alpha > 0``)
@@ -1375,7 +1380,8 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     packing's ``V0`` (a keyword, as ``background_split`` is) and no config
     (``cfg`` may be None), ``"legacy_mass_sweep"``,
     ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names,
-    ``"isph_matvec_sweep"``, the 2-D ``"dambreak_mass_sweep"`` or
+    ``"isph_matvec_sweep"``, ``"isph_div_visc_sweep"``, the 2-D
+    ``"dambreak_mass_sweep"`` or ``"dambreak_force_sweep"``, or
     ``"rb_mass_heat_sweep"``, whose sidewalls are ``cfg``'s) on planes and
     trip bounds prepared once from ``state``, by design:
     ``"tiled"`` (the export the wrapper launches, with the per-tile bound),
@@ -1410,11 +1416,13 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel in ("density_sweep", "momentum_sweep", "pressure_sweep",
                     "hopkins_momentum_sweep", "gamma_grad_sweep",
                     "legacy_mass_sweep", "legacy_force_sweep",
-                    "isph_matvec_sweep", "dambreak_mass_sweep",
+                    "isph_matvec_sweep", "isph_div_visc_sweep",
+                    "dambreak_mass_sweep", "dambreak_force_sweep",
                     "rb_mass_heat_sweep"):
         # 2-D exports: a 3-D engine's density, momentum and dam-break
-        # continuity are "density_sweep_3d", "momentum_sweep_3d" and
-        # "dambreak_mass_sweep_3d", and the others have no 3-D form
+        # continuity and force are "density_sweep_3d", "momentum_sweep_3d",
+        # "dambreak_mass_sweep_3d" and "dambreak_force_sweep_3d", and the
+        # others have no 3-D form
         _check_2d(engine, kernel)
         n_out = 2
         if kernel == "density_sweep":
@@ -1439,9 +1447,15 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         elif kernel == "dambreak_mass_sweep":
             planes, _ = _dambreak_mass_inputs(engine, state)
             args, n_out = _dambreak_mass_scalars(cfg, 2), 1
+        elif kernel == "dambreak_force_sweep":
+            planes, _ = _dambreak_force_inputs(engine, state)
+            args = _dambreak_force_scalars(cfg, 2)
         elif kernel == "rb_mass_heat_sweep":
             planes, _ = _rb_mass_heat_inputs(engine, state, cfg)
             args = _rb_mass_heat_scalars(cfg)
+        elif kernel == "isph_div_visc_sweep":
+            planes, _ = _isph_div_visc_inputs(engine, state)
+            args, n_out = _isph_scalars(cfg), 5
         elif kernel == "hopkins_momentum_sweep":
             planes, args = _hopkins_launch_inputs(engine, state, cfg,
                                                   background_split)
@@ -1816,7 +1830,7 @@ def isph_div_visc_pass(engine, state: ParticleState, cfg):
         return isph_div_visc_pass_plain(engine, state, cfg)
     _check_2d(engine, "isph_div_visc_pass")
     planes, _ = _isph_div_visc_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("isph_div_visc_sweep", engine, state)
     outs = _launch("isph_div_visc_sweep", engine, planes, band, 5,
                    _isph_scalars(cfg))
     isph_div_visc_pass.launches += 1

@@ -366,7 +366,12 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
     (24, "dambreak_mass_sweep", True, (10, 240, 20736, 24)),
     (24, "dambreak_mass_sweep", False, (10, 240, 1728, 2)),
     (16, "rb_mass_heat_sweep", True, (16, 256, 24320, 16)),
-    (16, "rb_mass_heat_sweep", False, (16, 256, 3040, 2))],
+    (16, "rb_mass_heat_sweep", False, (16, 256, 3040, 2)),
+    (24, "dambreak_force_sweep", True, (10, 240, 20736, 24)),
+    (24, "dambreak_force_sweep", False, (10, 240, 1728, 2)),
+    (16, "dambreak_force_sweep", True, (16, 256, 20736, 16)),
+    (8, "isph_div_visc_sweep", True, (32, 256, 16384, 8)),
+    (8, "isph_div_visc_sweep", False, (32, 256, 4096, 2))],
     ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
          "cap8-fused-two", "cap24-mass-every", "cap24-fused-two",
          "cap8-momentum-every", "cap8-momentum-two", "cap8-total-every",
@@ -380,7 +385,8 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
          "cap8-terrain-mass-every", "cap8-density-every", "cap8-density-two",
          "cap16-adia-density-every", "cap8-gamma-every", "cap8-gamma-two",
          "cap24-dam-mass-every", "cap24-dam-mass-two", "cap16-rb-every",
-         "cap16-rb-two"])
+         "cap16-rb-two", "cap24-dam-force-every", "cap24-dam-force-two",
+         "cap16-dam-force-every", "cap8-div-visc-every", "cap8-div-visc-two"])
 def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
     stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
@@ -400,17 +406,21 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     self pair or without it, and the adiabatic density on it), the
     packing's ∇Γ sum, which stages the float4 of occupancy, x and h alone
     (4), the 2-D dam-break continuity, which stages the float4 of
-    occupancy, x and v0, then v1 and ρ (6), and the Rayleigh–Bénard
-    continuity + conduction, which stages the float4 of occupancy, x and
-    v0, then v1, T and 1/ρ (7): the flagship, Pavelka and ISPH sizes have
-    cap 8 (TX 32), the corrected adiabatic flow's and the Rayleigh–Bénard
-    baseline's cap 16 gives TX 16, the terrain baseline's and collapse_dry's
-    cap 24 TX 10; a stage is (TX+2)·3 cells rounded up to 16 B, two of them
-    or one per rank. The wrapper's default is ``_EVERY_RANK``; a 3-D engine
-    refuses the every-rank scheme; the Hopkins and terrain-force counts need
-    their form, and no other count takes one (a form key given to the
-    pressure root, the terrain continuity, the density, the ∇Γ sum, the
-    dam-break continuity or the Rayleigh–Bénard sweep is refused)."""
+    occupancy, x and v0, then v1 and ρ (6), the Rayleigh–Bénard continuity
+    + conduction, which stages the float4 of occupancy, x and v0, then v1,
+    T and 1/ρ (7), the 2-D dam-break force, which stages the float4 of
+    occupancy, x and v0, then v1 and P/ρ² (6; the FLUID gate is read on the
+    p side only), and the ISPH divergence/viscous sweep, which stages the
+    float4 of occupancy, x and v0, then v1 (5): the flagship, Pavelka and
+    ISPH sizes have cap 8 (TX 32), the corrected adiabatic flow's and the
+    Rayleigh–Bénard baseline's cap 16 gives TX 16, the terrain baseline's
+    and collapse_dry's cap 24 TX 10; a stage is (TX+2)·3 cells rounded up
+    to 16 B, two of them or one per rank. The wrapper's default is
+    ``_EVERY_RANK``; a 3-D engine refuses the every-rank scheme; the Hopkins
+    and terrain-force counts need their form, and no other count takes one
+    (a form key given to the pressure root, the terrain continuity, the
+    density, the ∇Γ sum, the dam-break continuity or force, the
+    Rayleigh–Bénard sweep or the ISPH divergence is refused)."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
     engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
     name, _, label = kernel.partition(" ")
@@ -430,7 +440,9 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
                       "density_sweep": 5,
                       "gamma_grad_sweep": 4,
                       "dambreak_mass_sweep": 6,
-                      "rb_mass_heat_sweep": 7}[kernel]
+                      "rb_mass_heat_sweep": 7,
+                      "dambreak_force_sweep": 6,
+                      "isph_div_visc_sweep": 5}[kernel]
     plan = tps._tile_plan(engine, staged, every_rank=every_rank)
     assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
     assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024

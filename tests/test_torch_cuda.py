@@ -470,7 +470,9 @@ _TILED_WRAPPER = {"density_sweep": ps.density_pass,
                   "legacy_force_sweep": ps.legacy_force_pass,
                   "isph_matvec_sweep": ps.isph_matvec_pass,
                   "dambreak_mass_sweep": ps.dambreak_mass_pass,
-                  "rb_mass_heat_sweep": ps.rb_mass_heat_pass}
+                  "rb_mass_heat_sweep": ps.rb_mass_heat_pass,
+                  "dambreak_force_sweep": ps.dambreak_force_pass,
+                  "isph_div_visc_sweep": ps.isph_div_visc_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got, **kw):
@@ -611,10 +613,34 @@ def test_dambreak_force_kernel_matches_twin(card, name):
     _held_to_twin(got, ps.dambreak_force_pass(eng, st, cfg), ref, False)
     wall = st.active & (st.fields["type"] == 1.0)
     assert all(bool((g[wall] == 0.0).all()) for g in got)
-    if name == "3d":
-        assert all(_tiled_edges(eng, st, "dambreak_force_sweep_3d"))
-        _held_to_designs("dambreak_force_sweep_3d", eng, st, cfg, got)
-        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    kernel = {"2d": "dambreak_force_sweep",
+              "3d": "dambreak_force_sweep_3d"}[name]
+    assert all(_tiled_edges(eng, st, kernel))
+    _held_to_designs(kernel, eng, st, cfg, got)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["collapse_dry", "rayleigh_benard"])
+def test_tiled_dambreak_force_reaches_every_edge(card, path):
+    """The tiled 2-D dam-break force at cap 24 (``_reaches_every_edge``: a
+    ragged last tile of 8, tiles with a bound of 0 and tiles with a bound
+    but no occupied p slot) on the tiny collapse_dry and on Rayleigh–Bénard
+    at n_rows 16 (its engine forced to cap 24), whose force it is: bit for
+    bit against its other designs and the twin, WALL p slots exactly 0."""
+    if path == "collapse_dry":
+        eng, cfg, st = _live_dam(card, "2d")
+    else:
+        cfg, eng, st = _live_rb(card, "conducting", cap=24)
+    _reaches_every_edge(eng, st, "dambreak_force_sweep")
+    assert _tiled_edges(eng, st, "dambreak_force_sweep")[2] > 0
+    got = ps.dambreak_force_pass(eng, st, cfg)
+    _held_to_designs("dambreak_force_sweep", eng, st, cfg, got)
+    ref = ps.dambreak_force_pass_plain(eng, st, cfg)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    fluid = st.fields["type"] == 0.0
+    assert all(bool((g[st.active & ~fluid] == 0.0).all()) for g in got)
+    assert all(float(g.abs().max()) > 0 for g in got)
 
 
 @pytest.mark.cuda
@@ -853,11 +879,11 @@ def _kicked(state, device):
         (state.fields["type"] == 0.0)[:, None], v.to(device), state.fields["v"]))
 
 
-def _isph_live(device):
-    """The kicked ISPH state at n_rows=10 after one step (P is the first
-    solve's solution)."""
+def _isph_live(device, cap=None):
+    """The kicked ISPH state at n_rows=10 (at ``cap`` ranks a cell, or the
+    engine's own) after one step (P is the first solve's solution)."""
     from sph_mountain_waves_tpu_torch.models import isph_witch as iw
-    cfg = iw.ISPHWitchConfig(**ISPH)
+    cfg = iw.ISPHWitchConfig(**ISPH, bucket_cap=cap)
     sys_ = iw.make_system(cfg)
     state = _kicked(sys_.freeze(device=device), device)
     return cfg, sys_.engine, iw.make_step(cfg, sys_.engine)(state)
@@ -867,7 +893,8 @@ def _isph_live(device):
 @pytest.mark.parametrize("name", ["div_visc", "grad", "matvec"])
 def test_isph_kernel_matches_twin_bitwise(card, name):
     """Each ISPH kernel equals its twin bit for bit and counts one launch a
-    call; the prepared matvec one launch per call on the iterate."""
+    call; the prepared matvec one launch per call on the iterate. The tiled
+    divergence/viscous sweep also bit for bit against its other designs."""
     cfg, eng, st = _isph_live(card)
     if name == "matvec":
         mv = ps.isph_matvec_prepared(eng, st, cfg)
@@ -886,9 +913,28 @@ def test_isph_kernel_matches_twin_bitwise(card, name):
         got = wrapper(eng, st, cfg)
         assert wrapper.launches == before + 1
         rerun, ref = wrapper(eng, st, cfg), twin(eng, st, cfg)
+        if name == "div_visc":
+            _held_to_designs("isph_div_visc_sweep", eng, st, cfg, got)
     for g, g2, r in zip(got, rerun, ref):
         assert torch.equal(g, g2) and torch.equal(g, r)
         assert r.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_tiled_isph_div_visc_reaches_every_edge(card):
+    """The tiled ISPH divergence/viscous sweep at cap 24
+    (``_reaches_every_edge`` on the kicked tiny ISPH state: a ragged last
+    tile of 8, tiles with a bound of 0 and tiles with a bound but no
+    occupied p slot): bit for bit against its other designs and the
+    twin."""
+    cfg, eng, st = _isph_live(card, cap=24)
+    _reaches_every_edge(eng, st, "isph_div_visc_sweep")
+    assert _tiled_edges(eng, st, "isph_div_visc_sweep")[2] > 0
+    got = ps.isph_div_visc_pass(eng, st, cfg)
+    _held_to_designs("isph_div_visc_sweep", eng, st, cfg, got)
+    ref = ps.isph_div_visc_pass_plain(eng, st, cfg)
+    assert all(torch.equal(g, r) and r.abs().max() > 0
+               for g, r in zip(got, ref))
 
 
 @pytest.mark.cuda

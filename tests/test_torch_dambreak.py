@@ -208,16 +208,19 @@ def _active_of(engine, counts):
 
 
 @pytest.mark.parametrize("case", ["collapse3d", "hand-made", "empty",
-                                  "density-3d", "dambreak-3d"])
+                                  "density-3d", "dambreak-3d",
+                                  "dambreak-force-3d"])
 def test_tile_kmax_matches_a_brute_force_count(case):
     """The per-tile trip bound of the tiled 3-D sweep at cap 40 (TX = 6:
     128 x-cells leave a ragged last tile of 2) equals the largest count
     among each tile's (6+2)×3×3 cells, exactly, and is never above the row
-    band of its row. "density-3d" and "dambreak-3d": the hand-made
-    occupancy through ``_trip_bound("density_sweep", …)`` and
-    ``_trip_bound("dambreak_mass_sweep", …)``, which name tiled 2-D exports
-    too: a 3-D engine still takes ``density_sweep_3d`` and
-    ``dambreak_mass_sweep_3d`` (8 staged planes) and the 3-D bound."""
+    band of its row. "density-3d", "dambreak-3d" and "dambreak-force-3d":
+    the hand-made occupancy through ``_trip_bound("density_sweep", …)``,
+    ``_trip_bound("dambreak_mass_sweep", …)`` and
+    ``_trip_bound("dambreak_force_sweep", …)``, which name tiled 2-D exports
+    too: a 3-D engine still takes ``density_sweep_3d``,
+    ``dambreak_mass_sweep_3d`` and ``dambreak_force_sweep_3d`` (8 staged
+    planes each) and the 3-D bound."""
     if case == "collapse3d":
         system = tc3.make_system(tc3.Config(**C3D))
         state = system.freeze(device="cpu")
@@ -233,7 +236,8 @@ def test_tile_kmax_matches_a_brute_force_count(case):
     assert engine.cap == 40 and tx == 6 and engine.lims[0] % tx == 2
     got = tps.tile_kmax(engine, state, tx)
     named = {"density-3d": ("density_sweep", 5),
-             "dambreak-3d": ("dambreak_mass_sweep", 8)}
+             "dambreak-3d": ("dambreak_mass_sweep", 8),
+             "dambreak-force-3d": ("dambreak_force_sweep", 8)}
     if case in named:
         name, staged = named[case]
         assert tps._export(name, engine) == name + "_3d"
@@ -255,8 +259,9 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
     the flagship density and momentum, the Hopkins pressure root and
     momentum, the packing's ∇Γ sum, the terrain continuity and force, the
-    ISPH matvec, the dam-break continuity and the Rayleigh–Bénard sweep:
-    each export's ``_trip_bound``) equals the largest count
+    ISPH matvec and divergence/viscous sweep, the dam-break continuity and
+    force and the Rayleigh–Bénard sweep: each export's ``_trip_bound``)
+    equals the largest count
     among each tile's (TX+2)×3 cells, exactly, and is never above the row
     band of its row: on the tiny Pavelka state (cap 8, TX 32), on a
     hand-made occupancy at cap 24 (TX 10: 128 x-cells leave
@@ -289,7 +294,8 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
                  "pressure_sweep", "hopkins_momentum_sweep",
                  "legacy_mass_sweep", "legacy_force_sweep",
                  "isph_matvec_sweep", "density_sweep", "gamma_grad_sweep",
-                 "dambreak_mass_sweep", "rb_mass_heat_sweep"):
+                 "dambreak_mass_sweep", "rb_mass_heat_sweep",
+                 "dambreak_force_sweep", "isph_div_visc_sweep"):
         assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
                                   _tile_kmax_brute(counts[None], tx))
