@@ -108,11 +108,12 @@ Phases, each printing one or more lines:
      isothermal-flow pair on the baseline after 50 steps, the others on the
      isothermal and adiabatic static configs' default sizes; exact divides,
      fast_math, and the AV term with both; reruns bitwise equal; the
-     terrain continuity and force (the tiled 9-cell design, the force each
-     AV form on its own plan) and the adiabatic density (the tiled density
-     with the self pair and the gated weight, cap 8) with their tile plans,
-     bit for bit against the one-thread-per-slot design (``_direct``), the
-     tiled export on the row band and its other staging scheme;
+     terrain continuity and force and the per-particle-h (isothermal
+     static) force (the tiled 9-cell design, each force each AV form on its
+     own plan) and the adiabatic density (the tiled density with the self
+     pair and the gated weight, cap 8) with their tile plans, bit for bit
+     against the one-thread-per-slot design (``_direct``), the tiled export
+     on the row band and its other staging scheme;
  26. 8 small steps of each terrain variant, card against CPU twins;
  27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
      the first inflow spawn event), with the spawn events, spawn_drops, the
@@ -130,10 +131,11 @@ Phases, each printing one or more lines:
      coarse stencil's and one V-cycle's time; the three ISPH kernels
      (divergence/viscous, CG matvec on the first solve's P, pressure
      gradient) against their twins at full width, max abs err 0, reruns
-     bitwise; the matvec (the tiled design, prepared once per solve) and the
-     divergence/viscous sweep (tiled) with their tile plans, bit for bit
-     against ``_direct``, the row band and the other staging scheme (the
-     matvec's each prepared once); 2 small kicked steps card against
+     bitwise; the matvec (the tiled design, prepared once per solve), the
+     divergence/viscous sweep and the pressure gradient (tiled) with their
+     tile plans, bit for bit against ``_direct``, the row band and the other
+     staging scheme (the matvec's each prepared once); 2 small kicked steps
+     card against
      CPU twins; the main path:
      a warm-up frame of 5 steps and 20 timed steps with every launch
      counted, cg_it per step (matvec launches = sum of (cg_it + 1)), the
@@ -162,11 +164,12 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the twenty-one tiled kernels (the flagship density and momentum, the
+     the twenty-four tiled rows (the flagship density and momentum, the
      adiabatic density, the Hopkins pressure root and momentum in both
      forms, the two Pavelka sweeps, the packing's gradient, the terrain
-     continuity, the terrain force in both AV forms, the ISPH matvec in its
-     prepared form and the ISPH divergence/viscous sweep, collapse_dry's
+     continuity, the terrain force and the isothermal static force in both
+     AV forms, the ISPH matvec in its prepared form, the ISPH
+     divergence/viscous sweep and pressure gradient, collapse_dry's
      dam-break continuity and force, the Rayleigh–Bénard continuity +
      conduction, witch3d's density and momentum, collapse3d's dam-break
      continuity and force) in turns with the design they replaced
@@ -778,20 +781,24 @@ def isph_phase(dev, card, counters, errs, profile):
             f"coarse stencil {stencil_ms:.3f} ms, one V-cycle {vcycle_ms:.3f} "
             f"ms ({card})")
 
-    # the divergence/viscous sweep and the matvec run the tiled design: held
-    # bit for bit against every other design
+    # the divergence/viscous sweep, the gradient and the matvec run the
+    # tiled design: held bit for bit against every other design
     say(31, tile_plan_line(ps, e, st, ("isph_matvec_sweep",
-                                       "isph_div_visc_sweep")))
+                                       "isph_div_visc_sweep",
+                                       "isph_grad_sweep")))
     got = ps.isph_div_visc_pass(e, st, cfg)
     div_designs = designs_equal("isph div/visc", "isph_div_visc_sweep", e, st,
                                 cfg, got)
     errs["isph_div_visc_sweep"] = exact(
         "isph div/visc", got, ps.isph_div_visc_pass(e, st, cfg),
         ps.isph_div_visc_pass_plain(e, st, cfg))
-    del got
+    got = ps.isph_grad_pass(e, st, cfg)
+    grad_designs = designs_equal("isph grad", "isph_grad_sweep", e, st, cfg,
+                                 got)
     errs["isph_grad_sweep"] = exact(
-        "isph grad", ps.isph_grad_pass(e, st, cfg), ps.isph_grad_pass(e, st, cfg),
+        "isph grad", got, ps.isph_grad_pass(e, st, cfg),
         ps.isph_grad_pass_plain(e, st, cfg))
+    del got
     # the matvec is prepared once per solve: each other design prepared once
     # as well
     mv = ps.isph_matvec_prepared(e, st, cfg)
@@ -808,7 +815,9 @@ def isph_phase(dev, card, counters, errs, profile):
     held = {"isph_matvec_sweep": " (tiled, prepared), bit for bit equal to "
                                  + ", ".join(designs) + ";",
             "isph_div_visc_sweep": " (tiled), bit for bit equal to "
-                                   + div_designs + ";"}
+                                   + div_designs + ";",
+            "isph_grad_sweep": " (tiled), bit for bit equal to "
+                               + grad_designs + ";"}
     for k, label in (("isph_div_visc_sweep", "div/visc (5 sums)"),
                      ("isph_grad_sweep", "pressure gradient"),
                      ("isph_matvec_sweep", "CG matvec on the first solve's P")):
@@ -1884,17 +1893,23 @@ def main(profile: bool) -> None:
          ps.adia_density_pass_plain, False),
         ("adia_entropy_force_sweep", "adiabatic static",
          ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
-    # the terrain continuity and force run the tiled design, the force each
-    # AV form on its own plan, and so does the adiabatic density (the
-    # density's export with the self pair and the gated weight)
+    # the terrain continuity and force and the isothermal static force run
+    # the tiled design, each force each AV form on its own plan, and so does
+    # the adiabatic density (the density's export with the self pair and
+    # the gated weight)
     say(25, tile_plan_line(ps, e24, live["terrain"][1],
                            ("legacy_mass_sweep", "legacy_force_sweep no_av",
                             "legacy_force_sweep av")))
+    say(25, tile_plan_line(ps, live["isothermal static"][0],
+                           live["isothermal static"][1],
+                           ("iso_static_force_sweep no_av",
+                            "iso_static_force_sweep av")))
     say(25, tile_plan_line(ps, live["adiabatic static"][0],
                            live["adiabatic static"][1],
                            ("density_sweep adia",)))
     tiled = {"legacy_mass_sweep": "legacy_mass_sweep",  # key: tiled label
              "legacy_force_sweep": "legacy_force_sweep",
+             "iso_static_force_sweep": "iso_static_force_sweep",
              "adia_density_pass": "density_sweep adia"}
     for key, where, kern, twin, divides in cases:
         e, st, base_cfg = live[where]
@@ -2091,9 +2106,8 @@ def main(profile: bool) -> None:
                 ps._legacy_force_scalars(c, d, adaptive),
                 ps._legacy_force_body(c, d, adaptive), d, False)
             planes_k = ps._legacy_force_planes(planes, c)
-            # the tiled terrain force takes the plan of its form
-            plan = None if adaptive else ps._tile_plan(
-                e, ps._staged(kernel, bool(c.av_alpha)))
+            # each tiled terrain force takes the plan of its form
+            plan = ps._tile_plan(e, ps._staged(kernel, bool(c.av_alpha)))
             return (lambda: ps._launch(kernel, e, planes_k, band, n_out, args,
                                        plan),
                     lambda: ps._sweep_plain(e, planes, pads, band, body, n_out,
@@ -2284,8 +2298,13 @@ def main(profile: bool) -> None:
             ("legacy_force_sweep no_av", e24, t_state, tcfg),
             ("legacy_force_sweep av", e24, t_state,
              dataclasses.replace(tcfg, av_alpha=0.05)),
+            ("iso_static_force_sweep no_av", iso_e, other_state[ISO],
+             others[ISO]),
+            ("iso_static_force_sweep av", iso_e, other_state[ISO],
+             dataclasses.replace(others[ISO], av_alpha=0.05)),
             ("isph_matvec_sweep", e31, i_state, icfg),
             ("isph_div_visc_sweep", e31, i_state, icfg),
+            ("isph_grad_sweep", e31, i_state, icfg),
             ("dambreak_mass_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
             ("dambreak_force_sweep", dry_e, dam_state["collapse_dry"], dry_cfg),
             ("rb_mass_heat_sweep", e32, r_state, rcfg),
@@ -2299,8 +2318,8 @@ def main(profile: bool) -> None:
         if name == "gamma_grad_sweep":  # phase 13's V0, as in its row above
             kw = {"V0": V0}
         runs = ps.tiled_yardsticks(name, e, s, c, **kw)
-        # the terrain force's AV form has no row of its own: the main path's
-        # bound (without the AV term's operations) stands beside it
+        # the terrain forces' AV forms have no row of their own: the main
+        # path's bound (without the AV term's operations) stands beside them
         bound = timing[kernel if kernel in timing else name]["bound_ms"]
         other = tuple(n for n in runs
                       if n not in ("tiled", "tiled_row_band", "direct"))

@@ -2,7 +2,8 @@
 """Hold this checkout's sweeps of the 2-D density, the Colagrossi packing's
 gradient, the Hopkins pressure root, the legacy continuity, the dam-break
 continuity and force (2-D and 3-D, one body each), the Rayleigh–Bénard
-continuity + conduction and the ISPH divergence/viscous sweep against
+continuity + conduction, the ISPH divergence/viscous sweep and pressure
+gradient and the per-particle-h (isothermal static) force against
 another checkout's build of ``csrc/pair_sweep.cu`` on the card, bit for
 bit: the other checkout's one-thread-per-slot design of
 each (its ``_direct`` yardstick where it has one, else the export itself,
@@ -18,7 +19,9 @@ at dr 0.08 and at the timed size (dr 0.014, cap 24), collapse3d at dr 0.02
 (cap 40), each with its continuity and force, Rayleigh–Bénard at n_rows 16
 with both sidewalls at its own cap 16 and at cap 24, its continuity +
 conduction and its force, the kicked ISPH state at its own cap 16 and at
-cap 24.
+caps 8 and 24, its divergence and its gradient, the isothermal static
+state's force at its own cap 8 and at cap 24, each
+without AV and with it, fast_math off and on.
 
     python3 scripts/hold_against_checkout.py build/parent
 
@@ -48,6 +51,7 @@ SHARED = ("density_sweep_direct", "gamma_grad_sweep_direct",
           "dambreak_mass_sweep_direct", "dambreak_mass_sweep_3d_direct",
           "dambreak_force_sweep_direct", "dambreak_force_sweep_3d_direct",
           "rb_mass_heat_sweep_direct", "isph_div_visc_sweep_direct",
+          "isph_grad_sweep_direct", "iso_static_force_sweep_direct",
           "iso_static_mass_sweep", "pair_sweep_error_string")
 
 
@@ -132,10 +136,20 @@ def main(other: Path) -> None:
             for kernel in ("rb_mass_heat_sweep", "dambreak_force_sweep"):
                 cases.append((f"{kernel} {sidewalls} cap {eng.cap}", kernel,
                               eng, st, cfg, {}))
-    for cap in (None, 24):
+    for cap in (None, 8, 24):
         cfg, eng, st = t._isph_live(dev, cap)
-        cases.append((f"isph_div_visc_sweep cap {eng.cap}",
-                      "isph_div_visc_sweep", eng, st, cfg, {}))
+        for kernel in ("isph_div_visc_sweep", "isph_grad_sweep"):
+            cases.append((f"{kernel} cap {eng.cap}", kernel, eng, st, cfg,
+                          {}))
+    for cap in (None, 24):
+        for av in (0.0, 0.05):
+            for fm in (False, True):
+                eng, st, cfg = t._terrain_live(
+                    "isothermal_static_config", dev, bucket_cap=cap,
+                    av_alpha=av, fast_math=fm)
+                cases.append((f"iso_static_force_sweep cap {eng.cap} "
+                              f"av_alpha {av} fast_math {fm}",
+                              "iso_static_force_sweep", eng, st, cfg, {}))
     n = 0
     for label, kernel, eng, st, cfg, kw in cases:
         runs = ps.tiled_yardsticks(kernel, eng, st, cfg, **kw)

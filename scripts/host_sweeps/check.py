@@ -6,8 +6,9 @@ pair, the 2-D flagship density with and without the self pair and the
 adiabatic density, the 2-D flagship momentum, the Hopkins pressure root
 with and without the self pair, the Hopkins momentum in both forms, the
 Colagrossi packing's gradient, the terrain continuity, the terrain force
-with and without AV, the ISPH CG matvec in its prepared form and the ISPH
-divergence/viscous sweep) against the one-thread-per-slot design they
+and the per-particle-h (isothermal static) force, each with and without AV,
+the ISPH CG matvec in its prepared form, the ISPH divergence/viscous sweep
+and the ISPH pressure gradient) against the one-thread-per-slot design they
 replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
@@ -18,6 +19,7 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
     python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
     python scripts/host_sweeps/check.py legacy isph   # terrain pair, ISPH
+    python scripts/host_sweeps/check.py iso   # per-particle-h force
     python scripts/host_sweeps/check.py density gamma  # densities, packing
     python scripts/host_sweeps/check.py dam2 rb dam   # dam pairs, RB
 
@@ -135,7 +137,8 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     same = all(torch.equal(a, b) for a, b in zip(tiled, ref))
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
-        f" av_alpha={cfg.av_alpha}" if kernel == "legacy_force_sweep" else
+        f" av_alpha={cfg.av_alpha}"
+        if kernel in ("legacy_force_sweep", "iso_static_force_sweep") else
         f" sidewalls={cfg.sidewalls}" if hasattr(cfg, "sidewalls") else
         f" self_pair={cfg.self_density}"
         if kernel in ("pressure_sweep", "density_sweep")
@@ -373,11 +376,29 @@ def main(which) -> None:
                     c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)
                     ok &= held("legacy_force_sweep", system.engine, state, c,
                                ps.legacy_force_pass_plain) or fm
+    if "iso" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+        # the tiny isothermal static state (per-particle h); cap 8 (its
+        # own): TX 32 on 128 x-cells; cap 24: TX 10, a ragged last tile of 8
+        for cap in (None, 24):
+            cfg = lw.isothermal_static_config(
+                n_rows=10, dtype="float32", layout="bucket", skin=0.15,
+                use_pallas=True, bucket_cap=cap)
+            system = lw.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               rho=(0.99, 1.01, True), P=(0.99, 1.01, True),
+                               h=(0.99, 1.01, True))
+            for av in (0.0, 0.05):  # without AV: a null FLUID plane
+                for fm in (False, True):
+                    c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)
+                    ok &= held("iso_static_force_sweep", system.engine, state,
+                               c, ps.iso_static_force_pass_plain) or fm
     if "isph" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import isph_witch as iw
-        # the tiny ISPH state, P drawn as the iterate and v as the velocity;
-        # cap 16 (its own): TX 16; cap 8: TX 32
+        # the tiny ISPH state, P drawn as the iterate (and the pressure) and
+        # v as the velocity; cap 16 (its own): TX 16; cap 8: TX 32
         for cap in (None, 8):
             cfg = iw.ISPHWitchConfig(n_rows=10, dtype="float32",
                                      layout="bucket", skin=0.2,
@@ -390,6 +411,8 @@ def main(which) -> None:
                            e, s_, c_, s_.fields["P"]))
             ok &= held("isph_div_visc_sweep", system.engine, state, cfg,
                        ps.isph_div_visc_pass_plain)
+            ok &= held("isph_grad_sweep", system.engine, state, cfg,
+                       ps.isph_grad_pass_plain)
     if not ok:
         raise AssertionError("a tiled sweep differs from its twin")
     print("host check passed")
@@ -398,4 +421,4 @@ def main(which) -> None:
 if __name__ == "__main__":
     main(sys.argv[1:] or ["dam", "dam2", "rb", "witch", "pavelka",
                           "density", "gamma", "momentum", "hopkins", "legacy",
-                          "isph"])
+                          "iso", "isph"])

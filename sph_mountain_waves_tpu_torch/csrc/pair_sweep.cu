@@ -75,13 +75,13 @@
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The
 // flagship density (and the adiabatic density on it) and momentum, the
 // Hopkins pressure root and momentum, the two Pavelka sweeps, the packing
-// gradient, the terrain continuity and force with fixed h, the ISPH CG
-// matvec and divergence/viscous sweep, the dam-break continuity and force
-// and the Rayleigh-Benard continuity + conduction run the same design in
-// 2-D, pair_sweep_tiled (9 cells); the density, the pressure root and the
-// packing gradient count the self pair there. The other 2-D sweeps (the
-// per-particle-h terrain sweeps, the fused adiabatic sweep, the ISPH
-// gradient) still run pair_sweep.
+// gradient, the terrain continuity and force with fixed h, the per-particle-h
+// force, the ISPH CG matvec, divergence/viscous sweep and pressure gradient,
+// the dam-break continuity and force and the Rayleigh-Benard continuity +
+// conduction run the same design in 2-D, pair_sweep_tiled (9 cells); the
+// density, the pressure root and the packing gradient count the self pair
+// there. The other 2-D sweeps (the per-particle-h continuity, the fused
+// adiabatic sweep) still run pair_sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,8 +116,8 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 // q's fields as the accessor bodies read them (the 3-D bodies, the
 // dam-break bodies in 2-D, the 2-D density and momentum, the Hopkins pressure
 // root and momentum, the Pavelka bodies, the packing gradient, the legacy
-// continuity and force, the ISPH divergence/viscous sweep and matvec and the
-// Rayleigh-Benard body): q[i]
+// continuity and force, the ISPH divergence/viscous sweep, matvec and
+// gradient and the Rayleigh-Benard body): q[i]
 // is plane i at q's slot. PlaneQ reads the planes (pair_sweep, pair_sweep3);
 // StagedQ reads the copy that pair_sweep3_tiled
 // staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
@@ -736,9 +736,11 @@ struct LegacyMass {
 // Pt = P / max(rho, 1e-12)^2, ri = 1 / max(rho, 1e-12); fields occ, x[D],
 // (h,) v[D], m, Pt, ri (, fl = [type == FLUID] with AV). q's planes read by
 // the body beyond the occupancy and position: every other one (QMASK:
-// planes 4..NIN-1; with fixed h plane 3 is v0, which the tiled sweep stages
-// in the candidate's float4). Without AV the FLUID plane is null and not
-// among the NIN planes, so QMASK leaves it out.
+// planes 4..NIN-1; plane 3, v0 with fixed h and h with per-particle h, is
+// the one the tiled sweep stages in the candidate's float4). Without AV the
+// FLUID plane is null and not among the NIN planes, so QMASK leaves it out:
+// per-particle h stages v0, v1, m, Pt and ri (0x1F0, 5 scalar planes) and,
+// with AV, fl (0x3F0, 6).
 template <int D, bool ADAPTIVE_H, bool AV, bool FAST>
 struct LegacyForce {
   static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
@@ -911,17 +913,26 @@ struct IsphMatvec {
 
 // ISPH pressure-correction gradient: per axis sum_q rD(h0, r) (P_p + P_q)
 // x_pq; fields: occ, x0, x1, P. The caller applies -vol/max(rho_bg, 1e-6).
+// q's only plane beyond the occupancy and position is P, plane 3: the tiled
+// sweep stages it in the candidate's float4 and no scalar plane (QMASK 0).
 struct IsphGrad {
   static constexpr int NIN = 4;
   static constexpr int NOUT = 2;
+  static constexpr unsigned QMASK = 0u;
   using Params = IsphParams;
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
+    const float w = rd_spline23(sqrtf(r2), prm);
+    const float s = w * (p[3] + q[3]);
+    tot[0] += s * d[0];
+    tot[1] += s * d[1];
+  }
   __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
                               int64_t qi, float d0, float d1, float r2,
                               const Params& prm, float* tot) {
-    const float w = rd_spline23(sqrtf(r2), prm);
-    const float s = w * (p[3] + f.in[3][qi]);
-    tot[0] += s * d0;
-    tot[1] += s * d1;
+    const float d[2] = {d0, d1};
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1318,13 +1329,15 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // The tiled 9-cell sweep of the 2-D density, the Pavelka continuity and
 // fused momentum + entropy, the flagship momentum, the Hopkins pressure root
 // and momentum, the Colagrossi packing's gradient, the terrain continuity and
-// force, the ISPH CG matvec and divergence/viscous sweep, the 2-D dam-break
+// force (with fixed h, and the force with per-particle h), the ISPH CG
+// matvec, divergence/viscous sweep and pressure gradient, the 2-D dam-break
 // continuity and force and the Rayleigh-Benard continuity + conduction
 // (pallas_pairs.py density_pass and adia_density_pass, pavelka_mass_pass,
 // pavelka_momentum_entropy_pass, momentum_pass, pressure_pass,
 // hopkins_momentum_pass, legacy_mass_pass, legacy_force_pass,
-// isph_matvec_prepared, isph_div_visc_pass, dambreak_mass_pass,
-// dambreak_force_pass, rb_mass_heat_pass; utils/packing.py find_gGamma):
+// iso_static_force_pass, isph_matvec_prepared, isph_div_visc_pass,
+// isph_grad_pass, dambreak_mass_pass, dambreak_force_pass,
+// rb_mass_heat_pass; utils/packing.py find_gGamma):
 // pair_sweep3_tiled's design in 2-D. One block is TX
 // consecutive x-cells of one grid row cy times every p rank: thread
 // (threadIdx.x, threadIdx.y) = (tx, k) owns slot (rank k, cell x0 + tx).
@@ -1334,9 +1347,9 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
 // for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density, v0
-// in the terrain continuity and force, the dam-break continuity and force,
-// the Rayleigh-Benard sweep and the ISPH divergence, the iterate in the
-// matvec) as one
+// in the terrain continuity and force with fixed h, the dam-break continuity
+// and force, the Rayleigh-Benard sweep and the ISPH divergence, the iterate
+// in the matvec, P in the ISPH gradient) as one
 // float4 per cell (a candidate is one 16-byte shared load), the other q
 // planes the body reads (Body::QMASK: none in the packing gradient, w in the
 // density) as scalars; 4-byte cp.async, cells outside the grid zero-filled so
@@ -1394,7 +1407,12 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // gathers from L2; 0.018 ms (0.051 in pair_sweep) and 0.017 ms (0.043) of
 // kernel time on an H100. The dam-break force on the collapse_dry state (6
 // planes, the same plan) takes 0.019 ms (0.036), the ISPH divergence/viscous
-// sweep on the matvec's state (5 planes, 16,384 B) 0.018 ms (0.030).
+// sweep on the matvec's state (5 planes, 16,384 B) 0.018 ms (0.030). The
+// ISPH gradient stages the matvec's 4 planes (13,056 B) on its state: 0.015
+// ms (0.021); the per-particle-h force 9 planes (29,440 B) or 10 with AV
+// (32,640 B) on the isothermal static state (N = 47,915, grid 384 x 32, cap
+// 8: TX 32, 384 blocks, 49 % of slots filled): 0.010 ms (0.019), 0.011 ms
+// with AV (0.019).
 template <class Body, bool SELF, bool EVERY_RANK>
 __global__ void __launch_bounds__(kTileThreads)
 pair_sweep_tiled(Planes<Body::NIN, Body::NOUT> f, const int* __restrict__ kmax,
@@ -1562,14 +1580,12 @@ int launch2(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 
 // The legacy force's exports: the input pointers in plane order (the FLUID
 // gate, last, only with AV), the fast_math switch and, for the tiled launch
-// (TILED, fixed h only), its plan (tx, smem_bytes).
+// (TILED), its plan (tx, smem_bytes).
 template <bool TILED, bool ADAPTIVE_H, bool AV>
 int legacy_force_launch(const float* const* in, const int* kmax, float* dv0,
                         float* dv1, const Layout& g, const LegacyParams& prm,
                         int fast_math, int tx, int smem_bytes,
                         cudaStream_t s) {
-  static_assert(!(TILED && ADAPTIVE_H),
-                "the per-particle-h force is not tiled");
   using Exact = LegacyForce<2, ADAPTIVE_H, AV, false>;
   using Fast = LegacyForce<2, ADAPTIVE_H, AV, true>;
   Planes<Exact::NIN, Exact::NOUT> f{};
@@ -1580,14 +1596,15 @@ int legacy_force_launch(const float* const* in, const int* kmax, float* dv0,
                    : launch2<TILED, Exact>(f, kmax, g, prm, tx, smem_bytes, s);
 }
 
-// the fixed-h terrain force in the form av names
-template <bool TILED>
+// the terrain force (fixed h, or per-particle h with ADAPTIVE_H) in the
+// form av names
+template <bool TILED, bool ADAPTIVE_H = false>
 int legacy_force(const float* const* in, const int* kmax, float* dv0,
                  float* dv1, const Layout& g, const LegacyParams& prm, int av,
                  int fast_math, int tx, int smem_bytes, cudaStream_t s) {
-  return av ? legacy_force_launch<TILED, false, true>(
+  return av ? legacy_force_launch<TILED, ADAPTIVE_H, true>(
                   in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s)
-            : legacy_force_launch<TILED, false, false>(
+            : legacy_force_launch<TILED, ADAPTIVE_H, false>(
                   in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s);
 }
 
@@ -1940,7 +1957,7 @@ int dambreak_force_sweep_direct(const float* occ, const float* x0,
 // continuity launches pair_sweep_tiled on the plan (tx, smem_bytes) the
 // wrapper passes, one bound per x-tile; its "_direct" export launches
 // pair_sweep (kmax int32 [ny] per grid row), the design the tiled one
-// replaced: a yardstick, on no path. The per-particle-h sweeps launch
+// replaced: a yardstick, on no path. The per-particle-h continuity launches
 // pair_sweep (kmax int32 [ny]).
 int legacy_mass_sweep(const float* occ, const float* x0, const float* x1,
                       const float* v0, const float* v1, const float* m,
@@ -2011,7 +2028,11 @@ int legacy_force_sweep_direct(const float* occ, const float* x0,
                              static_cast<cudaStream_t>(stream));
 }
 
-// fluid is read only with av (it may be null otherwise)
+// The per-particle-h force (fluid read only with av, null otherwise)
+// launches pair_sweep_tiled on the plan (tx, smem_bytes) the wrapper passes,
+// with kmax int32 [ny*ntiles] (one bound per x-tile); the "_direct" export
+// launches pair_sweep (kmax int32 [ny] per grid row), the design the tiled
+// one replaced: a yardstick, on no path.
 int iso_static_force_sweep(const float* occ, const float* x0, const float* x1,
                            const float* h, const float* v0, const float* v1,
                            const float* m, const float* pterm,
@@ -2019,15 +2040,25 @@ int iso_static_force_sweep(const float* occ, const float* x0, const float* x1,
                            const int* kmax, float* dv0, float* dv1, int cap,
                            int nx, int ny, float h2, float dw, float mu8,
                            float nac, float two_av, int av, int fast_math,
-                           void* stream) {
+                           int tx, int smem_bytes, void* stream) {
   const float* in[] = {occ, x0, x1, h, v0, v1, m, pterm, rinv, fluid};
-  const Layout g{cap, nx, ny, h2};
-  const LegacyParams prm{dw, 0.0f, 0.0f, mu8, 0.0f, nac, two_av, 0.0f};
-  auto s = static_cast<cudaStream_t>(stream);
-  return av ? legacy_force_launch<false, true, true>(in, kmax, dv0, dv1, g,
-                                                     prm, fast_math, 0, 0, s)
-            : legacy_force_launch<false, true, false>(in, kmax, dv0, dv1, g,
-                                                      prm, fast_math, 0, 0, s);
+  return legacy_force<true, true>(
+      in, kmax, dv0, dv1, {cap, nx, ny, h2},
+      {dw, 0.0f, 0.0f, mu8, 0.0f, nac, two_av, 0.0f}, av, fast_math, tx,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int iso_static_force_sweep_direct(
+    const float* occ, const float* x0, const float* x1, const float* h,
+    const float* v0, const float* v1, const float* m, const float* pterm,
+    const float* rinv, const float* fluid, const int* kmax, float* dv0,
+    float* dv1, int cap, int nx, int ny, float h2, float dw, float mu8,
+    float nac, float two_av, int av, int fast_math, void* stream) {
+  const float* in[] = {occ, x0, x1, h, v0, v1, m, pterm, rinv, fluid};
+  return legacy_force<false, true>(
+      in, kmax, dv0, dv1, {cap, nx, ny, h2},
+      {dw, 0.0f, 0.0f, mu8, 0.0f, nac, two_av, 0.0f}, av, fast_math, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int adia_entropy_force_sweep(const float* occ, const float* x0,
@@ -2099,14 +2130,25 @@ int isph_matvec_sweep_direct(const float* occ, const float* x0,
                                    static_cast<cudaStream_t>(stream));
 }
 
-// The pressure gradient launches pair_sweep (kmax int32 [ny]).
+// The pressure gradient launches pair_sweep_tiled on the plan (tx,
+// smem_bytes) the wrapper passes, kmax int32 [ny*ntiles] (one bound per
+// x-tile); its "_direct" export launches pair_sweep (kmax int32 [ny] per grid
+// row), the design the tiled one replaced: a yardstick, on no path.
 int isph_grad_sweep(const float* occ, const float* x0, const float* x1,
                     const float* pres, const int* kmax, float* g0, float* g1,
                     int cap, int nx, int ny, float h2, float hinv, float kw,
-                    void* stream) {
-  Planes<4, 2> f{{occ, x0, x1, pres}, {g0, g1}};
-  const Layout g{cap, nx, ny, h2};
-  return launch<IsphGrad, false>(f, kmax, g, {hinv, kw},
+                    int tx, int smem_bytes, void* stream) {
+  return launch_tiled<IsphGrad>({{occ, x0, x1, pres}, {g0, g1}}, kmax,
+                                {cap, nx, ny, h2}, {hinv, kw}, tx, smem_bytes,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int isph_grad_sweep_direct(const float* occ, const float* x0, const float* x1,
+                           const float* pres, const int* kmax, float* g0,
+                           float* g1, int cap, int nx, int ny, float h2,
+                           float hinv, float kw, void* stream) {
+  return launch<IsphGrad, false>({{occ, x0, x1, pres}, {g0, g1}}, kmax,
+                                 {cap, nx, ny, h2}, {hinv, kw},
                                  static_cast<cudaStream_t>(stream));
 }
 

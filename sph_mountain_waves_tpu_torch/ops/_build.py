@@ -112,9 +112,13 @@ SIGNATURES = {
         "legacy_force_sweep_direct": ([_P] * 12 + [_I] * 3 + [_F] * 8
                                       + [_I, _I, _P], _I),
         # 10 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2,
-        # dw, 8mu, -alpha c, 2 alpha, av, fast_math, stream
+        # dw, 8mu, -alpha c, 2 alpha, av, fast_math, the tiled sweep's plan
+        # (TX, dynamic shared bytes), stream; one bound per x-tile (the
+        # "_direct" yardstick: no plan, one per grid row)
         "iso_static_force_sweep": ([_P] * 13 + [_I] * 3 + [_F] * 5
-                                   + [_I, _I, _P], _I),
+                                   + [_I] * 4 + [_P], _I),
+        "iso_static_force_sweep_direct": ([_P] * 13 + [_I] * 3 + [_F] * 5
+                                          + [_I, _I, _P], _I),
         # 10 planes, kmax, 3 outs, cap, nx, ny, h2, kc, 1/h0, 0.01 h0^2, 8mu,
         # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, stream
         "adia_entropy_force_sweep": ([_P] * 14 + [_I] * 3 + [_F] * 9
@@ -133,8 +137,12 @@ SIGNATURES = {
                               _I),
         "isph_matvec_sweep_direct": ([_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
                                      _I),
-        # occ, x0, x1, P, kmax, 2 outs, cap, nx, ny, h2, 1/h0, kw, stream
-        "isph_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_P], _I),
+        # occ, x0, x1, P, kmax, 2 outs, cap, nx, ny, h2, 1/h0, kw, the tiled
+        # sweep's plan (TX, dynamic shared bytes), stream; one bound per
+        # x-tile (the "_direct" yardstick: no plan, one per grid row)
+        "isph_grad_sweep": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_I, _I, _P],
+                            _I),
+        "isph_grad_sweep_direct": ([_P] * 7 + [_I] * 3 + [_F] * 3 + [_P], _I),
         # occ, x0, x1, v0, v1, T, 1/rho, kmax, 2 outs, cap, nx, ny, h2, kc,
         # 1/h, 2 kappa, the tiled sweep's plan (TX, dynamic shared bytes),
         # stream; one bound per x-tile (the "_direct" yardstick: no plan, one

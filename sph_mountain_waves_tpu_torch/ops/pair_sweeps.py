@@ -1161,7 +1161,11 @@ _MAX_SHARED_BYTES = 232_448
 # only; its 3-D form is ``dambreak_force_sweep_3d``); the Rayleigh–Bénard
 # continuity + conduction the float4 of occupancy, x and v0, then v1, T and
 # 1/ρ; the ISPH divergence/viscous sweep the float4 of occupancy, x and v0,
-# then v1. A form's key is ``_FORM_KEY``'s (``_staged``)
+# then v1; the ISPH pressure gradient the float4 of occupancy, x and P,
+# nothing besides; the per-particle-h (isothermal static) force every plane
+# of q (the float4 of occupancy, x and h, then v0, v1, m, P/ρ_f², 1/ρ_f), 9
+# without AV and 10 with it (the FLUID gate), keyed by the AV switch. A
+# form's key is ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
@@ -1177,12 +1181,15 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep": 6,
                  "dambreak_force_sweep": 6,
                  "rb_mass_heat_sweep": 7,
-                 "isph_div_visc_sweep": 5}
+                 "isph_div_visc_sweep": 5,
+                 "isph_grad_sweep": 4,
+                 "iso_static_force_sweep": {False: 9, True: 10}}
 # the tiled exports with two forms, and what names the form: the Hopkins
-# momentum's ``background_split`` argument, the terrain force's AV switch
-# (``cfg.av_alpha > 0``)
+# momentum's ``background_split`` argument, the AV switch of the terrain
+# force and of the per-particle-h force (``cfg.av_alpha > 0``)
 _FORM_KEY = {"hopkins_momentum_sweep": "background_split",
-             "legacy_force_sweep": "av"}
+             "legacy_force_sweep": "av",
+             "iso_static_force_sweep": "av"}
 # the 2-D tiled sweep's staging scheme: every q rank up to the tile's bound
 # in one go (one barrier) rather than the two-stage pipeline the 3-D sweep
 # runs; both give the same outputs bit for bit, and this one was the faster
@@ -1192,7 +1199,7 @@ _EVERY_RANK = True
 
 def _staged(fn_name: str, form: bool | None = None) -> int:
     """The q planes the tiled export ``fn_name`` stages a cell. The Hopkins
-    momentum's and the terrain force's counts depend on their form
+    momentum's and the two terrain forces' counts depend on their form
     (``_FORM_KEY``: ``background_split``, the AV switch), so ``form`` must
     be given for them, and only for them: neither form takes the other's
     plan."""
@@ -1202,7 +1209,7 @@ def _staged(fn_name: str, form: bool | None = None) -> int:
             f"{fn_name}: its form ({_FORM_KEY[fn_name]}) is needed"
             if isinstance(staged, dict) else
             f"{fn_name} has one form: no form key "
-            f"({', '.join(_FORM_KEY.values())}) applies")
+            f"({', '.join(sorted(set(_FORM_KEY.values())))}) applies")
     return staged[bool(form)] if isinstance(staged, dict) else staged
 
 
@@ -1379,8 +1386,9 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     ``background_split`` names, ``"gamma_grad_sweep"``, which takes the
     packing's ``V0`` (a keyword, as ``background_split`` is) and no config
     (``cfg`` may be None), ``"legacy_mass_sweep"``,
-    ``"legacy_force_sweep"`` in the form ``cfg.av_alpha`` names,
-    ``"isph_matvec_sweep"``, ``"isph_div_visc_sweep"``, the 2-D
+    ``"legacy_force_sweep"`` and ``"iso_static_force_sweep"`` in the form
+    ``cfg.av_alpha`` names, ``"isph_matvec_sweep"``,
+    ``"isph_div_visc_sweep"``, ``"isph_grad_sweep"``, the 2-D
     ``"dambreak_mass_sweep"`` or ``"dambreak_force_sweep"``, or
     ``"rb_mass_heat_sweep"``, whose sidewalls are ``cfg``'s) on planes and
     trip bounds prepared once from ``state``, by design:
@@ -1416,7 +1424,8 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     elif kernel in ("density_sweep", "momentum_sweep", "pressure_sweep",
                     "hopkins_momentum_sweep", "gamma_grad_sweep",
                     "legacy_mass_sweep", "legacy_force_sweep",
-                    "isph_matvec_sweep", "isph_div_visc_sweep",
+                    "iso_static_force_sweep", "isph_matvec_sweep",
+                    "isph_div_visc_sweep", "isph_grad_sweep",
                     "dambreak_mass_sweep", "dambreak_force_sweep",
                     "rb_mass_heat_sweep"):
         # 2-D exports: a 3-D engine's density, momentum and dam-break
@@ -1456,19 +1465,23 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         elif kernel == "isph_div_visc_sweep":
             planes, _ = _isph_div_visc_inputs(engine, state)
             args, n_out = _isph_scalars(cfg), 5
+        elif kernel == "isph_grad_sweep":
+            planes, _ = _isph_grad_inputs(engine, state)
+            args = _isph_scalars(cfg)
         elif kernel == "hopkins_momentum_sweep":
             planes, args = _hopkins_launch_inputs(engine, state, cfg,
                                                   background_split)
-        elif kernel == "legacy_force_sweep":
-            planes, _ = _legacy_force_inputs(engine, state, cfg, False)
+        elif kernel in ("legacy_force_sweep", "iso_static_force_sweep"):
+            adaptive = kernel == "iso_static_force_sweep"
+            planes, _ = _legacy_force_inputs(engine, state, cfg, adaptive)
             planes = _legacy_force_planes(planes, cfg)
-            args = _legacy_force_scalars(cfg, 2, False)
+            args = _legacy_force_scalars(cfg, 2, adaptive)
         else:
             planes, _ = _isph_matvec_inputs(engine, state)
             args = n_out = None  # its runs are prepared (_prepared_matvec)
     else:
         raise ValueError(f"no tiled sweep {kernel!r}")
-    form = (bool(cfg.av_alpha) if kernel == "legacy_force_sweep"
+    form = (bool(cfg.av_alpha) if _FORM_KEY.get(kernel) == "av"
             else background_split)
     staged = _staged(kernel, form)
     plan = _tile_plan(engine, staged)
@@ -1769,10 +1782,12 @@ def iso_static_force_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return iso_static_force_pass_plain(engine, state, cfg)
     planes, _ = _legacy_force_inputs(engine, state, cfg, True)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("iso_static_force_sweep", engine, state)
+    plan = _tile_plan(engine, _staged("iso_static_force_sweep",
+                                      bool(cfg.av_alpha)))
     outs = _launch("iso_static_force_sweep", engine,
                    _legacy_force_planes(planes, cfg), band, engine.dim,
-                   _legacy_force_scalars(cfg, engine.dim, True))
+                   _legacy_force_scalars(cfg, engine.dim, True), plan)
     iso_static_force_pass.launches += 1
     return outs
 
@@ -1847,7 +1862,7 @@ def isph_grad_pass(engine, state: ParticleState, cfg):
         return isph_grad_pass_plain(engine, state, cfg)
     _check_2d(engine, "isph_grad_pass")
     planes, _ = _isph_grad_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("isph_grad_sweep", engine, state)
     outs = _launch("isph_grad_sweep", engine, planes, band, 2,
                    _isph_scalars(cfg))
     isph_grad_pass.launches += 1

@@ -371,7 +371,13 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
     (24, "dambreak_force_sweep", False, (10, 240, 1728, 2)),
     (16, "dambreak_force_sweep", True, (16, 256, 20736, 16)),
     (8, "isph_div_visc_sweep", True, (32, 256, 16384, 8)),
-    (8, "isph_div_visc_sweep", False, (32, 256, 4096, 2))],
+    (8, "isph_div_visc_sweep", False, (32, 256, 4096, 2)),
+    (8, "isph_grad_sweep", True, (32, 256, 13056, 8)),
+    (8, "isph_grad_sweep", False, (32, 256, 3264, 2)),
+    (8, "iso_static_force_sweep no_av", True, (32, 256, 29440, 8)),
+    (8, "iso_static_force_sweep no_av", False, (32, 256, 7360, 2)),
+    (8, "iso_static_force_sweep av", True, (32, 256, 32640, 8)),
+    (24, "iso_static_force_sweep no_av", True, (10, 240, 31104, 24))],
     ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
          "cap8-fused-two", "cap24-mass-every", "cap24-fused-two",
          "cap8-momentum-every", "cap8-momentum-two", "cap8-total-every",
@@ -386,7 +392,10 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
          "cap16-adia-density-every", "cap8-gamma-every", "cap8-gamma-two",
          "cap24-dam-mass-every", "cap24-dam-mass-two", "cap16-rb-every",
          "cap16-rb-two", "cap24-dam-force-every", "cap24-dam-force-two",
-         "cap16-dam-force-every", "cap8-div-visc-every", "cap8-div-visc-two"])
+         "cap16-dam-force-every", "cap8-div-visc-every", "cap8-div-visc-two",
+         "cap8-isph-grad-every", "cap8-isph-grad-two", "cap8-iso-force-every",
+         "cap8-iso-force-two", "cap8-iso-force-av-every",
+         "cap24-iso-force-every"])
 def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
     stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
@@ -410,17 +419,22 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     + conduction, which stages the float4 of occupancy, x and v0, then v1,
     T and 1/ρ (7), the 2-D dam-break force, which stages the float4 of
     occupancy, x and v0, then v1 and P/ρ² (6; the FLUID gate is read on the
-    p side only), and the ISPH divergence/viscous sweep, which stages the
-    float4 of occupancy, x and v0, then v1 (5): the flagship, Pavelka and
-    ISPH sizes have cap 8 (TX 32), the corrected adiabatic flow's and the
-    Rayleigh–Bénard baseline's cap 16 gives TX 16, the terrain baseline's
-    and collapse_dry's cap 24 TX 10; a stage is (TX+2)·3 cells rounded up
-    to 16 B, two of them or one per rank. The wrapper's default is
-    ``_EVERY_RANK``; a 3-D engine refuses the every-rank scheme; the Hopkins
-    and terrain-force counts need their form, and no other count takes one
-    (a form key given to the pressure root, the terrain continuity, the
-    density, the ∇Γ sum, the dam-break continuity or force, the
-    Rayleigh–Bénard sweep or the ISPH divergence is refused)."""
+    p side only), the ISPH divergence/viscous sweep, which stages the
+    float4 of occupancy, x and v0, then v1 (5), the ISPH pressure gradient,
+    which stages the float4 of occupancy, x and P alone (4), and the
+    per-particle-h (isothermal static) force, which stages 9 without AV
+    (the float4 of occupancy, x and h, then v0, v1, m, P/ρ_f², 1/ρ_f) and 10
+    with it (the FLUID gate besides): the flagship, Pavelka, ISPH and
+    isothermal static sizes have cap 8 (TX 32), the corrected adiabatic
+    flow's and the Rayleigh–Bénard baseline's cap 16 gives TX 16, the
+    terrain baseline's and collapse_dry's cap 24 TX 10; a stage is (TX+2)·3
+    cells rounded up to 16 B, two of them or one per rank. The wrapper's
+    default is ``_EVERY_RANK``; a 3-D engine refuses the every-rank scheme;
+    the Hopkins and both terrain-force counts need their form, and no other
+    count takes one (a form key given to the pressure root, the terrain
+    continuity, the density, the ∇Γ sum, the dam-break continuity or force,
+    the Rayleigh–Bénard sweep, the ISPH divergence or the ISPH gradient is
+    refused)."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
     engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
     name, _, label = kernel.partition(" ")
@@ -442,7 +456,10 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
                       "dambreak_mass_sweep": 6,
                       "rb_mass_heat_sweep": 7,
                       "dambreak_force_sweep": 6,
-                      "isph_div_visc_sweep": 5}[kernel]
+                      "isph_div_visc_sweep": 5,
+                      "isph_grad_sweep": 4,
+                      "iso_static_force_sweep no_av": 9,
+                      "iso_static_force_sweep av": 10}[kernel]
     plan = tps._tile_plan(engine, staged, every_rank=every_rank)
     assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
     assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024
@@ -455,5 +472,7 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     # a form asked for without its key, or a key given to a one-form sweep
     with pytest.raises(ValueError, match={
             "hopkins_momentum_sweep": r"\(background_split\) is needed",
-            "legacy_force_sweep": r"\(av\) is needed"}.get(name, "one form")):
+            "legacy_force_sweep": r"\(av\) is needed",
+            "iso_static_force_sweep": r"\(av\) is needed"}.get(name,
+                                                             "one form")):
         tps._staged(name, None if form is not None else False)

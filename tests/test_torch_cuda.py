@@ -472,7 +472,9 @@ _TILED_WRAPPER = {"density_sweep": ps.density_pass,
                   "dambreak_mass_sweep": ps.dambreak_mass_pass,
                   "rb_mass_heat_sweep": ps.rb_mass_heat_pass,
                   "dambreak_force_sweep": ps.dambreak_force_pass,
-                  "isph_div_visc_sweep": ps.isph_div_visc_pass}
+                  "isph_div_visc_sweep": ps.isph_div_visc_pass,
+                  "isph_grad_sweep": ps.isph_grad_pass,
+                  "iso_static_force_sweep": ps.iso_static_force_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got, **kw):
@@ -481,8 +483,8 @@ def _held_to_designs(kernel, eng, st, cfg, got, **kw):
     one-thread-per-slot sweep it replaced (with the row band) and, in 2-D,
     the tiled sweep's other staging scheme. The yardsticks count no
     launch. ``kw``: the Hopkins momentum's ``background_split``, the
-    density's ``adiabatic``, the ∇Γ sweep's ``V0`` (the terrain force takes
-    its form from ``cfg``)."""
+    density's ``adiabatic``, the ∇Γ sweep's ``V0`` (the two terrain forces
+    take their form from ``cfg``)."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
     for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg, **kw).items():
@@ -763,7 +765,8 @@ def test_terrain_kernel_matches_twin(card, name, av, fast_math):
     """The five terrain kernels and the adiabatic density (the density
     kernel with the FLUID-gated weight): exact divides within rtol 1e-5 /
     atol 1e-6 × max of the twin, fast_math within 1e-3 of max; reruns
-    bitwise; each launch counted by its own wrapper."""
+    bitwise; each launch counted by its own wrapper. The tiled per-particle-h
+    force also bit for bit against its other designs."""
     factory, twin = LEGACY[name]
     eng, st, cfg = _terrain_live(factory, card, av_alpha=av,
                                  fast_math=fast_math)
@@ -778,6 +781,8 @@ def test_terrain_kernel_matches_twin(card, name, av, fast_math):
     ref = ref if isinstance(ref, list) else [ref]
     assert len(got) == len(ref)
     _held_to_twin(got, rerun, ref, fast_math)
+    if name == "iso_static_force":
+        _held_to_designs("iso_static_force_sweep", eng, st, cfg, got)
 
 
 @pytest.mark.cuda
@@ -831,6 +836,33 @@ def test_terrain_kernel_steps_match_cpu_twins(card, factory, extra):
     state = sys_.freeze(device=card)
     with pytest.raises(ValueError, match="use_pallas=False on a CUDA state"):
         lw.make_step(cfg, sys_.engine)(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("av,fast_math", [(0.0, False), (0.0, True),
+                                          (0.05, False), (0.05, True)],
+                         ids=["no_av-exact", "no_av-fast_math", "av-exact",
+                              "av-fast_math"])
+def test_tiled_iso_static_force_reaches_every_edge(card, av, fast_math):
+    """The tiled per-particle-h force at cap 24 (``_reaches_every_edge`` on
+    the n_rows=14 isothermal static state, its engine forced to cap 24: a
+    ragged last tile of 8, idle tiles, empty q slots beside full ones)
+    without AV (a null FLUID plane, 9 staged planes) and with it (10), each
+    form on its own plan: one launch counted, bit for bit against the
+    direct design, the row band and the other staging scheme, and within
+    its twin's gate."""
+    eng, st, cfg = _terrain_live("isothermal_static_config", card,
+                                 bucket_cap=24, av_alpha=av,
+                                 fast_math=fast_math)
+    _reaches_every_edge(eng, st, "iso_static_force_sweep")
+    assert _tiled_edges(eng, st, "iso_static_force_sweep")[2] > 0
+    before = ps.iso_static_force_pass.launches
+    got = ps.iso_static_force_pass(eng, st, cfg)
+    assert ps.iso_static_force_pass.launches == before + 1
+    _held_to_designs("iso_static_force_sweep", eng, st, cfg, got)
+    _held_to_twin(got, ps.iso_static_force_pass(eng, st, cfg),
+                  ps.iso_static_force_pass_plain(eng, st, cfg), fast_math)
+    assert all(float(g.abs().max()) > 0 for g in got)
 
 
 @pytest.mark.cuda
@@ -894,7 +926,8 @@ def _isph_live(device, cap=None):
 def test_isph_kernel_matches_twin_bitwise(card, name):
     """Each ISPH kernel equals its twin bit for bit and counts one launch a
     call; the prepared matvec one launch per call on the iterate. The tiled
-    divergence/viscous sweep also bit for bit against its other designs."""
+    divergence/viscous sweep and gradient also bit for bit against their
+    other designs."""
     cfg, eng, st = _isph_live(card)
     if name == "matvec":
         mv = ps.isph_matvec_prepared(eng, st, cfg)
@@ -913,8 +946,7 @@ def test_isph_kernel_matches_twin_bitwise(card, name):
         got = wrapper(eng, st, cfg)
         assert wrapper.launches == before + 1
         rerun, ref = wrapper(eng, st, cfg), twin(eng, st, cfg)
-        if name == "div_visc":
-            _held_to_designs("isph_div_visc_sweep", eng, st, cfg, got)
+        _held_to_designs(f"isph_{name}_sweep", eng, st, cfg, got)
     for g, g2, r in zip(got, rerun, ref):
         assert torch.equal(g, g2) and torch.equal(g, r)
         assert r.abs().max() > 0
@@ -933,6 +965,25 @@ def test_tiled_isph_div_visc_reaches_every_edge(card):
     got = ps.isph_div_visc_pass(eng, st, cfg)
     _held_to_designs("isph_div_visc_sweep", eng, st, cfg, got)
     ref = ps.isph_div_visc_pass_plain(eng, st, cfg)
+    assert all(torch.equal(g, r) and r.abs().max() > 0
+               for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_tiled_isph_grad_reaches_every_edge(card):
+    """The tiled ISPH pressure gradient at cap 24 (``_reaches_every_edge``
+    on the kicked tiny ISPH state, P the first solve's solution: a ragged
+    last tile of 8, tiles with a bound of 0 and tiles with a bound but no
+    occupied p slot): one launch counted, bit for bit against its other
+    designs and the twin."""
+    cfg, eng, st = _isph_live(card, cap=24)
+    _reaches_every_edge(eng, st, "isph_grad_sweep")
+    assert _tiled_edges(eng, st, "isph_grad_sweep")[2] > 0
+    before = ps.isph_grad_pass.launches
+    got = ps.isph_grad_pass(eng, st, cfg)
+    assert ps.isph_grad_pass.launches == before + 1
+    _held_to_designs("isph_grad_sweep", eng, st, cfg, got)
+    ref = ps.isph_grad_pass_plain(eng, st, cfg)
     assert all(torch.equal(g, r) and r.abs().max() > 0
                for g, r in zip(got, ref))
 

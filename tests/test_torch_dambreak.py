@@ -259,8 +259,9 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
     the flagship density and momentum, the Hopkins pressure root and
     momentum, the packing's ∇Γ sum, the terrain continuity and force, the
-    ISPH matvec and divergence/viscous sweep, the dam-break continuity and
-    force and the Rayleigh–Bénard sweep: each export's ``_trip_bound``)
+    per-particle-h force, the ISPH matvec, divergence/viscous sweep and
+    pressure gradient, the dam-break continuity and force and the
+    Rayleigh–Bénard sweep: each export's ``_trip_bound``)
     equals the largest count
     among each tile's (TX+2)×3 cells, exactly, and is never above the row
     band of its row: on the tiny Pavelka state (cap 8, TX 32), on a
@@ -295,7 +296,8 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
                  "legacy_mass_sweep", "legacy_force_sweep",
                  "isph_matvec_sweep", "density_sweep", "gamma_grad_sweep",
                  "dambreak_mass_sweep", "rb_mass_heat_sweep",
-                 "dambreak_force_sweep", "isph_div_visc_sweep"):
+                 "dambreak_force_sweep", "isph_div_visc_sweep",
+                 "isph_grad_sweep", "iso_static_force_sweep"):
         assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
                                   _tile_kmax_brute(counts[None], tx))
