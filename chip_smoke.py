@@ -107,13 +107,15 @@ Phases, each printing one or more lines:
      with the FLUID-gated weight) against their twins at full width: the
      isothermal-flow pair on the baseline after 50 steps, the others on the
      isothermal and adiabatic static configs' default sizes; exact divides,
-     fast_math, and the AV term with both; reruns bitwise equal; the
-     terrain continuity and force and the per-particle-h (isothermal
-     static) force (the tiled 9-cell design, each force each AV form on its
-     own plan) and the adiabatic density (the tiled density with the self
-     pair and the gated weight, cap 8) with their tile plans, bit for bit
-     against the one-thread-per-slot design (``_direct``), the tiled export
-     on the row band and its other staging scheme;
+     fast_math, and the AV term with both; reruns bitwise equal; all six
+     run the tiled 9-cell design: the terrain continuity and force, the
+     per-particle-h (isothermal static) continuity and force (each terrain
+     force each AV form on its own plan), the fused adiabatic entropy +
+     force sweep (one plan for both AV forms) and the adiabatic density (the
+     tiled density with the self pair and the gated weight, cap 8), with
+     their tile plans, bit for bit against the one-thread-per-slot design
+     (``_direct``), the tiled export on the row band and its other staging
+     scheme;
  26. 8 small steps of each terrain variant, card against CPU twins;
  27. the terrain main path: 1 warm-up and 2 timed frames of 300 steps (past
      the first inflow spawn event), with the spawn events, spawn_drops, the
@@ -121,9 +123,9 @@ Phases, each printing one or more lines:
  28. one 100-step run (warm-up and timed halves) of each other terrain
      variant at its default size, the adiabatic flow with the corrected
      bundle (Rayleigh sponge, consistent entropy, OUTFLOW buffer, AV); then
-     the adiabatic density on that flow's final state (cap 16, TX 16) with
-     its tile plan, bit for bit against its designs and within its twin's
-     gate;
+     the adiabatic density and the fused adiabatic entropy + force sweep on
+     that flow's final state (cap 16, TX 16) with their tile plan, bit for
+     bit against their designs and within their twins' gate;
  29. ``legacy_witch.run(cfg, out_path=..., device="cuda")`` of a small flow
      config through a spawn event, a checkpoint every frame: the file set,
      the data.csv columns, and a resumed run bit for bit;
@@ -164,11 +166,12 @@ Phases, each printing one or more lines:
      the adiabatic density
      too; the ISPH matvec in its prepared form (one launch, no allocation),
      beside one CSR sparse product of the same operator (``library_ms``);
-     the twenty-four tiled rows (the flagship density and momentum, the
+     the twenty-seven tiled rows (the flagship density and momentum, the
      adiabatic density, the Hopkins pressure root and momentum in both
      forms, the two Pavelka sweeps, the packing's gradient, the terrain
-     continuity, the terrain force and the isothermal static force in both
-     AV forms, the ISPH matvec in its prepared form, the ISPH
+     continuity and the isothermal static continuity, the terrain force,
+     the isothermal static force and the fused adiabatic sweep in both AV
+     forms, the ISPH matvec in its prepared form, the ISPH
      divergence/viscous sweep and pressure gradient, collapse_dry's
      dam-break continuity and force, the Rayleigh–Bénard continuity +
      conduction, witch3d's density and momentum, collapse3d's dam-break
@@ -505,8 +508,11 @@ def tiled_label(kernel):
     """(export name, form, ``tiled_yardsticks``' keyword arguments) of a
     tiled sweep's label: the Hopkins momentum's carries its form
     ("hopkins_momentum_sweep split" or "... total": ``background_split``,
-    a keyword), the terrain force's its AV switch ("legacy_force_sweep av"
-    or "... no_av": the config's, so no keyword), the adiabatic density
+    a keyword), the terrain forces' and the fused adiabatic sweep's its AV
+    switch ("legacy_force_sweep av" or "... no_av": the config's, so no
+    keyword; a plan's form only where the sweep has two, ``ps._FORM_KEY``:
+    the fused adiabatic sweep stages the same planes in both), the adiabatic
+    density
     ("density_sweep adia": the density's one plan, the keyword
     ``adiabatic``); the others are export names (form None). The ∇Γ
     sweep's ``V0`` comes from its state, not its label."""
@@ -535,7 +541,7 @@ def tile_plan_line(ps, e, state, kernels):
     parts = []
     for k in kernels:
         name, form, _ = tiled_label(k)
-        staged = ps._staged(name, form)
+        staged = ps._staged(name, form if name in ps._FORM_KEY else None)
         p = ps._tile_plan(e, staged)
         part = (f"{k} TX {p.tx}, block {p.block} = {p.tx * e.cap} threads, "
                 f"{-(-nx // p.tx) * rows} blocks, {p.smem_bytes} B dynamic "
@@ -1893,23 +1899,27 @@ def main(profile: bool) -> None:
          ps.adia_density_pass_plain, False),
         ("adia_entropy_force_sweep", "adiabatic static",
          ps.adia_entropy_force_pass, ps.adia_entropy_force_pass_plain, True))
-    # the terrain continuity and force and the isothermal static force run
-    # the tiled design, each force each AV form on its own plan, and so does
-    # the adiabatic density (the density's export with the self pair and
-    # the gated weight)
+    # every terrain kernel runs the tiled design: the two forces each AV
+    # form on its own plan, the fused adiabatic sweep both on one, the
+    # adiabatic density on the density's export with the self pair and the
+    # gated weight
     say(25, tile_plan_line(ps, e24, live["terrain"][1],
                            ("legacy_mass_sweep", "legacy_force_sweep no_av",
                             "legacy_force_sweep av")))
     say(25, tile_plan_line(ps, live["isothermal static"][0],
                            live["isothermal static"][1],
-                           ("iso_static_force_sweep no_av",
+                           ("iso_static_mass_sweep",
+                            "iso_static_force_sweep no_av",
                             "iso_static_force_sweep av")))
     say(25, tile_plan_line(ps, live["adiabatic static"][0],
                            live["adiabatic static"][1],
-                           ("density_sweep adia",)))
+                           ("density_sweep adia",
+                            "adia_entropy_force_sweep")))
     tiled = {"legacy_mass_sweep": "legacy_mass_sweep",  # key: tiled label
              "legacy_force_sweep": "legacy_force_sweep",
+             "iso_static_mass_sweep": "iso_static_mass_sweep",
              "iso_static_force_sweep": "iso_static_force_sweep",
+             "adia_entropy_force_sweep": "adia_entropy_force_sweep",
              "adia_density_pass": "density_sweep adia"}
     for key, where, kern, twin, divides in cases:
         e, st, base_cfg = live[where]
@@ -1994,12 +2004,13 @@ def main(profile: bool) -> None:
             {k: 100 for k in kernels}, card, other_sys[label].n_built,
             steps_per_frame=50)
     del other_state0
-    # the adiabatic density once more, on the corrected adiabatic flow's
-    # final state: cap 16, TX 16 (the template at another cap than phase
-    # 25's 8)
+    # the adiabatic density and the fused adiabatic sweep once more, on the
+    # corrected adiabatic flow's final state: cap 16, TX 16 (the template at
+    # another cap than phase 25's 8)
     label = "adiabatic flow, corrected"
     oe, ost, ocfg = other_sys[label].engine, other_state[label], others[label]
-    say(28, tile_plan_line(ps, oe, ost, ("density_sweep adia",)))
+    say(28, tile_plan_line(ps, oe, ost, ("density_sweep adia",
+                                         "adia_entropy_force_sweep")))
     kern = [ps.adia_density_pass(oe, ost, ocfg)]
     held = designs_equal(f"adia_density_pass on the {label} state",
                          "density_sweep", oe, ost, ocfg, kern, adiabatic=True)
@@ -2010,6 +2021,20 @@ def main(profile: bool) -> None:
             f"{oe.cap}): bit for bit equal to {held}; vs twin max abs err "
             f"{err:.3e} (max |rho| {scale:.4e}), gate rtol {RTOL} atol {ATOL} "
             f"x max, rerun bitwise equal")
+    got = ps.adia_entropy_force_pass(oe, ost, ocfg)
+    held = designs_equal(f"adia_entropy_force_pass on the {label} state",
+                         "adia_entropy_force_sweep", oe, ost, ocfg, got)
+    err, scale = errs["adia_entropy_force_cap16"] = kernel_vs_twin(
+        "adia_entropy_force_pass cap 16", got,
+        ps.adia_entropy_force_pass(oe, ost, ocfg),
+        ps.adia_entropy_force_pass_plain(oe, ost, ocfg), ocfg.fast_math,
+        scaled=True)
+    say(28, f"adia_entropy_force_pass kernel (tiled) on the {label} state "
+            f"(cap {oe.cap}, av_alpha={ocfg.av_alpha} fast_math="
+            f"{ocfg.fast_math}): bit for bit equal to {held}; vs twin max abs "
+            f"err {err:.3e} (max |out| {scale:.4e}, rel {err / scale:.3e}), "
+            f"rerun bitwise equal")
+    del got
 
     # 29: run(out_path=...) of a small flow config on the card through a
     # spawn event, a checkpoint every frame: the file set, the data.csv
@@ -2302,6 +2327,11 @@ def main(profile: bool) -> None:
              others[ISO]),
             ("iso_static_force_sweep av", iso_e, other_state[ISO],
              dataclasses.replace(others[ISO], av_alpha=0.05)),
+            ("iso_static_mass_sweep", iso_e, other_state[ISO], others[ISO]),
+            ("adia_entropy_force_sweep no_av", adia_e, other_state[ADIA],
+             others[ADIA]),
+            ("adia_entropy_force_sweep av", adia_e, other_state[ADIA],
+             dataclasses.replace(others[ADIA], av_alpha=0.05)),
             ("isph_matvec_sweep", e31, i_state, icfg),
             ("isph_div_visc_sweep", e31, i_state, icfg),
             ("isph_grad_sweep", e31, i_state, icfg),
@@ -2318,8 +2348,9 @@ def main(profile: bool) -> None:
         if name == "gamma_grad_sweep":  # phase 13's V0, as in its row above
             kw = {"V0": V0}
         runs = ps.tiled_yardsticks(name, e, s, c, **kw)
-        # the terrain forces' AV forms have no row of their own: the main
-        # path's bound (without the AV term's operations) stands beside them
+        # the terrain forces' and the fused adiabatic sweep's AV forms have
+        # no row of their own: the main path's bound (without the AV term's
+        # operations) stands beside them
         bound = timing[kernel if kernel in timing else name]["bound_ms"]
         other = tuple(n for n in runs
                       if n not in ("tiled", "tiled_row_band", "direct"))

@@ -3,14 +3,14 @@
 gradient, the Hopkins pressure root, the legacy continuity, the dam-break
 continuity and force (2-D and 3-D, one body each), the Rayleigh–Bénard
 continuity + conduction, the ISPH divergence/viscous sweep and pressure
-gradient and the per-particle-h (isothermal static) force against
+gradient, the per-particle-h (isothermal static) continuity and force and
+the fused adiabatic entropy + force sweep against
 another checkout's build of ``csrc/pair_sweep.cu`` on the card, bit for
 bit: the other checkout's one-thread-per-slot design of
 each (its ``_direct`` yardstick where it has one, else the export itself,
 which then ran on ``pair_sweep``) against this one's ``_direct`` yardsticks
-and tiled exports, and ``iso_static_mass_sweep`` (the per-particle-h
-continuity, which shares its body with the terrain continuity) against
-itself. Tiny live states of the card tests (``tests/test_torch_cuda.py``):
+and tiled exports. Tiny live states of the card tests
+(``tests/test_torch_cuda.py``):
 the flagship and full_hopkins at caps 8 and 24 with the self pair and
 without it, the adiabatic density on the adiabatic flow (cap 16, gated and
 corrected), the Pavelka state at caps 8 and 24, the terrain flow at caps 16
@@ -20,8 +20,10 @@ at dr 0.08 and at the timed size (dr 0.014, cap 24), collapse3d at dr 0.02
 with both sidewalls at its own cap 16 and at cap 24, its continuity +
 conduction and its force, the kicked ISPH state at its own cap 16 and at
 caps 8 and 24, its divergence and its gradient, the isothermal static
-state's force at its own cap 8 and at cap 24, each
-without AV and with it, fast_math off and on.
+state's continuity and force at its own cap 8 and at cap 24 (the force
+without AV and with it, fast_math off and on), the fused adiabatic sweep on
+the adiabatic static state at its own cap 8 and at cap 24 in the same four
+forms and on the adiabatic flow (cap 16, gated and corrected).
 
     python3 scripts/hold_against_checkout.py build/parent
 
@@ -52,7 +54,8 @@ SHARED = ("density_sweep_direct", "gamma_grad_sweep_direct",
           "dambreak_force_sweep_direct", "dambreak_force_sweep_3d_direct",
           "rb_mass_heat_sweep_direct", "isph_div_visc_sweep_direct",
           "isph_grad_sweep_direct", "iso_static_force_sweep_direct",
-          "iso_static_mass_sweep", "pair_sweep_error_string")
+          "iso_static_mass_sweep_direct", "adia_entropy_force_sweep_direct",
+          "pair_sweep_error_string")
 
 
 def other_library(other: Path):
@@ -142,14 +145,27 @@ def main(other: Path) -> None:
             cases.append((f"{kernel} cap {eng.cap}", kernel, eng, st, cfg,
                           {}))
     for cap in (None, 24):
-        for av in (0.0, 0.05):
-            for fm in (False, True):
-                eng, st, cfg = t._terrain_live(
-                    "isothermal_static_config", dev, bucket_cap=cap,
-                    av_alpha=av, fast_math=fm)
-                cases.append((f"iso_static_force_sweep cap {eng.cap} "
-                              f"av_alpha {av} fast_math {fm}",
-                              "iso_static_force_sweep", eng, st, cfg, {}))
+        eng, st, cfg = t._terrain_live("isothermal_static_config", dev,
+                                       bucket_cap=cap)
+        cases.append((f"iso_static_mass_sweep cap {eng.cap}",
+                      "iso_static_mass_sweep", eng, st, cfg, {}))
+        for factory, kernel in (
+                ("isothermal_static_config", "iso_static_force_sweep"),
+                ("adiabatic_static_config", "adia_entropy_force_sweep")):
+            for av in (0.0, 0.05):
+                for fm in (False, True):
+                    eng, st, cfg = t._terrain_live(
+                        factory, dev, bucket_cap=cap, av_alpha=av,
+                        fast_math=fm)
+                    cases.append((f"{kernel} cap {eng.cap} av_alpha {av} "
+                                  f"fast_math {fm}", kernel, eng, st, cfg, {}))
+    for extra in ({}, dict(true_rayleigh=True, consistent_entropy=True,
+                           outflow_buffer=2 * 1.8 * (26e3 / 14),
+                           av_alpha=0.05, fast_math=True)):
+        eng, st, cfg = t._terrain_live("adiabatic_flow_config", dev, **extra)
+        cases.append((f"adia_entropy_force_sweep adiabatic flow cap {eng.cap}"
+                      + (" corrected" if extra else ""),
+                      "adia_entropy_force_sweep", eng, st, cfg, {}))
     n = 0
     for label, kernel, eng, st, cfg, kw in cases:
         runs = ps.tiled_yardsticks(kernel, eng, st, cfg, **kw)
@@ -161,16 +177,6 @@ def main(other: Path) -> None:
             n += 1
         print(f"{label}: the other checkout's sweep == this one's direct and "
               f"tiled", flush=True)
-    for cap in (None, 24):
-        eng, st, cfg = t._terrain_live("isothermal_static_config", dev,
-                                       bucket_cap=cap)
-        got = on_other(lambda: ps.iso_static_mass_pass(eng, st, cfg))
-        if not torch.equal(got, ps.iso_static_mass_pass(eng, st, cfg)):
-            raise AssertionError(f"iso_static_mass_sweep cap {eng.cap} "
-                                 "differs from the other checkout's")
-        n += 1
-        print(f"iso_static_mass_sweep cap {eng.cap}: == the other "
-              f"checkout's", flush=True)
     print(f"{n} comparisons bit for bit against {other}")
 
 

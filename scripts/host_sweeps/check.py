@@ -5,11 +5,12 @@ conduction and its dam-break force with both sidewalls, the 2-D Pavelka
 pair, the 2-D flagship density with and without the self pair and the
 adiabatic density, the 2-D flagship momentum, the Hopkins pressure root
 with and without the self pair, the Hopkins momentum in both forms, the
-Colagrossi packing's gradient, the terrain continuity, the terrain force
-and the per-particle-h (isothermal static) force, each with and without AV,
-the ISPH CG matvec in its prepared form, the ISPH divergence/viscous sweep
-and the ISPH pressure gradient) against the one-thread-per-slot design they
-replaced,
+Colagrossi packing's gradient, the terrain continuity, the per-particle-h
+(isothermal static) continuity, the terrain force and the per-particle-h
+force, each with and without AV, the fused adiabatic entropy + force sweep
+with and without AV, the ISPH CG matvec in its prepared form, the ISPH
+divergence/viscous sweep and the ISPH pressure gradient) against the
+one-thread-per-slot design they replaced,
 against the tiled export on the row band (and, in 2-D, its other staging
 scheme) and against the plain twins, bit for bit, on tiny states, through
 the port's own wrappers (``ops/pair_sweeps.py``: the tile plan, the
@@ -19,7 +20,8 @@ per-tile trip bound, the export names and arguments).
     python scripts/host_sweeps/check.py pavelka    # the Pavelka pair only
     python scripts/host_sweeps/check.py momentum hopkins   # 2-D momenta, P root
     python scripts/host_sweeps/check.py legacy isph   # terrain pair, ISPH
-    python scripts/host_sweeps/check.py iso   # per-particle-h force
+    python scripts/host_sweeps/check.py iso   # per-particle-h pair
+    python scripts/host_sweeps/check.py adia  # fused adiabatic sweep
     python scripts/host_sweeps/check.py density gamma  # densities, packing
     python scripts/host_sweeps/check.py dam2 rb dam   # dam pairs, RB
 
@@ -138,7 +140,8 @@ def held(kernel, engine, state, cfg, twin, **kw) -> bool:
     bound = ps._trip_bound(kernel, engine, state)
     form = "".join(f" {k}={v}" for k, v in kw.items()) + (
         f" av_alpha={cfg.av_alpha}"
-        if kernel in ("legacy_force_sweep", "iso_static_force_sweep") else
+        if kernel in ("legacy_force_sweep", "iso_static_force_sweep",
+                      "adia_entropy_force_sweep") else
         f" sidewalls={cfg.sidewalls}" if hasattr(cfg, "sidewalls") else
         f" self_pair={cfg.self_density}"
         if kernel in ("pressure_sweep", "density_sweep")
@@ -389,11 +392,38 @@ def main(which) -> None:
             state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
                                rho=(0.99, 1.01, True), P=(0.99, 1.01, True),
                                h=(0.99, 1.01, True))
+            # the continuity has no divide and no AV term: one form
+            ok &= held("iso_static_mass_sweep", system.engine, state, cfg,
+                       ps.iso_static_mass_pass_plain)
             for av in (0.0, 0.05):  # without AV: a null FLUID plane
                 for fm in (False, True):
                     c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)
                     ok &= held("iso_static_force_sweep", system.engine, state,
                                c, ps.iso_static_force_pass_plain) or fm
+    if "adia" in which:
+        import dataclasses
+        from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+        # the fused adiabatic sweep on the tiny adiabatic static state (cap
+        # 8, its own: TX 32 on 128 x-cells; cap 24: TX 10, a ragged last
+        # tile of 8) and on the tiny adiabatic flow (cap 16: TX 16); one
+        # plan for both AV forms (the FLUID gate is staged in both)
+        terrain = dict(n_rows=14, dom_length=40e3, h_m=2000.0, a=6e3)
+        for factory, extra, cap in (
+                (lw.adiabatic_static_config, dict(n_rows=10), None),
+                (lw.adiabatic_static_config, dict(n_rows=10), 24),
+                (lw.adiabatic_flow_config, terrain, None)):
+            cfg = factory(dtype="float32", layout="bucket", skin=0.15,
+                          use_pallas=True, bucket_cap=cap, **extra)
+            system = lw.make_system(cfg)
+            state = _perturbed(system.freeze(device="cpu"), v=(-1, 1, False),
+                               rho=(0.99, 1.01, True), P=(0.99, 1.01, True),
+                               T=(0.99, 1.01, True))
+            for av in (0.0, 0.05):
+                for fm in (False, True):
+                    c = dataclasses.replace(cfg, av_alpha=av, fast_math=fm)
+                    ok &= held("adia_entropy_force_sweep", system.engine,
+                               state, c, ps.adia_entropy_force_pass_plain
+                               ) or fm
     if "isph" in which:
         import dataclasses
         from sph_mountain_waves_tpu_torch.models import isph_witch as iw
@@ -421,4 +451,4 @@ def main(which) -> None:
 if __name__ == "__main__":
     main(sys.argv[1:] or ["dam", "dam2", "rb", "witch", "pavelka",
                           "density", "gamma", "momentum", "hopkins", "legacy",
-                          "iso", "isph"])
+                          "iso", "adia", "isph"])

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Device time, device kernels and wall time per step of eight paths of the
+"""Device time, device kernels and wall time per step of nine paths of the
 PyTorch port on one card, under torch.profiler: the WCSPH flagship and
 full_hopkins (10 steps each from the built flagship-size state),
 hopkins_total (10 steps after its hydrostatic packing), the terrain
 baseline (10 steps after a 300-step frame, as ``chip_smoke.py`` builds
-it), the isothermal static atmosphere at its config's default size (10
-steps after 100, fast_math on as in ``chip_smoke.py``), collapse_dry (dr
+it), the isothermal and adiabatic static atmospheres at their configs'
+default sizes (10 steps after 100, fast_math on as in ``chip_smoke.py``),
+collapse_dry (dr
 0.014) and collapse3d (dr 5e-3, cap 40) at ``chip_smoke.py``'s sizes (10
 steps after init_forces where the path has it and 100 steps) and the
 Rayleigh–Bénard baseline (10 steps after 100).
@@ -16,7 +17,7 @@ script once for each, in turns:
     python3 scripts/step_profile.py                      # this checkout
     python3 scripts/step_profile.py --root build/parent  # another checkout
     python3 scripts/step_profile.py --paths collapse_dry rayleigh_benard
-    python3 scripts/step_profile.py --paths isothermal_static
+    python3 scripts/step_profile.py --paths isothermal_static adiabatic_static
 
 Prints one line per path (device ms/step, device kernels per step, wall
 ms/step under the profiler, the device's idle share, the pair-sweep
@@ -34,11 +35,12 @@ from pathlib import Path
 
 N_ROWS = 246       # the flagship size: N = 978,463, grid 1792 x 144, cap 8
 TERRAIN_WARM = 300  # steps before the terrain's profiled ones
-DAM_WARM = 100      # steps before the profiled ones of the isothermal
-                    # static path, the dam breaks and Rayleigh–Bénard
+DAM_WARM = 100      # steps before the profiled ones of the two static
+                    # paths, the dam breaks and Rayleigh–Bénard
 N_STEPS = 10
 PATHS = ("flagship", "full_hopkins", "hopkins_total", "terrain",
-         "isothermal_static", "collapse_dry", "collapse3d", "rayleigh_benard")
+         "isothermal_static", "adiabatic_static", "collapse_dry",
+         "collapse3d", "rayleigh_benard")
 
 
 def kernel_name(key: str) -> str:
@@ -131,13 +133,16 @@ def main(root: Path, paths) -> None:
         print(profiled("terrain", step, state), flush=True)
         del state, system
 
-    if "isothermal_static" in paths:
-        scfg = lw.isothermal_static_config(use_pallas=True, fast_math=True)
+    for label, factory in (("isothermal_static", lw.isothermal_static_config),
+                           ("adiabatic_static", lw.adiabatic_static_config)):
+        if label not in paths:
+            continue
+        scfg = factory(use_pallas=True, fast_math=True)
         system = lw.run_system(scfg)
         state = system.freeze(device=dev)
         step = lw.make_step(scfg, system.engine)
         state = frame_runner(step, DAM_WARM)(state)
-        print(profiled("isothermal_static", step, state), flush=True)
+        print(profiled(label, step, state), flush=True)
         del state, system
 
     # the dam breaks and Rayleigh–Bénard at chip_smoke.py's sizes

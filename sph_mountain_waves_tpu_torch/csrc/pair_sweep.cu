@@ -75,13 +75,13 @@
 // them (PERF.md has the breakdown, and the dam-break sweeps' times). The
 // flagship density (and the adiabatic density on it) and momentum, the
 // Hopkins pressure root and momentum, the two Pavelka sweeps, the packing
-// gradient, the terrain continuity and force with fixed h, the per-particle-h
-// force, the ISPH CG matvec, divergence/viscous sweep and pressure gradient,
-// the dam-break continuity and force and the Rayleigh-Benard continuity +
-// conduction run the same design in 2-D, pair_sweep_tiled (9 cells); the
-// density, the pressure root and the packing gradient count the self pair
-// there. The other 2-D sweeps (the per-particle-h continuity, the fused
-// adiabatic sweep) still run pair_sweep.
+// gradient, the terrain continuity and force with fixed h and with
+// per-particle h, the fused adiabatic entropy + force sweep, the ISPH CG
+// matvec, divergence/viscous sweep and pressure gradient, the dam-break
+// continuity and force and the Rayleigh-Benard continuity + conduction run
+// the same design in 2-D, pair_sweep_tiled (9 cells); the density, the
+// pressure root and the packing gradient count the self pair there. No path
+// launches pair_sweep: it is the "_direct" yardstick of every 2-D export.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,8 +116,9 @@ __device__ __forceinline__ float pdiv(float a, float b) {
 // q's fields as the accessor bodies read them (the 3-D bodies, the
 // dam-break bodies in 2-D, the 2-D density and momentum, the Hopkins pressure
 // root and momentum, the Pavelka bodies, the packing gradient, the legacy
-// continuity and force, the ISPH divergence/viscous sweep, matvec and
-// gradient and the Rayleigh-Benard body): q[i]
+// continuity and force, the fused adiabatic sweep, the ISPH
+// divergence/viscous sweep, matvec and gradient and the Rayleigh-Benard
+// body): q[i]
 // is plane i at q's slot. PlaneQ reads the planes (pair_sweep, pair_sweep3);
 // StagedQ reads the copy that pair_sweep3_tiled
 // staged in shared memory, planes lo.. at ex[(i - lo) * nc + s]; StagedQ2
@@ -685,9 +686,10 @@ struct LegacyParams {
 //     t = max(1 - r/h_p, 0), 1/h_p streamed, wq = m / max(rho, 1e-12) (the
 //     caller multiplies the sum by rho_p); fields occ, x[D], 1/h, v[D], wq.
 // No divide. q's planes read by the body beyond the occupancy and position:
-// v and m (or wq). With fixed h plane 3 is v0, which the tiled sweep stages
-// in the candidate's float4, so QMASK names the rest (planes 4..NIN-1); the
-// per-particle-h form is not tiled.
+// v and m (or wq). Plane 3 (v0 with fixed h; 1/h with per-particle h, read
+// on the p side only) is the one the tiled sweep stages in the candidate's
+// float4, so QMASK names the rest (planes 4..NIN-1): v1 and m with fixed h
+// (0x30), v0, v1 and wq with per-particle h (0x70).
 template <int D, bool ADAPTIVE_H>
 struct LegacyMass {
   static constexpr int VO = ADAPTIVE_H ? 2 + D : 1 + D;  // first v plane
@@ -798,28 +800,33 @@ struct LegacyForce {
 //   Dv_p = sum_q (-kerq (Pt_p + Pt_q) + 8 mu kerq rr di [- AV term]) x_pq
 // (the force as LegacyForce, ungated but for the AV term); mTi =
 // m / max(T, 1e-30). Outputs (dS, Dv[D]); fields occ, x[D], v[D], m, Pt, ri,
-// fl, mTi.
+// fl, mTi. q's planes read by the body beyond the occupancy and position: v,
+// m, Pt, ri and fl (the FLUID gate enters the entropy term with or without
+// AV; mTi is read on the p side only). Plane 3, v0 in 2-D, is the one the
+// tiled sweep stages in the candidate's float4, so QMASK names v1, m, Pt, ri
+// and fl (0x1F0: 5 scalar planes, in both AV forms).
 template <int D, bool AV, bool FAST>
 struct AdiaEntropyForce {
   static constexpr int VO = 1 + D;  // first v plane
   static constexpr int MO = VO + D; // m, Pt, ri, fl, mTi
   static constexpr int NIN = MO + 5;
   static constexpr int NOUT = 1 + D;
+  static constexpr unsigned QMASK = 0x1F0u;  // v1, m, Pt, ri, fl (2-D)
   using Params = LegacyParams;
-  __device__ static void pair(const float* p, const Planes<NIN, NOUT>& f,
-                              int64_t qi, const float* d, float r2,
-                              const Params& prm, float* tot) {
+  template <class Q>
+  __device__ static void pair(const float* p, const Q& q, const float* d,
+                              float r2, const Params& prm, float* tot) {
     const float r = sqrtf(r2);
     const float t = fmaxf(1.0f - r * prm.hinv, 0.0f);
-    const float kerq = prm.kc * t * t * t * f.in[MO][qi];
-    float dot = d[0] * (p[VO] - f.in[VO][qi]);
+    const float kerq = prm.kc * t * t * t * q[MO];
+    float dot = d[0] * (p[VO] - q[VO]);
 #pragma unroll
-    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - f.in[VO + a][qi]);
-    const float riq = f.in[MO + 2][qi];
+    for (int a = 1; a < D; ++a) dot += d[a] * (p[VO + a] - q[VO + a]);
+    const float riq = q[MO + 2];
     const float rr = p[MO + 2] * riq;
     const float di = pdiv<FAST>(dot, r2 + prm.eps_h2);
-    const float s = -kerq * (p[MO + 1] + f.in[MO + 1][qi]);
-    const float both = p[MO + 3] * f.in[MO + 3][qi];
+    const float s = -kerq * (p[MO + 1] + q[MO + 1]);
+    const float both = p[MO + 3] * q[MO + 3];
     float w = prm.mu8 * kerq * rr * di;
     if constexpr (AV) {
       const float mu_av = prm.h0 * di;
@@ -835,7 +842,7 @@ struct AdiaEntropyForce {
                               int64_t qi, float d0, float d1, float r2,
                               const Params& prm, float* tot) {
     const float d[2] = {d0, d1};
-    pair(p, f, qi, d, r2, prm, tot);
+    pair(p, PlaneQ<NIN, NOUT>{f, qi}, d, r2, prm, tot);
   }
 };
 
@@ -1032,14 +1039,6 @@ int launch(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
   const dim3 grid((columns + kBlock - 1) / kBlock, g.cap);
   pair_sweep<Body, SELF><<<grid, kBlock, 0, stream>>>(f, kmax, g, prm);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool AV>
-int adia_launch(const Planes<10, 3>& f, const int* kmax, const Layout& g,
-                const LegacyParams& prm, int fast_math, cudaStream_t s) {
-  return fast_math
-      ? launch<AdiaEntropyForce<2, AV, true>, false>(f, kmax, g, prm, s)
-      : launch<AdiaEntropyForce<2, AV, false>, false>(f, kmax, g, prm, s);
 }
 
 struct Layout3 {
@@ -1329,13 +1328,14 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // The tiled 9-cell sweep of the 2-D density, the Pavelka continuity and
 // fused momentum + entropy, the flagship momentum, the Hopkins pressure root
 // and momentum, the Colagrossi packing's gradient, the terrain continuity and
-// force (with fixed h, and the force with per-particle h), the ISPH CG
-// matvec, divergence/viscous sweep and pressure gradient, the 2-D dam-break
-// continuity and force and the Rayleigh-Benard continuity + conduction
-// (pallas_pairs.py density_pass and adia_density_pass, pavelka_mass_pass,
-// pavelka_momentum_entropy_pass, momentum_pass, pressure_pass,
-// hopkins_momentum_pass, legacy_mass_pass, legacy_force_pass,
-// iso_static_force_pass, isph_matvec_prepared, isph_div_visc_pass,
+// force (with fixed h and with per-particle h), the fused adiabatic entropy +
+// force sweep, the ISPH CG matvec, divergence/viscous sweep and pressure
+// gradient, the 2-D dam-break continuity and force and the Rayleigh-Benard
+// continuity + conduction (pallas_pairs.py density_pass and
+// adia_density_pass, pavelka_mass_pass, pavelka_momentum_entropy_pass,
+// momentum_pass, pressure_pass, hopkins_momentum_pass, legacy_mass_pass,
+// legacy_force_pass, iso_static_mass_pass, iso_static_force_pass,
+// adia_entropy_force_pass, isph_matvec_prepared, isph_div_visc_pass,
 // isph_grad_pass, dambreak_mass_pass, dambreak_force_pass,
 // rb_mass_heat_pass; utils/packing.py find_gGamma):
 // pair_sweep3_tiled's design in 2-D. One block is TX
@@ -1346,10 +1346,11 @@ int launch3_tiled(const Planes<Body::NIN, Body::NOUT>& f, const int* kmax,
 // (ops/pair_sweeps.py::tile_kmax: the largest count among the (TX+2) x 3
 // cells it stages; ranks are packed from 0, so every rank past it is empty in
 // all of them). Each q rank of those cells is staged in shared memory once
-// for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density, v0
-// in the terrain continuity and force with fixed h, the dam-break continuity
-// and force, the Rayleigh-Benard sweep and the ISPH divergence, the iterate
-// in the matvec, P in the ISPH gradient) as one
+// for all p ranks: occupancy, x0, x1 and plane 3 (h; 1/h in the density and
+// the per-particle-h continuity, v0 in the terrain continuity and force with
+// fixed h, the fused adiabatic sweep, the dam-break continuity and force,
+// the Rayleigh-Benard sweep and the ISPH divergence, the iterate in the
+// matvec, P in the ISPH gradient) as one
 // float4 per cell (a candidate is one 16-byte shared load), the other q
 // planes the body reads (Body::QMASK: none in the packing gradient, w in the
 // density) as scalars; 4-byte cp.async, cells outside the grid zero-filled so
@@ -1608,15 +1609,39 @@ int legacy_force(const float* const* in, const int* kmax, float* dv0,
                   in, kmax, dv0, dv1, g, prm, fast_math, tx, smem_bytes, s);
 }
 
-// The legacy continuity's exports: the planes in order, and for the tiled
-// launch (TILED, fixed h only) its plan (tx, smem_bytes).
+// The fused adiabatic sweep's exports: the fast_math switch and, for the
+// tiled launch (TILED), its plan (tx, smem_bytes); one plan for both AV
+// forms, which stage the same planes.
+template <bool TILED, bool AV>
+int adia_launch(const Planes<10, 3>& f, const int* kmax, const Layout& g,
+                const LegacyParams& prm, int fast_math, int tx,
+                int smem_bytes, cudaStream_t s) {
+  return fast_math
+      ? launch2<TILED, AdiaEntropyForce<2, AV, true>>(f, kmax, g, prm, tx,
+                                                      smem_bytes, s)
+      : launch2<TILED, AdiaEntropyForce<2, AV, false>>(f, kmax, g, prm, tx,
+                                                       smem_bytes, s);
+}
+
+// the fused adiabatic sweep in the form av names
+template <bool TILED>
+int adia_entropy_force(const Planes<10, 3>& f, const int* kmax,
+                       const Layout& g, const LegacyParams& prm, int av,
+                       int fast_math, int tx, int smem_bytes, cudaStream_t s) {
+  return av ? adia_launch<TILED, true>(f, kmax, g, prm, fast_math, tx,
+                                       smem_bytes, s)
+            : adia_launch<TILED, false>(f, kmax, g, prm, fast_math, tx,
+                                        smem_bytes, s);
+}
+
+// The legacy continuity's exports (fixed h, or per-particle h with
+// ADAPTIVE_H): the planes in order, and for the tiled launch (TILED) its
+// plan (tx, smem_bytes).
 template <bool TILED, bool ADAPTIVE_H>
 int legacy_mass_launch(const Planes<LegacyMass<2, ADAPTIVE_H>::NIN, 1>& f,
                        const int* kmax, const Layout& g,
                        const LegacyParams& prm, int tx, int smem_bytes,
                        cudaStream_t s) {
-  static_assert(!(TILED && ADAPTIVE_H),
-                "the per-particle-h continuity is not tiled");
   return launch2<TILED, LegacyMass<2, ADAPTIVE_H>>(f, kmax, g, prm, tx,
                                                     smem_bytes, s);
 }
@@ -1957,8 +1982,8 @@ int dambreak_force_sweep_direct(const float* occ, const float* x0,
 // continuity launches pair_sweep_tiled on the plan (tx, smem_bytes) the
 // wrapper passes, one bound per x-tile; its "_direct" export launches
 // pair_sweep (kmax int32 [ny] per grid row), the design the tiled one
-// replaced: a yardstick, on no path. The per-particle-h continuity launches
-// pair_sweep (kmax int32 [ny]).
+// replaced: a yardstick, on no path. So do the per-particle-h continuity
+// and its "_direct" export.
 int legacy_mass_sweep(const float* occ, const float* x0, const float* x1,
                       const float* v0, const float* v1, const float* m,
                       const int* kmax, float* drho, int cap, int nx, int ny,
@@ -1984,8 +2009,20 @@ int legacy_mass_sweep_direct(const float* occ, const float* x0,
 int iso_static_mass_sweep(const float* occ, const float* x0, const float* x1,
                           const float* hinv, const float* v0, const float* v1,
                           const float* wq, const int* kmax, float* out,
-                          int cap, int nx, int ny, float h2, float dw,
-                          void* stream) {
+                          int cap, int nx, int ny, float h2, float dw, int tx,
+                          int smem_bytes, void* stream) {
+  return legacy_mass_launch<true, true>(
+      {{occ, x0, x1, hinv, v0, v1, wq}, {out}}, kmax, {cap, nx, ny, h2},
+      {dw, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, tx, smem_bytes,
+      static_cast<cudaStream_t>(stream));
+}
+
+int iso_static_mass_sweep_direct(const float* occ, const float* x0,
+                                 const float* x1, const float* hinv,
+                                 const float* v0, const float* v1,
+                                 const float* wq, const int* kmax, float* out,
+                                 int cap, int nx, int ny, float h2, float dw,
+                                 void* stream) {
   return legacy_mass_launch<false, true>(
       {{occ, x0, x1, hinv, v0, v1, wq}, {out}}, kmax, {cap, nx, ny, h2},
       {dw, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0, 0,
@@ -2061,6 +2098,10 @@ int iso_static_force_sweep_direct(
       static_cast<cudaStream_t>(stream));
 }
 
+// The fused adiabatic entropy + force sweep launches pair_sweep_tiled on the
+// plan (tx, smem_bytes) the wrapper passes, kmax int32 [ny*ntiles] (one bound
+// per x-tile); its "_direct" export launches pair_sweep (kmax int32 [ny] per
+// grid row), the design the tiled one replaced: a yardstick, on no path.
 int adia_entropy_force_sweep(const float* occ, const float* x0,
                              const float* x1, const float* v0, const float* v1,
                              const float* m, const float* pterm,
@@ -2069,14 +2110,27 @@ int adia_entropy_force_sweep(const float* occ, const float* x0,
                              float* dv0, float* dv1, int cap, int nx, int ny,
                              float h2, float kc, float hinv, float eps_h2,
                              float mu8, float nmu4dt, float nac, float two_av,
-                             float h0, int av, int fast_math, void* stream) {
-  const Planes<10, 3> f{{occ, x0, x1, v0, v1, m, pterm, rinv, fluid, mti},
-                        {ds, dv0, dv1}};
-  const Layout g{cap, nx, ny, h2};
-  const LegacyParams prm{kc, hinv, eps_h2, mu8, nmu4dt, nac, two_av, h0};
-  auto s = static_cast<cudaStream_t>(stream);
-  return av ? adia_launch<true>(f, kmax, g, prm, fast_math, s)
-            : adia_launch<false>(f, kmax, g, prm, fast_math, s);
+                             float h0, int av, int fast_math, int tx,
+                             int smem_bytes, void* stream) {
+  return adia_entropy_force<true>(
+      {{occ, x0, x1, v0, v1, m, pterm, rinv, fluid, mti}, {ds, dv0, dv1}},
+      kmax, {cap, nx, ny, h2},
+      {kc, hinv, eps_h2, mu8, nmu4dt, nac, two_av, h0}, av, fast_math, tx,
+      smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int adia_entropy_force_sweep_direct(
+    const float* occ, const float* x0, const float* x1, const float* v0,
+    const float* v1, const float* m, const float* pterm, const float* rinv,
+    const float* fluid, const float* mti, const int* kmax, float* ds,
+    float* dv0, float* dv1, int cap, int nx, int ny, float h2, float kc,
+    float hinv, float eps_h2, float mu8, float nmu4dt, float nac,
+    float two_av, float h0, int av, int fast_math, void* stream) {
+  return adia_entropy_force<false>(
+      {{occ, x0, x1, v0, v1, m, pterm, rinv, fluid, mti}, {ds, dv0, dv1}},
+      kmax, {cap, nx, ny, h2},
+      {kc, hinv, eps_h2, mu8, nmu4dt, nac, two_av, h0}, av, fast_math, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 

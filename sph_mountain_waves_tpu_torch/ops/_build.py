@@ -101,8 +101,13 @@ SIGNATURES = {
         "legacy_mass_sweep_direct": ([_P] * 8 + [_I] * 3 + [_F] * 3 + [_P],
                                      _I),
         # occ, x0, x1, 1/h, v0, v1, m/rho, kmax, out, cap, nx, ny, h2, dw,
-        # stream
-        "iso_static_mass_sweep": ([_P] * 9 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        # the tiled sweep's plan (TX, dynamic shared bytes), stream; one
+        # bound per x-tile (the "_direct" yardstick: no plan, one per grid
+        # row)
+        "iso_static_mass_sweep": ([_P] * 9 + [_I] * 3 + [_F] * 2
+                                  + [_I, _I, _P], _I),
+        "iso_static_mass_sweep_direct": ([_P] * 9 + [_I] * 3 + [_F] * 2
+                                         + [_P], _I),
         # 9 planes (fluid null without AV), kmax, 2 outs, cap, nx, ny, h2, kc,
         # 1/h0, 0.01 h0^2, 8mu, -alpha c, 2 alpha, h0, av, fast_math, the
         # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
@@ -120,9 +125,13 @@ SIGNATURES = {
         "iso_static_force_sweep_direct": ([_P] * 13 + [_I] * 3 + [_F] * 5
                                           + [_I, _I, _P], _I),
         # 10 planes, kmax, 3 outs, cap, nx, ny, h2, kc, 1/h0, 0.01 h0^2, 8mu,
-        # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, stream
+        # -4 mu dt, -alpha c, 2 alpha, h0, av, fast_math, the tiled sweep's
+        # plan (TX, dynamic shared bytes), stream; one bound per x-tile (the
+        # "_direct" yardstick: no plan, one per grid row)
         "adia_entropy_force_sweep": ([_P] * 14 + [_I] * 3 + [_F] * 9
-                                     + [_I, _I, _P], _I),
+                                     + [_I] * 4 + [_P], _I),
+        "adia_entropy_force_sweep_direct": ([_P] * 14 + [_I] * 3 + [_F] * 9
+                                            + [_I, _I, _P], _I),
         # occ, x0, x1, v0, v1, kmax, 5 outs, cap, nx, ny, h2, 1/h0, kw, the
         # tiled sweep's plan (TX, dynamic shared bytes), stream; one bound
         # per x-tile (the "_direct" yardstick: no plan, one per grid row)

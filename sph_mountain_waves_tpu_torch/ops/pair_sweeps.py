@@ -1164,8 +1164,13 @@ _MAX_SHARED_BYTES = 232_448
 # then v1; the ISPH pressure gradient the float4 of occupancy, x and P,
 # nothing besides; the per-particle-h (isothermal static) force every plane
 # of q (the float4 of occupancy, x and h, then v0, v1, m, P/ρ_f², 1/ρ_f), 9
-# without AV and 10 with it (the FLUID gate), keyed by the AV switch. A
-# form's key is ``_FORM_KEY``'s (``_staged``)
+# without AV and 10 with it (the FLUID gate), keyed by the AV switch; the
+# per-particle-h (isothermal static) continuity the float4 of occupancy, x
+# and 1/h (read on the p side only), then v0, v1 and m/ρ; the fused adiabatic
+# entropy + force sweep the float4 of occupancy, x and v0, then v1, m,
+# P/ρ_f², 1/ρ_f and the FLUID gate (which the entropy term reads with or
+# without AV; m/T is read on the p side only), one form. A form's key is
+# ``_FORM_KEY``'s (``_staged``)
 _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "dambreak_mass_sweep_3d": 8, "dambreak_force_sweep_3d": 8,
                  "pavelka_mass_sweep": 9,
@@ -1183,7 +1188,9 @@ _TILED_STAGED = {"density_sweep_3d": 5, "momentum_sweep_3d": 12,
                  "rb_mass_heat_sweep": 7,
                  "isph_div_visc_sweep": 5,
                  "isph_grad_sweep": 4,
-                 "iso_static_force_sweep": {False: 9, True: 10}}
+                 "iso_static_force_sweep": {False: 9, True: 10},
+                 "iso_static_mass_sweep": 7,
+                 "adia_entropy_force_sweep": 9}
 # the tiled exports with two forms, and what names the form: the Hopkins
 # momentum's ``background_split`` argument, the AV switch of the terrain
 # force and of the per-particle-h force (``cfg.av_alpha > 0``)
@@ -1386,8 +1393,10 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
     ``background_split`` names, ``"gamma_grad_sweep"``, which takes the
     packing's ``V0`` (a keyword, as ``background_split`` is) and no config
     (``cfg`` may be None), ``"legacy_mass_sweep"``,
-    ``"legacy_force_sweep"`` and ``"iso_static_force_sweep"`` in the form
-    ``cfg.av_alpha`` names, ``"isph_matvec_sweep"``,
+    ``"iso_static_mass_sweep"``, ``"legacy_force_sweep"`` and
+    ``"iso_static_force_sweep"`` in the form ``cfg.av_alpha`` names,
+    ``"adia_entropy_force_sweep"`` (both AV forms on one plan),
+    ``"isph_matvec_sweep"``,
     ``"isph_div_visc_sweep"``, ``"isph_grad_sweep"``, the 2-D
     ``"dambreak_mass_sweep"`` or ``"dambreak_force_sweep"``, or
     ``"rb_mass_heat_sweep"``, whose sidewalls are ``cfg``'s) on planes and
@@ -1423,8 +1432,9 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         args, n_out = _pavelka_momentum_entropy_scalars(cfg), 3
     elif kernel in ("density_sweep", "momentum_sweep", "pressure_sweep",
                     "hopkins_momentum_sweep", "gamma_grad_sweep",
-                    "legacy_mass_sweep", "legacy_force_sweep",
-                    "iso_static_force_sweep", "isph_matvec_sweep",
+                    "legacy_mass_sweep", "iso_static_mass_sweep",
+                    "legacy_force_sweep", "iso_static_force_sweep",
+                    "adia_entropy_force_sweep", "isph_matvec_sweep",
                     "isph_div_visc_sweep", "isph_grad_sweep",
                     "dambreak_mass_sweep", "dambreak_force_sweep",
                     "rb_mass_heat_sweep"):
@@ -1453,6 +1463,12 @@ def tiled_yardsticks(kernel: str, engine, state: ParticleState, cfg,
         elif kernel == "legacy_mass_sweep":
             planes, _ = _legacy_mass_inputs(engine, state)
             args, n_out = _legacy_mass_scalars(cfg, 2, False), 1
+        elif kernel == "iso_static_mass_sweep":
+            planes, _ = _iso_static_mass_inputs(engine, state)
+            args, n_out = _legacy_mass_scalars(cfg, 2, True), 1
+        elif kernel == "adia_entropy_force_sweep":
+            planes, _ = _adia_entropy_force_inputs(engine, state)
+            args, n_out = _adia_entropy_force_scalars(cfg, 2), 3
         elif kernel == "dambreak_mass_sweep":
             planes, _ = _dambreak_mass_inputs(engine, state)
             args, n_out = _dambreak_mass_scalars(cfg, 2), 1
@@ -1746,7 +1762,7 @@ def iso_static_mass_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return iso_static_mass_pass_plain(engine, state, cfg)
     planes, _ = _iso_static_mass_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("iso_static_mass_sweep", engine, state)
     (out,) = _launch("iso_static_mass_sweep", engine, planes, band, 1,
                      _legacy_mass_scalars(cfg, engine.dim, True))
     iso_static_mass_pass.launches += 1
@@ -1801,7 +1817,7 @@ def adia_entropy_force_pass(engine, state: ParticleState, cfg):
     if not _on_cuda(state.active):
         return adia_entropy_force_pass_plain(engine, state, cfg)
     planes, _ = _adia_entropy_force_inputs(engine, state)
-    band, _ = row_kmax(engine, state)
+    band = _trip_bound("adia_entropy_force_sweep", engine, state)
     outs = _launch("adia_entropy_force_sweep", engine, planes, band,
                    1 + engine.dim,
                    _adia_entropy_force_scalars(cfg, engine.dim))

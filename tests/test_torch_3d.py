@@ -377,7 +377,11 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
     (8, "iso_static_force_sweep no_av", True, (32, 256, 29440, 8)),
     (8, "iso_static_force_sweep no_av", False, (32, 256, 7360, 2)),
     (8, "iso_static_force_sweep av", True, (32, 256, 32640, 8)),
-    (24, "iso_static_force_sweep no_av", True, (10, 240, 31104, 24))],
+    (24, "iso_static_force_sweep no_av", True, (10, 240, 31104, 24)),
+    (8, "iso_static_mass_sweep", True, (32, 256, 22912, 8)),
+    (8, "iso_static_mass_sweep", False, (32, 256, 5728, 2)),
+    (8, "adia_entropy_force_sweep", True, (32, 256, 29440, 8)),
+    (8, "adia_entropy_force_sweep", False, (32, 256, 7360, 2))],
     ids=["cap8-mass-every", "cap8-mass-two", "cap8-fused-every",
          "cap8-fused-two", "cap24-mass-every", "cap24-fused-two",
          "cap8-momentum-every", "cap8-momentum-two", "cap8-total-every",
@@ -395,7 +399,8 @@ def test_tile_plan_refuses_what_the_tiled_3d_sweep_cannot_take():
          "cap16-dam-force-every", "cap8-div-visc-every", "cap8-div-visc-two",
          "cap8-isph-grad-every", "cap8-isph-grad-two", "cap8-iso-force-every",
          "cap8-iso-force-two", "cap8-iso-force-av-every",
-         "cap24-iso-force-every"])
+         "cap24-iso-force-every", "cap8-iso-mass-every", "cap8-iso-mass-two",
+         "cap8-adia-force-every", "cap8-adia-force-two"])
 def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     """The tiled 2-D sweep's launch plan (TX, threads, dynamic shared bytes,
     stages) for the Pavelka pair, which stages 9 (continuity: the float4 of
@@ -421,11 +426,15 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     occupancy, x and v0, then v1 and P/ρ² (6; the FLUID gate is read on the
     p side only), the ISPH divergence/viscous sweep, which stages the
     float4 of occupancy, x and v0, then v1 (5), the ISPH pressure gradient,
-    which stages the float4 of occupancy, x and P alone (4), and the
+    which stages the float4 of occupancy, x and P alone (4), the
     per-particle-h (isothermal static) force, which stages 9 without AV
     (the float4 of occupancy, x and h, then v0, v1, m, P/ρ_f², 1/ρ_f) and 10
-    with it (the FLUID gate besides): the flagship, Pavelka, ISPH and
-    isothermal static sizes have cap 8 (TX 32), the corrected adiabatic
+    with it (the FLUID gate besides), the per-particle-h continuity, which
+    stages the float4 of occupancy, x and 1/h, then v0, v1 and m/ρ (7), and
+    the fused adiabatic entropy + force sweep, which stages the float4 of
+    occupancy, x and v0, then v1, m, P/ρ_f², 1/ρ_f and the FLUID gate (9 in
+    both AV forms; m/T is read on the p side only): the flagship, Pavelka,
+    ISPH and the two static sizes have cap 8 (TX 32), the corrected adiabatic
     flow's and the Rayleigh–Bénard baseline's cap 16 gives TX 16, the
     terrain baseline's and collapse_dry's cap 24 TX 10; a stage is (TX+2)·3
     cells rounded up to 16 B, two of them or one per rank. The wrapper's
@@ -433,8 +442,8 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
     the Hopkins and both terrain-force counts need their form, and no other
     count takes one (a form key given to the pressure root, the terrain
     continuity, the density, the ∇Γ sum, the dam-break continuity or force,
-    the Rayleigh–Bénard sweep, the ISPH divergence or the ISPH gradient is
-    refused)."""
+    the Rayleigh–Bénard sweep, the ISPH divergence, the ISPH gradient, the
+    per-particle-h continuity or the fused adiabatic sweep is refused)."""
     box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
     engine = NeighborEngine.create(box, 0.1, 2, cap=cap)
     name, _, label = kernel.partition(" ")
@@ -459,7 +468,9 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
                       "isph_div_visc_sweep": 5,
                       "isph_grad_sweep": 4,
                       "iso_static_force_sweep no_av": 9,
-                      "iso_static_force_sweep av": 10}[kernel]
+                      "iso_static_force_sweep av": 10,
+                      "iso_static_mass_sweep": 7,
+                      "adia_entropy_force_sweep": 9}[kernel]
     plan = tps._tile_plan(engine, staged, every_rank=every_rank)
     assert (plan.tx, plan.tx * cap, plan.smem_bytes, plan.stages) == want
     assert plan.block == (plan.tx, cap) and plan.smem_bytes <= 48 * 1024

@@ -474,7 +474,9 @@ _TILED_WRAPPER = {"density_sweep": ps.density_pass,
                   "dambreak_force_sweep": ps.dambreak_force_pass,
                   "isph_div_visc_sweep": ps.isph_div_visc_pass,
                   "isph_grad_sweep": ps.isph_grad_pass,
-                  "iso_static_force_sweep": ps.iso_static_force_pass}
+                  "iso_static_force_sweep": ps.iso_static_force_pass,
+                  "iso_static_mass_sweep": ps.iso_static_mass_pass,
+                  "adia_entropy_force_sweep": ps.adia_entropy_force_pass}
 
 
 def _held_to_designs(kernel, eng, st, cfg, got, **kw):
@@ -484,7 +486,7 @@ def _held_to_designs(kernel, eng, st, cfg, got, **kw):
     the tiled sweep's other staging scheme. The yardsticks count no
     launch. ``kw``: the Hopkins momentum's ``background_split``, the
     density's ``adiabatic``, the ∇Γ sweep's ``V0`` (the two terrain forces
-    take their form from ``cfg``)."""
+    and the fused adiabatic sweep take their form from ``cfg``)."""
     wrapper = _TILED_WRAPPER[kernel]
     before = wrapper.launches
     for name, run in ps.tiled_yardsticks(kernel, eng, st, cfg, **kw).items():
@@ -765,8 +767,9 @@ def test_terrain_kernel_matches_twin(card, name, av, fast_math):
     """The five terrain kernels and the adiabatic density (the density
     kernel with the FLUID-gated weight): exact divides within rtol 1e-5 /
     atol 1e-6 × max of the twin, fast_math within 1e-3 of max; reruns
-    bitwise; each launch counted by its own wrapper. The tiled per-particle-h
-    force also bit for bit against its other designs."""
+    bitwise; each launch counted by its own wrapper. The five tiled terrain
+    kernels (the fused adiabatic sweep on the adiabatic flow, cap 16) also
+    bit for bit against their other designs."""
     factory, twin = LEGACY[name]
     eng, st, cfg = _terrain_live(factory, card, av_alpha=av,
                                  fast_math=fast_math)
@@ -781,8 +784,8 @@ def test_terrain_kernel_matches_twin(card, name, av, fast_math):
     ref = ref if isinstance(ref, list) else [ref]
     assert len(got) == len(ref)
     _held_to_twin(got, rerun, ref, fast_math)
-    if name == "iso_static_force":
-        _held_to_designs("iso_static_force_sweep", eng, st, cfg, got)
+    if f"{name}_sweep" in _TILED_WRAPPER:
+        _held_to_designs(f"{name}_sweep", eng, st, cfg, got)
 
 
 @pytest.mark.cuda
@@ -862,6 +865,57 @@ def test_tiled_iso_static_force_reaches_every_edge(card, av, fast_math):
     _held_to_designs("iso_static_force_sweep", eng, st, cfg, got)
     _held_to_twin(got, ps.iso_static_force_pass(eng, st, cfg),
                   ps.iso_static_force_pass_plain(eng, st, cfg), fast_math)
+    assert all(float(g.abs().max()) > 0 for g in got)
+
+
+@pytest.mark.cuda
+def test_tiled_iso_static_mass_reaches_every_edge(card):
+    """The tiled per-particle-h continuity at cap 24
+    (``_reaches_every_edge`` on the n_rows=14 isothermal static state, its
+    engine forced to cap 24; 7 staged planes, no divide, one form): one
+    launch counted, bit for bit against the direct design, the row band,
+    the other staging scheme and its twin."""
+    eng, st, cfg = _terrain_live("isothermal_static_config", card,
+                                 bucket_cap=24)
+    _reaches_every_edge(eng, st, "iso_static_mass_sweep")
+    assert _tiled_edges(eng, st, "iso_static_mass_sweep")[2] > 0
+    before = ps.iso_static_mass_pass.launches
+    got = ps.iso_static_mass_pass(eng, st, cfg)
+    assert ps.iso_static_mass_pass.launches == before + 1
+    _held_to_designs("iso_static_mass_sweep", eng, st, cfg, [got])
+    ref = ps.iso_static_mass_pass_plain(eng, st, cfg)
+    _held_to_twin([got], [ps.iso_static_mass_pass(eng, st, cfg)], [ref],
+                  False)
+    assert torch.equal(got, ref) and float(got.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("av,fast_math", [(0.0, False), (0.0, True),
+                                          (0.05, False), (0.05, True)],
+                         ids=["no_av-exact", "no_av-fast_math", "av-exact",
+                              "av-fast_math"])
+def test_tiled_adia_entropy_force_reaches_every_edge(card, av, fast_math):
+    """The tiled fused adiabatic entropy + force sweep at cap 24
+    (``_reaches_every_edge`` on the n_rows=14 adiabatic static state, its
+    engine forced to cap 24) in its four forms (AV × fast_math), all on one
+    plan (9 staged planes: the FLUID gate enters the entropy term in both
+    AV forms): one launch counted, bit for bit against the direct design,
+    the row band and the other staging scheme; against the twin bit for bit
+    with exact divides, within its gate with fast_math."""
+    eng, st, cfg = _terrain_live("adiabatic_static_config", card,
+                                 bucket_cap=24, av_alpha=av,
+                                 fast_math=fast_math)
+    _reaches_every_edge(eng, st, "adia_entropy_force_sweep")
+    assert _tiled_edges(eng, st, "adia_entropy_force_sweep")[2] > 0
+    before = ps.adia_entropy_force_pass.launches
+    got = ps.adia_entropy_force_pass(eng, st, cfg)
+    assert ps.adia_entropy_force_pass.launches == before + 1
+    _held_to_designs("adia_entropy_force_sweep", eng, st, cfg, got)
+    ref = ps.adia_entropy_force_pass_plain(eng, st, cfg)
+    _held_to_twin(got, ps.adia_entropy_force_pass(eng, st, cfg), ref,
+                  fast_math)
+    if not fast_math:
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert all(float(g.abs().max()) > 0 for g in got)
 
 

@@ -259,7 +259,8 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
     """The per-tile trip bound of the tiled 2-D sweeps (the Pavelka pair,
     the flagship density and momentum, the Hopkins pressure root and
     momentum, the packing's ∇Γ sum, the terrain continuity and force, the
-    per-particle-h force, the ISPH matvec, divergence/viscous sweep and
+    per-particle-h continuity and force, the fused adiabatic sweep, the
+    ISPH matvec, divergence/viscous sweep and
     pressure gradient, the dam-break continuity and force and the
     Rayleigh–Bénard sweep: each export's ``_trip_bound``)
     equals the largest count
@@ -297,7 +298,8 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
                  "isph_matvec_sweep", "density_sweep", "gamma_grad_sweep",
                  "dambreak_mass_sweep", "rb_mass_heat_sweep",
                  "dambreak_force_sweep", "isph_div_visc_sweep",
-                 "isph_grad_sweep", "iso_static_force_sweep"):
+                 "isph_grad_sweep", "iso_static_force_sweep",
+                 "iso_static_mass_sweep", "adia_entropy_force_sweep"):
         assert torch.equal(got, tps._trip_bound(name, engine, state)), name
     np.testing.assert_array_equal(got.numpy(),
                                   _tile_kmax_brute(counts[None], tx))
