@@ -22,7 +22,9 @@ spawns under the stencil rescatter) with the other three terrain variants at
 their configs' default sizes; then the ISPH baseline
 (``isph_witch.baseline_config()``: N=207,672, grid 896 x 72, cap 8, kicked)
 and the Rayleigh–Bénard baseline (``rayleigh_benard.baseline_config()``:
-N=53,621, grid 256 x 80, cap 16).
+N=53,621, grid 256 x 80, cap 16); last, the flat layout in float32 and
+float64 (phases 35-39): the flagship at full width, the 2-D schemes at their
+default configurations and the reference's cross-layout gates.
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -154,11 +156,39 @@ Phases, each printing one or more lines:
  33. ``run(cfg, out_path=..., device="cuda")`` of both baselines at full
      width, a checkpoint every frame: the file set, the data.csv columns and
      a resumed run bit for bit;
- 34. the reference's slow dam-break gate on the port's f32 bucket path:
+ 34. the reference's slow dam-break gate on the port's f32 bucket path and
+     in the reference's own configuration (f64 flat, skin 0):
      ``collapse_dry.run`` at dr 0.02 to t_end 1.2 s (10,000 steps), the
      wavefront X against the digitised Violeau curve
      (tests/reference_data/dambreak_X_Violeau.csv), max relative error
-     < 0.016 and mean < 0.005, with the seconds it took;
+     < 0.016 and mean < 0.005, each with the seconds it took;
+ 35. the flagship's flat path at full width (n_rows 246, skin 0,
+     self_density; N = 978,463), f32 and f64: build, 1 warm-up and 2 timed
+     frames of 20 steps through frame_runner with the sweep counters set to
+     0 before and read after (the flat path launches none), every value
+     finite, every particle kept, overflow 0 on a rebuild of the final
+     state; ms/step, the flat grid, cap, pair mode and peak memory, and the
+     device and wall time of 5 more steps under torch.profiler; on the f64
+     state a flat rebuild and a whole step each run twice, bit for bit;
+ 36. ``collapse_dry.run(Config())`` at its defaults (f64 flat, dr 0.015) for
+     3 frames of its default cadence (666 steps), a checkpoint every frame,
+     its files written; X, H, the energy drift and the overflow of a flat
+     rebuild of the final state; 10 more steps under torch.profiler;
+ 37. ``rayleigh_benard.run(Config())`` at its flat default (f32, N =
+     53,621) for 3 frames of 100 steps; KE, Nu and the overflow; 10 more
+     steps under torch.profiler;
+ 38. the mountain-wave schemes at their default configurations
+     (``WitchConfig()``: n_rows 75, f32 flat, skin 0; Pavelka's
+     ``PavelkaConfig()``), two frames each through ``run(out_path=...)``:
+     the flagship, hopkins_perturbed, full_hopkins, hopkins_total (after its
+     hydrostatic packing) and Pavelka (after its Colagrossi packing), each
+     with the overflow of a flat rebuild of its final state;
+ 39. the reference's two cross-layout gates on the card, the hand kernels on
+     f32 bucket (skin 0.2) against the flat f64 path (skin 0): the flagship
+     at n_rows 14 over 200 steps (u_avg/u_max every 50 steps) and the dam
+     break at dr 0.05 to t_end 0.5 in 10 frames (X/H/E), rtol 1e-3; then a
+     CUDA bucket state with ``use_pallas=False`` and a float64 bucket state,
+     each refused;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound, and the kernels' own
      time that torch.profiler records over 50 more runs (``device_ms``;
@@ -1149,15 +1179,16 @@ VIOLEAU_CSV = os.path.join("tests", "reference_data", "dambreak_X_Violeau.csv")
 VIOLEAU_MAX, VIOLEAU_MEAN = 0.016, 0.005
 
 
-def violeau_errors(dev):
+def violeau_errors(dev, **layout):
     """(max, mean relative error of X against the Violeau curve at its
-    digitised times, seconds, steps) of ``collapse_dry.run`` on the port's
-    f32 bucket path (skin 0.15, the kernels), the reference's slow gate."""
+    digitised times, seconds, steps) of ``collapse_dry.run`` at dr 0.02 to
+    t_end 1.2 s on the card, the reference's slow gate, in ``layout`` (the
+    config's fields: dtype, layout, skin, use_pallas; default the config's
+    own, float64 flat)."""
     import numpy as np
 
     from sph_mountain_waves_tpu_torch.models import collapse_dry as cd
-    vcfg = cd.Config(dr=0.02, t_end=1.2, n_frames=40, dtype="float32",
-                     layout="bucket", skin=0.15, use_pallas=True)
+    vcfg = cd.Config(dr=0.02, t_end=1.2, n_frames=40, **layout)
     t0 = time.perf_counter()
     out = cd.run(vcfg, device=dev)
     secs = time.perf_counter() - t0
@@ -1171,14 +1202,281 @@ def violeau_errors(dev):
 
 
 def violeau_phase(dev, card) -> None:
-    """Phase 34: the Violeau gate, its errors beside its limits; raises if
-    it misses."""
-    mx, mean, secs, steps = violeau_errors(dev)
-    say(34, f"collapse_dry vs Violeau (dr 0.02, {steps} steps, f32 bucket): "
-            f"max rel err {mx:.6f} (limit {VIOLEAU_MAX}), mean {mean:.6f} "
-            f"(limit {VIOLEAU_MEAN}); {secs:.1f} s ({card})")
-    if not (mx < VIOLEAU_MAX and mean < VIOLEAU_MEAN):
-        raise AssertionError("collapse_dry misses the Violeau gate")
+    """Phase 34: the Violeau gate on the f32 bucket path (skin 0.15, the
+    kernels) and on the reference's own configuration (f64 flat, skin 0),
+    the errors beside the limits; raises if either misses."""
+    for label, layout in (
+            ("f32 bucket", dict(dtype="float32", layout="bucket", skin=0.15,
+                                use_pallas=True)),
+            ("f64 flat", {})):
+        mx, mean, secs, steps = violeau_errors(dev, **layout)
+        say(34, f"collapse_dry vs Violeau (dr 0.02, {steps} steps, {label}): "
+                f"max rel err {mx:.6f} (limit {VIOLEAU_MAX}), mean {mean:.6f} "
+                f"(limit {VIOLEAU_MEAN}); {secs:.1f} s ({card})")
+        if not (mx < VIOLEAU_MAX and mean < VIOLEAU_MEAN):
+            raise AssertionError(f"collapse_dry ({label}) misses the Violeau "
+                                 "gate")
+
+
+def flat_frames(phase, label, module, cfg, dev, card, counters,
+                steps_per_frame, n_timed=2):
+    """One scheme's flat path through make_system -> freeze -> make_step ->
+    frame_runner: 1 warm-up frame and ``n_timed`` timed frames of
+    ``steps_per_frame`` steps, with the sweep counters set to 0 before and
+    read after (the flat path launches no sweep kernel). Raises unless every
+    value is finite, every particle is kept and a rebuild of the final state
+    drops no row (overflow 0). Prints ms/step, the flat grid, cap, pair mode
+    and the peak device memory. Returns the final state."""
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.models.witch_common import (
+        velocity_diagnostics,
+    )
+    t0 = time.perf_counter()
+    system = module.make_system(cfg)
+    state = system.freeze(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng, n = system.engine, system.n_built
+    if eng.layout != "flat" or state.fields["x"].dtype != cfg.torch_dtype:
+        raise AssertionError(f"{label}: layout {eng.layout}, dtype "
+                             f"{state.fields['x'].dtype}")
+    run_frame = frame_runner(module.make_step(cfg, eng), steps_per_frame)
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state = run_frame(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state = run_frame(state)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (n_timed * steps_per_frame)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    own = peak - before / 2**30
+    launched = {k: v for k, v in counters.read().items() if v}
+    _, nbrs = eng.rebuild(state)
+    overflow = int(nbrs.overflow)
+    u_avg, u_max = (float(v) for v in velocity_diagnostics(state))
+    if launched or not all_finite(state) or int(state.n) != n or overflow:
+        raise AssertionError(f"{label}: sweep launches {launched}, finite "
+                             f"{all_finite(state)}, active {int(state.n)}/{n},"
+                             f" overflow {overflow}")
+    say(phase, f"{label}: N={n} flat grid {eng.lims} cap {eng.cap} pair mode "
+               f"{eng.pair_mode}; built in {build_s:.2f} s; {n_timed} x "
+               f"{steps_per_frame} steps after a warm-up frame: {ms:.3f} "
+               f"ms/step; peak memory {peak:.2f} GiB ({own:.2f} GiB above "
+               f"what was allocated before the frames); active {int(state.n)}, "
+               f"overflow 0, u_avg {u_avg:.4e} u_max {u_max:.4e} m/s; no sweep "
+               f"launched ({card})")
+    return system, state
+
+
+def flat_rebuild_twice(phase, eng, state) -> None:
+    """A flat rebuild and a whole flat step, each run twice on the same card
+    state, must give the same result bit for bit."""
+    import torch
+    a_state, a_n = eng.rebuild(state)
+    b_state, b_n = eng.rebuild(state)
+    diff = [k for k in a_state.fields
+            if not torch.equal(a_state.fields[k], b_state.fields[k])]
+    diff += [k for k in ("cell", "key", "rank", "counts", "starts", "bucket",
+                         "overflow")
+             if not torch.equal(getattr(a_n, k), getattr(b_n, k))]
+    if diff or not torch.equal(a_state.active, b_state.active):
+        raise AssertionError(f"flat rebuild reruns differ: {diff}")
+    say(phase, "flat rebuild run twice on the same card state: equal bit for "
+               "bit (rows, active, cell, key, rank, counts, starts, bucket, "
+               "overflow)")
+
+
+def flat_overflow(system, state) -> int:
+    """The overflow (largest cell count past cap) of a flat rebuild of
+    ``state``: rows the bucket table drops. Non-zero is a finding."""
+    _, nbrs = system.engine.rebuild(state)
+    return int(nbrs.overflow)
+
+
+def flat_phases(dev, card, counters) -> None:
+    """Phases 35-39: the flat layout and float64 on the card."""
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import (
+        collapse_dry as cd, full_hopkins_perturbed_witch as fh,
+        hopkins_perturbed_witch as hp, hopkins_total_witch as ht,
+        pavelka_total_witch as pv, rayleigh_benard as rb,
+        wcsph_perturbed_witch as w,
+    )
+    from sph_mountain_waves_tpu_torch.models.witch_common import (
+        WitchConfig, velocity_diagnostics,
+    )
+
+    # 35: the flagship's flat path at full width, f32 and f64
+    for dtype in ("float32", "float64"):
+        cfg = WitchConfig(n_rows=N_ROWS, layout="flat", skin=0.0,
+                          self_density=True, dtype=dtype)
+        system, state = flat_frames(35, f"flagship flat {dtype}", w, cfg, dev,
+                                    card, counters, steps_per_frame=20)
+        if system.n_built != EXPECT["n"]:
+            raise AssertionError(f"flagship flat: N={system.n_built}")
+        step = w.make_step(cfg, system.engine)
+        profile_steps(35, f"flagship flat {dtype}", step, state, n_steps=5,
+                      table=False)
+        if dtype == "float64":
+            flat_rebuild_twice(35, system.engine, state)
+            one, two = step(state), step(state)
+            if not all(torch.equal(one.fields[k], two.fields[k])
+                       for k in one.fields):
+                raise AssertionError("flat f64 step reruns differ")
+            say(35, "flagship flat f64: one step run twice on the same card "
+                    "state: equal bit for bit")
+        del system, state
+        torch.cuda.empty_cache()
+
+    # 36: collapse_dry.run at its defaults (f64 flat, dr 0.015), 3 frames of
+    # 222 steps (666), writing its files
+    cfg0 = cd.Config()
+    cfg = dataclasses.replace(cfg0, t_end=666 * cfg0.dt, n_frames=3,
+                              checkpoint_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = cd.run(cfg, out_path=tmp, device=dev)
+        secs = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+        check_run_files("collapse_dry", files,
+                        ["checkpoint.npz", "data.csv", "frame0.vtp",
+                         "frame1.vtp", "frame2.vtp", "frame3.vtp",
+                         "result.pvd"], ["dambreak_H.pdf", "dambreak_X.pdf"])
+    final, sysm = out["state"], out["system"]
+    if (not all_finite(final) or int(final.n) != sysm.n_built
+            or final.fields["x"].dtype != torch.float64
+            or sysm.engine.layout != "flat"):
+        raise AssertionError(f"collapse_dry defaults: finite "
+                             f"{all_finite(final)}, active {int(final.n)}/"
+                             f"{sysm.n_built}, {final.fields['x'].dtype}")
+    step, _ = cd.make_step(cfg, sysm.engine)
+    profile_steps(36, "collapse_dry flat f64", step, final, table=False)
+    drift = abs(out["E"][-1] / out["E"][0] - 1.0)
+    say(36, f"collapse_dry.run(Config()) at its defaults (f64 flat, dr "
+            f"{cfg.dr}): N={sysm.n_built} flat grid {sysm.engine.lims} cap "
+            f"{sysm.engine.cap} pair mode {sysm.engine.pair_mode}; 666 steps "
+            f"in {secs:.2f} s = {1e3 * secs / 666:.3f} ms/step (set-up and "
+            f"files included); wrote {files}; X {out['X'][-1]:.4f} H "
+            f"{out['H'][-1]:.4f}, E drift {drift:.3e}; overflow "
+            f"{flat_overflow(sysm, final)} ({card})")
+
+    # 37: rayleigh_benard.Config() at its flat default, 3 frames of 100 steps
+    cfg0 = rb.Config()
+    cfg = dataclasses.replace(cfg0, t_end=300 * cfg0.dt, n_frames=3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = rb.run(cfg, device=dev)
+    secs = time.perf_counter() - t0
+    final, sysm = out["state"], out["system"]
+    profile_steps(37, "rayleigh_benard flat f32",
+                  rb.make_step(cfg, sysm.engine), final, table=False)
+    if (not all_finite(final) or int(final.n) != sysm.n_built
+            or sysm.engine.layout != "flat"
+            or not np.all(np.isfinite(out["Nu"]))):
+        raise AssertionError(f"rayleigh_benard defaults: finite "
+                             f"{all_finite(final)}, active {int(final.n)}/"
+                             f"{sysm.n_built}, Nu {out['Nu']}")
+    say(37, f"rayleigh_benard.run(Config()) at its flat default "
+            f"({cfg.dtype}): N={sysm.n_built} flat grid {sysm.engine.lims} cap "
+            f"{sysm.engine.cap} pair mode {sysm.engine.pair_mode}; 300 steps "
+            f"in {secs:.2f} s = {1e3 * secs / 300:.3f} ms/step (set-up "
+            f"included); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; KE "
+            f"{out['KE'][-1]:.4e} Nu {out['Nu'][-1]:.6f}; overflow "
+            f"{flat_overflow(sysm, final)} ({card})")
+
+    # 38: the mountain-wave schemes at their default configurations
+    # (WitchConfig(): n_rows 75, f32 flat, skin 0), two frames each through
+    # run(); hopkins_total and Pavelka after their packings
+    for label, module, cfg in (
+            ("flagship", w, WitchConfig()),
+            ("hopkins_perturbed", hp, WitchConfig()),
+            ("full_hopkins", fh, WitchConfig()),
+            ("hopkins_total", ht, WitchConfig()),
+            ("pavelka", pv, pv.PavelkaConfig())):
+        steps_per_frame = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
+        cfg = dataclasses.replace(cfg, t_end=2 * steps_per_frame * cfg.dt,
+                                  n_frames=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out = module.run(cfg, out_path=tmp, device=dev)
+            secs = time.perf_counter() - t0
+            files = sorted(os.listdir(tmp))
+        final, sysm = out["state"], out["system"]
+        if (not all_finite(final) or sysm.engine.layout != "flat"
+                or "frame2.vtp" not in files
+                or not np.all(np.isfinite(out["u_max"]))):
+            raise AssertionError(f"{label} defaults: finite "
+                                 f"{all_finite(final)}, files {files}")
+        say(38, f"{label}.run at its default config (f32 flat, n_rows "
+                f"{cfg.n_rows}): N={sysm.n_built} flat grid "
+                f"{sysm.engine.lims} cap {sysm.engine.cap} pair mode "
+                f"{sysm.engine.pair_mode}; {2 * steps_per_frame} steps in "
+                f"{secs:.2f} s (set-up{' and packing' if module in (ht, pv) else ''}"
+                f" included); active {int(final.n)}/{sysm.n_built}; u_max "
+                f"{out['u_max'][-1]:.4e} m/s; overflow "
+                f"{flat_overflow(sysm, final)}; wrote {len(files)} files "
+                f"({card})")
+
+    # 39: the reference's two cross-layout gates on the card: the hand
+    # kernels on f32 bucket (skin 0.2) against the flat f64 path (skin 0)
+    series = {}
+    for tag, kw in (("flat", dict(dtype="float64", layout="flat", skin=0.0)),
+                    ("bucket", dict(dtype="float32", layout="bucket",
+                                    skin=0.2, use_pallas=True))):
+        cfg = WitchConfig(n_rows=14, self_density=True, **kw)
+        sysm = w.make_system(cfg)
+        state = sysm.freeze(device=dev)
+        step = w.make_step(cfg, sysm.engine)
+        rows = []
+        for k in range(200):
+            state = step(state)
+            if (k + 1) % 50 == 0:
+                rows.append([float(v) for v in velocity_diagnostics(state)])
+        series[tag] = np.asarray(rows)
+    rel = np.abs(series["bucket"] / series["flat"] - 1.0).max()
+    if not rel < 1e-3:
+        raise AssertionError(f"flagship cross-layout gate: rel {rel}")
+    say(39, f"flagship cross-layout gate (n_rows 14, 200 steps, u_avg/u_max "
+            f"every 50): f32 bucket (kernels) vs f64 flat, max rel diff "
+            f"{rel:.3e} < 1e-3; f64 flat u_max {series['flat'][-1, 1]:.6e}")
+    series = {}
+    for tag, kw in (("flat", dict(dtype="float64", layout="flat", skin=0.0)),
+                    ("bucket", dict(dtype="float32", layout="bucket",
+                                    skin=0.2, use_pallas=True))):
+        out = cd.run(cd.Config(dr=0.05, t_end=0.5, n_frames=10, **kw),
+                     device=dev)
+        series[tag] = np.stack([out["X"], out["H"], out["E"]])
+    rel = np.abs(series["bucket"] / series["flat"] - 1.0).max()
+    if not rel < 1e-3:
+        raise AssertionError(f"dam-break cross-layout gate: rel {rel}")
+    say(39, f"dam-break cross-layout gate (dr 0.05, t_end 0.5, 10 frames, "
+            f"X/H/E): f32 bucket (kernels) vs f64 flat, max rel diff "
+            f"{rel:.3e} < 1e-3; f64 flat X {series['flat'][0, -1]:.6f} H "
+            f"{series['flat'][1, -1]:.6f}")
+
+    # the routes the card refuses: a bucket state without use_pallas, and a
+    # float64 bucket state
+    for kw, err in ((dict(dtype="float32", use_pallas=False), ValueError),
+                    (dict(dtype="float64", use_pallas=True),
+                     NotImplementedError)):
+        cfg = WitchConfig(n_rows=10, layout="bucket", skin=0.15, **kw)
+        sysm = w.make_system(cfg)
+        state = sysm.freeze(device=dev)
+        try:
+            w.make_step(cfg, sysm.engine)(state)
+        except err:
+            continue
+        raise AssertionError(f"a bucket state with {kw} was not refused")
+    say(39, "a CUDA bucket state with use_pallas=False and a float64 bucket "
+            "state are refused")
 
 
 def main(profile: bool) -> None:
@@ -2086,6 +2384,8 @@ def main(profile: bool) -> None:
     full_runs_phase(dev)
     # 34: the dam break against the Violeau curve
     violeau_phase(dev, card)
+    # 35-39: the flat layout and float64
+    flat_phases(dev, card, counters)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):

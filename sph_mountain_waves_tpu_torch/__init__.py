@@ -10,22 +10,23 @@ use, each with a plain PyTorch twin that CPU tensors take. Entry points
 (``ParticleSystem.freeze``, each scheme's ``run``) run on the card unless
 the caller asks for the CPU.
 
-Ported so far, all on the float32 bucket layout. In 2-D: the WCSPH
+Ported so far, on the float32 bucket layout. In 2-D: the WCSPH
 mountain-wave flagship (``models.wcsph_perturbed_witch``), the three
 pressure–entropy (Hopkins) schemes (``models.hopkins_perturbed_witch``,
 ``models.full_hopkins_perturbed_witch``, ``models.hopkins_total_witch`` with
 ``utils.packing.hydrostatic_packing``), the entropy-based (Pavelka) scheme
-(``models.pavelka_total_witch`` with ``utils.packing.colagrossi_packing``)
-and the dam break (``models.collapse_dry``). In 3-D, on the 27-cell stencil:
-the mountain wave (``models.witch3d``) and the dam break
-(``models.collapse3d``). And the terrain family (``models.legacy_witch``:
-isothermal and adiabatic, static and flow, with inflow recycling and the
-sort rescatter). They run on eighteen pair sweeps: density and momentum (2-D
-and 3-D), the Hopkins pressure root and momentum, the Pavelka continuity and
-fused momentum + entropy sweeps, the packing's ∇Γ sum, the dam-break
-continuity and force (2-D and 3-D), the legacy continuity and force (fixed
-and per-particle h) and the fused adiabatic entropy + force sweep; and every
-scheme's ``run``
+(``models.pavelka_total_witch`` with ``utils.packing.colagrossi_packing``),
+the dam break (``models.collapse_dry``), the ISPH mountain wave
+(``models.isph_witch``) and Rayleigh–Bénard convection
+(``models.rayleigh_benard``). In 3-D, on the 27-cell stencil: the mountain
+wave (``models.witch3d``) and the dam break (``models.collapse3d``). And the
+terrain family (``models.legacy_witch``: isothermal and adiabatic, static
+and flow, with inflow recycling and the sort rescatter). They run on
+twenty-two hand-written pair sweeps. On the flat layout (rows sorted by
+cell at every rebuild), in float32 or float64, the 2-D mountain-wave
+schemes, the dam break and Rayleigh–Bénard also run, at their configs'
+defaults, their pair sums taken by ``ops.apply.apply_binary`` in plain
+PyTorch (the reference takes XLA pair sums there). Every scheme's ``run``
 writes its files (``io``: PVD/VTP frames and ``data.csv``;
 ``utils.checkpoint``: bitwise checkpoint and resume).
 """
@@ -42,7 +43,7 @@ from .grids import Grid, Squaregrid, Hexagrid, CubicGrid, dimension, covering  #
 from .kernels import wendland2, rDwendland2, wendland3, rDwendland3  # noqa: E402
 from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
 from .ops.neighbors import NeighborEngine, Neighbors, sorted_slot_scatter  # noqa: E402
-from .ops.apply import apply_unary  # noqa: E402
+from .ops.apply import apply_binary, apply_unary, pair_sum  # noqa: E402
 from .interop import state_from_numpy, state_to_numpy  # noqa: E402
 from .io import (  # noqa: E402
     DataStorage, new_pvd_file, save_pvd_file, save_frame, import_particles,

@@ -8,8 +8,9 @@ a high bucket capacity (h = 2·dr gives ~27 lattice points per cell).
 The two pair sums of a step are the 3-D forms of ``dambreak_mass_pass`` and
 ``dambreak_force_pass`` (``ops/pair_sweeps.py``), called through their
 wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors.
-Only the float32 bucket layout is ported: the config's defaults
-(``layout="flat"``, ``dtype="float64"``) are the reference's and raise here.
+Only the float32 bucket layout is ported for it: the config's defaults
+(``layout="flat"``, ``dtype="float64"``) are the reference's and raise here
+(``require_bucket_float32``).
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ from ..grids import Grid
 from ..ops.apply import apply_unary
 from ..ops.pair_sweeps import dambreak_force_pass, dambreak_mass_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .collapse_dry import check_ported
-from .common import check_sweep_route, frame_runner, masked_sum
+from .common import (
+    check_sweep_route, frame_runner, masked_sum, require_bucket_float32,
+)
 
 FLUID = 0.0
 WALL = 1.0
@@ -71,7 +73,7 @@ class Config:
 
 
 def make_system(cfg: Config) -> ParticleSystem:
-    check_ported(cfg)
+    require_bucket_float32(cfg, "collapse3d")
     grid = Grid(cfg.dr, "cubic")
     box = Box(0.0, 0.0, 0.0, cfg.box_width, cfg.box_height, cfg.box_depth)
     fluid = Box(0.0, 0.0, 0.0, cfg.water_column_width,
@@ -112,7 +114,7 @@ def make_step(cfg: Config, engine):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * (u.a + gvec), u.v)}
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, move)
         state, _ = engine.rebuild(state)
         drho = state.fields["Drho"] + dambreak_mass_pass(engine, state, cfg)

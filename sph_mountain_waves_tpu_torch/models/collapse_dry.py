@@ -6,14 +6,15 @@ linear EOS, symmetric pressure + viscous forces, two-half-drift
 pressure-stabilised Verlet, and the wavefront X / column height H / total
 energy E observables.
 
-The two pair sums of a step are ``dambreak_mass_pass`` and
-``dambreak_force_pass`` (``ops/pair_sweeps.py``), called through their
-wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors.
-Only the float32 bucket layout is ported: the config's defaults
-(``layout="flat"``, ``dtype="float64"``) are the reference's and raise here.
-With an output directory ``run`` also writes ``plot_dambreak``'s figures
-(``utils/plots.py``); ``cfg.live_plot`` prints the X and H sparklines every
-frame.
+The config's defaults are the reference's: the flat layout in float64. There
+the two pair sums of a step are the reference's pair functions summed by
+``ops/apply.py::apply_binary`` on the state's device. On the float32 bucket
+layout they are ``dambreak_mass_pass`` and ``dambreak_force_pass``
+(``ops/pair_sweeps.py``), called through their wrappers: CUDA kernels on
+CUDA tensors, plain PyTorch twins on CPU tensors; a float64 bucket state
+raises. With an output directory ``run`` also writes ``plot_dambreak``'s
+figures (``utils/plots.py``); ``cfg.live_plot`` prints the X and H
+sparklines every frame.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 
 from ..geometry import BoundaryLayer, Rectangle, Specification
 from ..grids import Grid
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import dambreak_force_pass, dambreak_mass_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
 from .common import (
@@ -55,11 +57,13 @@ class Config:
     t_end: float = 4.0
     n_frames: int = 200
     dtype: str = "float64"
-    # only layout="bucket" with dtype="float32" is ported
+    # "flat" (float32 or float64: ops/apply.py's pair sums) or "bucket"
+    # (float32: the sweeps)
     layout: str = "flat"
     skin: float = 0.0
-    # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
-    # take the plain twins either way); a CUDA state with False is refused
+    # bucket layout: the pair sweeps launch their CUDA kernels on CUDA
+    # tensors (CPU tensors take the plain twins either way); a CUDA bucket
+    # state with False is refused. The flat layout ignores it.
     use_pallas: bool = False
     # write <out_path>/checkpoint.npz every this many frames (0: off) and on
     # the last; resume: path of a checkpoint to continue from, bitwise
@@ -85,17 +89,8 @@ class Config:
         return 2.5 * self.dr
 
 
-def check_ported(cfg) -> None:
-    """Refuse what the dam-break port does not cover yet."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: only float32 states are ported (the "
-            "float64 flat-layout path belongs to a later slice)")
-
-
 def make_system(cfg: Config) -> ParticleSystem:
     """Geometry + hydrostatic init."""
-    check_ported(cfg)
     grid = Grid(cfg.dr, "hexagonal")
     box = Rectangle(0.0, 0.0, cfg.box_width, cfg.box_height)
     fluid = Rectangle(0.0, 0.0, cfg.water_column_width, cfg.water_column_height)
@@ -104,7 +99,8 @@ def make_system(cfg: Config) -> ParticleSystem:
 
     sys = ParticleSystem(
         fields={"x": 2, "v": 2, "Dv": 2, "rho": 0, "Drho": 0, "P": 0, "type": 0},
-        domain=box + walls, h=cfg.h, dim=2, dtype=torch.float32)
+        domain=box + walls, h=cfg.h, dim=2,
+        dtype=torch.float64 if cfg.dtype == "float64" else torch.float32)
     sys.freeze_opts = {"layout": cfg.layout, "skin": cfg.skin}
     generate_particles(sys, grid, fluid, lambda xs: {"type": FLUID})
     generate_particles(sys, grid, walls, lambda xs: {"type": WALL})
@@ -121,7 +117,27 @@ def make_step(cfg: Config, engine):
     if engine is None:
         raise ValueError("make_step needs the system's engine: call "
                          "sys.freeze() before make_step(cfg, sys.engine)")
-    dt, c, rho0, g = cfg.dt, cfg.c, cfg.rho0, cfg.g
+    dt, m, c, rho0, mu, nu, g = (cfg.dt, cfg.m, cfg.c, cfg.rho0, cfg.mu,
+                                 cfg.nu, cfg.g)
+    h = cfg.h
+
+    def balance_of_mass(p, q, r):
+        # Drho += m rDW (x_pq·v_pq + 2 ν (ρ_p − ρ_q))
+        ker = m * rDwendland2(h, r)
+        x_pq = p.x - q.x
+        v_pq = p.v - q.v
+        return {"Drho": ker * (torch.sum(x_pq * v_pq, dim=-1)
+                               + 2.0 * nu * (p.rho - q.rho))}
+
+    def internal_force(p, q, r):
+        # symmetric pressure + viscous force, on FLUID rows only
+        ker = m * rDwendland2(h, r)
+        x_pq = p.x - q.x
+        v_pq = p.v - q.v
+        fluid = p.type == FLUID
+        dv = (-(ker * (p.P / p.rho**2 + q.P / q.rho**2))[..., None] * x_pq
+              + (2.0 * ker * mu / rho0**2)[..., None] * v_pq)
+        return {"Dv": torch.where(fluid[..., None], dv, 0.0)}
 
     def find_pressure(u):
         rho = u.rho + u.Drho * dt
@@ -140,31 +156,34 @@ def make_step(cfg: Config, engine):
         gvec[:, 1] = g
         return {"v": torch.where(fluid, u.v + 0.5 * dt * (u.Dv + gvec), u.v)}
 
-    def mass(state):
+    sweeps = engine.layout == "bucket"
+
+    def mass(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, balance_of_mass)
         drho = state.fields["Drho"] + dambreak_mass_pass(engine, state, cfg)
         return state.replace(Drho=torch.where(state.active, drho, 0.0))
 
-    def force(state):
+    def force(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, internal_force)
         dv = state.fields["Dv"] + torch.stack(
             dambreak_force_pass(engine, state, cfg), dim=-1)
         return state.replace(Dv=torch.where(state.active[:, None], dv, 0.0))
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
-        state = mass(state)
+        state = mass(*engine.rebuild(state))
         state = apply_unary(state, find_pressure)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
-        state = force(state)
+        state = force(*engine.rebuild(state))
         return apply_unary(state, accelerate)
 
     def init_forces(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
-        state, _ = engine.rebuild(state)
-        return force(state)
+        check_sweep_route(cfg, state, engine)
+        return force(*engine.rebuild(state))
 
     return step, init_forces
 

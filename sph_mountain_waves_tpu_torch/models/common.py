@@ -14,7 +14,8 @@ import torch
 from ..structs import ParticleState
 
 __all__ = ["frame_runner", "masked_mean", "masked_max", "masked_sum",
-           "check_sweep_route", "maybe_resume", "maybe_checkpoint"]
+           "check_sweep_route", "require_bucket_float32", "maybe_resume",
+           "maybe_checkpoint"]
 
 
 def maybe_resume(cfg, state: ParticleState):
@@ -45,17 +46,43 @@ def maybe_checkpoint(cfg, out, state: ParticleState, engine, k, t, frame, *,
                     engine=engine, extra={"step": k, "t": t})
 
 
-def check_sweep_route(cfg, state: ParticleState) -> None:
-    """Refuse a CUDA state with ``cfg.use_pallas`` off. The steps always
-    call the sweep wrappers, which launch the CUDA kernels on CUDA tensors
-    and take the plain twins on CPU tensors; the port has no XLA-style pair
-    path to fall back to, and the twins are test oracles, never a card
-    path."""
+def check_sweep_route(cfg, state: ParticleState, engine) -> None:
+    """Refuse a state the step's pair path cannot take. A flat state runs
+    the pair operator ``ops/apply.py::apply_binary`` on its own device, as
+    the reference takes its XLA pair sums off the bucket layout. A bucket
+    state runs the sweep wrappers, which launch the CUDA kernels on CUDA
+    tensors and take the plain twins on CPU tensors: so on the card it needs
+    ``cfg.use_pallas`` (the twins are test oracles, never a card path), and
+    it must be float32 (the kernels are; the reference's float64 bucket
+    path, its resident XLA pair sum, is not ported)."""
+    if engine.layout == "flat":
+        return
+    if state.fields["x"].dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {state.fields['x'].dtype} state on the bucket layout: the "
+            "bucket layout's sweeps are float32 (float64 runs on the flat "
+            "layout)")
     if not cfg.use_pallas and state.active.device.type == "cuda":
         raise ValueError(
             "use_pallas=False on a CUDA state: the port's only pair path on "
-            "the card is its CUDA kernels (the plain twins are test oracles "
-            "and run on CPU tensors only); set use_pallas=True")
+            "the card's bucket layout is its CUDA kernels (the plain twins "
+            "are test oracles and run on CPU tensors only); set "
+            "use_pallas=True, or take the flat layout")
+
+
+def require_bucket_float32(cfg, scheme: str, layout=None) -> None:
+    """Refuse what a scheme ported on the float32 bucket layout only does
+    not cover: ``dtype`` other than float32, and ``layout`` (default
+    ``cfg.layout``) other than "bucket"."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: {scheme} is ported on float32 states only "
+            "(its float64 flat-layout path belongs to a later slice)")
+    layout = cfg.layout if layout is None else layout
+    if layout != "bucket":
+        raise NotImplementedError(
+            f"layout={layout!r}: {scheme} is ported on the bucket layout "
+            "only (its flat-layout path belongs to a later slice)")
 
 
 def frame_runner(step_fn: Callable[[ParticleState], ParticleState],

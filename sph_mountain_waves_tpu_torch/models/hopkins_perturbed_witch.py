@@ -7,17 +7,20 @@ smoothed pressure is P̄ = (Σ m A^{1/γ} W)^γ with P′ = P̄ − P_bg; moment
 the WCSPH scheme's perturbation form + Monaghan artificial viscosity;
 per-particle adaptive h = η√(m/ρ).
 
-The step's three pair sums are the sweeps of ``ops/pair_sweeps.py``
-(density, pressure, momentum), called through their wrappers: CUDA kernels
-on CUDA tensors, plain twins on CPU tensors. ``_make_step`` also builds the
+On the bucket layout the step's three pair sums are the sweeps of
+``ops/pair_sweeps.py`` (density, pressure, momentum), called through their
+wrappers: CUDA kernels on CUDA tensors, plain twins on CPU tensors. On the
+flat layout (float32 or float64) they are the reference's pair functions
+summed by ``ops/apply.py::apply_binary``. ``_make_step`` also builds the
 full Hopkins step (``full_hopkins_perturbed_witch``), which differs only in
-its background entropy and its momentum sweep.
+its background entropy and its momentum.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2, wendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import (
     density_pass, hopkins_momentum_pass, momentum_pass, pressure_pass,
 )
@@ -25,7 +28,7 @@ from ..structs import ParticleState, ParticleSystem
 from .common import check_sweep_route
 from .witch_common import (
     FLUID, WitchConfig, background_density_t, background_pot_temperature_t,
-    make_witch_system, rayleigh_damping,
+    make_witch_system, monaghan_viscosity, rayleigh_damping,
 )
 from . import wcsph_perturbed_witch as _wcsph
 
@@ -54,6 +57,13 @@ def _make_step(cfg: WitchConfig, engine, full: bool):
                          "sys.freeze() before make_step(cfg, sys.engine)")
     dt = cfg.dt
 
+    def reset_density(u):
+        return {"rho": torch.zeros_like(u.rho),
+                "rho_p": torch.zeros_like(u.rho_p)}
+
+    def compute_density(p, q, r):
+        return {"rho": q.m * wendland2(p.h, r)}
+
     def finalize_density(u):
         rho_bg = background_density_t(cfg, u.x[:, 1])
         return {"rho_bg": rho_bg, "rho_p": u.rho - rho_bg}
@@ -61,6 +71,14 @@ def _make_step(cfg: WitchConfig, engine, full: bool):
     def update_smoothing(u):
         rho = torch.clamp(u.rho, min=cfg.rho_floor)
         return {"h": cfg.eta * torch.sqrt(u.m / rho)}
+
+    def reset_pressure(u):
+        return {"P": torch.zeros_like(u.P), "P_p": torch.zeros_like(u.P_p)}
+
+    def compute_pressure(p, q, r):
+        # P += m_q A_q^(1/γ) W(h_ij, r)
+        ker = wendland2(0.5 * (p.h + q.h), r)
+        return {"P": q.m * q.A ** (1.0 / cfg.gamma) * ker}
 
     def finalize_pressure(u):
         P = u.P ** cfg.gamma
@@ -81,6 +99,38 @@ def _make_step(cfg: WitchConfig, engine, full: bool):
         return {"theta": theta, "theta_bg": theta_bg,
                 "theta_p": theta - theta_bg}
 
+    def perturbation_momentum(p, q, r):
+        # perturbation pressure gradient + artificial viscosity
+        h_ij = 0.5 * (p.h + q.h)
+        ker = rDwendland2(h_ij, r)
+        prho = torch.clamp(p.rho, min=cfg.rho_floor)
+        qrho = torch.clamp(q.rho, min=cfg.rho_floor)
+        dv = -(q.m * (p.P_p / prho**2 + q.P_p / qrho**2)
+               * ker)[..., None] * (p.x - q.x)
+        return {"Dv": dv + monaghan_viscosity(cfg, p, q, r, h_ij)}
+
+    def split_momentum(p, q, r):
+        # the Hopkins two-kernel gradient on the total state minus the same
+        # form on the background state
+        x_pq = p.x - q.x
+        expfac = 1.0 - 2.0 / cfg.gamma
+        ker_i = rDwendland2(p.h, r)
+        ker_j = rDwendland2(q.h, r)
+
+        prefac = q.m * (p.A * q.A) ** (1.0 / cfg.gamma)
+        pP = torch.clamp(p.P, min=cfg.P_floor)
+        qP = torch.clamp(q.P, min=cfg.P_floor)
+        a_tot = -(prefac * (pP**expfac * ker_i
+                            + qP**expfac * ker_j))[..., None] * x_pq
+
+        prefac_bg = q.m * (p.A_bg * q.A_bg) ** (1.0 / cfg.gamma)
+        pPb = torch.clamp(p.P_bg, min=cfg.P_floor)
+        qPb = torch.clamp(q.P_bg, min=cfg.P_floor)
+        a_bg = -(prefac_bg * (pPb**expfac * ker_i
+                              + qPb**expfac * ker_j))[..., None] * x_pq
+
+        return {"Dv": a_tot - a_bg + monaghan_viscosity(cfg, p, q, r)}
+
     def move(u):
         fluid = (u.type == FLUID)[:, None]
         return {"x": torch.where(fluid, u.x + dt * u.v, u.x)}
@@ -93,32 +143,52 @@ def _make_step(cfg: WitchConfig, engine, full: bool):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v),
                 "Dv": torch.zeros_like(u.Dv)}
 
-    def momentum(state):
+    sweeps = engine.layout == "bucket"
+
+    def density(state, nbrs):
+        if not sweeps:
+            state = apply_unary(state, reset_density)
+            return apply_binary(engine, state, nbrs, compute_density,
+                                self_interaction=cfg.self_density)
+        rho = density_pass(engine, state, cfg)
+        return state.replace(rho=torch.where(state.active, rho, 0.0))
+
+    def pressure(state, nbrs):
+        if not sweeps:
+            state = apply_unary(state, reset_pressure)
+            return apply_binary(engine, state, nbrs, compute_pressure,
+                                self_interaction=cfg.self_density)
+        Proot = pressure_pass(engine, state, cfg)
+        return state.replace(P=torch.where(state.active, Proot, 0.0))
+
+    def momentum(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, split_momentum if full
+                                else perturbation_momentum)
         if full:
-            return hopkins_momentum_pass(engine, state, cfg,
-                                         background_split=True)
-        return momentum_pass(engine, state, cfg)
+            dv0, dv1 = hopkins_momentum_pass(engine, state, cfg,
+                                             background_split=True)
+        else:
+            dv0, dv1 = momentum_pass(engine, state, cfg)
+        Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
+        return state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
 
-        rho = density_pass(engine, state, cfg)
-        state = state.replace(rho=torch.where(state.active, rho, 0.0))
+        state = density(state, nbrs)
         state = apply_unary(state, finalize_density)
         state = apply_unary(state, update_smoothing)
 
-        Proot = pressure_pass(engine, state, cfg)
-        state = state.replace(P=torch.where(state.active, Proot, 0.0))
+        state = pressure(state, nbrs)
         state = apply_unary(state, finalize_pressure)
         state = apply_unary(state, find_temperature)
         state = apply_unary(state, find_pot_temp)
 
-        dv0, dv1 = momentum(state)
-        Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
-        state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+        state = momentum(state, nbrs)
         return apply_unary(state, accelerate)
 
     return step

@@ -18,10 +18,12 @@ the two-level V-cycle of ``ops/mg.py`` ("mg": additive, "mg_mult":
 symmetrized multiplicative) or Jacobi; the solve is ``ops/solvers.pcg``,
 whose stop test is read on the host once per iteration.
 
-Only the float32 bucket layout with the kernels is ported: ``layout="flat"``
-and ``dtype="float64"`` raise, a CUDA state with ``use_pallas`` off is
-refused (``check_sweep_route``) and so is a sharded engine. (The reference's
-fallback from "mg" to Jacobi on a flat engine cannot arise.)
+Only the float32 bucket layout with the kernels is ported for ISPH:
+``layout="flat"`` and ``dtype="float64"`` raise (its flat path needs
+``ops/solvers.py``'s assembled operators, not ported yet), a CUDA state with
+``use_pallas`` off is refused (``check_sweep_route``) and so is a sharded
+engine. (The reference's fallback from "mg" to Jacobi on a flat engine
+cannot arise.)
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ..ops.pair_sweeps import (
 )
 from ..ops.solvers import pcg
 from ..structs import ParticleState, ParticleSystem
-from .common import check_sweep_route
+from .common import check_sweep_route, require_bucket_float32
 from .witch_common import (
     FLUID, WitchConfig, background_pot_temperature_t, make_witch_system,
     rayleigh_damping,
@@ -76,10 +78,7 @@ class ISPHWitchConfig(WitchConfig):
 
 def check_ported(cfg: ISPHWitchConfig) -> None:
     """Refuse what the ISPH port does not cover."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: only float32 states are ported (the "
-            "float64 flat-layout path belongs to a later slice)")
+    require_bucket_float32(cfg, "isph_witch")
     if cfg.precond not in PRECONDITIONERS:
         raise ValueError(f"precond must be one of {PRECONDITIONERS}, got "
                          f"{cfg.precond!r}")
@@ -163,7 +162,7 @@ def make_step(cfg: ISPHWitchConfig, engine):
                    maxiter=cfg.cg_maxiter, return_info=True)
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, initialize)
         state, _ = engine.rebuild(state)
         # one sweep gives the raw spline sums; the p-constant factors of the

@@ -23,9 +23,10 @@ their wrappers (CUDA kernels on CUDA tensors, plain twins on CPU tensors):
 baseline), ``iso_static_mass_pass`` and ``iso_static_force_pass``
 (isothermal static), ``adia_density_pass`` and the fused
 ``adia_entropy_force_pass`` (adiabatic). A CUDA state with ``cfg.use_pallas``
-off is refused. Only the float32 bucket layout is ported: ``dtype="float64"``
-raises, and so does the config's default ``layout="flat"`` unless
-``use_pallas`` is set (which takes the bucket layout, as in the reference).
+off is refused. Only the float32 bucket layout is ported for the terrain
+family: ``dtype="float64"`` raises, and so does the config's default
+``layout="flat"`` unless ``use_pallas`` is set (which takes the bucket
+layout, as in the reference).
 ``run`` writes the velocities figure; ``live_plot=True`` prints the
 sparklines every frame.
 """
@@ -46,8 +47,7 @@ from ..ops.pair_sweeps import (
     iso_static_mass_pass, legacy_force_pass, legacy_mass_pass,
 )
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .collapse_dry import check_ported
-from .common import check_sweep_route
+from .common import check_sweep_route, require_bucket_float32
 from .witch_common import witch_profile
 
 FLUID = 0.0
@@ -196,7 +196,8 @@ def make_system(cfg: LegacyConfig) -> ParticleSystem:
     MOUNTAIN body or the ``lj_floor``), the fence split into INFLOW and WALL
     for the flow variants, the hydrostatic init, and the engine options in
     ``freeze_opts``."""
-    check_ported(cfg)
+    require_bucket_float32(cfg, "legacy_witch", layout=(
+        "bucket" if cfg.use_pallas else cfg.layout))
     grid = Grid(cfg.dr, "hexagonal" if not cfg.flow else "square")
     domain = Rectangle(-cfg.dom_length / 2, 0.0, cfg.dom_length / 2,
                        cfg.dom_height)
@@ -632,7 +633,7 @@ def make_step(cfg: LegacyConfig, engine):
     slot_targeted = _slot_targeted(engine)
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
         need = None

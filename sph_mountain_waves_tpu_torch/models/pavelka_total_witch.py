@@ -10,10 +10,13 @@ S grows by viscous production; T follows from (ρ, s) by the GENERIC relation
 T = ρ^(γ−1)·exp(s/(ρ·c_v))/(c_v(γ−1)); P = RρT; the momentum carries a
 laminar Monaghan viscosity. The Colagrossi packing is its set-up.
 
-The step's two pair sums are the sweeps of ``ops/pair_sweeps.py``
-(``pavelka_mass_pass`` and the fused ``pavelka_momentum_entropy_pass``),
-called through their wrappers: CUDA kernels on CUDA tensors, plain twins on
-CPU tensors. A CUDA state with ``cfg.use_pallas`` off is refused.
+On the bucket layout the step's two pair sums are the sweeps of
+``ops/pair_sweeps.py`` (``pavelka_mass_pass`` and the fused
+``pavelka_momentum_entropy_pass``), called through their wrappers: CUDA
+kernels on CUDA tensors, plain twins on CPU tensors; a CUDA bucket state
+with ``cfg.use_pallas`` off is refused. On the flat layout (float32 or
+float64) the continuity, the entropy production and the momentum are the
+reference's three pair functions summed by ``ops/apply.py::apply_binary``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import pavelka_mass_pass, pavelka_momentum_entropy_pass
 from ..structs import ParticleState, ParticleSystem
 from .common import check_sweep_route
@@ -75,6 +79,37 @@ def make_step(cfg: PavelkaConfig, engine, parts: bool = False):
                          "sys.freeze() before make_step(cfg, sys.engine)")
     dt = cfg.dt
 
+    def balance_of_mass(p, q, r):
+        # Dρ += ρ_p (m_q/ρ_q) rDW(h_ij, r) x_pq·v_pq (+ diffusion, fluid-fluid)
+        ker = (q.m / q.rho) * rDwendland2(0.5 * (p.h + q.h), r)
+        conv = p.rho * ker * torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)
+        both = (p.type == FLUID) & (q.type == FLUID)
+        if cfg.fixed_diffusion:
+            diff = 2.0 * cfg.nu * (p.rho - q.rho) * ker
+        else:  # the reference-faithful form, numerically divergent
+            diff = 2.0 * cfg.nu / p.rho * (p.rho - q.rho)
+        return {"Drho": conv + torch.where(both, diff, 0.0)}
+
+    def entropy_production(p, q, r):
+        # viscous entropy production, fluid-fluid, dt baked in
+        both = (p.type == FLUID) & (q.type == FLUID)
+        ker = (q.m / q.rho) * rDwendland2(0.5 * (p.h + q.h), r)
+        dot_ux = torch.sum((p.v - q.v) * (p.x - q.x), dim=-1)
+        dS = (-4.0 * p.m * q.m * p.rho * ker * cfg.mu
+              / (p.T * p.rho * q.rho) * dot_ux**2
+              / (r * r + 0.01 * p.h * q.h) * dt)
+        return {"S": torch.where(both, dS, 0.0)}
+
+    def balance_of_momentum(p, q, r):
+        # pressure gradient + laminar Monaghan viscosity
+        ker = (q.m / q.rho) * rDwendland2(0.5 * (p.h + q.h), r)
+        x_pq = p.x - q.x
+        du = -(p.rho * ker * (p.P / p.rho**2 + q.P / q.rho**2))[..., None] * x_pq
+        visc = (p.rho * 8.0 * ker * cfg.mu / (p.rho * q.rho)
+                * torch.sum((p.v - q.v) * x_pq, dim=-1)
+                / (r * r + 0.0025 * (p.h + q.h) ** 2))
+        return {"Dv": du + visc[..., None] * x_pq}
+
     def balance_of_smoothing(u):
         return {"Dh": u.Dh - 0.5 * (u.h / u.rho) * u.Drho}
 
@@ -118,11 +153,19 @@ def make_step(cfg: PavelkaConfig, engine, parts: bool = False):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v),
                 "Dv": torch.zeros_like(u.Dv)}
 
-    def mass_sweep(state):
+    sweeps = engine.layout == "bucket"
+
+    def mass_sweep(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, balance_of_mass)
         Drho = state.fields["Drho"] + pavelka_mass_pass(engine, state, cfg)
         return state.replace(Drho=torch.where(state.active, Drho, 0.0))
 
-    def momentum_entropy_sweep(state, entropy: bool):
+    def momentum_entropy_sweep(state, nbrs, entropy: bool):
+        if not sweeps:
+            if entropy:
+                state = apply_binary(engine, state, nbrs, entropy_production)
+            return apply_binary(engine, state, nbrs, balance_of_momentum)
         dv0, dv1, dS = pavelka_momentum_entropy_pass(engine, state, cfg)
         act = state.active
         Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
@@ -132,25 +175,25 @@ def make_step(cfg: PavelkaConfig, engine, parts: bool = False):
         return state.replace(**new)
 
     def initial_passes(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
-        state, _ = engine.rebuild(state)
-        state = mass_sweep(state)
+        check_sweep_route(cfg, state, engine)
+        state, nbrs = engine.rebuild(state)
+        state = mass_sweep(state, nbrs)
         state = apply_unary(state, balance_of_smoothing)
         state = apply_unary(state, find_s)
         state = apply_unary(state, set_temperature)
         state = apply_unary(state, set_pressure)
-        return momentum_entropy_sweep(state, entropy=False)
+        return momentum_entropy_sweep(state, nbrs, entropy=False)
 
     if parts:
         return {"initial_passes": initial_passes}
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
 
-        state = mass_sweep(state)
+        state = mass_sweep(state, nbrs)
         state = apply_unary(state, balance_of_smoothing)
         state = apply_unary(state, update_smoothing)
         state = apply_unary(state, update_density)
@@ -160,7 +203,7 @@ def make_step(cfg: PavelkaConfig, engine, parts: bool = False):
         state = apply_unary(state, set_pressure)
         state = apply_unary(state, find_pot_temp)
         # fused sweep: entropy production and momentum share ker and x·v
-        state = momentum_entropy_sweep(state, entropy=True)
+        state = momentum_entropy_sweep(state, nbrs, entropy=True)
         return apply_unary(state, accelerate)
 
     return step

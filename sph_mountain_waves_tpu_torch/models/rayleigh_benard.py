@@ -16,16 +16,18 @@ Cleary–Monaghan conduction sweep:
 
 Dimensionless control: Ra = g β ΔT H³/(ν κ), Pr = ν/κ.
 
-A step has two rebuilds. After the first, the fused continuity + conduction
-sweep ``rb_mass_heat_pass``; after the second, the dam-break force sweep
+A step has two rebuilds. On the flat layout (the config's default, as in
+the reference; float32 or float64) the continuity and the conduction after
+the first and the force after the second are the reference's pair
+functions summed by ``ops/apply.py::apply_binary`` on the state's device.
+On the float32 bucket layout they are the fused continuity + conduction
+sweep ``rb_mass_heat_pass`` and the dam-break force sweep
 ``dambreak_force_pass`` (the config exposes m, h, μ and ρ0, which its body
-reads). Both are called through their wrappers: CUDA kernels on CUDA
-tensors, plain twins on CPU tensors.
-
-Only the float32 bucket layout with the kernels is ported: ``layout="flat"``
-(the config's default, as in the reference) and ``dtype="float64"`` raise,
-a CUDA state with ``use_pallas`` off is refused, and so is
-``conduction="rkpm"``, which runs on the reference's XLA pair path only.
+reads), called through their wrappers: CUDA kernels on CUDA tensors, plain
+twins on CPU tensors; a CUDA bucket state with ``use_pallas`` off is
+refused, and so is a float64 bucket state. ``conduction="rkpm"`` (the
+reference's RKPM-corrected Laplacian, ``utils/rkpm.py``) is not ported and
+raises.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import torch
 
 from ..geometry import BoundaryLayer, Rectangle
 from ..grids import Grid
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import dambreak_force_pass, rb_mass_heat_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
 from .common import (
@@ -71,15 +74,17 @@ class Config:
     # "conducting": sidewalls clamped to the conductive profile;
     # "adiabatic": zero-flux sidewalls (the published Nu(Ra) cavity)
     sidewalls: str = "conducting"
-    # "cleary" (the pair Laplacian); "rkpm" runs on the reference's XLA
-    # pair path only and is not ported
+    # "cleary" (the pair Laplacian); "rkpm" (the reference's RKPM-corrected
+    # Laplacian) is not ported
     conduction: str = "cleary"
     dtype: str = "float32"
-    # only layout="bucket" is ported
+    # "flat" (float32 or float64: ops/apply.py's pair sums) or "bucket"
+    # (float32: the sweeps)
     layout: str = "flat"
     skin: float = 0.0
-    # the sweeps launch their CUDA kernels on CUDA tensors (CPU tensors take
-    # the plain twins either way); a CUDA state with False is refused
+    # bucket layout: the sweeps launch their CUDA kernels on CUDA tensors
+    # (CPU tensors take the plain twins either way); a CUDA bucket state
+    # with False is refused. The flat layout ignores it.
     use_pallas: bool = False
     # write <out_path>/checkpoint.npz every this many frames (0: off) and on
     # the last; resume: path of a checkpoint to continue from, bitwise
@@ -126,16 +131,13 @@ class Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Refuse what the Rayleigh–Bénard port does not cover."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: only float32 states are ported (the "
-            "float64 flat-layout path belongs to a later slice)")
+    """Refuse what the Rayleigh–Bénard port does not cover (a float64
+    bucket state is refused at its first step, ``check_sweep_route``)."""
     if cfg.conduction != "cleary":
         raise NotImplementedError(
             f"conduction={cfg.conduction!r}: only the Cleary–Monaghan "
-            "conduction sweep is ported (the RKPM Laplacian runs on the "
-            "reference's XLA pair path, a later slice)")
+            "conduction is ported (the RKPM Laplacian, utils/rkpm.py, "
+            "belongs to a later slice)")
     if cfg.sidewalls not in ("conducting", "adiabatic"):
         raise ValueError(f"sidewalls must be 'conducting' or 'adiabatic', "
                          f"got {cfg.sidewalls!r}")
@@ -157,7 +159,8 @@ def make_system(cfg: Config) -> ParticleSystem:
     sys = ParticleSystem(
         fields={"x": 2, "v": 2, "Dv": 2, "rho": 0, "Drho": 0, "P": 0,
                 "T": 0, "DT": 0, "type": 0},
-        domain=box + walls, h=cfg.h, dim=2, dtype=torch.float32,
+        domain=box + walls, h=cfg.h, dim=2,
+        dtype=torch.float64 if cfg.dtype == "float64" else torch.float32,
         defaults={"rho": cfg.rho0})
     sys.freeze_opts = {"layout": cfg.layout, "skin": cfg.skin}
     generate_particles(sys, grid, box, lambda xs: {"type": FLUID})
@@ -183,8 +186,32 @@ def make_step(cfg: Config, engine):
         raise ValueError("make_step needs the system's engine: call "
                          "sys.freeze() before make_step(cfg, sys.engine)")
     check_ported(cfg)
-    dt, c, rho0 = cfg.dt, cfg.c, cfg.rho0
+    dt, m, c, rho0 = cfg.dt, cfg.m, cfg.c, cfg.rho0
+    h = cfg.h
+    mu = cfg.mu                    # dynamic viscosity
     T_ref = 0.5 * (cfg.T_hot + cfg.T_cold)
+
+    def balance_of_mass(p, q, r):
+        # continuity (the dam break's form, without its diffusion)
+        ker = m * rDwendland2(h, r)
+        return {"Drho": ker * torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)}
+
+    def heat_conduction(p, q, r):
+        # DT = κ·Σ 2 (m_q/ρ_q) (T_p − T_q) rDW on FLUID rows; a WALL_ADIA q
+        # exchanges no heat (zero-flux walls)
+        ker = 2.0 * m * cfg.kappa / q.rho * rDwendland2(h, r)
+        fluid_p = p.type == FLUID
+        conducts_q = q.type != WALL_ADIA
+        return {"DT": torch.where(fluid_p & conducts_q,
+                                  ker * (p.T - q.T), 0.0)}
+
+    def internal_force(p, q, r):
+        ker = m * rDwendland2(h, r)
+        fluid = p.type == FLUID
+        dv = (-(ker * (p.P / p.rho**2 + q.P / q.rho**2))[..., None]
+              * (p.x - q.x)
+              + (2.0 * ker * mu / rho0**2)[..., None] * (p.v - q.v))
+        return {"Dv": torch.where(fluid[..., None], dv, 0.0)}
 
     def find_pressure(u):
         rho = u.rho + u.Drho * dt
@@ -205,24 +232,35 @@ def make_step(cfg: Config, engine):
         acc = u.Dv + torch.stack([torch.zeros_like(buoy), buoy], dim=-1)
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v)}
 
-    def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
-        state = apply_unary(state, accelerate)
-        state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+    sweeps = engine.layout == "bucket"
+
+    def mass_heat(state, nbrs):
+        if not sweeps:
+            state = apply_binary(engine, state, nbrs, balance_of_mass)
+            return apply_binary(engine, state, nbrs, heat_conduction)
         drho, dT = rb_mass_heat_pass(engine, state, cfg)
         f = state.fields
         act = state.active
         fluid = f["type"] == FLUID
-        state = state.replace(
+        return state.replace(
             Drho=torch.where(act, f["Drho"] + drho, 0.0),
             DT=torch.where(act & fluid, f["DT"] + dT, 0.0))
-        state = apply_unary(state, find_pressure)
-        state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+
+    def force(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, internal_force)
         Dv = state.fields["Dv"] + torch.stack(
             dambreak_force_pass(engine, state, cfg), dim=-1)
-        state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+        return state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+
+    def step(state: ParticleState) -> ParticleState:
+        check_sweep_route(cfg, state, engine)
+        state = apply_unary(state, accelerate)
+        state = apply_unary(state, move)
+        state = mass_heat(*engine.rebuild(state))
+        state = apply_unary(state, find_pressure)
+        state = apply_unary(state, move)
+        state = force(*engine.rebuild(state))
         return apply_unary(state, accelerate)
 
     return step

@@ -7,10 +7,13 @@ perturbation P′ = c²ρ′; buoyancy −g ρ′/ρ; Rayleigh sponge; momentum 
 symmetric pressure gradient on P′ + Monaghan artificial viscosity; modified
 Verlet (kick, drift, rebuild, density, EOS, momentum, kick).
 
-The two pair sums are the sweeps of ``ops/pair_sweeps.py``, called through
-their wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU
-tensors. A CUDA state with ``cfg.use_pallas`` off is refused
-(``check_sweep_route``).
+On the bucket layout the two pair sums are the sweeps of
+``ops/pair_sweeps.py``, called through their wrappers: CUDA kernels on CUDA
+tensors, plain PyTorch twins on CPU tensors; a CUDA bucket state with
+``cfg.use_pallas`` off is refused (``check_sweep_route``). On the flat
+layout (float32 or float64) they are the reference's pair functions summed
+by ``ops/apply.py::apply_binary`` on the state's device, and the rebuild
+sorts the rows into cell order every step.
 
 ``_run_witch_scheme`` is the run skeleton that every mountain-wave scheme's
 ``run`` goes through.
@@ -22,7 +25,8 @@ import os
 import numpy as np
 import torch
 
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2, wendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import density_pass, momentum_pass
 from ..structs import ParticleState, ParticleSystem
 from .common import (
@@ -30,7 +34,8 @@ from .common import (
 )
 from .witch_common import (
     FLUID, WitchConfig, background_density_t, background_pot_temperature_t,
-    make_witch_system, rayleigh_damping, velocity_diagnostics,
+    make_witch_system, monaghan_viscosity, rayleigh_damping,
+    velocity_diagnostics,
 )
 
 FIELDS = {"h": 0, "x": 2, "m": 0, "v": 2, "Dv": 2,
@@ -56,6 +61,14 @@ def make_step(cfg: WitchConfig, engine):
                          "sys.freeze() before make_step(cfg, sys.engine)")
     dt = cfg.dt
 
+    def compute_density(p, q, r):
+        # ρ += m_q W(h_p, r)
+        return {"rho": q.m * wendland2(p.h, r)}
+
+    def reset_density(u):
+        return {"rho": torch.zeros_like(u.rho),
+                "rho_p": torch.zeros_like(u.rho_p)}
+
     def finalize_density(u):
         rho_bg = background_density_t(cfg, u.x[:, 1])
         return {"rho_bg": rho_bg, "rho_p": u.rho - rho_bg}
@@ -80,6 +93,16 @@ def make_step(cfg: WitchConfig, engine):
         return {"theta": theta, "theta_bg": theta_bg,
                 "theta_p": theta - theta_bg}
 
+    def balance_of_momentum(p, q, r):
+        # symmetric P' gradient + Monaghan artificial viscosity
+        x_pq = p.x - q.x
+        h_ij = 0.5 * (p.h + q.h)
+        ker = rDwendland2(h_ij, r)
+        prho = torch.clamp(p.rho, min=cfg.rho_floor)
+        qrho = torch.clamp(q.rho, min=cfg.rho_floor)
+        dv = -(q.m * (p.P_p / prho**2 + q.P_p / qrho**2) * ker)[..., None] * x_pq
+        return {"Dv": dv + monaghan_viscosity(cfg, p, q, r, h_ij)}
+
     def move(u):
         fluid = (u.type == FLUID)[:, None]
         return {"x": torch.where(fluid, u.x + dt * u.v, u.x)}
@@ -94,14 +117,21 @@ def make_step(cfg: WitchConfig, engine):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v),
                 "Dv": torch.zeros_like(u.Dv)}
 
+    sweeps = engine.layout == "bucket"
+
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
 
-        rho = density_pass(engine, state, cfg)
-        state = state.replace(rho=torch.where(state.active, rho, 0.0))
+        if sweeps:
+            rho = density_pass(engine, state, cfg)
+            state = state.replace(rho=torch.where(state.active, rho, 0.0))
+        else:
+            state = apply_unary(state, reset_density)
+            state = apply_binary(engine, state, nbrs, compute_density,
+                                 self_interaction=cfg.self_density)
         state = apply_unary(state, finalize_density)
         state = apply_unary(state, update_smoothing)
         # positions are unchanged and the cell size is fixed, so the
@@ -111,9 +141,13 @@ def make_step(cfg: WitchConfig, engine):
             state = apply_unary(state, find_temperature)
             state = apply_unary(state, find_pot_temp)
 
-        dv0, dv1 = momentum_pass(engine, state, cfg)
-        Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
-        state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+        if sweeps:
+            dv0, dv1 = momentum_pass(engine, state, cfg)
+            Dv = state.fields["Dv"] + torch.stack([dv0, dv1], dim=-1)
+            state = state.replace(
+                Dv=torch.where(state.active[:, None], Dv, 0.0))
+        else:
+            state = apply_binary(engine, state, nbrs, balance_of_momentum)
         return apply_unary(state, accelerate)
 
     return step

@@ -26,7 +26,7 @@ from ..grids import Grid
 from ..ops.apply import apply_unary
 from ..ops.pair_sweeps import density_pass, momentum_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .common import check_sweep_route
+from .common import check_sweep_route, require_bucket_float32
 from .wcsph_perturbed_witch import EXPORT_VARS, _run_witch_scheme
 from .witch_common import (
     FLUID, WALL, WitchConfig, background_density, background_density_t,
@@ -74,6 +74,7 @@ def stretch_config(**overrides) -> Witch3DConfig:
 def make_system(cfg: Witch3DConfig) -> ParticleSystem:
     """3-D domain + fence + mountain ridge with the hydrostatic isothermal
     initial state (mountain particles are FLUID, as in 2-D)."""
+    require_bucket_float32(cfg, "witch3d")
     grid = Grid(cfg.dr, cfg.lattice)
     domain = Box(-cfg.dom_length / 2.0, 0.0, 0.0,
                  cfg.dom_length / 2.0, cfg.dom_depth, cfg.dom_height)
@@ -122,7 +123,7 @@ def renormalize_mass(cfg: Witch3DConfig, engine, state: ParticleState
     density to the analytic hydrostatic background (see
     ``Witch3DConfig.renormalize``). Also calibrates fence-edge particles whose
     neighbourhoods are truncated. Converges to < 0.1 % in ~4 iterations."""
-    check_sweep_route(cfg, state)
+    check_sweep_route(cfg, state, engine)
     for _ in range(cfg.renorm_iters):
         state, _ = engine.rebuild(state)
         f = state.fields
@@ -184,7 +185,7 @@ def make_step(cfg: Witch3DConfig, engine):
                 "Dv": torch.zeros_like(u.Dv)}
 
     def step(state: ParticleState) -> ParticleState:
-        check_sweep_route(cfg, state)
+        check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
         state, _ = engine.rebuild(state)

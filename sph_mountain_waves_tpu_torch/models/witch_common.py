@@ -17,6 +17,7 @@ import torch
 
 from ..geometry import BoundaryLayer, Rectangle, Specification
 from ..grids import Grid
+from ..kernels import rDwendland2
 from ..structs import ParticleSystem, generate_particles
 from .common import masked_max, masked_mean
 
@@ -59,12 +60,15 @@ class WitchConfig:
     dtype: str = "float32"
     # include the kernel self-term in the density sum
     self_density: bool = False
-    # neighbor engine: only layout="bucket" is ported
+    # neighbor engine: "flat" (rows sorted at every rebuild, pair sums by
+    # ops/apply.py, float32 or float64) or "bucket" (rows are bucket slots,
+    # pair sums by the sweeps, float32); skin > 0 widens the cells to
+    # (1+skin)·h and defers the bucket rescatter
     layout: str = "flat"
     skin: float = 0.0
-    # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
-    # take the plain twins either way); a CUDA state with False is refused,
-    # since the port has no XLA-style pair path
+    # bucket layout: the pair sweeps launch their CUDA kernels on CUDA
+    # tensors (CPU tensors take the plain twins either way); a CUDA bucket
+    # state with False is refused. The flat layout ignores it.
     use_pallas: bool = False
     # T/θ materialize once per frame (make_finalize) instead of every step
     lazy_diagnostics: bool = False
@@ -260,6 +264,28 @@ def velocity_diagnostics(state):
     """(u_avg, u_max) over all active particles, as 0-d tensors."""
     v = torch.sqrt(torch.sum(state.fields["v"] ** 2, dim=-1))
     return masked_mean(v, state.active), masked_max(v, state.active)
+
+
+def monaghan_viscosity(cfg: WitchConfig, p, q, r, h_ij=None):
+    """The Monaghan artificial-viscosity acceleration of a pair (α, β, ε
+    form), for the flat layout's pair operator: −m_q·π_ij·rDW(h_ij, r)·x_pq
+    for approaching pairs, else 0; h_ij defaults to the mean of the two
+    smoothing lengths. Returns [..., 2]."""
+    x_pq = p.x - q.x
+    dot_pq = torch.sum(x_pq * (p.v - q.v), dim=-1)
+    if h_ij is None:
+        h_ij = 0.5 * (p.h + q.h)
+    ker = rDwendland2(h_ij, r)
+    prho = torch.clamp(p.rho, min=cfg.rho_floor)
+    qrho = torch.clamp(q.rho, min=cfg.rho_floor)
+    c_i = torch.sqrt(torch.clamp(cfg.gamma * p.P / prho, min=0.0))
+    c_j = torch.sqrt(torch.clamp(cfg.gamma * q.P / qrho, min=0.0))
+    c_ij = 0.5 * (c_i + c_j)
+    rho_ij = 0.5 * (prho + qrho)
+    mu_ij = (h_ij * dot_pq) / (r * r + cfg.eps * h_ij * h_ij)
+    pi_ij = (-cfg.alpha * c_ij * mu_ij + cfg.beta * mu_ij**2) / rho_ij
+    visc = torch.where(dot_pq < 0.0, -q.m * pi_ij * ker, 0.0)
+    return visc[..., None] * x_pq
 
 
 def rayleigh_damping(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:

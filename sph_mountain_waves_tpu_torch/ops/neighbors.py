@@ -1,31 +1,41 @@
-"""Bucket-layout neighbor engine.
+"""Neighbour engine: the bucket layout and the flat layout.
 
-Port of the bucket subset of ``sph_mountain_waves_tpu/ops/neighbors.py``. The
-state rows ARE bucket slots: slot = rank*(C+1) + key, so a field viewed as
-``[cap, C+1]`` is one plane per in-cell rank with the cells (x minor) along
-the columns and one trash column. Pair sweeps read the 9-cell (2-D) or
-27-cell (3-D) stencil of a cell straight from that layout; nothing is
-gathered or sorted per step.
+Port of ``sph_mountain_waves_tpu/ops/neighbors.py``. Two state layouts:
 
-``rebuild`` checks how far particles drifted since the last rescatter and
-re-places them only past the skin budget, by one of two rescatters
-(``rescatter_mode``), both in plain PyTorch and both with the reference's
-slot layout and dropped-row count, so states stay slot-for-slot comparable
-with the JAX package:
+* "bucket": the state rows ARE bucket slots: slot = rank*(C+1) + key, so a
+  field viewed as ``[cap, C+1]`` is one plane per in-cell rank with the cells
+  (x minor) along the columns and one trash column. Pair sweeps read the
+  9-cell (2-D) or 27-cell (3-D) stencil of a cell straight from that layout;
+  nothing is gathered or sorted per step. ``rebuild`` checks how far
+  particles drifted since the last rescatter and re-places them only past
+  the skin budget, by one of two rescatters (``rescatter_mode``), both in
+  plain PyTorch and both with the reference's slot layout and dropped-row
+  count, so states stay slot-for-slot comparable with the JAX package:
 
-* "stencil": a windowed compaction over the 9 or 27 neighbour cells with the
-  reference's packing order (offset-major, then source slot). It assumes
-  every particle is at most one cell from its slot's cell;
-* "sort": ``sorted_slot_scatter``, a stable sort of every row by its cell key
-  and one scatter per field, valid for any row placement (spawns written
-  into arbitrary free slots). "stencil" degrades to it past
-  ``_STENCIL_COST_MAX`` offsets × cap.
+  - "stencil": a windowed compaction over the 9 or 27 neighbour cells with
+    the reference's packing order (offset-major, then source slot). It
+    assumes every particle is at most one cell from its slot's cell;
+  - "sort": ``sorted_slot_scatter``, a stable sort of every row by its cell
+    key and one scatter per field, valid for any row placement (spawns
+    written into arbitrary free slots). "stencil" degrades to it past
+    ``_STENCIL_COST_MAX`` offsets × cap.
 
-``pad_resident``, ``slice_resident`` and ``shift_resident`` give the stencil
-shifts of a resident field as slices of one padded grid (the multigrid
-preconditioner's coarse stencil reads them).
+  ``pad_resident``, ``slice_resident`` and ``shift_resident`` give the
+  stencil shifts of a resident field as slices of one padded grid (the
+  multigrid preconditioner's coarse stencil reads them).
 
-Not ported yet: the flat layout and the sharded engine's ``count_cells``.
+* "flat": particles in arbitrary row order, sorted by cell key at every
+  rebuild (``_rebuild_flat``: the containment/finiteness screen, a stable
+  argsort, per-cell counts and starts, each row's rank in its cell and a
+  dense ``[C+1, cap]`` bucket table of row indices; rows past ``cap`` are
+  left out of the table and only ``Neighbors.overflow`` says so). The pair
+  operator of ``ops/apply.py`` reads it through ``bucketize``,
+  ``occupancy``, ``pad_cells`` and ``slice_cells`` (``pair_mode="cell"``;
+  ``shift_cells`` is one shift) or ``stencil_candidates``
+  (``pair_mode="gather"``). Integer counts are the only sums taken by
+  scatter-add: they are exact in any order.
+
+Not ported: the sharded engine's ``count_cells``.
 """
 from __future__ import annotations
 
@@ -41,10 +51,17 @@ __all__ = ["NeighborEngine", "Neighbors", "sorted_slot_scatter"]
 
 @dataclasses.dataclass
 class Neighbors:
-    """Per-rebuild neighbour structure of the bucket layout: everything else
-    is implied by the slot layout itself."""
+    """Per-rebuild neighbour structure. The bucket layout needs only
+    ``counts`` and ``overflow`` (everything else is implied by the slot
+    layout); the flat layout fills the rest."""
     counts: torch.Tensor    # [C+1] int32 particles per cell (trash last)
-    overflow: torch.Tensor  # [] int32 rows dropped at this rebuild
+    overflow: torch.Tensor  # [] int32: flat layout = max count beyond cap;
+    #                         bucket layout = rows dropped at this rescatter
+    cell: torch.Tensor | None = None    # [N, dim] int32 per-axis cell (clipped)
+    key: torch.Tensor | None = None     # [N] int32 flat cell key; C = trash
+    rank: torch.Tensor | None = None    # [N] int32 row's rank in its cell
+    starts: torch.Tensor | None = None  # [C+1] int32 exclusive prefix of counts
+    bucket: torch.Tensor | None = None  # [C+1, cap] int32 row indices (0-pad)
 
 
 def sorted_slot_scatter(key: torch.Tensor, fields: dict, C: int, cap: int,
@@ -92,9 +109,13 @@ class NeighborEngine:
     """Static engine configuration.
 
     ``h`` is the pair cutoff; ``cells`` the per-axis cell widths (each ≥ h);
-    ``phase``/``lims`` the reference's key_phase/key_lim. ``persistent``
-    names the fields a rescatter moves (() = all); the others are zeroed,
-    because the step recomputes them before reading them.
+    ``phase``/``lims`` the reference's key_phase/key_lim. ``layout`` is
+    "bucket" (state rows are slots) or "flat" (rows sorted by cell at every
+    rebuild); ``pair_mode`` is how ``ops/apply.py`` sums the flat layout's
+    pairs ("cell": dense blocks over the cell grid; "gather": per-row
+    candidate gathers). ``persistent`` names the fields a bucket
+    rescatter moves (() = all); the others are zeroed, because the step
+    recomputes them before reading them.
     """
     dim: int
     h: float
@@ -104,6 +125,8 @@ class NeighborEngine:
     dtype: torch.dtype = torch.float32
     mins: tuple = ()
     maxs: tuple = ()
+    pair_mode: str = "cell"
+    layout: str = "bucket"
     skin: float = 0.0
     cells: tuple = ()
     persistent: tuple = ()
@@ -127,21 +150,27 @@ class NeighborEngine:
     @staticmethod
     def create(box, h: float, dim: int, positions: np.ndarray | None = None,
                cap: int | None = None, dtype=torch.float32,
-               layout: str = "bucket", skin: float = 0.0,
-               cells: tuple | None = None,
+               pair_mode: str = "auto", layout: str = "bucket",
+               skin: float = 0.0, cells: tuple | None = None,
                persistent: tuple = (),
                rescatter_mode: str = "stencil") -> "NeighborEngine":
         """Build an engine for domain ``box`` and interaction radius h.
 
         Key arithmetic: with per-axis cell size L_a (default (1+skin)·h),
-        phase_a = floor(min_a/L_a), lim_a = floor(max_a/L_a) − phase_a + 1,
-        then nx is rounded up to a multiple of 128 and ny (and nz) to
-        multiples of 8 (the JAX package's layout, kept so states compare
-        slot for slot).
+        phase_a = floor(min_a/L_a), lim_a = floor(max_a/L_a) − phase_a + 1;
+        on the bucket layout nx is then rounded up to a multiple of 128 and
+        ny (and nz) to multiples of 8 (the JAX package's layout, kept so
+        states compare slot for slot). ``pair_mode="auto"`` takes "cell"
+        when num_cells·cap ≤ 4·n (a well-occupied grid), else "gather".
+        The default layout is the bucket layout (the JAX package's default
+        is flat; every scheme names its layout in its config).
         """
-        if layout != "bucket":
-            raise NotImplementedError(
-                f"layout={layout!r}: only the bucket layout is ported")
+        if layout not in ("bucket", "flat"):
+            raise ValueError(f"layout must be 'bucket' or 'flat', "
+                             f"got {layout!r}")
+        if pair_mode not in ("auto", "cell", "gather"):
+            raise ValueError(f"pair_mode must be 'auto', 'cell' or 'gather', "
+                             f"got {pair_mode!r}")
         if dim not in (2, 3):
             raise ValueError(f"dim must be 2 or 3, got {dim}")
         if rescatter_mode not in ("stencil", "sort"):
@@ -157,15 +186,21 @@ class NeighborEngine:
         maxs = np.asarray(box.maxs[:dim], dtype=np.float64)
         phase = np.floor(mins / L).astype(np.int64)
         lims = (np.floor(maxs / L).astype(np.int64) - phase + 1)
-        lims[0] = -(-lims[0] // 128) * 128
-        for a in range(1, dim):
-            lims[a] = -(-lims[a] // 8) * 8
+        if layout == "bucket":
+            lims[0] = -(-lims[0] // 128) * 128
+            for a in range(1, dim):
+                lims[a] = -(-lims[a] // 8) * 8
         if cap is None:
             cap = NeighborEngine._estimate_cap(positions, L, phase, lims, dim)
+        if pair_mode == "auto":
+            n = 0 if positions is None else len(positions)
+            pair_mode = ("cell" if int(np.prod(lims)) * cap <= 4 * max(n, 1)
+                         else "gather")
         return NeighborEngine(dim=dim, h=float(h),
                               phase=tuple(int(p) for p in phase),
                               lims=tuple(int(l) for l in lims), cap=int(cap),
                               dtype=dtype, mins=tuple(mins), maxs=tuple(maxs),
+                              pair_mode=pair_mode, layout=layout,
                               skin=float(skin), cells=cells,
                               persistent=tuple(persistent),
                               rescatter_mode=rescatter_mode)
@@ -257,6 +292,62 @@ class NeighborEngine:
         flat = g.reshape(self.cap, self.num_cells)
         return torch.nn.functional.pad(flat, (0, 1)).reshape(self.slots)
 
+    # ------------------------------------------ flat layout: cell blocks
+    def bucketize(self, nbrs: Neighbors, arr: torch.Tensor) -> torch.Tensor:
+        """A flat field [N(, ...)] as the dense bucket tensor
+        [C+1, cap(, ...)] (empty slots hold row 0's data; pair validity
+        comes from ``occupancy``)."""
+        return arr[nbrs.bucket.long()]
+
+    def occupancy(self, nbrs: Neighbors) -> torch.Tensor:
+        """[C+1, cap] bool: slot k of cell c holds a particle."""
+        ranks = torch.arange(self.cap, dtype=torch.int32,
+                             device=nbrs.counts.device)
+        return ranks[None, :] < nbrs.counts[:, None]
+
+    def pad_cells(self, B: torch.Tensor) -> torch.Tensor:
+        """A bucket tensor [C+1, ...] as its cell grid padded by one empty
+        (zero or False) cell on each side: [(nz+2,) ny+2, nx+2, ...]. Every
+        stencil shift is then a slice of it (``slice_cells``)."""
+        rest = tuple(B.shape[1:])
+        G = B[: self.num_cells].reshape(self.grid_shape + rest)
+        # F.pad pads trailing dims first: skip the block dims, then one cell
+        # on each side of every grid axis
+        return torch.nn.functional.pad(G, (0, 0) * len(rest)
+                                       + (1, 1) * self.dim)
+
+    def slice_cells(self, P: torch.Tensor, offset: tuple) -> torch.Tensor:
+        """Stencil view of a ``pad_cells`` tensor: out[c] = B[c + offset]
+        ([C, ...])."""
+        idx = tuple(slice(1 + o, 1 + o + n)
+                    for o, n in zip(reversed(offset), self.grid_shape))
+        return P[idx].reshape((self.num_cells,) + tuple(P.shape[self.dim:]))
+
+    def shift_cells(self, B: torch.Tensor, offset: tuple) -> torch.Tensor:
+        """Each cell's stencil-neighbour block brought to the cell's own
+        place: out[c] = B[c + offset] ([C, ...] from [C+1, ...]), zeros (or
+        False) past the grid's edges. A pad and a slice, no gather."""
+        return self.slice_cells(self.pad_cells(B), offset)
+
+    def stencil_candidates(self, nbrs: Neighbors, offset):
+        """Each row's candidate rows at a stencil offset and their validity:
+        (cand [N, cap] int32 rows, valid [N, cap] bool), from the bucket row
+        of the offset cell; invalid past the cell's count and for cells
+        outside the grid. ``offset`` is one (di, dj[, dk]), or a list of
+        them, which gives [N, len(offset), cap]."""
+        dev = nbrs.cell.device
+        off = torch.tensor(offset, dtype=torch.int32, device=dev)
+        ncell = (nbrs.cell if off.ndim == 1 else nbrs.cell[:, None, :]) + off
+        lims = torch.tensor(self.lims, dtype=torch.int32, device=dev)
+        in_grid = torch.all((ncell >= 0) & (ncell < lims), dim=-1)
+        clipped = torch.minimum(torch.clamp(ncell, min=0), lims - 1)
+        nkey = torch.where(in_grid, self.flat_key(clipped),
+                           self.num_cells).long()
+        cnt = torch.where(in_grid, nbrs.counts[nkey], 0)
+        cand = nbrs.bucket[nkey]
+        ranks = torch.arange(self.cap, dtype=torch.int32, device=dev)
+        return cand, ranks < cnt[..., None]
+
     def pad_resident(self, B: torch.Tensor) -> torch.Tensor:
         """Zero-pad the cell grid of a resident field [cap, C+1(, ...)] once
         (trash column cut): [cap, (nz+2,) ny+2, nx+2(, ...)]. Every stencil
@@ -298,14 +389,19 @@ class NeighborEngine:
 
     def rebuild(self, state: ParticleState,
                 need: bool | None = None) -> tuple[ParticleState, Neighbors]:
-        """Rescatter if some particle drifted past the skin budget, then
-        derive the neighbour structure from the slot layout.
+        """Refresh the neighbour structure.
 
-        The reference decides under ``lax.cond`` on the device; here ``need``
+        Flat layout: the screen, a stable sort into cell order and the
+        bucket table (``_rebuild_flat``; ``need`` is not read). Bucket
+        layout: rescatter if some particle drifted past the skin budget,
+        then derive the neighbour structure from the slot layout. The
+        reference decides under ``lax.cond`` on the device; here ``need``
         is read on the host, one sync per step. A caller that has already
         read ``needs_rescatter`` of a state with the same positions and
         ``_xref`` passes it as ``need`` and saves that sync. A device-side
         flag (and graph capture of the step) is later work."""
+        if self.layout == "flat":
+            return self._rebuild_flat(state)
         if need is None:
             need = bool(self.needs_rescatter(state))
         if need:
@@ -326,8 +422,10 @@ class NeighborEngine:
         return state, Neighbors(counts=counts, overflow=overflow)
 
     def _screen_and_key(self, state: ParticleState):
-        """Containment/finiteness screen and per-slot cell keys, in the
-        state's float dtype exactly as the reference (floor(x/L) in f32)."""
+        """Containment/finiteness screen, per-row cell coordinates (clipped
+        to the grid) and cell keys (C for a screened row), in the state's
+        float dtype exactly as the reference (floor(x/L) in f32 or f64).
+        Returns (active, cell, key)."""
         x = state.fields["x"]
         mins = torch.tensor(self.mins, dtype=x.dtype, device=x.device)
         maxs = torch.tensor(self.maxs, dtype=x.dtype, device=x.device)
@@ -343,7 +441,37 @@ class NeighborEngine:
         cell = torch.minimum(torch.clamp(cell, min=0), lims - 1)
         key = torch.where(active, self.flat_key(cell),
                           self.num_cells).to(torch.int32)
-        return active, key
+        return active, cell, key
+
+    def _rebuild_flat(self, state: ParticleState):
+        """Sort every row into cell order (stable, screened rows last under
+        the trash key C) and build the flat neighbour structure: counts,
+        starts, each row's rank, and the bucket table, whose rows past
+        ``cap`` are dropped (``overflow`` = the largest count beyond cap).
+        Returns (sorted state, Neighbors)."""
+        n = state.fields["x"].shape[0]
+        C, cap = self.num_cells, self.cap
+        active, cell, key = self._screen_and_key(state)
+        order = torch.argsort(key, stable=True)
+        sorted_state = ParticleState(
+            fields={name: arr[order] for name, arr in state.fields.items()},
+            active=active[order])
+        key_s = key[order]
+        counts = torch.bincount(key_s, minlength=C + 1).to(torch.int32)
+        starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
+        rows = torch.arange(n, dtype=torch.int32, device=key.device)
+        rank = rows - starts[key_s.long()]
+        # a row past cap goes to one extra entry that is cut off
+        slot = torch.where(rank < cap, key_s * cap + rank,
+                           (C + 1) * cap).long()
+        bucket = torch.zeros((C + 1) * cap + 1, dtype=torch.int32,
+                             device=key.device)
+        bucket[slot] = rows
+        bucket = bucket[:-1].reshape(C + 1, cap)
+        overflow = torch.clamp(counts[:C].max() - cap, min=0)
+        return sorted_state, Neighbors(
+            counts=counts, overflow=overflow, cell=cell[order], key=key_s,
+            rank=rank, starts=starts, bucket=bucket)
 
     def _moved_fields(self, state: ParticleState) -> dict:
         """The fields a rescatter moves: every field but ``_xref`` and the
@@ -369,7 +497,7 @@ class NeighborEngine:
         the sort move (``sorted_slot_scatter``), valid for any row placement.
         Screened-out rows and rows past ``cap`` are dropped, the latter
         counted. Returns (new_state, n_dropped)."""
-        _, key = self._screen_and_key(state)
+        _, _, key = self._screen_and_key(state)
         moved, new_active, overflow = sorted_slot_scatter(
             key, self._moved_fields(state), self.num_cells, self.cap,
             self.slots)
@@ -378,7 +506,7 @@ class NeighborEngine:
     def _stencil_rescatter(self, state: ParticleState):
         """1-cell-local rescatter: every active particle moves to the slot
         of its new cell. Returns (new_state, n_dropped)."""
-        _, key = self._screen_and_key(state)
+        _, _, key = self._screen_and_key(state)
         return self._stencil_compact(state, key)
 
     def _stencil_compact(self, state: ParticleState, key: torch.Tensor):

@@ -4,11 +4,10 @@ Port of ``sph_mountain_waves_tpu/structs.py``. ``ParticleState`` holds one
 tensor per field plus an ``active`` mask, all on one device; updates build a
 new state (``replace``) and never write into the old one. ``ParticleSystem``
 is the host-side container: particles accumulate in NumPy, and ``freeze``
-places them in the bucket-slot layout of a ``NeighborEngine`` and moves them
-to the requested device (CUDA unless the caller asks for the CPU).
-
-Only the bucket layout is ported: the flat layout (arbitrary row order,
-sorted at every rebuild) belongs to a later slice.
+builds a ``NeighborEngine`` and moves the particles to the requested device
+(CUDA unless the caller asks for the CPU): in the bucket-slot layout, each
+particle placed in its slot, or in the flat layout, the rows in build order
+(the engine sorts them at every rebuild).
 """
 from __future__ import annotations
 
@@ -139,18 +138,20 @@ class ParticleSystem:
     # --------------------------------------------------------------- freeze
     def freeze(self, device="cuda", capacity: int | None = None,
                **engine_opts) -> ParticleState:
-        """Place the built particles in their bucket slots on ``device`` (the
-        card unless the caller asks for the CPU) and return the
-        ``ParticleState``; the ``NeighborEngine`` is stored as ``self.engine``.
-        Asking for CUDA where there is no CUDA device raises; there is no
-        fallback to the CPU.
+        """Move the built particles to ``device`` (the card unless the
+        caller asks for the CPU) and return the ``ParticleState``; the
+        ``NeighborEngine`` is stored as ``self.engine``. Asking for CUDA
+        where there is no CUDA device raises; there is no fallback to the
+        CPU.
 
-        capacity : the flat layout's spawn-pool size, taken (like the
-            ``freeze_opts`` entry of that name) and ignored: the bucket
-            layout's capacity is the engine's slot count.
+        capacity : the flat layout's row count (≥ the built count, rounded
+            up to a multiple of 8; the spare rows start inactive); default
+            the ``freeze_opts`` entry of that name, else the built count.
+            Ignored on the bucket layout, whose capacity is the engine's
+            slot count.
         engine_opts : forwarded to NeighborEngine.create (layout, skin, cells,
-            persistent, rescatter_mode, cap: the bucket capacity, default
-            measured occupancy plus headroom); defaults come from
+            persistent, rescatter_mode, pair_mode, cap: the bucket capacity,
+            default measured occupancy plus headroom); defaults come from
             ``self.freeze_opts``.
         """
         from .ops.neighbors import NeighborEngine  # avoid import cycle
@@ -163,11 +164,16 @@ class ParticleSystem:
         host = self.host_fields()
         n = len(host["x"])
         opts = {**self.freeze_opts, **engine_opts}
-        opts.pop("capacity", None)
+        if capacity is None:
+            capacity = opts.pop("capacity", None)
+        else:
+            opts.pop("capacity", None)
         engine = NeighborEngine.create(
             box=self.domain, h=self.h, dim=self.dim,
             positions=host["x"] if n else None, dtype=self.dtype, **opts)
         self.engine = engine
+        if engine.layout == "flat":
+            return self._freeze_flat(host, n, capacity, device)
         # rows ARE bucket slots: place particles host-side directly in their
         # slots (rank*(C+1)+key, same f32 key arithmetic as _screen_and_key)
         # so no boot rescatter is needed and the 1-cell-local stencil
@@ -176,6 +182,28 @@ class ParticleSystem:
         if n > engine.slots:
             raise ValueError(f"{n} particles exceed {engine.slots} slots")
         return self._freeze_bucket(engine, host, n, device)
+
+    def _freeze_flat(self, host: dict, n: int, capacity: int | None,
+                     device: torch.device) -> ParticleState:
+        """The flat layout: rows in build order, ``capacity`` (default n)
+        rounded up to a multiple of 8, the spare rows inactive and zero
+        (``_xref``, where the spec has it, is inf)."""
+        capacity = max(n, 1) if capacity is None else int(capacity)
+        if n > capacity:
+            raise ValueError(f"{n} particles exceed capacity {capacity}")
+        capacity = -(-capacity // 8) * 8
+        sdt = _numpy_dtype(self.dtype)
+        fields = {}
+        for name, shape in self.field_specs.items():
+            arr = np.zeros((capacity,) + shape, dtype=np.float64)
+            if name == "_xref":
+                arr[:] = np.inf
+            elif name in host:
+                arr[:n] = host[name]
+            fields[name] = torch.as_tensor(arr.astype(sdt), device=device)
+        active = torch.arange(capacity, device=device) < n
+        self.state = ParticleState(fields=fields, active=active)
+        return self.state
 
     def _freeze_bucket(self, engine, host: dict, n: int,
                        device: torch.device) -> ParticleState:

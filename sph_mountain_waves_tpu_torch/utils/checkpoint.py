@@ -35,7 +35,7 @@ def save_checkpoint(path: str, state: ParticleState, engine=None,
             "dim": engine.dim, "h": engine.h, "phase": list(engine.phase),
             "lims": list(engine.lims), "cap": engine.cap,
             "mins": list(engine.mins), "maxs": list(engine.maxs),
-            "pair_mode": "cell", "layout": "bucket",
+            "pair_mode": engine.pair_mode, "layout": engine.layout,
             "skin": engine.skin,
         }
     arrays["__meta__"] = np.frombuffer(
@@ -78,14 +78,13 @@ def load_checkpoint(path: str, device="cuda"):
 
 
 def engine_from_meta(meta: dict, **engine_opts):
-    """The NeighborEngine a checkpoint was saved with. What the npz does not
-    carry (``cells``, ``persistent``, ``dtype``) comes from ``engine_opts``."""
+    """The NeighborEngine a checkpoint was saved with, either layout. What
+    the npz does not carry (``cells``, ``persistent``, ``dtype``) comes from
+    ``engine_opts``."""
     from ..ops.neighbors import NeighborEngine
     e = meta["engine"]
-    if e["layout"] != "bucket":
-        raise NotImplementedError(
-            f"layout={e['layout']!r}: only the bucket layout is ported")
     return NeighborEngine(dim=e["dim"], h=e["h"], phase=tuple(e["phase"]),
                           lims=tuple(e["lims"]), cap=e["cap"],
                           mins=tuple(e["mins"]), maxs=tuple(e["maxs"]),
+                          pair_mode=e["pair_mode"], layout=e["layout"],
                           skin=e["skin"], **engine_opts)

@@ -13,10 +13,12 @@ Port of ``sph_mountain_waves_tpu/utils/packing.py``, both algorithms:
   profile averages, ζ = α√(β/V0). Its pair sum is the ``gamma_grad_pass``
   sweep (a CUDA kernel of its own on CUDA tensors, its twin on CPU tensors).
 
-The reference's pair sums in both packings are XLA pair sums, not Pallas
-kernels. The hydrostatic packing's two run on sweeps the schemes already
-have, through their wrappers (the CUDA kernel on CUDA tensors, the plain
-twin on CPU tensors):
+The unaries of both go through ``apply_unary`` on either layout. The
+reference's pair sums in both packings are XLA pair sums, not Pallas
+kernels. On the flat layout they are the reference's pair functions summed
+by ``ops/apply.py::apply_binary``. On the bucket layout the hydrostatic
+packing's two run on sweeps the schemes already have, through their
+wrappers (the CUDA kernel on CUDA tensors, the plain twin on CPU tensors):
 
 * the density is the density sweep with weight m and no self pair, taken on
   FLUID rows only (walls keep their ρ);
@@ -36,6 +38,8 @@ import types
 
 import torch
 
+from ..kernels import rDwendland2, wendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import density_pass, gamma_grad_pass, momentum_pass
 from ..structs import ParticleState
 
@@ -66,13 +70,39 @@ def hydrostatic_packing(cfg, engine, state: ParticleState,
     def fluid_of(state):
         return state.fields["type"] == FLUID
 
+    flat = engine.layout == "flat"
+
+    def reset_rho(u):
+        return {"rho": torch.where(u.type == FLUID, 0.0, u.rho)}
+
+    def accumulate_rho(p, q, r):
+        return {"rho": torch.where(p.type == FLUID,
+                                   q.m * wendland2(p.h, r), 0.0)}
+
+    def momentum_pack(p, q, r):
+        both = (p.type == FLUID) & (q.type == FLUID)
+        rho_i = torch.clamp(p.rho, min=cfg.rho_floor)
+        rho_j = torch.clamp(q.rho, min=cfg.rho_floor)
+        Pi = c_pack**2 * (rho_i - rho_target(p.x[..., 1]))
+        Pj = c_pack**2 * (rho_j - rho_target(q.x[..., 1]))
+        ker = rDwendland2(0.5 * (p.h + q.h), r)
+        f = -(q.m * (Pi / rho_i**2 + Pj / rho_j**2) * ker)[..., None] * (
+            p.x - q.x)
+        fy = torch.where(both, f[..., 1], 0.0)  # vertical only
+        return {"Dv": torch.stack([torch.zeros_like(fy), fy], dim=-1)}
+
     def density(state):
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
+        if flat:
+            state = apply_unary(state, reset_rho)
+            return apply_binary(engine, state, nbrs, accumulate_rho), nbrs
         rho = density_pass(engine, state, sweep_cfg)
         return state.replace(rho=torch.where(fluid_of(state), rho,
-                                             state.fields["rho"]))
+                                             state.fields["rho"])), nbrs
 
-    def force(state):
+    def force(state, nbrs):
+        if flat:
+            return apply_binary(engine, state, nbrs, momentum_pack)
         f = state.fields
         fluid = fluid_of(state)
         rho_f = torch.clamp(f["rho"], min=cfg.rho_floor)
@@ -85,22 +115,19 @@ def hydrostatic_packing(cfg, engine, state: ParticleState,
         return state.replace(Dv=f["Dv"] + torch.stack(
             [torch.zeros_like(fy), fy], dim=-1))
 
-    def pack_accelerate(state):
-        f = state.fields
-        fluid = fluid_of(state)[:, None]
-        v_new = (f["v"] + dt_pack * f["Dv"]) / (1.0 + zeta * dt_pack)
-        return state.replace(v=torch.where(fluid, v_new, f["v"]),
-                             Dv=torch.zeros_like(f["Dv"]))
+    def accelerate_unary(u):
+        fluid = (u.type == FLUID)[:, None]
+        v_new = (u.v + dt_pack * u.Dv) / (1.0 + zeta * dt_pack)
+        return {"v": torch.where(fluid, v_new, u.v),
+                "Dv": torch.zeros_like(u.Dv)}
 
-    def pack_move(state):
-        f = state.fields
-        fluid = fluid_of(state)[:, None]
-        return state.replace(x=torch.where(fluid, f["x"] + dt_pack * f["v"],
-                                           f["x"]))
+    def move_unary(u):
+        fluid = (u.type == FLUID)[:, None]
+        return {"x": torch.where(fluid, u.x + dt_pack * u.v, u.x)}
 
     def pack_step(state):
-        state = pack_move(pack_accelerate(state))
-        return pack_accelerate(force(density(state)))
+        state = apply_unary(apply_unary(state, accelerate_unary), move_unary)
+        return apply_unary(force(*density(state)), accelerate_unary)
 
     def residuals(state):
         f = state.fields
@@ -114,7 +141,7 @@ def hydrostatic_packing(cfg, engine, state: ParticleState,
         return state.replace(v=torch.zeros_like(f["v"]),
                              Dv=torch.zeros_like(f["Dv"]))
 
-    state = density(at_rest(state))
+    state, _ = density(at_rest(state))
     err0, _ = residuals(state)
     if verbose:
         print(f"packing init: density error = {err0:.6e}")
@@ -133,7 +160,7 @@ def hydrostatic_packing(cfg, engine, state: ParticleState,
         k += 1
 
     # leave the packed density consistent with a fresh summation
-    state = density(at_rest(state))
+    state, _ = density(at_rest(state))
     err = residuals(state)[0]
     if verbose:
         print(f"packing done after {k} steps (rho_err {err0:.4e} -> {err:.4e})")
@@ -166,33 +193,38 @@ def colagrossi_packing(cfg, engine, state: ParticleState,
     beta = 2.0 * p0 / rho_avg
     zeta = alpha * math.sqrt(beta / V0)
 
-    def fluid_of(state):
-        return (state.fields["type"] == FLUID)[:, None]
+    def find_gGamma(p, q, r):
+        return {"gGamma": (V0 * rDwendland2(p.h, r))[..., None] * (p.x - q.x)}
+
+    def stabilization(u):
+        return {"Dv": -beta * u.gGamma - zeta * u.v}
 
     def gamma_pass(state):
-        state, _ = engine.rebuild(state)
-        g0, g1 = gamma_grad_pass(engine, state, V0)
-        gGamma = torch.where(state.active[:, None],
-                             torch.stack([g0, g1], dim=-1), 0.0)
-        # stabilization force; v is zero on empty slots, so Dv is too
-        return state.replace(gGamma=gGamma,
-                             Dv=-beta * gGamma - zeta * state.fields["v"])
+        state, nbrs = engine.rebuild(state)
+        if engine.layout == "flat":
+            state = state.replace(gGamma=torch.zeros_like(
+                state.fields["gGamma"]))
+            state = apply_binary(engine, state, nbrs, find_gGamma,
+                                 self_interaction=True)
+        else:
+            g0, g1 = gamma_grad_pass(engine, state, V0)
+            state = state.replace(gGamma=torch.where(
+                state.active[:, None], torch.stack([g0, g1], dim=-1), 0.0))
+        return apply_unary(state, stabilization)
 
-    def pack_accelerate(state):
-        f = state.fields
-        return state.replace(v=torch.where(
-            fluid_of(state), f["v"] + 0.5 * dt * f["Dv"], f["v"]))
+    def pack_accelerate(u):
+        fluid = (u.type == FLUID)[:, None]
+        return {"v": torch.where(fluid, u.v + 0.5 * dt * u.Dv, u.v)}
 
-    def pack_move(state):
-        f = state.fields
-        return state.replace(
-            x=torch.where(fluid_of(state), f["x"] + dt * f["v"], f["x"]),
-            Dv=torch.zeros_like(f["Dv"]),
-            gGamma=torch.zeros_like(f["gGamma"]))
+    def pack_move(u):
+        fluid = (u.type == FLUID)[:, None]
+        return {"x": torch.where(fluid, u.x + dt * u.v, u.x),
+                "Dv": torch.zeros_like(u.Dv),
+                "gGamma": torch.zeros_like(u.gGamma)}
 
     def pack_step(state):
-        state = pack_move(pack_accelerate(state))
-        return pack_accelerate(gamma_pass(state))
+        state = apply_unary(apply_unary(state, pack_accelerate), pack_move)
+        return apply_unary(gamma_pass(state), pack_accelerate)
 
     def at_rest(state):
         f = state.fields

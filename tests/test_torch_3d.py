@@ -57,7 +57,9 @@ from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
 from sph_mountain_waves_tpu_torch.utils.checkpoint import (
     engine_from_meta, load_checkpoint, save_checkpoint,
 )
-from torch_reference_harness import jit_at_level0, reference_body_sweep
+from torch_reference_harness import (
+    QUICK_COMPILE, jit_at_level0, reference_body_sweep,
+)
 
 torch.set_num_threads(1)
 
@@ -67,7 +69,6 @@ SMALL = dict(TINY, eta=1.2, dtype="float32", layout="bucket",
              lattice_cells=True, skin=0.15, use_pallas=True)
 RTOL, ATOL_REL = 1e-5, 1e-6
 N_STEPS = 4
-LEVEL0 = {"xla_backend_optimization_level": 0}
 
 
 def _to_np(jstate):
@@ -242,7 +243,7 @@ def test_setup_and_steps_match_jax(built, monkeypatch):
                                    rtol=1e-5, err_msg=name)
 
     jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jstate).compile(
-        compiler_options=LEVEL0)
+        compiler_options=QUICK_COMPILE)
     for _ in range(N_STEPS):
         jstate = jstep(jstate)
     tstate = frame_runner(tw.make_step(tcfg, ts.engine), N_STEPS)(tstate)

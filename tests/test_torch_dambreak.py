@@ -38,7 +38,9 @@ What is compared, and at which tolerance:
   the columns of ``data.csv``, and a resumed run bit for bit equal to the
   uninterrupted one;
 * every new entry point refuses to start without a card unless the caller
-  asks for the CPU, and refuses the reference's default flat/float64 config.
+  asks for the CPU; ``collapse3d`` refuses the reference's default
+  flat/float64 config, ``collapse_dry`` builds it and refuses a float64
+  bucket state.
 """
 import os
 import types
@@ -62,7 +64,7 @@ from sph_mountain_waves_tpu_torch.models import (
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
-from torch_reference_harness import reference_body_sweep
+from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -72,7 +74,6 @@ C3D = dict(dr=2.0e-2, dtype="float32", layout="bucket", skin=0.2,
            use_pallas=True, t_end=0.05)
 MODELS = {"collapse_dry": (jcd, tcd, DRY), "collapse3d": (jc3, tc3, C3D)}
 RTOL, ATOL_REL = 1e-5, 1e-6
-LEVEL0 = {"xla_backend_optimization_level": 0}
 
 
 def _to_np(jstate):
@@ -81,7 +82,7 @@ def _to_np(jstate):
 
 
 def _compiled(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=LEVEL0)
+    return jax.jit(fn).lower(*args).compile(compiler_options=QUICK_COMPILE)
 
 
 @pytest.fixture(scope="module", params=list(MODELS))
@@ -398,10 +399,24 @@ def test_run_needs_a_card_unless_asked_for_the_cpu(module, monkeypatch):
            tc3: lambda: tc3.Config(**C3D)}[module]()
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         module.run(cfg)
-    if module is not tw:
-        # the reference's defaults (flat layout, float64) are not ported
+    if module is tc3:
+        # collapse3d's defaults (flat layout, float64) are not ported
         with pytest.raises(NotImplementedError, match="float32"):
             module.make_system(module.Config())
         with pytest.raises(NotImplementedError, match="bucket layout"):
             module.make_system(module.Config(dtype="float32")).freeze(
                 device="cpu")
+    if module is tcd:
+        # collapse_dry's defaults (flat layout, float64) build, and a
+        # float64 state on the bucket layout is refused at its first step
+        flat = module.make_system(module.Config(dr=DRY["dr"]))
+        state = flat.freeze(device="cpu")
+        assert flat.engine.layout == "flat"
+        assert state.fields["x"].dtype == torch.float64
+        bucket = module.make_system(module.Config(**{**DRY,
+                                                     "dtype": "float64"}))
+        state = bucket.freeze(device="cpu")
+        step, _ = module.make_step(module.Config(**{**DRY, "dtype": "float64"}),
+                                   bucket.engine)
+        with pytest.raises(NotImplementedError, match="float32"):
+            step(state)

@@ -5,11 +5,13 @@ JAX package, end to end on the CPU.
 sweeps take their plain twins) against 8 jitted steps of the JAX scheme on
 its XLA bucket path (``use_pallas=False``, which the reference holds to its
 Pallas path at rel 1e-5, tests/test_pallas.py). The JAX steps are compiled
-at XLA backend optimisation level 0, which only saves compile time (the
-level changes the rounding, far inside the gate).
+with ``QUICK_COMPILE`` (tests/torch_reference_harness.py: XLA backend
+optimisation level 0 and cheap CPU code generation), which only saves
+compile time (the options change the rounding, far inside the gate).
 
 Also: the packing from one frozen state on both sides, ``run`` on the CPU,
-and the entry points' default device (the card).
+and the entry points' default device (the card); and on the flat layout in
+float64, ``hopkins_total.run`` with its packing against the reference's.
 """
 import jax
 import numpy as np
@@ -23,6 +25,7 @@ from sph_mountain_waves_tpu.models import (
 from sph_mountain_waves_tpu.models.witch_common import (
     WitchConfig as JCfg, velocity_diagnostics as j_diag,
 )
+import sph_mountain_waves_tpu.utils.packing as j_packing_module
 from sph_mountain_waves_tpu.utils.packing import (
     hydrostatic_packing as j_packing,
 )
@@ -36,8 +39,9 @@ from sph_mountain_waves_tpu_torch.models.common import frame_runner
 from sph_mountain_waves_tpu_torch.models.witch_common import (
     WitchConfig as TCfg, velocity_diagnostics as t_diag,
 )
+import sph_mountain_waves_tpu_torch.utils.packing as t_packing_module
 from sph_mountain_waves_tpu_torch.utils.packing import hydrostatic_packing
-from torch_reference_harness import jit_at_level0
+from torch_reference_harness import QUICK_COMPILE, jit_at_level0
 
 torch.set_num_threads(1)
 
@@ -52,7 +56,7 @@ def _jax_steps(module, cfg, n):
     sys_ = module.make_system(cfg)
     state = sys_.freeze()
     step = jax.jit(module.make_step(cfg, sys_.engine)).lower(state).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
+        compiler_options=QUICK_COMPILE)
     for _ in range(n):
         state = step(state)
     return state
@@ -109,6 +113,59 @@ def test_packing_matches_jax(monkeypatch):
                                atol=1e-6)
     np.testing.assert_array_equal(tpacked.active.numpy(),
                                   np.asarray(jpacked.active))
+
+
+def test_flat_packing_and_run_match_jax(monkeypatch):
+    """``hopkins_total.run`` on the flat layout in float64 (n_rows 8, N =
+    2,607, ``pair_mode="cell"``), its hydrostatic packing cut to 20 steps on
+    both sides (each run's own ``setup`` calls the packing), then 16 steps
+    in 4 frames, against the reference's run. The packing: equal step
+    counts, err0 and err within rtol 1e-12, the packed x within 1e-9 m and
+    ρ within 1e-12 of its largest value, row by row (measured: err 4e-16
+    relative apart, x 1.7e-18 m, ρ 1.1e-16). The run: u_avg and u_max of
+    every frame within rtol 1e-8 (measured: u_avg 6.5e-11, u_max 3.3e-16)
+    and equal active counts. The walls are not held (the reference's move
+    and accelerate carry no FLUID filter), so u_max grows by about 19 m/s
+    every 4 steps on both sides, with the whole packing as with this one."""
+    jit_at_level0(monkeypatch)  # the reference run's own jax.jit
+    packed = {}
+
+    def cut(tag, packing):
+        def packing_20(cfg, engine, state):
+            state, info = packing(cfg, engine, state, max_steps=20,
+                                  return_info=True)
+            # copied now: the reference's frame loop donates its input
+            packed[tag] = ({k: np.array(state.fields[k]) for k in ("x", "rho")},
+                           np.array(state.active), info)
+            return state
+        return packing_20
+
+    monkeypatch.setattr(j_packing_module, "hydrostatic_packing",
+                        cut("jax", j_packing))
+    monkeypatch.setattr(t_packing_module, "hydrostatic_packing",
+                        cut("port", hydrostatic_packing))
+    kw = dict(n_rows=8, dtype="float64", layout="flat", self_density=True)
+    kw.update(t_end=16 * TCfg(**kw).dt, n_frames=4)
+    ref = jht.run(JCfg(**kw))
+    out = tht.run(TCfg(**kw), device="cpu")
+    assert out["system"].engine.layout == "flat"
+    assert out["system"].engine.pair_mode == "cell"
+
+    (jf, ja, jinfo), (tf, ta, tinfo) = packed["jax"], packed["port"]
+    assert tinfo["steps"] == jinfo["steps"] == 20
+    assert tinfo["err0"] == pytest.approx(jinfo["err0"], rel=1e-12)
+    assert tinfo["err"] == pytest.approx(jinfo["err"], rel=1e-12)
+    np.testing.assert_array_equal(ta, ja)
+    np.testing.assert_allclose(tf["x"], jf["x"], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tf["rho"], jf["rho"], rtol=0,
+                               atol=1e-12 * np.abs(jf["rho"]).max())
+
+    assert len(out["u_max"]) == len(ref["u_max"]) == 4
+    for key in ("t", "u_avg", "u_max"):
+        np.testing.assert_allclose(out[key], ref[key], rtol=1e-8,
+                                   err_msg=key)
+    assert np.all(np.diff(out["u_max"]) > 10.0)  # the walls fall
+    assert int(out["state"].n) == out["system"].n_built == 2607
 
 
 def test_run_on_cpu(capsys):

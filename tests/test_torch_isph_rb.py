@@ -26,7 +26,7 @@ What is compared, and at which tolerance:
 * CG iterations of the first kicked step, mg and Jacobi, within ±10 % (or
   ±2) of the reference's, and mg fewer than Jacobi;
 * 4 kicked ISPH steps against the reference's XLA bucket path (compiled once
-  at XLA optimisation level 0): mean and max |v| at rtol 2e-3, mean |P| at
+  with ``QUICK_COMPILE``, tests/torch_reference_harness.py): mean and max |v| at rtol 2e-3, mean |P| at
   rel 0.1 (the f32 CG stalls near rel_res 7e-3, so P is path-dependent),
   equal active counts; 6 Rayleigh–Bénard steps against the reference's flat
   XLA path (its bucket path costs three times the compile and agrees with
@@ -63,7 +63,7 @@ from sph_mountain_waves_tpu_torch.ops import mg as tmg
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.utils import plots as tplots
 from torch_reference_harness import (
-    reference_body_sweep, reference_prepared_sweep,
+    QUICK_COMPILE, reference_body_sweep, reference_prepared_sweep,
 )
 
 torch.set_num_threads(1)
@@ -71,7 +71,6 @@ torch.set_num_threads(1)
 ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2)
 RB = dict(n_rows=16, dtype="float32", layout="bucket", skin=0.2)
 RTOL, ATOL_REL = 1e-5, 1e-6
-LEVEL0 = {"xla_backend_optimization_level": 0}
 
 
 def _fields(jstate):
@@ -123,7 +122,7 @@ def isph_ref(isph):
     js.freeze()
     state = _jstate(fields, active)
     step = jax.jit(jiw.make_step(cfg, js.engine)).lower(state).compile(
-        compiler_options=LEVEL0)
+        compiler_options=QUICK_COMPILE)
     its, states = [], []
     for _ in range(4):
         state = step(state)
@@ -439,7 +438,7 @@ def test_rb_six_steps_match_jax():
     js = jrb.make_system(jcfg)
     jstate = js.freeze()
     jstep = jax.jit(jrb.make_step(jcfg, js.engine)).lower(jstate).compile(
-        compiler_options=LEVEL0)
+        compiler_options=QUICK_COMPILE)
     cfg = trb.Config(**RB, use_pallas=True)
     ts = trb.make_system(cfg)
     tstate = ts.freeze(device="cpu")
@@ -500,18 +499,31 @@ def test_rb_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
 
 def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     """Without ``device=`` ``run`` asks for CUDA and raises where there is
-    none; float64, the flat layout, RKPM conduction and a sharded engine
-    are refused."""
+    none; float64 on the bucket layout, ISPH's flat layout, RKPM conduction
+    and a sharded engine are refused; Rayleigh–Bénard's flat layout
+    builds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for module, cfg in ((tiw, tiw.ISPHWitchConfig(**ISPH, use_pallas=True)),
                         (trb, trb.Config(**RB, use_pallas=True))):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             module.run(cfg)
-        with pytest.raises(NotImplementedError, match="float32"):
-            module.make_system(dataclasses.replace(cfg, dtype="float64"))
-        with pytest.raises(NotImplementedError, match="bucket layout"):
-            module.make_system(dataclasses.replace(cfg, layout="flat")).freeze(
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="float32"):
+        tiw.make_system(dataclasses.replace(
+            tiw.ISPHWitchConfig(**ISPH), dtype="float64"))
+    # Rayleigh–Bénard builds a float64 bucket state and refuses it at its
+    # first step
+    rb64 = trb.Config(**{**RB, "dtype": "float64"})
+    sys64 = trb.make_system(rb64)
+    state64 = sys64.freeze(device="cpu")
+    with pytest.raises(NotImplementedError, match="float32"):
+        trb.make_step(rb64, sys64.engine)(state64)
+    with pytest.raises(NotImplementedError, match="bucket layout"):
+        tiw.make_system(dataclasses.replace(
+            tiw.ISPHWitchConfig(**ISPH), layout="flat")).freeze(device="cpu")
+    flat = trb.make_system(trb.Config(**{**RB, "layout": "flat",
+                                         "dtype": "float64"}))
+    assert flat.freeze(device="cpu").fields["T"].dtype == torch.float64
+    assert flat.engine.layout == "flat"
     with pytest.raises(NotImplementedError, match="rkpm"):
         trb.make_system(trb.Config(**RB, conduction="rkpm"))
     sys_ = tiw.make_system(tiw.ISPHWitchConfig(**ISPH))

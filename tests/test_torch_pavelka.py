@@ -39,10 +39,18 @@ What is compared, and at which tolerance:
   smoothing rate, s, T, P, momentum) on the packed state, against the
   reference's packing and the same passes of its ``setup`` (XLA pair sums):
   ∇Γ, |∇Γ| and the passes within 1e-5 of their largest |value| (measured
-  ≤ 5.8e-7), equal active masks, x within 1e-4 m (the test says why).
+  ≤ 5.8e-7), equal active masks, x within 1e-4 m (the test says why);
+* ``setup`` on the flat layout in float64 (n_rows 8), its packing cut to
+  10 steps on both sides, against the reference's ``setup`` run op by op:
+  every field within 1e-12 of its largest |value| (measured: at most
+  2.5e-16, on Dv), equal active masks.
 
-Every JAX function is compiled once, at XLA backend optimisation level 0
-(compile time only; the reference's numbers move far inside the gates).
+Every JAX function the tests compile is compiled once, with
+``QUICK_COMPILE`` (tests/torch_reference_harness.py: XLA backend
+optimisation level 0 and cheap CPU code generation; compile time only, the
+reference's numbers move far inside the gates). The reference's packings
+run under their own ``jax.jit`` (the bucket one) or op by op (the flat
+one).
 """
 import dataclasses
 
@@ -61,6 +69,7 @@ from sph_mountain_waves_tpu.ops.apply import (
     apply_binary as j_apply_binary, apply_unary as j_apply_unary,
 )
 from sph_mountain_waves_tpu.structs import ParticleState as JState
+import sph_mountain_waves_tpu.utils.packing as j_packing_module
 from sph_mountain_waves_tpu.utils.packing import (
     colagrossi_packing as j_colagrossi,
 )
@@ -72,8 +81,9 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
     velocity_diagnostics as t_diag,
 )
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+import sph_mountain_waves_tpu_torch.utils.packing as t_packing_module
 from sph_mountain_waves_tpu_torch.utils.packing import colagrossi_packing
-from torch_reference_harness import reference_body_sweep
+from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -81,7 +91,6 @@ BENCH = dict(n_rows=10, dtype="float32", self_density=True, layout="bucket",
              skin=0.15, use_pallas=True, lattice_cells=True)
 RTOL, ATOL_REL = 1e-5, 1e-6
 N_STEPS = 8
-LEVEL0 = {"xla_backend_optimization_level": 0}
 
 
 def _to_np(jstate):
@@ -90,8 +99,8 @@ def _to_np(jstate):
 
 
 def _compiled(fn, *args):
-    """``fn`` traced once and compiled at backend level 0."""
-    return jax.jit(fn).lower(*args).compile(compiler_options=LEVEL0)
+    """``fn`` traced once and compiled with ``QUICK_COMPILE``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=QUICK_COMPILE)
 
 
 @pytest.fixture(scope="module")
@@ -291,6 +300,55 @@ def test_setup_runs_the_packing_then_the_passes(built):
         assert torch.equal(got.fields[name], want.fields[name]), name
     assert float(got.fields["Dv"].abs().max()) > 1.0
     assert torch.equal(got.fields["S"], tstate.fields["S"])  # no production
+
+
+def test_flat_setup_matches_jax(monkeypatch):
+    """``setup`` (the Colagrossi packing, then the initial passes) on the
+    flat layout in float64, n_rows 8 (N = 2,607, ``pair_mode="cell"``): its
+    packing cut to 10 steps on both sides (each ``setup`` calls it), the
+    reference's run op by op (``jax.disable_jit``: cheaper here than its
+    compile). Every field row by row within 1e-12 of its largest |value|
+    (measured: at most 2.5e-16 of it, on Dv; x, ∇Γ, Dρ, Dh, s and S
+    equal), equal active masks, and the packing's last |∇Γ| the norm of
+    the reference's ∇Γ."""
+    infos = []
+
+    def cut(packing, record):
+        def packing_10(cfg, engine, state, abs_tol, rel_tol, max_steps,
+                       **kw):
+            got = packing(cfg, engine, state, abs_tol, rel_tol, 10, **kw)
+            if record:
+                infos.append(got[1])
+            return got
+        return packing_10
+
+    monkeypatch.setattr(j_packing_module, "colagrossi_packing",
+                        cut(j_colagrossi, False))
+    monkeypatch.setattr(t_packing_module, "colagrossi_packing",
+                        cut(colagrossi_packing, True))
+    kw = dict(n_rows=8, dtype="float64", layout="flat", self_density=True)
+    jcfg, tcfg = jpv.PavelkaConfig(**kw), tpv.PavelkaConfig(**kw)
+    js = jpv.make_system(jcfg)
+    jstate = js.freeze()
+    ts = tpv.make_system(tcfg)
+    tstate = ts.freeze(device="cpu")
+    assert ts.engine.layout == "flat" and ts.engine.pair_mode == "cell"
+    with jax.disable_jit():
+        jout = jpv.setup(jcfg, js.engine, jstate)
+    tout = tpv.setup(tcfg, ts.engine, tstate)
+    assert len(infos) == 1 and infos[0]["steps"] == 10
+    jf, ja = _to_np(jout)
+    tf, ta = state_to_numpy(tout)
+    assert int(ta.sum()) == 2607
+    np.testing.assert_array_equal(ta, ja)
+    assert sorted(tf) == sorted(jf)
+    for name in jf:
+        np.testing.assert_allclose(tf[name], jf[name], rtol=0,
+                                   atol=1e-12 * np.abs(jf[name]).max(),
+                                   err_msg=name)
+    assert np.abs(jf["Dv"]).max() > 1.0
+    jnorm = float(np.sqrt((jf["gGamma"][ja] ** 2).sum()))
+    assert infos[0]["res_g"] == pytest.approx(jnorm, rel=1e-12)
 
 
 def test_use_pallas_off_on_cpu_and_route_check(built):

@@ -27,6 +27,7 @@ from sph_mountain_waves_tpu_torch.kernels import rDwendland2, wendland2
 from sph_mountain_waves_tpu_torch.models import wcsph_perturbed_witch as tw
 from sph_mountain_waves_tpu_torch.models.witch_common import WitchConfig as TCfg
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from torch_reference_harness import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -107,7 +108,7 @@ def test_rebuild_matches_jax(cap):
     jin = JState(fields={k: jnp.asarray(v) for k, v in fields.items()},
                  active=jnp.asarray(active))
     jout, jn = jax.jit(je.rebuild).lower(jin).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(jin)
+        compiler_options=QUICK_COMPILE)(jin)
     tout, tn = te.rebuild(state_from_numpy(fields, active, "cpu"))
     assert int(tn.overflow) == int(jn.overflow)
     if cap == 4:

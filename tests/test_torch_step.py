@@ -21,6 +21,7 @@ from sph_mountain_waves_tpu_torch.models.common import frame_runner
 from sph_mountain_waves_tpu_torch.models.witch_common import (
     WitchConfig as TCfg, velocity_diagnostics as t_diag,
 )
+from torch_reference_harness import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -37,7 +38,7 @@ def stepped():
     js = jw.make_system(jcfg)
     jstate = js.freeze()
     jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jstate).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
+        compiler_options=QUICK_COMPILE)
     for _ in range(N_STEPS):
         jstate = jstep(jstate)
 

@@ -69,7 +69,7 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
 )
 from sph_mountain_waves_tpu_torch.ops import neighbors as tnb
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
-from torch_reference_harness import reference_body_sweep
+from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
 
 torch.set_num_threads(1)
 
@@ -80,7 +80,6 @@ FACTORY = {"iso_flow": "isothermal_flow_config",
            "adia_static": "adiabatic_static_config",
            "adia_flow": "adiabatic_flow_config"}
 RTOL, ATOL_REL = 1e-5, 1e-6
-LEVEL0 = {"xla_backend_optimization_level": 0}
 
 
 def _configs(variant, **kw):
@@ -171,7 +170,7 @@ def test_sorted_slot_scatter_matches_jax():
                                rng.uniform(-900, 900, fields["x"].shape), 0.0)
     fields["x"] = x.astype(np.float32)
     jkey = je._screen_and_key(_to_jax(fields, active))[2]
-    _, tkey = te._screen_and_key(state_from_numpy(fields, active, "cpu"))
+    tkey = te._screen_and_key(state_from_numpy(fields, active, "cpu"))[2]
     np.testing.assert_array_equal(tkey.numpy(), np.asarray(jkey))
     move = {k: fields[k] for k in ("x", "v", "m", "type")}
     cap = 4
@@ -375,7 +374,7 @@ def test_steps_match_jax(variant):
     jstate = js.freeze()
     assert js.engine.layout == "flat"
     jstep = jax.jit(jlw.make_step(jcfg, js.engine)).lower(jstate).compile(
-        compiler_options=LEVEL0)
+        compiler_options=QUICK_COMPILE)
     ts = tlw.make_system(tcfg)
     tstate = ts.freeze(device="cpu")
     tstep = tlw.make_step(tcfg, ts.engine)
