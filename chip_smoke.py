@@ -24,7 +24,8 @@ their configs' default sizes; then the ISPH baseline
 and the Rayleigh–Bénard baseline (``rayleigh_benard.baseline_config()``:
 N=53,621, grid 256 x 80, cap 16); last, the flat layout in float32 and
 float64 (phases 35-39): the flagship at full width, the 2-D schemes at their
-default configurations and the reference's cross-layout gates.
+default configurations and the reference's cross-layout gates; and the 3-D
+schemes on the flat layout and the flat pressure solves (phases 40-43).
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -189,6 +190,28 @@ Phases, each printing one or more lines:
      break at dr 0.05 to t_end 0.5 in 10 frames (X/H/E), rtol 1e-3; then a
      CUDA bucket state with ``use_pallas=False`` and a float64 bucket state,
      each refused;
+ 40. ``collapse3d.run(Config())`` at its defaults (f64 flat, dr 5e-3) for 3
+     frames of its cadence (125 steps each) with its files and the energy
+     per frame; the reference's energy gate (dr 0.015, t_end 0.06: max
+     |E/E0 - 1| < 0.02, every particle kept); one f32 flat frame;
+ 41. witch3d on the flat layout, f32 and f64: a probe at n_rows 12 measures
+     the peak memory of a set-up and a step, the peak at a width is
+     reckoned from it by the particle count, and the widest n_rows <= 40
+     whose reckoned peak stays under 60 GB is run (set-up, 2 frames); then
+     the reference's gates at its TINY in f64 (median rho/rho_bg within
+     1e-3 of 1 after one step, u_max < 1 m/s after 12 steps);
+ 42. ``isph_witch.run(ISPHWitchConfig())`` at its defaults (f32 flat,
+     "mg": the reference's RuntimeWarning, printed, and Jacobi), the
+     baseline width (n_rows 110) on the flat layout in f32 and f64, kicked,
+     with cg_it and cg_res; the reference's gates at n_rows 12 in f64
+     (static u_max < 1e-6; a kick's rms divergence below 0.3x in 10 steps);
+ 43. ``collapse_dry_implicit.run``: the reference's gates (dr 0.05 to t_end
+     0.4 in 8 frames: X never falls and ends past 1.8, H falls, E/E0 within
+     [0.9, 1.01]; dr 0.06: P finite, |P| < 20 rho g H), then
+     ``Config(t_end=0.5, n_frames=50)`` at its default dr 0.01 (f64) with
+     its files; phases 40-43 each print their seconds, ms/step, peak memory
+     and the overflow of a flat rebuild of their final states, and launch
+     no sweep;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound, and the kernels' own
      time that torch.profiler records over 50 more runs (``device_ms``;
@@ -1479,6 +1502,453 @@ def flat_phases(dev, card, counters) -> None:
             "state are refused")
 
 
+def timed(fn):
+    """(fn(), seconds, peak GiB): fn run on the card between two
+    synchronisations; the peak of allocated memory during fn, counted from
+    a reset just before, less what was allocated before it (earlier
+    phases' live tensors)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - before) / 2**30)
+
+
+def no_sweep_launched(label, counters) -> None:
+    """The flat paths take no sweep kernel: every counter still 0."""
+    launched = {k: v for k, v in counters.read().items() if v}
+    if launched:
+        raise AssertionError(f"{label}: sweep launches {launched} on a flat "
+                             "path")
+
+
+def kept_and_finite(label, out) -> None:
+    """A run's final state: every value finite, every particle kept."""
+    final, sysm = out["state"], out["system"]
+    if not all_finite(final) or int(final.n) != sysm.n_built:
+        raise AssertionError(f"{label}: finite {all_finite(final)}, active "
+                             f"{int(final.n)}/{sysm.n_built}")
+
+
+def grid_line(sysm) -> str:
+    e = sysm.engine
+    return (f"N={sysm.n_built} flat grid {e.lims} cap {e.cap} pair mode "
+            f"{e.pair_mode}")
+
+
+def collapse3d_flat_phase(dev, card, counters) -> None:
+    """Phase 40: collapse3d on the flat layout: its defaults (f64, dr 5e-3)
+    through ``run`` for 3 frames of its cadence with its files, the
+    reference's energy gate, and one f32 frame."""
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.models import collapse3d as c3
+    cfg0 = c3.Config()
+    spf = max(1, int(round(cfg0.t_end / cfg0.n_frames / cfg0.dt)))
+    cfg = dataclasses.replace(cfg0, t_end=3 * spf * cfg0.dt, n_frames=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        counters.reset()
+        out, secs, peak = timed(lambda: c3.run(cfg, out_path=tmp, device=dev))
+        files = sorted(os.listdir(tmp))
+    no_sweep_launched("collapse3d defaults", counters)
+    kept_and_finite("collapse3d defaults", out)
+    sysm = out["system"]
+    want = ["frame0.vtp", "frame1.vtp", "frame2.vtp", "result.pvd"]
+    if (files != want or sysm.engine.layout != "flat"
+            or out["state"].fields["x"].dtype != cfg.torch_dtype
+            or not np.all(np.isfinite(out["E"])) or len(out["E"]) != 3):
+        raise AssertionError(f"collapse3d defaults: files {files}, E "
+                             f"{out['E']}")
+    say(40, f"collapse3d.run(Config()) at its defaults (f64 flat, dr "
+            f"{cfg.dr}): {grid_line(sysm)}; 3 frames of {spf} steps in "
+            f"{secs:.2f} s = {1e3 * secs / (3 * spf):.3f} ms/step (set-up "
+            f"and files included); peak memory {peak:.2f} GiB over its start; E per frame "
+            f"{[float(f'{e:.9e}') for e in out['E']]}; wrote {files}; "
+            f"overflow {flat_overflow(sysm, out['state'])}; no sweep "
+            f"launched ({card})")
+    profile_steps(40, "collapse3d flat f64", c3.make_step(cfg, sysm.engine),
+                  out["state"], n_steps=5, table=False)
+
+    # the reference's energy gate (tests/test_examples.py)
+    gate = c3.Config(dr=0.015, t_end=0.06, n_frames=3)
+    out, secs, peak = timed(lambda: c3.run(gate, device=dev))
+    E = out["E"]
+    drift = float(np.max(np.abs(E / E[0] - 1.0)))
+    kept_and_finite("collapse3d energy gate", out)
+    if not (np.all(np.isfinite(E)) and drift < 0.02):
+        raise AssertionError(f"collapse3d energy gate: E {E}")
+    n_steps = int(round(gate.t_end / gate.dt))
+    say(40, f"collapse3d energy gate (dr {gate.dr}, t_end {gate.t_end}, 3 "
+            f"frames, f64 flat): {grid_line(out['system'])}; max |E/E0 - 1| {drift:.3e} "
+            f"< 0.02, every particle kept; {n_steps} steps in {secs:.2f} s "
+            f"= {1e3 * secs / n_steps:.3f} ms/step; peak memory {peak:.2f} "
+            f"GiB; overflow {flat_overflow(out['system'], out['state'])}")
+
+    # one f32 frame at the default width
+    cfg = dataclasses.replace(cfg0, dtype="float32", t_end=spf * cfg0.dt,
+                              n_frames=1)
+    counters.reset()
+    out, secs, peak = timed(lambda: c3.run(cfg, device=dev))
+    no_sweep_launched("collapse3d f32 flat", counters)
+    kept_and_finite("collapse3d f32 flat", out)
+    say(40, f"collapse3d f32 flat, one frame of {spf} steps: "
+            f"{grid_line(out['system'])}; {secs:.2f} s = "
+            f"{1e3 * secs / spf:.3f} ms/step; peak memory {peak:.2f} GiB over its start; E "
+            f"{out['E'][-1]:.9e}; overflow "
+            f"{flat_overflow(out['system'], out['state'])}")
+
+
+# witch3d on the flat layout: the probe width, the widest width asked for
+# (the stretch width) and the memory the reckoned peak must stay under
+W3D_PROBE_ROWS = 12
+W3D_MAX_ROWS = 40
+W3D_LIMIT_BYTES = 60e9
+
+
+def w3d_particles(cfg) -> float:
+    """The particle count of a witch3d config, up to lattice rounding: the
+    domain and its fence (bc_rows·dr on every side) filled at one particle
+    per dr³ (the ridge is fluid too)."""
+    w = 2 * cfg.bc_width
+    return ((cfg.dom_length + w) * (cfg.dom_depth + w) * (cfg.dom_height + w)
+            / cfg.dr**3)
+
+
+def witch3d_flat_phase(dev, card, counters) -> None:
+    """Phase 41: witch3d on the flat layout in f32 and f64. A probe at
+    n_rows 12 measures the peak memory of a set-up and a step; the peak at
+    a width is reckoned as the probe's scaled by the particle count, and
+    the widest n_rows ≤ 40 under 60 GB is run: set-up and 2 frames. Then
+    the reference's static and renormalisation gates at its TINY in f64."""
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import witch3d as w3
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.models.witch_common import (
+        background_density_t, velocity_diagnostics,
+    )
+    from sph_mountain_waves_tpu_torch.ops.apply import _largest_count
+
+    for dtype in ("float32", "float64"):
+        probe = w3.Witch3DConfig(n_rows=W3D_PROBE_ROWS, dtype=dtype,
+                                 self_density=True)
+        sysm = w3.make_system(probe)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = sysm.freeze(device=dev)
+        state_bytes = torch.cuda.memory_allocated() - before
+        state = w3.make_step(probe, sysm.engine)(
+            w3.setup(probe, sysm.engine, state))
+        torch.cuda.synchronize()
+        peak_probe = torch.cuda.max_memory_allocated() - before
+        e = sysm.engine
+        _, nbrs = e.rebuild(state)
+        k, S = _largest_count(e, nbrs), len(e.stencil)
+        slots = (e.num_cells * k if e.pair_mode == "cell"
+                 else state.capacity) * S * k
+        block = slots * state.fields["x"].element_size()
+        ratio = sysm.n_built / w3d_particles(probe)
+        del state, nbrs
+        torch.cuda.empty_cache()
+
+        def reckoned(n_rows, probe=probe):
+            cfg = dataclasses.replace(probe, n_rows=n_rows)
+            return peak_probe * w3d_particles(cfg) / w3d_particles(probe)
+
+        n_rows = max(n for n in range(W3D_PROBE_ROWS, W3D_MAX_ROWS + 1)
+                     if reckoned(n) < W3D_LIMIT_BYTES)
+        say(41, f"witch3d flat {dtype} probe at n_rows {W3D_PROBE_ROWS}: "
+                f"{grid_line(sysm)} (N/estimate {ratio:.4f}); k {k}: one "
+                f"{'[C, k, 27k]' if e.pair_mode == 'cell' else '[N, 27k]'} "
+                f"plane {block / 2**30:.3f} GiB; state {state_bytes / 2**30:.3f}"
+                f" GiB; set-up + step peak {peak_probe / 2**30:.2f} GiB "
+                f"({(peak_probe - state_bytes) / block:.1f} planes above the "
+                f"state); reckoned peak at n_rows {W3D_MAX_ROWS} "
+                f"{reckoned(W3D_MAX_ROWS) / 1e9:.1f} GB; widest n_rows under "
+                f"{W3D_LIMIT_BYTES / 1e9:.0f} GB: {n_rows} (reckoned "
+                f"{reckoned(n_rows) / 1e9:.1f} GB)")
+
+        cfg = dataclasses.replace(probe, n_rows=n_rows)
+        spf = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
+        t0 = time.perf_counter()
+        sysm = w3.make_system(cfg)
+        build_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        counters.reset()
+
+        def run_it():
+            state = sysm.freeze(device=dev)
+            state = w3.setup(cfg, sysm.engine, state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run_frame = frame_runner(w3.make_step(cfg, sysm.engine), spf)
+            state = run_frame(run_frame(state))
+            torch.cuda.synchronize()
+            return state, time.perf_counter() - t1
+
+        (state, step_s), secs, peak = timed(run_it)
+        no_sweep_launched(f"witch3d flat {dtype}", counters)
+        u_avg, u_max = (float(v) for v in velocity_diagnostics(state))
+        if not all_finite(state) or int(state.n) != sysm.n_built:
+            raise AssertionError(f"witch3d flat {dtype}: finite "
+                                 f"{all_finite(state)}, active "
+                                 f"{int(state.n)}/{sysm.n_built}")
+        say(41, f"witch3d flat {dtype} at n_rows {n_rows}: {grid_line(sysm)}; "
+                f"host build {build_s:.2f} s; freeze, set-up "
+                f"({cfg.renorm_iters} iterations) and 2 frames of {spf} "
+                f"steps in {secs:.2f} s, the steps {1e3 * step_s / (2 * spf):.1f}"
+                f" ms/step; peak memory {peak:.2f} GiB over its start (reckoned "
+                f"{reckoned(n_rows) / 2**30:.2f} GiB); active {int(state.n)}; "
+                f"u_avg {u_avg:.4e} u_max {u_max:.4e} m/s; overflow "
+                f"{flat_overflow(sysm, state)}; no sweep launched ({card})")
+        del state
+        torch.cuda.empty_cache()
+
+    # the reference's gates (tests/test_witch3d.py) at its TINY in f64
+    tiny = w3.Witch3DConfig(n_rows=6, dom_length=60e3, dom_depth=10e3,
+                            bc_rows=3, self_density=True, dtype="float64")
+    sysm = w3.make_system(tiny)
+    state = sysm.freeze(device=dev)
+    state = w3.setup(tiny, sysm.engine, state)
+    step = w3.make_step(tiny, sysm.engine)
+    t0 = time.perf_counter()
+    ratio = None
+    for k in range(12):
+        state = step(state)
+        if k == 0:
+            act = state.active
+            ratio = float(torch.median(
+                state.fields["rho"][act]
+                / background_density_t(tiny, state.fields["x"][act][:, 2])))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    v = state.fields["v"][state.active]
+    u_max = float(torch.linalg.norm(v, dim=1).max())
+    if not (all_finite(state) and int(state.n) == sysm.n_built
+            and u_max < 1.0 and abs(ratio - 1.0) < 1e-3):
+        raise AssertionError(f"witch3d TINY gates: u_max {u_max}, median "
+                             f"ratio {ratio}, active {int(state.n)}")
+    say(41, f"witch3d reference gates at TINY (f64 flat, {grid_line(sysm)}):"
+            f" median rho/rho_bg after one step {ratio:.6f} (within 1e-3 of "
+            f"1); u_max after 12 steps {u_max:.4e} m/s < 1, every particle "
+            f"kept; {1e3 * secs / 12:.2f} ms/step")
+
+
+ISPH_WARNING = ("ISPH precond='mg' requires a bucket engine (got "
+                "layout='flat'); falling back to Jacobi")
+
+
+def isph_flat_phase(dev, card, counters) -> None:
+    """Phase 42: the flat ISPH solve: ``run(ISPHWitchConfig())`` at its
+    defaults (f32 flat, "mg", which warns and solves with Jacobi), the
+    baseline width on the flat layout in f32 and f64 kicked, and the
+    reference's f64 static and projection gates at n_rows 12."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch.kernels import rDspline23
+    from sph_mountain_waves_tpu_torch.models import isph_witch as iw
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.ops.apply import apply_binary
+
+    cfg = iw.ISPHWitchConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        counters.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out, secs, peak = timed(lambda: iw.run(cfg, out_path=tmp,
+                                                   device=dev))
+        files = sorted(os.listdir(tmp))
+    no_sweep_launched("isph_witch defaults", counters)
+    kept_and_finite("isph_witch defaults", out)
+    msgs = [str(w.message) for w in caught
+            if str(w.message).startswith("ISPH precond")]
+    n_steps = len(out["t"])
+    if (msgs != [ISPH_WARNING] or "result.pvd" not in files
+            or "data.csv" not in files
+            or not np.all(np.isfinite(out["u_max"]))):
+        raise AssertionError(f"isph_witch defaults: warnings {msgs}, files "
+                             f"{files}")
+    sysm = out["system"]
+    say(42, f"isph_witch.run(ISPHWitchConfig()) at its defaults (f32 flat, "
+            f"precond 'mg'): caught RuntimeWarning: {msgs[0]!r}; "
+            f"{grid_line(sysm)}; {n_steps} steps in {secs:.2f} s = "
+            f"{1e3 * secs / n_steps:.2f} ms/step (set-up and files "
+            f"included); peak memory {peak:.2f} GiB over its start; cg_it per step "
+            f"{[int(c) for c in out['cg_it']]}, last cg_res "
+            f"{out['cg_res'][-1]:.3e}; u_max {out['u_max'][-1]:.4e} m/s; "
+            f"wrote {len(files)} files; overflow "
+            f"{flat_overflow(sysm, out['state'])} ({card})")
+
+    # the baseline width on the flat layout, kicked
+    for dtype in ("float32", "float64"):
+        cfg = iw.ISPHWitchConfig(n_rows=110, dtype=dtype, precond="jacobi")
+        sysm = iw.make_system(cfg)
+        state = kick(sysm.freeze(device=dev), dev)
+        run_frame = frame_runner(iw.make_step(cfg, sysm.engine), 1)
+        counters.reset()
+        state = run_frame(state)  # warm-up
+        warm_it = int(state.fields["cg_it"][0])
+        (state, its, ress), secs, peak = timed(lambda s=state: _isph_frames(
+            run_frame, s, 2))
+        no_sweep_launched(f"isph flat {dtype}", counters)
+        if not all_finite(state) or int(state.n) != sysm.n_built:
+            raise AssertionError(f"isph flat {dtype}: finite "
+                                 f"{all_finite(state)}")
+        say(42, f"isph_witch flat {dtype} at the baseline width (n_rows 110, "
+                f"Jacobi, kicked): {grid_line(sysm)}; a warm-up step "
+                f"(cg_it {warm_it}) then 2 frames of 1 step: cg_it {its}, "
+                f"cg_res {[float(f'{r:.3e}') for r in ress]}, "
+                f"{1e3 * secs / 2:.2f} ms/step; peak memory {peak:.2f} GiB over its start; "
+                f"overflow {flat_overflow(sysm, state)}; no sweep launched "
+                f"({card})")
+        if dtype == "float64":
+            profile_steps(42, "isph flat f64 baseline",
+                          iw.make_step(cfg, sysm.engine), state, n_steps=2,
+                          table=False)
+        del state
+        torch.cuda.empty_cache()
+
+    # the reference's gates (tests/test_isph.py): the static atmosphere at
+    # n_rows 12 in f64 stays static; a kick is projected toward a
+    # divergence-free flow
+    cfg = iw.ISPHWitchConfig(n_rows=12, dtype="float64", t_end=12.0,
+                             n_frames=5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        out = iw.run(cfg, device=dev)
+        sysm = iw.make_system(cfg)
+        state = sysm.freeze(device=dev)
+        step = iw.make_step(cfg, sysm.engine)
+    eng = sysm.engine
+    f = state.fields
+    rng = np.random.default_rng(0)
+    v = torch.as_tensor(0.5 * rng.standard_normal(tuple(f["v"].shape)),
+                        dtype=f["v"].dtype, device=dev)
+    state = state.replace(v=torch.where((f["type"] == 0.0)[:, None], v,
+                                        f["v"]))
+
+    def divf(p, q, r):
+        return {"div": -torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)
+                * p.rho_bg * cfg.dr**2 * rDspline23(cfg.h0, r)}
+
+    def rms_div(st):
+        st, nbrs = eng.rebuild(st)
+        st = st.replace(div=torch.zeros_like(st.fields["div"]))
+        d = apply_binary(eng, st, nbrs, divf).fields["div"]
+        return float(torch.sqrt(torch.mean(torch.where(st.active, d, 0.0)
+                                           ** 2)))
+
+    d0 = rms_div(state)
+    for _ in range(10):
+        state = step(state)
+    d10 = rms_div(state)
+    if not (out["u_max"][-1] < 1e-6 and math.isfinite(d10) and d10 < 0.3 * d0):
+        raise AssertionError(f"isph gates: u_max {out['u_max']}, div "
+                             f"{d0} -> {d10}")
+    say(42, f"isph_witch reference gates (n_rows 12, f64 flat): static u_max "
+            f"{out['u_max'][-1]:.3e} < 1e-6; kicked, rms divergence {d0:.4e} "
+            f"-> {d10:.4e} after 10 steps (< 0.3x)")
+
+
+def _isph_frames(run_frame, state, n):
+    """n frames; (state, cg_it per frame, cg_res per frame)."""
+    its, ress = [], []
+    for _ in range(n):
+        state = run_frame(state)
+        its.append(int(state.fields["cg_it"][0]))
+        ress.append(float(state.fields["cg_res"][0]))
+    return state, its, ress
+
+
+def implicit_dam_break_phase(dev, card, counters) -> None:
+    """Phase 43: ``collapse_dry_implicit.run``: the reference's gates
+    (tests/test_isph.py) at dr 0.05 and 0.06, then ``Config(t_end=0.5,
+    n_frames=50)`` at its default dr 0.01 (f64 flat) with its files."""
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.models import collapse_dry_implicit as ci
+
+    cfg = ci.Config(dr=0.05, t_end=0.4, n_frames=8)
+    out, secs, peak = timed(lambda: ci.run(cfg, device=dev))
+    X, H, E = out["X"], out["H"], out["E"]
+    kept_and_finite("implicit dam break gate", out)
+    if not (np.all(np.diff(X) > -1e-6) and X[-1] > 1.8 and H[-1] < H[0]
+            and np.max(E / E[0]) < 1.01 and E[-1] / E[0] > 0.9):
+        raise AssertionError(f"implicit dam break gate: X {X} H {H} E {E}")
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    say(43, f"collapse_dry_implicit gate (dr 0.05, t_end 0.4, 8 frames): "
+            f"{grid_line(out['system'])}; X {X[-1]:.4f} > 1.8 and never "
+            f"falls, H {H[0]:.4f} -> {H[-1]:.4f}, max E/E0 "
+            f"{np.max(E / E[0]):.6f} < 1.01, E/E0 at the end "
+            f"{E[-1] / E[0]:.6f} > 0.9, every particle kept; {n_steps} steps "
+            f"in {secs:.2f} s = {1e3 * secs / n_steps:.2f} ms/step; peak "
+            f"memory {peak:.2f} GiB; overflow "
+            f"{flat_overflow(out['system'], out['state'])}")
+
+    cfg = ci.Config(dr=0.06, t_end=0.1, n_frames=2)
+    out = ci.run(cfg, device=dev)
+    st = out["state"]
+    P = st.fields["P"][st.active]
+    rho_g_H = cfg.rho * abs(cfg.g) * cfg.water_column_height
+    p_max = float(P.abs().max())
+    if not (bool(P.isfinite().all()) and p_max < 20 * rho_g_H):
+        raise AssertionError(f"implicit dam break pressure: max |P| {p_max}")
+    say(43, f"collapse_dry_implicit pressure gate (dr 0.06, t_end 0.1): P "
+            f"finite, max |P| {p_max:.1f} < 20 rho g H = {20 * rho_g_H:.1f}")
+
+    cfg = ci.Config(t_end=0.5, n_frames=50)
+    spf = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    with tempfile.TemporaryDirectory() as tmp:
+        counters.reset()
+        out, secs, peak = timed(lambda: ci.run(cfg, out_path=tmp, device=dev))
+        files = sorted(os.listdir(tmp))
+    no_sweep_launched("implicit dam break defaults", counters)
+    kept_and_finite("implicit dam break defaults", out)
+    frames = len(out["X"])
+    want = sorted([f"frame{i}.vtp" for i in range(frames)] + ["result.pvd"])
+    sysm = out["system"]
+    if (files != want or sysm.engine.layout != "flat"
+            or out["state"].fields["x"].dtype != cfg.torch_dtype
+            or not np.all(np.isfinite(out["E"]))):
+        raise AssertionError(f"implicit dam break defaults: files {files}")
+    steps_run = frames * spf
+    say(43, f"collapse_dry_implicit.run(Config(t_end=0.5, n_frames=50)) at "
+            f"its default dr {cfg.dr} (f64 flat): {grid_line(sysm)}; "
+            f"{frames} frames of {spf} steps ({steps_run}; {n_steps} asked) "
+            f"in {secs:.2f} s = {1e3 * secs / steps_run:.2f} ms/step (set-up "
+            f"and files included); peak memory {peak:.2f} GiB over its start; X "
+            f"{out['X'][-1]:.4f} H {out['H'][-1]:.4f}, E/E0 "
+            f"{out['E'][-1] / out['E'][0]:.6f}; wrote {len(files)} files; "
+            f"overflow {flat_overflow(sysm, out['state'])}; no sweep "
+            f"launched ({card})")
+    profile_steps(43, "collapse_dry_implicit f64 flat",
+                  ci.make_step(cfg, sysm.engine), out["state"], n_steps=5,
+                  table=False)
+
+
+def solve_and_3d_flat_phases(dev, card, counters) -> None:
+    """Phases 40-43: the 3-D schemes on the flat layout and the flat
+    pressure solves on the card."""
+    import torch
+    for number, phase in ((40, collapse3d_flat_phase),
+                          (41, witch3d_flat_phase), (42, isph_flat_phase),
+                          (43, implicit_dam_break_phase)):
+        t0 = time.perf_counter()
+        phase(dev, card, counters)
+        torch.cuda.empty_cache()
+        say(number, f"phase {number}: {time.perf_counter() - t0:.1f} s")
+
+
 def main(profile: bool) -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2386,6 +2856,8 @@ def main(profile: bool) -> None:
     violeau_phase(dev, card)
     # 35-39: the flat layout and float64
     flat_phases(dev, card, counters)
+    # 40-43: the 3-D schemes on the flat layout and the flat pressure solves
+    solve_and_3d_flat_phases(dev, card, counters)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):

@@ -23,12 +23,14 @@ wave (``models.witch3d``) and the dam break (``models.collapse3d``). And the
 terrain family (``models.legacy_witch``: isothermal and adiabatic, static
 and flow, with inflow recycling and the sort rescatter). They run on
 twenty-two hand-written pair sweeps. On the flat layout (rows sorted by
-cell at every rebuild), in float32 or float64, the 2-D mountain-wave
-schemes, the dam break and Rayleigh–Bénard also run, at their configs'
-defaults, their pair sums taken by ``ops.apply.apply_binary`` in plain
-PyTorch (the reference takes XLA pair sums there). Every scheme's ``run``
-writes its files (``io``: PVD/VTP frames and ``data.csv``;
-``utils.checkpoint``: bitwise checkpoint and resume).
+cell at every rebuild), in float32 or float64, every one of these but the
+terrain family also runs, at its config's defaults, its pair sums taken by
+``ops.apply.apply_binary`` in plain PyTorch (the reference takes XLA pair
+sums there), and so does the implicit (ISPH) dam break
+(``models.collapse_dry_implicit``), which has no bucket path; the flat
+pressure solves take their operator from ``ops.solvers.assemble_matvec``.
+Every scheme's ``run`` writes its files (``io``: PVD/VTP frames and
+``data.csv``; ``utils.checkpoint``: bitwise checkpoint and resume).
 """
 import torch
 
@@ -44,6 +46,10 @@ from .kernels import wendland2, rDwendland2, wendland3, rDwendland3  # noqa: E40
 from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
 from .ops.neighbors import NeighborEngine, Neighbors, sorted_slot_scatter  # noqa: E402
 from .ops.apply import apply_binary, apply_unary, pair_sum  # noqa: E402
+from .ops.solvers import (  # noqa: E402
+    assemble_matvec, assemble_vector, cg_solve, assemble_matrix,
+    assemble_matrix_bcoo,
+)
 from .interop import state_from_numpy, state_to_numpy  # noqa: E402
 from .io import (  # noqa: E402
     DataStorage, new_pvd_file, save_pvd_file, save_frame, import_particles,

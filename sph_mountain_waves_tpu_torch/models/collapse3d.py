@@ -2,15 +2,16 @@
 
 Port of ``sph_mountain_waves_tpu/models/collapse3d.py``: the dam-break
 scheme in 3-D with the 3-D quintic Wendland kernel, a cubic lattice and Box
-geometry; gravity acts along z. It runs the 27-cell stencil of the engine at
-a high bucket capacity (h = 2·dr gives ~27 lattice points per cell).
+geometry; gravity acts along z. It runs the 27-cell stencil of the engine.
 
-The two pair sums of a step are the 3-D forms of ``dambreak_mass_pass`` and
+The config's defaults are the reference's: the flat layout in float64. There
+the two pair sums of a step are the reference's pair functions summed by
+``ops/apply.py::apply_binary`` on the state's device (float32 or float64).
+On the float32 bucket layout (h = 2·dr gives ~27 lattice points per cell, a
+high bucket capacity) they are the 3-D forms of ``dambreak_mass_pass`` and
 ``dambreak_force_pass`` (``ops/pair_sweeps.py``), called through their
-wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors.
-Only the float32 bucket layout is ported for it: the config's defaults
-(``layout="flat"``, ``dtype="float64"``) are the reference's and raise here
-(``require_bucket_float32``).
+wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU tensors;
+a float64 bucket state raises at its first step (``check_sweep_route``).
 """
 from __future__ import annotations
 
@@ -21,12 +22,11 @@ import torch
 
 from ..geometry import BoundaryLayer, Box, Specification, boundarybox
 from ..grids import Grid
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland3
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import dambreak_force_pass, dambreak_mass_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .common import (
-    check_sweep_route, frame_runner, masked_sum, require_bucket_float32,
-)
+from .common import check_sweep_route, frame_runner, masked_sum
 
 FLUID = 0.0
 WALL = 1.0
@@ -48,11 +48,13 @@ class Config:
     t_end: float = 0.5
     n_frames: int = 200
     dtype: str = "float64"
-    # only layout="bucket" with dtype="float32" is ported
+    # "flat" (float32 or float64: ops/apply.py's pair sums) or "bucket"
+    # (float32: the sweeps)
     layout: str = "flat"
     skin: float = 0.0
-    # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
-    # take the plain twins either way); a CUDA state with False is refused
+    # bucket layout: the pair sweeps launch their CUDA kernels on CUDA
+    # tensors (CPU tensors take the plain twins either way); a CUDA bucket
+    # state with False is refused. The flat layout ignores it.
     use_pallas: bool = False
 
     @property
@@ -71,9 +73,12 @@ class Config:
     def wall_width(self) -> float:
         return 2.5 * self.dr
 
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch.float64 if self.dtype == "float64" else torch.float32
+
 
 def make_system(cfg: Config) -> ParticleSystem:
-    require_bucket_float32(cfg, "collapse3d")
     grid = Grid(cfg.dr, "cubic")
     box = Box(0.0, 0.0, 0.0, cfg.box_width, cfg.box_height, cfg.box_depth)
     fluid = Box(0.0, 0.0, 0.0, cfg.water_column_width,
@@ -83,7 +88,7 @@ def make_system(cfg: Config) -> ParticleSystem:
     domain = boundarybox(walls)
     sys = ParticleSystem(
         fields={"x": 3, "v": 3, "a": 3, "P": 0, "rho": 0, "Drho": 0, "type": 0},
-        domain=domain, h=cfg.h, dim=3, dtype=torch.float32,
+        domain=domain, h=cfg.h, dim=3, dtype=cfg.torch_dtype,
         defaults={"rho": cfg.rho0})
     sys.freeze_opts = {"layout": cfg.layout, "skin": cfg.skin}
     generate_particles(sys, grid, fluid, lambda xs: {"type": FLUID})
@@ -95,7 +100,21 @@ def make_step(cfg: Config, engine):
     if engine is None:
         raise ValueError("make_step needs the system's engine: call "
                          "sys.freeze() before make_step(cfg, sys.engine)")
-    dt, c, rho0 = cfg.dt, cfg.c, cfg.rho0
+    dt, m, c, rho0, h = cfg.dt, cfg.m, cfg.c, cfg.rho0, cfg.h
+
+    def balance_of_mass(p, q, r):
+        ker = m * rDwendland3(h, r)
+        return {"Drho": ker * (torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)
+                               + 2 * cfg.nu * (p.rho - q.rho))}
+
+    def internal_force(p, q, r):
+        # the symmetric P/ρ² form of the 2-D dam break, on FLUID rows only
+        ker = m * rDwendland3(h, r)
+        fluid = p.type == FLUID
+        a = (-(ker * (p.P / p.rho**2 + q.P / q.rho**2))[..., None]
+             * (p.x - q.x)
+             + (2 * ker * cfg.mu / rho0**2)[..., None] * (p.v - q.v))
+        return {"a": torch.where(fluid[..., None], a, 0.0)}
 
     def find_pressure(u):
         rho = u.rho + u.Drho * dt
@@ -113,16 +132,28 @@ def make_step(cfg: Config, engine):
         gvec[:, 2] = cfg.g
         return {"v": torch.where(fluid, u.v + 0.5 * dt * (u.a + gvec), u.v)}
 
+    sweeps = engine.layout == "bucket"
+
+    def mass(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, balance_of_mass)
+        drho = state.fields["Drho"] + dambreak_mass_pass(engine, state, cfg)
+        return state.replace(Drho=torch.where(state.active, drho, 0.0))
+
+    def force(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, internal_force)
+        acc = state.fields["a"] + torch.stack(
+            dambreak_force_pass(engine, state, cfg), dim=-1)
+        return state.replace(a=torch.where(state.active[:, None], acc, 0.0))
+
     def step(state: ParticleState) -> ParticleState:
         check_sweep_route(cfg, state, engine)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
-        drho = state.fields["Drho"] + dambreak_mass_pass(engine, state, cfg)
-        state = state.replace(Drho=torch.where(state.active, drho, 0.0))
+        state, nbrs = engine.rebuild(state)
+        state = mass(state, nbrs)
         state = apply_unary(state, find_pressure)
-        acc = state.fields["a"] + torch.stack(
-            dambreak_force_pass(engine, state, cfg), dim=-1)
-        state = state.replace(a=torch.where(state.active[:, None], acc, 0.0))
+        state = force(state, nbrs)
         state = apply_unary(state, accelerate)
         return apply_unary(state, accelerate)  # the reference's two kicks
 

@@ -61,7 +61,8 @@ def check_sweep_route(cfg, state: ParticleState, engine) -> None:
         raise NotImplementedError(
             f"a {state.fields['x'].dtype} state on the bucket layout: the "
             "bucket layout's sweeps are float32 (float64 runs on the flat "
-            "layout)")
+            "layout; the reference's float64 bucket path, its resident pair "
+            "sum, belongs to a later slice)")
     if not cfg.use_pallas and state.active.device.type == "cuda":
         raise ValueError(
             "use_pallas=False on a CUDA state: the port's only pair path on "
@@ -71,18 +72,21 @@ def check_sweep_route(cfg, state: ParticleState, engine) -> None:
 
 
 def require_bucket_float32(cfg, scheme: str, layout=None) -> None:
-    """Refuse what a scheme ported on the float32 bucket layout only does
-    not cover: ``dtype`` other than float32, and ``layout`` (default
-    ``cfg.layout``) other than "bucket"."""
+    """Refuse what the terrain family (``legacy_witch``, the one scheme
+    still ported on the float32 bucket layout only) does not cover:
+    ``dtype`` other than float32, and ``layout`` (default ``cfg.layout``)
+    other than "bucket". Its flat layout needs spawn pools in the spare flat
+    rows (slice 6, part 3); float64 runs only there."""
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: {scheme} is ported on float32 states only "
-            "(its float64 flat-layout path belongs to a later slice)")
+            "(its float64 flat-layout path belongs to slice 6, part 3)")
     layout = cfg.layout if layout is None else layout
     if layout != "bucket":
         raise NotImplementedError(
             f"layout={layout!r}: {scheme} is ported on the bucket layout "
-            "only (its flat-layout path belongs to a later slice)")
+            "only (its flat-layout path, with spawn pools in the spare flat "
+            "rows, belongs to slice 6, part 3)")
 
 
 def frame_runner(step_fn: Callable[[ParticleState], ParticleState],

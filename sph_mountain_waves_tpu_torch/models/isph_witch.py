@@ -6,41 +6,46 @@ step in the Boussinesq limit. Density stays at the hydrostatic background
 ρ_bg(y); buoyancy comes from an advected potential-temperature perturbation
 (Dθ′/Dt = −v_y·θ_bg·N²/g). Each step predicts (buoyancy, sponge, drift),
 rebuilds, takes the divergence, the Morris Laplacian's diagonal L, the
-free-surface λ and the viscous force in one pair sweep, solves the
-pressure-Poisson system with matrix-free preconditioned CG, and corrects the
-velocity with the pressure gradient.
+free-surface λ and the viscous force (one pair sweep on the bucket layout),
+solves the pressure-Poisson system with matrix-free preconditioned CG, and
+corrects the velocity with the pressure gradient.
 
-The pair sums are the sweeps of ``ops/pair_sweeps.py``, called through their
-wrappers: ``isph_div_visc_pass``, the CG matvec ``isph_matvec_prepared``
-(prepared once per solve, one launch per matvec) and ``isph_grad_pass`` (CUDA
-kernels on CUDA tensors, plain twins on CPU tensors). The preconditioner is
-the two-level V-cycle of ``ops/mg.py`` ("mg": additive, "mg_mult":
-symmetrized multiplicative) or Jacobi; the solve is ``ops/solvers.pcg``,
-whose stop test is read on the host once per iteration.
-
-Only the float32 bucket layout with the kernels is ported for ISPH:
-``layout="flat"`` and ``dtype="float64"`` raise (its flat path needs
-``ops/solvers.py``'s assembled operators, not ported yet), a CUDA state with
-``use_pallas`` off is refused (``check_sweep_route``) and so is a sharded
-engine. (The reference's fallback from "mg" to Jacobi on a flat engine
-cannot arise.)
+On the float32 bucket layout the pair sums are the sweeps of
+``ops/pair_sweeps.py``, called through their wrappers:
+``isph_div_visc_pass``, the CG matvec ``isph_matvec_prepared`` (prepared
+once per solve, one launch per matvec) and ``isph_grad_pass`` (CUDA kernels
+on CUDA tensors, plain twins on CPU tensors); the preconditioner is the
+two-level V-cycle of ``ops/mg.py`` ("mg": additive, "mg_mult": symmetrized
+multiplicative) or Jacobi. On the flat layout (float32 or float64; the
+config's default layout) the viscous force, the divergence/L/λ sums and the
+pressure gradient are the reference's pair functions summed by
+``ops/apply.py::apply_binary``, the off-diagonal of the operator is
+``ops/solvers.py::assemble_matvec`` (``include_self=False``), and the
+preconditioner is Jacobi: the V-cycle needs the bucket cell grid, so with
+``precond`` "mg" or "mg_mult" on a flat engine ``make_step`` warns
+(``RuntimeWarning``) and solves with Jacobi, as the reference does. Either
+way the solve is ``ops/solvers.pcg``, whose stop test is read on the host
+once per iteration, and a float64 bucket state raises at its first step
+(``check_sweep_route``); a CUDA bucket state with ``use_pallas`` off is
+refused there too, and so is a sharded engine.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
 
 from ..kernels import rDspline23
-from ..ops.apply import apply_unary
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.mg import two_level_preconditioner
 from ..ops.pair_sweeps import (
     isph_div_visc_pass, isph_grad_pass, isph_matvec_prepared,
 )
-from ..ops.solvers import pcg
+from ..ops.solvers import assemble_matvec, pcg
 from ..structs import ParticleState, ParticleSystem
-from .common import check_sweep_route, require_bucket_float32
+from .common import check_sweep_route
 from .witch_common import (
     FLUID, WitchConfig, background_pot_temperature_t, make_witch_system,
     rayleigh_damping,
@@ -68,7 +73,8 @@ class ISPHWitchConfig(WitchConfig):
     cg_tol: float = 1e-4
     cg_maxiter: int = 200
     # "jacobi" | "mg" (additive two-level) | "mg_mult" (symmetrized
-    # multiplicative, two extra matvecs per iteration)
+    # multiplicative, two extra matvecs per iteration); the two-level forms
+    # need the bucket layout (a flat engine warns and solves with Jacobi)
     precond: str = "mg"
 
     @property
@@ -77,8 +83,7 @@ class ISPHWitchConfig(WitchConfig):
 
 
 def check_ported(cfg: ISPHWitchConfig) -> None:
-    """Refuse what the ISPH port does not cover."""
-    require_bucket_float32(cfg, "isph_witch")
+    """Refuse a preconditioner the scheme does not know."""
     if cfg.precond not in PRECONDITIONERS:
         raise ValueError(f"precond must be one of {PRECONDITIONERS}, got "
                          f"{cfg.precond!r}")
@@ -98,6 +103,12 @@ def make_step(cfg: ISPHWitchConfig, engine):
             "sharded ISPH needs a distributed CG (summed dots across devices "
             "and a ghost refresh per matvec), which is not ported")
     check_ported(cfg)
+    sweeps = engine.layout == "bucket"
+    if cfg.precond.startswith("mg") and not sweeps:
+        warnings.warn(
+            f"ISPH precond={cfg.precond!r} requires a bucket engine "
+            f"(got layout={engine.layout!r}); falling back to Jacobi",
+            RuntimeWarning, stacklevel=2)
     dt = cfg.dt_isph
     h = cfg.h0
     # m/ρ_bg = dr² exactly (m = ρ_bg·dr²): the constant-coefficient Morris
@@ -134,20 +145,64 @@ def make_step(cfg: ISPHWitchConfig, engine):
             fluid, u.theta_p - dt * u.v[:, 1] * dthdy, u.theta_p),
             "theta_bg": background_pot_temperature_t(cfg, u.x[:, 1])}
 
-    def solve(state: ParticleState):
+    def viscous_force(p, q, r):
+        k = visc_c * rDspline23(h, r)
+        return {"Dv": k[..., None] * (p.v - q.v)}
+
+    def div_L_lambda(p, q, r):
+        rDk = rDspline23(h, r)
+        return {"div": -torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)
+                       * p.rho_bg * vol * rDk,
+                "L": -2.0 * vol * rDk,
+                "lam": vol * rDk * r**2 / 2.0}
+
+    def offdiag(p, q, r):
+        return offdiag_w(r)
+
+    def internal_force(p, q, r):
+        # pressure correction: symmetric gradient of P′/ρ_bg
+        k = vol * rDspline23(h, r) * (p.P + q.P) / p.rho_bg
+        return {"Dv": -k[..., None] * (p.x - q.x)}
+
+    def div_visc(state, nbrs):
+        """The viscous force and the divergence, L and λ sums."""
+        if not sweeps:
+            state = apply_binary(engine, state, nbrs, viscous_force)
+            return apply_binary(engine, state, nbrs, div_L_lambda)
+        # one sweep gives the raw spline sums; the p-constant factors of the
+        # divergence, L, λ and the viscous force are applied here
+        s_divv, s_L, s_lam, s_dv0, s_dv1 = isph_div_visc_pass(
+            engine, state, cfg)
+        f = state.fields
+        act = state.active
+        Dv = f["Dv"] + visc_c * torch.stack([s_dv0, s_dv1], dim=-1)
+        return state.replace(
+            Dv=torch.where(act[:, None], Dv, 0.0),
+            div=torch.where(act, f["div"] - vol * f["rho_bg"] * s_divv, 0.0),
+            L=torch.where(act, f["L"] - 2.0 * vol * s_L, 0.0),
+            lam=torch.where(act, f["lam"] + 0.5 * vol * s_lam, 0.0))
+
+    def solve(state: ParticleState, nbrs):
         """The pressure-Poisson solve: (P, iterations, relative residual)."""
         f = state.fields
         act = state.active
         fluid = f["type"] == FLUID
         diag = h**2 * f["L"] + torch.where(
             fluid, cfg.C_free * torch.clamp(f["lam"], min=0.0), 0.0)
-        mv_prep = isph_matvec_prepared(engine, state, cfg)
+        if sweeps:
+            mv_prep = isph_matvec_prepared(engine, state, cfg)
+
+            def mv_off(v):
+                return off_c * mv_prep(v)
+        else:
+            mv_off = assemble_matvec(engine, state, nbrs, offdiag,
+                                     include_self=False)
 
         def matvec(v):
-            return off_c * mv_prep(v) + torch.where(act, diag * v, 0.0)
+            return mv_off(v) + torch.where(act, diag * v, 0.0)
 
         diag_safe = torch.where(torch.abs(diag) > 1e-30, diag, 1.0)
-        if cfg.precond == "jacobi":
+        if cfg.precond == "jacobi" or not sweeps:
             def M(r):
                 return r / diag_safe
         else:
@@ -161,35 +216,28 @@ def make_step(cfg: ISPHWitchConfig, engine):
         return pcg(matvec, b, x0=f["P"], M=M, tol=cfg.cg_tol, atol=1e-18,
                    maxiter=cfg.cg_maxiter, return_info=True)
 
+    def grad(state, nbrs):
+        """The pressure-gradient correction of Dv."""
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, internal_force)
+        s0, s1 = isph_grad_pass(engine, state, cfg)
+        f = state.fields
+        gk = vol / torch.clamp(f["rho_bg"], min=1e-6)
+        Dv = f["Dv"] - gk[:, None] * torch.stack([s0, s1], dim=-1)
+        return state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+
     def step(state: ParticleState) -> ParticleState:
         check_sweep_route(cfg, state, engine)
         state = apply_unary(state, initialize)
-        state, _ = engine.rebuild(state)
-        # one sweep gives the raw spline sums; the p-constant factors of the
-        # divergence, L, λ and the viscous force are applied here
-        s_divv, s_L, s_lam, s_dv0, s_dv1 = isph_div_visc_pass(
-            engine, state, cfg)
-        f = state.fields
-        act = state.active
-        Dv = f["Dv"] + visc_c * torch.stack([s_dv0, s_dv1], dim=-1)
-        state = state.replace(
-            Dv=torch.where(act[:, None], Dv, 0.0),
-            div=torch.where(act, f["div"] - vol * f["rho_bg"] * s_divv, 0.0),
-            L=torch.where(act, f["L"] - 2.0 * vol * s_L, 0.0),
-            lam=torch.where(act, f["lam"] + 0.5 * vol * s_lam, 0.0))
-
-        P, cg_it, cg_res = solve(state)
+        state, nbrs = engine.rebuild(state)
+        state = div_visc(state, nbrs)
+        P, cg_it, cg_res = solve(state, nbrs)
         f = state.fields
         state = state.replace(
             P=torch.where(state.active, P, 0.0),
             cg_it=torch.full_like(f["cg_it"], cg_it),
             cg_res=cg_res.to(f["cg_res"].dtype).expand_as(f["cg_res"]).clone())
-
-        s0, s1 = isph_grad_pass(engine, state, cfg)
-        f = state.fields
-        gk = vol / torch.clamp(f["rho_bg"], min=1e-6)
-        Dv = f["Dv"] - gk[:, None] * torch.stack([s0, s1], dim=-1)
-        state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+        state = grad(state, nbrs)
         state = apply_unary(state, accelerate)
         return apply_unary(state, advect_theta)
 

@@ -7,12 +7,18 @@ the 3-D quintic Wendland kernel, adaptive h = η·(m/ρ)^(1/3); the mountain is
 a ridge extruded along y. ``stretch_config()`` is the 3.2-million-particle
 sizing (n_rows=40, dr = 650 m over 400 km × 56 km × 26 km).
 
-The two pair sums of a step are the 3-D forms of ``density_pass`` and
-``momentum_pass`` (``ops/pair_sweeps.py``: 27 stencil cells), called through
-their wrappers: CUDA kernels on CUDA tensors, plain PyTorch twins on CPU
-tensors. The set-up's mass renormalisation takes its density sums through
-``density_pass`` too (the reference sums ``wendland3(p.h, r)`` in XLA; the
-sweep's divide-free form of the same kernel differs from it by rounding).
+On the float32 bucket layout the two pair sums of a step are the 3-D forms
+of ``density_pass`` and ``momentum_pass`` (``ops/pair_sweeps.py``: 27
+stencil cells), called through their wrappers: CUDA kernels on CUDA
+tensors, plain PyTorch twins on CPU tensors. The set-up's mass
+renormalisation takes its density sums through ``density_pass`` there too
+(the reference sums ``wendland3(p.h, r)`` in XLA; the sweep's divide-free
+form of the same kernel differs from it by rounding). On the flat layout
+(float32 or float64; the config's default layout) the density, the
+momentum and the renormalisation's density are the reference's pair
+functions summed by ``ops/apply.py::apply_binary`` on the state's device,
+and the rebuild sorts the rows into cell order every step. A float64
+bucket state raises at its first step (``check_sweep_route``).
 """
 from __future__ import annotations
 
@@ -23,15 +29,16 @@ import torch
 
 from ..geometry import BoundaryLayer, Box, Specification
 from ..grids import Grid
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland3, wendland3
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import density_pass, momentum_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .common import check_sweep_route, require_bucket_float32
+from .common import check_sweep_route
 from .wcsph_perturbed_witch import EXPORT_VARS, _run_witch_scheme
 from .witch_common import (
     FLUID, WALL, WitchConfig, background_density, background_density_t,
     background_pot_temperature, background_pot_temperature_t,
-    background_pressure, rayleigh_damping, witch_profile,
+    background_pressure, monaghan_viscosity, rayleigh_damping, witch_profile,
 )
 
 FIELDS = {"h": 0, "x": 3, "m": 0, "v": 3, "Dv": 3,
@@ -74,7 +81,6 @@ def stretch_config(**overrides) -> Witch3DConfig:
 def make_system(cfg: Witch3DConfig) -> ParticleSystem:
     """3-D domain + fence + mountain ridge with the hydrostatic isothermal
     initial state (mountain particles are FLUID, as in 2-D)."""
-    require_bucket_float32(cfg, "witch3d")
     grid = Grid(cfg.dr, cfg.lattice)
     domain = Box(-cfg.dom_length / 2.0, 0.0, 0.0,
                  cfg.dom_length / 2.0, cfg.dom_depth, cfg.dom_height)
@@ -125,9 +131,9 @@ def renormalize_mass(cfg: Witch3DConfig, engine, state: ParticleState
     neighbourhoods are truncated. Converges to < 0.1 % in ~4 iterations."""
     check_sweep_route(cfg, state, engine)
     for _ in range(cfg.renorm_iters):
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
         f = state.fields
-        rho = density_pass(engine, state, cfg)
+        rho = _density(cfg, engine, state, nbrs)
         rho_bg = background_density_t(cfg, f["x"][:, 2])
         ratio = torch.where(
             state.active, rho_bg / torch.clamp(rho, min=cfg.rho_floor), 1.0)
@@ -139,6 +145,24 @@ def renormalize_mass(cfg: Witch3DConfig, engine, state: ParticleState
             rho=torch.where(state.active, rho_bg, 0.0),
             rho_p=torch.zeros_like(f["rho_p"]))
     return state
+
+
+def compute_density(p, q, r):
+    """The density pair function of the flat layout: ρ += m_q W(h_p, r)."""
+    return {"rho": q.m * wendland3(p.h, r)}
+
+
+def _density(cfg: Witch3DConfig, engine, state: ParticleState, nbrs
+             ) -> torch.Tensor:
+    """The summed density Σ m_q W(h_p, r) (the self pair with
+    ``cfg.self_density``), zero on inactive rows: the sweep on the bucket
+    layout, ``apply_binary`` of ``compute_density`` on the flat one."""
+    if engine.layout == "bucket":
+        return torch.where(state.active, density_pass(engine, state, cfg), 0.0)
+    zero = torch.zeros_like(state.fields["rho"])
+    return apply_binary(engine, state.replace(rho=zero), nbrs,
+                        compute_density,
+                        self_interaction=cfg.self_density).fields["rho"]
 
 
 def setup(cfg: Witch3DConfig, engine, state: ParticleState) -> ParticleState:
@@ -184,23 +208,38 @@ def make_step(cfg: Witch3DConfig, engine):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v),
                 "Dv": torch.zeros_like(u.Dv)}
 
+    def balance_of_momentum(p, q, r):
+        # symmetric P' gradient + Monaghan viscosity, 3-D kernel
+        x_pq = p.x - q.x
+        h_ij = 0.5 * (p.h + q.h)
+        ker = rDwendland3(h_ij, r)
+        prho = torch.clamp(p.rho, min=cfg.rho_floor)
+        qrho = torch.clamp(q.rho, min=cfg.rho_floor)
+        dv = -(q.m * (p.P_p / prho**2 + q.P_p / qrho**2) * ker)[..., None] * x_pq
+        return {"Dv": dv + monaghan_viscosity(cfg, p, q, r, h_ij, ker)}
+
+    sweeps = engine.layout == "bucket"
+
+    def momentum(state, nbrs):
+        if not sweeps:
+            return apply_binary(engine, state, nbrs, balance_of_momentum)
+        Dv = state.fields["Dv"] + torch.stack(
+            momentum_pass(engine, state, cfg), dim=-1)
+        return state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+
     def step(state: ParticleState) -> ParticleState:
         check_sweep_route(cfg, state, engine)
         state = apply_unary(state, accelerate)
         state = apply_unary(state, move)
-        state, _ = engine.rebuild(state)
+        state, nbrs = engine.rebuild(state)
 
-        rho = density_pass(engine, state, cfg)
-        state = state.replace(rho=torch.where(state.active, rho, 0.0))
+        state = state.replace(rho=_density(cfg, engine, state, nbrs))
         state = apply_unary(state, finalize_density)
         state = apply_unary(state, update_smoothing)
         state = apply_unary(state, compute_pressure)
         if not cfg.lazy_diagnostics:
             state = finalize(state)
-
-        dvs = momentum_pass(engine, state, cfg)
-        Dv = state.fields["Dv"] + torch.stack(dvs, dim=-1)
-        state = state.replace(Dv=torch.where(state.active[:, None], Dv, 0.0))
+        state = momentum(state, nbrs)
         return apply_unary(state, accelerate)
 
     return step

@@ -266,16 +266,18 @@ def velocity_diagnostics(state):
     return masked_mean(v, state.active), masked_max(v, state.active)
 
 
-def monaghan_viscosity(cfg: WitchConfig, p, q, r, h_ij=None):
+def monaghan_viscosity(cfg: WitchConfig, p, q, r, h_ij=None, ker=None):
     """The Monaghan artificial-viscosity acceleration of a pair (α, β, ε
     form), for the flat layout's pair operator: −m_q·π_ij·rDW(h_ij, r)·x_pq
     for approaching pairs, else 0; h_ij defaults to the mean of the two
-    smoothing lengths. Returns [..., 2]."""
+    smoothing lengths, ``ker`` = rDW(h_ij, r) to the 2-D Wendland kernel's
+    (the 3-D scheme passes its own). Returns [..., d]."""
     x_pq = p.x - q.x
     dot_pq = torch.sum(x_pq * (p.v - q.v), dim=-1)
     if h_ij is None:
         h_ij = 0.5 * (p.h + q.h)
-    ker = rDwendland2(h_ij, r)
+    if ker is None:
+        ker = rDwendland2(h_ij, r)
     prho = torch.clamp(p.rho, min=cfg.rho_floor)
     qrho = torch.clamp(q.rho, min=cfg.rho_floor)
     c_i = torch.sqrt(torch.clamp(cfg.gamma * p.P / prho, min=0.0))
@@ -289,8 +291,9 @@ def monaghan_viscosity(cfg: WitchConfig, p, q, r, h_ij=None):
 
 
 def rayleigh_damping(cfg: WitchConfig, y: torch.Tensor) -> torch.Tensor:
-    """Sponge acceleration above zₜ−zᵦ. Faithful to the reference, including
-    its z-independent magnitude (computed in double on the host)."""
+    """Sponge acceleration above zₜ−zᵦ, in y's dtype. Faithful to the
+    reference, including its z-independent magnitude (computed in double
+    on the host; a float64 state keeps every digit of it)."""
     mag = -cfg.gamma_r * math.sin(
         math.pi / 2 * (1.0 - (cfg.z_t - cfg.z_b) / cfg.z_b)) ** 2
-    return torch.where(y >= (cfg.z_t - cfg.z_b), mag, 0.0)
+    return torch.where(y >= (cfg.z_t - cfg.z_b), y.new_tensor(mag), 0.0)

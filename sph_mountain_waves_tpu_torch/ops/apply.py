@@ -23,12 +23,14 @@ are zeroed by selection.
 ``self_interaction=True`` adds the r = 0 diagonal term once per active
 particle.
 
-The binary operator runs on the flat layout only, in plain PyTorch on the
-state's device: the reference takes it (an XLA pair sum, no Pallas kernel)
-wherever its Pallas sweeps do not run. On the bucket layout the schemes
-call the pair sweeps of ``ops/pair_sweeps.py`` instead; the reference's
-resident form of this operator (``_binary_sums_resident``) and
-``point_sum`` are not ported.
+The binary operator runs on the flat layout only, in 2-D (9 stencil
+offsets) and 3-D (27), in plain PyTorch on the state's device: the
+reference takes it (an XLA pair sum, no Pallas kernel) wherever its Pallas
+sweeps do not run; ``ops/solvers.py`` builds the flat pressure solves'
+operators on the same per-row candidate blocks. On the bucket layout the
+schemes call the pair sweeps of ``ops/pair_sweeps.py`` instead; the
+reference's resident form of this operator (``_binary_sums_resident``)
+and ``point_sum`` belong to a later slice.
 """
 from __future__ import annotations
 

@@ -29,8 +29,28 @@ What is compared, and at which tolerance:
   order, so per-particle fields are matched by position (the set-up moves
   nothing);
 * a 3-D state through the checkpoint (bit for bit, engine included) and a
-  ``.vtp`` frame (3-D positions and vectors).
+  ``.vtp`` frame (3-D positions and vectors);
+* the flat layout in 3-D, at the reference's own ``TINY`` in float64 (N =
+  1,603, flat grid 12 × 5 × 8, cap 16, ``pair_mode="gather"`` by the
+  reference's auto rule: 480 cells × 16 > 4 × 1,603): ``setup`` and 4 steps
+  against the reference's flat float64 path (set-up and step compiled with
+  ``QUICK_COMPILE``): m, h and ρ after the set-up and every field after the
+  steps within 1e-10 of its largest |value| (measured: at most 5.4e-14, on
+  v), rows matched by position; the reference's own gates
+  (tests/test_witch3d.py): u_max < 1 m/s after 12 steps with every
+  particle kept, and the median of ρ/ρ_bg within 1e-3 of 1 after one step;
+  the flat state through the checkpoint and one step on, bit for bit;
+  witch3d's density (with the self pair) and momentum through
+  ``apply_binary`` on a perturbed TINY state: the cell-dense [C, k, 27k]
+  blocks and the per-row [N, 27k] gathers, each cut to the largest cell
+  count k (8 of cap 16), give the same sums bit for bit; the auto rule
+  against the reference's on two cubic lattices ("cell" and "gather");
+  and the float32 flat path (the ``SMALL`` config on the flat layout)
+  against the same reference run as the bucket path: m, h and ρ after the
+  set-up at rtol 1e-5, u_avg and u_max after 4 steps at rel 1e-5.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +60,9 @@ import torch
 import sph_mountain_waves_tpu.ops.pallas_pairs as pp
 from sph_mountain_waves_tpu.models import witch3d as jw
 from sph_mountain_waves_tpu.models.witch_common import (
-    velocity_diagnostics as j_diag,
+    background_density as j_rho_bg, velocity_diagnostics as j_diag,
 )
+from sph_mountain_waves_tpu.ops.neighbors import NeighborEngine as JEngine
 from sph_mountain_waves_tpu.structs import ParticleState as JState
 
 from sph_mountain_waves_tpu_torch.geometry import Box
@@ -52,11 +73,13 @@ from sph_mountain_waves_tpu_torch.models.common import frame_runner
 from sph_mountain_waves_tpu_torch.models.witch_common import (
     velocity_diagnostics as t_diag,
 )
+from sph_mountain_waves_tpu_torch.ops import apply as tapply
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
 from sph_mountain_waves_tpu_torch.utils.checkpoint import (
     engine_from_meta, load_checkpoint, save_checkpoint,
 )
+from scipy.spatial import cKDTree
 from torch_reference_harness import (
     QUICK_COMPILE, jit_at_level0, reference_body_sweep,
 )
@@ -67,6 +90,7 @@ TINY = dict(n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
             self_density=True)
 SMALL = dict(TINY, eta=1.2, dtype="float32", layout="bucket",
              lattice_cells=True, skin=0.15, use_pallas=True)
+FLAT64 = dict(TINY, dtype="float64", layout="flat")
 RTOL, ATOL_REL = 1e-5, 1e-6
 N_STEPS = 4
 
@@ -219,19 +243,34 @@ def test_momentum_twin_matches_reference_body_in_3d(live, fast_math,
         _check(got, ref, tlive.active.numpy())
 
 
-def test_setup_and_steps_match_jax(built, monkeypatch):
-    _, _, ts, tstate = built
-    jit_at_level0(monkeypatch)  # the reference set-up's own jax.jit
-    over = dict(renorm_iters=2)
-    jcfg = jw.Witch3DConfig(**{**SMALL, **over, "layout": "flat",
-                               "use_pallas": False})
-    js = jw.make_system(jcfg)
-    jstate = js.freeze()
-    jstate = jw.setup(jcfg, js.engine, jstate)
-    tcfg = tw.Witch3DConfig(**SMALL, **over)
-    tstate = tw.setup(tcfg, ts.engine, tstate)
+@pytest.fixture(scope="module")
+def ref_flat32():
+    """The reference's ``setup`` (2 iterations) and 4 steps of the SMALL
+    config on its flat layout in float32: (config, state after the set-up,
+    state after the steps)."""
+    with pytest.MonkeyPatch.context() as mp:
+        jit_at_level0(mp)  # the reference set-up's own jax.jit
+        jcfg = jw.Witch3DConfig(**{**SMALL, "renorm_iters": 2,
+                                   "layout": "flat", "use_pallas": False})
+        js = jw.make_system(jcfg)
+        jfrozen = js.freeze()
+        jset = jw.setup(jcfg, js.engine, jfrozen)
+    jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jset).compile(
+        compiler_options=QUICK_COMPILE)
+    jstate = jset
+    for _ in range(N_STEPS):
+        jstate = jstep(jstate)
+    return jcfg, jset, jstate
 
-    jf, ja = _to_np(jstate)
+
+def _check_against_ref_flat32(tcfg, engine, tstate, ref_flat32):
+    """``setup`` and 4 steps of the port from ``tstate`` against the
+    reference's flat float32 run: m, h, ρ at rtol 1e-5 (rows matched by
+    position: the set-up moves nothing), u_avg and u_max at rel 1e-5, equal
+    active counts."""
+    _, jset, jstate = ref_flat32
+    tstate = tw.setup(tcfg, engine, tstate)
+    jf, ja = _to_np(jset)
     tf, ta = state_to_numpy(tstate)
     assert int(ta.sum()) == int(ja.sum()) == 1603
     jorder = np.lexsort(jf["x"][ja].T)
@@ -242,17 +281,30 @@ def test_setup_and_steps_match_jax(built, monkeypatch):
         np.testing.assert_allclose(tf[name][ta][torder], jf[name][ja][jorder],
                                    rtol=1e-5, err_msg=name)
 
-    jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jstate).compile(
-        compiler_options=QUICK_COMPILE)
-    for _ in range(N_STEPS):
-        jstate = jstep(jstate)
-    tstate = frame_runner(tw.make_step(tcfg, ts.engine), N_STEPS)(tstate)
+    tstate = frame_runner(tw.make_step(tcfg, engine), N_STEPS)(tstate)
     jd = [float(v) for v in j_diag(jstate)]
     td = [float(v) for v in t_diag(tstate)]
     assert np.all(np.isfinite(td)) and td[1] > 0.0
     assert td[0] == pytest.approx(jd[0], rel=1e-5)
     assert td[1] == pytest.approx(jd[1], rel=1e-5)
     assert int(tstate.n) == int(jstate.n) == 1603
+
+
+def test_setup_and_steps_match_jax(built, ref_flat32):
+    _, _, ts, tstate = built
+    tcfg = tw.Witch3DConfig(**SMALL, renorm_iters=2)
+    _check_against_ref_flat32(tcfg, ts.engine, tstate, ref_flat32)
+
+
+def test_flat_float32_setup_and_steps_match_jax(ref_flat32):
+    """The port's own flat float32 path, on the reference run's config."""
+    tcfg = tw.Witch3DConfig(**{**SMALL, "renorm_iters": 2, "layout": "flat",
+                               "use_pallas": False})
+    ts = tw.make_system(tcfg)
+    tstate = ts.freeze(device="cpu")
+    assert ts.engine.layout == "flat"
+    assert tstate.fields["x"].dtype == torch.float32
+    _check_against_ref_flat32(tcfg, ts.engine, tstate, ref_flat32)
 
 
 def test_checkpoint_and_frame_round_trip_in_3d(built, tmp_path):
@@ -488,3 +540,177 @@ def test_tile_plan_of_the_tiled_2d_sweeps(cap, kernel, every_rank, want):
             "iso_static_force_sweep": r"\(av\) is needed"}.get(name,
                                                              "one form")):
         tps._staged(name, None if form is not None else False)
+
+
+# --------------------------------------------------- the flat layout in 3-D
+
+def _matched(jstate, tstate):
+    """(JAX fields, port fields) on the active rows, the JAX rows in the
+    port's order (nearest position, within 1e-6 m): the two stable sorts
+    order a particle on a cell edge differently when its key flips with its
+    last bit."""
+    jf, ja = _to_np(jstate)
+    tf, ta = state_to_numpy(tstate)
+    dist, perm = cKDTree(jf["x"][ja]).query(tf["x"][ta])
+    assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm)
+    return ({k: v[ja][perm] for k, v in jf.items()},
+            {k: v[ta] for k, v in tf.items()})
+
+
+def _within(tf, jf, names, atol_rel):
+    for name in names:
+        ref = jf[name]
+        np.testing.assert_allclose(tf[name], ref, rtol=0.0,
+                                   atol=atol_rel * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def flat64():
+    """witch3d at the reference's TINY in float64 on the flat layout: the
+    reference's set-up and 4 steps (compiled once with ``QUICK_COMPILE``)
+    and the port's set-up and 12 steps, keeping the port's states after the
+    set-up and after steps 1, 4 and 12."""
+    jcfg, tcfg = jw.Witch3DConfig(**FLAT64), tw.Witch3DConfig(**FLAT64)
+    with pytest.MonkeyPatch.context() as mp:
+        jit_at_level0(mp)  # the reference set-up's own jax.jit
+        js = jw.make_system(jcfg)
+        jfrozen = js.freeze()
+        jset = jw.setup(jcfg, js.engine, jfrozen)
+    jstep = jax.jit(jw.make_step(jcfg, js.engine)).lower(jset).compile(
+        compiler_options=QUICK_COMPILE)
+    jstate = jset
+    for _ in range(N_STEPS):
+        jstate = jstep(jstate)
+
+    ts = tw.make_system(tcfg)
+    tfrozen = ts.freeze(device="cpu")
+    tstate = tw.setup(tcfg, ts.engine, tfrozen)
+    kept = {0: tstate}
+    step = tw.make_step(tcfg, ts.engine)
+    for k in range(1, 13):
+        tstate = step(tstate)
+        if k in (1, N_STEPS, 12):
+            kept[k] = tstate
+    return (js, jset, jstate), (ts, tcfg, kept)
+
+
+def test_flat_float64_setup_and_steps_match_jax(flat64):
+    (js, jset, jstate), (ts, tcfg, kept) = flat64
+    assert ts.engine.layout == js.engine.layout == "flat"
+    assert (ts.engine.lims, ts.engine.cap, ts.engine.pair_mode) == (
+        js.engine.lims, js.engine.cap, js.engine.pair_mode) == (
+        (12, 5, 8), 16, "gather")
+    assert kept[0].fields["x"].dtype == torch.float64
+    jf, tf = _matched(jset, kept[0])
+    _within(tf, jf, ("m", "h", "rho"), 1e-10)
+    m0 = j_rho_bg(tcfg, tf["x"][:, 2]) * tcfg.dr**3
+    assert np.abs(tf["m"] / m0 - 1).max() > 0.01  # the set-up moved m
+    jf, tf = _matched(jstate, kept[N_STEPS])
+    assert int(kept[N_STEPS].n) == int(jstate.n) == ts.n_built == 1603
+    assert np.abs(tf["v"]).max() > 0.0
+    assert sorted(jf) == sorted(tf)
+    _within(tf, jf, sorted(jf), 1e-10)
+
+
+def test_flat_checkpoint_round_trip_in_3d(flat64, tmp_path):
+    """A flat float64 3-D state (after the set-up and 4 steps) through the
+    checkpoint bit for bit, its flat engine back from the meta, and one
+    more step from the loaded state equal to one from the original."""
+    _, (ts, tcfg, kept) = flat64
+    path = str(tmp_path / "checkpoint.npz")
+    save_checkpoint(path, kept[N_STEPS], engine=ts.engine, extra={"step": 4})
+    loaded, meta = load_checkpoint(path, device="cpu")
+    for name, ref in kept[N_STEPS].fields.items():
+        assert torch.equal(loaded.fields[name], ref), name
+    engine = engine_from_meta(meta, cells=ts.engine.cells,
+                              persistent=ts.engine.persistent,
+                              dtype=torch.float64)
+    assert engine == ts.engine and engine.layout == "flat"
+    step = tw.make_step(tcfg, engine)
+    a, b = step(loaded), step(kept[N_STEPS])
+    for name, ref in b.fields.items():
+        assert torch.equal(a.fields[name], ref), name
+
+
+def test_flat_static_atmosphere_on_the_port(flat64):
+    """The reference's gate (tests/test_witch3d.py
+    ``test_witch3d_static_atmosphere``): after the set-up and 12 steps every
+    velocity is finite, below 1 m/s, and every particle is kept."""
+    _, (ts, _, kept) = flat64
+    state = kept[12]
+    v = state.fields["v"][state.active].numpy()
+    assert np.isfinite(v).all() and np.abs(v).max() > 0.0
+    assert int(state.n) == ts.n_built
+    assert float(np.max(np.linalg.norm(v, axis=1))) < 1.0
+
+
+def test_flat_mass_renormalization_on_the_port(flat64):
+    """The reference's gate (``test_witch3d_mass_renormalization_converges``):
+    one step after the set-up, the median of the summed density over the
+    hydrostatic background is within 1e-3 of 1."""
+    _, (_, tcfg, kept) = flat64
+    state = kept[1]
+    act = state.active.numpy()
+    x = state.fields["x"].numpy()[act]
+    ratio = state.fields["rho"].numpy()[act] / j_rho_bg(tcfg, x[:, 2])
+    assert abs(np.median(ratio) - 1.0) < 1e-3
+
+
+@pytest.mark.parametrize("fn, field, self_pair", [
+    ("compute_density", "rho", True), ("balance_of_momentum", "Dv", False)],
+    ids=["density-self", "momentum"])
+def test_flat_cell_and_gather_sums_are_equal_in_3d(fn, field, self_pair):
+    """witch3d's own pair functions through ``apply_binary`` on the flat
+    TINY float64 state (v and P′ drawn from a seeded generator): the
+    cell-dense [C, k, 27k] blocks give the per-row [N, 27k] gathers' sums
+    bit for bit (the same order; k, the largest cell count, 8 of cap 16).
+    The gather mode, this state's own by the auto rule, is held against
+    the reference through the set-up and steps above."""
+    tcfg = tw.Witch3DConfig(**FLAT64)
+    ts = tw.make_system(tcfg)
+    fields, active = state_to_numpy(ts.freeze(device="cpu"))
+    rng = np.random.default_rng(2)
+    n = active.shape[0]
+    fields["v"] = np.where(active[:, None], rng.normal(0.0, 1.0, (n, 3)), 0.0)
+    fields["P_p"] = np.where(active, rng.normal(0.0, 100.0, n), 0.0)
+    pair_fn = (tw.compute_density if fn == "compute_density" else
+               _closure(_closure(tw.make_step(tcfg, ts.engine))["momentum"])[fn])
+    sums = {}
+    for mode in ("cell", "gather"):
+        te = dataclasses.replace(ts.engine, pair_mode=mode)
+        tstate, tn = te.rebuild(state_from_numpy(fields, active, "cpu"))
+        assert tapply._largest_count(te, tn) == 8 and te.cap == 16
+        sums[mode] = tapply.apply_binary(te, tstate, tn, pair_fn, add=False,
+                                         self_interaction=self_pair
+                                         ).fields[field]
+    assert sums["cell"].dtype == torch.float64
+    assert float(sums["cell"].abs().max()) > 0.0
+    assert torch.equal(sums["cell"], sums["gather"])
+
+
+@pytest.mark.parametrize("spacing, mode", [(0.05, "cell"), (0.2, "gather")])
+def test_flat_pair_mode_rule_in_3d(spacing, mode):
+    """The reference's auto rule in 3-D: "cell" when num_cells·cap ≤ 4·n,
+    else "gather"; a cubic lattice of the given spacing in a unit box at
+    h = 0.1 (8 or 1 lattice points a cell)."""
+    g = np.arange(0.0, 1.0, spacing) + 0.01
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    box = Box(0.0, 0.0, 0.0, 1.0, 1.0, 1.0)
+    te = NeighborEngine.create(box, 0.1, 3, positions=pos, layout="flat")
+    je = JEngine.create(box, 0.1, 3, positions=pos, dtype=jnp.float64,
+                        layout="flat")
+    assert (te.pair_mode, te.lims, te.cap) == (je.pair_mode, je.lims, je.cap)
+    assert te.pair_mode == mode
+
+
+def _closure(step):
+    """The functions a step closes over, by name (a name the step never
+    bound is left out)."""
+    out = {}
+    for name, cell in zip(step.__code__.co_freevars, step.__closure__):
+        try:
+            out[name] = cell.cell_contents
+        except ValueError:
+            pass
+    return out

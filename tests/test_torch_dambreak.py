@@ -23,8 +23,9 @@ What is compared, and at which tolerance:
   ``get_globals`` at rel 1e-5, equal active counts. The reference runs in
   its default flat layout: its XLA bucket path evaluates every slot against
   all 27·cap candidates (655,400 slots × 1,080 in 3-D: 14 s a step on one
-  core), the flat one only the particles. Two 3-D steps because the port's
-  CPU twins take 1.7 s a step at cap 40;
+  core), the flat one only the particles, and at skin 0, its default (cap
+  16 against the bucket config's 40 at skin 0.2). Two 3-D steps because the
+  port's CPU twins take 1.7 s a step at cap 40;
 * ``tile_kmax``, the trip bound of the tiled 3-D sweep (one per x-tile of
   6 cells at cap 40), against a brute-force NumPy loop over each tile's
   (6+2)×3×3 cells, exactly, on the tiny ``collapse3d`` state, on a
@@ -37,10 +38,22 @@ What is compared, and at which tolerance:
 * ``run(cfg, out_path=..., device="cpu")`` of ``collapse_dry``: the file set,
   the columns of ``data.csv``, and a resumed run bit for bit equal to the
   uninterrupted one;
-* every new entry point refuses to start without a card unless the caller
-  asks for the CPU; ``collapse3d`` refuses the reference's default
-  flat/float64 config, ``collapse_dry`` builds it and refuses a float64
-  bucket state.
+* ``collapse3d`` on the flat layout, 4 steps against the reference's own
+  flat steps (compiled with ``QUICK_COMPILE``), rows matched by position:
+  its defaults (float64) at dr=0.04 (N = 1,170, flat grid 11 × 8 × 6, cap
+  16, "gather") with every field within 1e-10 of its largest |value|; float32 on the reference run that the bucket
+  steps above are held against (dr=2e-2, skin 0), every field at rtol 1e-5
+  and atol 1e-6 × its largest |value|;
+* the implicit (ISPH) dam break ``collapse_dry_implicit.run`` at dr=0.1
+  (N = 533), 3 frames of 2 steps, against the reference's own step through
+  the same frames: the files the reference's ``run`` writes (frame0-2.vtp,
+  result.pvd), and X, H, E at rtol 1e-9 (measured: at most 2.2e-16); its
+  defaults (float64 flat) at dr=0.05 build and step (the card runs them at
+  their dr 0.01);
+* every entry point refuses to start without a card unless the caller
+  asks for the CPU; ``collapse_dry`` and ``collapse3d`` build their
+  reference default configs (flat, float64) and step them, and refuse a
+  float64 bucket state at its first step.
 """
 import os
 import types
@@ -52,18 +65,22 @@ import pytest
 import torch
 
 import sph_mountain_waves_tpu.ops.pallas_pairs as pp
-from sph_mountain_waves_tpu.models import collapse3d as jc3, collapse_dry as jcd
+from sph_mountain_waves_tpu.models import (
+    collapse3d as jc3, collapse_dry as jcd, collapse_dry_implicit as jci,
+)
 from sph_mountain_waves_tpu.structs import ParticleState as JState
 
 from sph_mountain_waves_tpu_torch.geometry import Box
 from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
 from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
 from sph_mountain_waves_tpu_torch.models import (
-    collapse3d as tc3, collapse_dry as tcd, pavelka_total_witch as tpv,
-    witch3d as tw,
+    collapse3d as tc3, collapse_dry as tcd, collapse_dry_implicit as tci,
+    pavelka_total_witch as tpv, witch3d as tw,
 )
+from sph_mountain_waves_tpu_torch.models.common import frame_runner
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine
+from scipy.spatial import cKDTree
 from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
 
 torch.set_num_threads(1)
@@ -83,6 +100,10 @@ def _to_np(jstate):
 
 def _compiled(fn, *args):
     return jax.jit(fn).lower(*args).compile(compiler_options=QUICK_COMPILE)
+
+
+def _all_finite(state):
+    return all(bool(torch.isfinite(v).all()) for v in state.fields.values())
 
 
 @pytest.fixture(scope="module", params=list(MODELS))
@@ -312,26 +333,50 @@ def test_tile_kmax_matches_a_brute_force_count_in_2d(case):
         assert int((got == 24).sum()) == 2 * 3 * 2
 
 
-def test_steps_match_jax(built):
+def _reference_flat_steps(jm, jcfg, n_steps, init=False):
+    """The reference's own flat steps (``init_forces`` first with ``init``),
+    compiled once with ``QUICK_COMPILE``: (system, state after every
+    step)."""
+    js = jm.make_system(jcfg)
+    jstate = js.freeze()
+    jstep = jm.make_step(jcfg, js.engine)
+    if init:
+        jstep, jinit = jstep
+        jstate = _compiled(jinit, jstate)(jstate)
+    jstep = _compiled(jstep, jstate)
+    states = []
+    for _ in range(n_steps):
+        jstate = jstep(jstate)
+        states.append(jstate)
+    return js, states
+
+
+# the reference's default flat layout (skin 0) at the bucket configs' sizes
+FLAT = dict(layout="flat", use_pallas=False, skin=0.0)
+
+
+@pytest.fixture(scope="module")
+def c3d_ref_flat32():
+    """The reference's collapse3d on its default flat layout in float32 at
+    the bucket config's size: the states after each of 4 steps."""
+    return _reference_flat_steps(jc3, jc3.Config(**{**C3D, **FLAT}), 4)[1]
+
+
+def test_steps_match_jax(built, request):
     name, _, _, ts, tstate = built
     jm, tm, kw = MODELS[name]
     n_steps = 6 if name == "collapse_dry" else 2
-    jcfg = jm.Config(**{**kw, "layout": "flat", "use_pallas": False})
+    jcfg = jm.Config(**{**kw, **FLAT})
     tcfg = tm.Config(**kw)
-    js = jm.make_system(jcfg)
-    jstate = js.freeze()
     if name == "collapse_dry":
-        jstep, jinit = jm.make_step(jcfg, js.engine)
-        jstate = _compiled(jinit, jstate)(jstate)
+        jstate = _reference_flat_steps(jm, jcfg, n_steps, init=True)[1][-1]
         tstep, tinit = tm.make_step(tcfg, ts.engine)
         tstate = tinit(tstate)
         assert float(tstate.fields["Dv"].abs().max()) > 0.0
     else:
-        jstep = jm.make_step(jcfg, js.engine)
+        jstate = request.getfixturevalue("c3d_ref_flat32")[n_steps - 1]
         tstep = tm.make_step(tcfg, ts.engine)
-    jstep = _compiled(jstep, jstate)
     for _ in range(n_steps):
-        jstate = jstep(jstate)
         tstate = tstep(tstate)
     assert int(tstate.n) == int(jstate.n) == ts.n_built
 
@@ -353,6 +398,93 @@ def test_steps_match_jax(built):
             jstate.active, 0.5 * jcfg.m * jnp.sum(jf["v"] ** 2, axis=-1)
             - jcfg.m * jcfg.g * jf["x"][:, 2], 0.0)))
         assert float(tm.energy(tcfg, tstate)) == pytest.approx(jE, rel=1e-5)
+
+
+def _matched(jstate, tstate):
+    """(JAX fields, port fields) on the active rows, the JAX rows in the
+    port's order (nearest position, within 1e-6 m): the two stable sorts of
+    the flat rebuild order a particle on a cell edge differently when its
+    key flips with its last bit."""
+    jf, ja = _to_np(jstate)
+    tf, ta = state_to_numpy(tstate)
+    dist, perm = cKDTree(jf["x"][ja]).query(tf["x"][ta])
+    assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm)
+    return ({k: v[ja][perm] for k, v in jf.items()},
+            {k: v[ta] for k, v in tf.items()})
+
+
+@pytest.fixture(scope="module")
+def c3d_flat64():
+    """collapse3d at its defaults (flat, float64) but dr=0.04: the port's
+    system and its state after 4 steps."""
+    cfg = tc3.Config(dr=0.04)
+    ts = tc3.make_system(cfg)
+    tstate = ts.freeze(device="cpu")
+    return ts, frame_runner(tc3.make_step(cfg, ts.engine), 4)(tstate)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_flat_collapse3d_steps_match_jax(dtype, request):
+    if dtype == "float64":
+        jstate = _reference_flat_steps(jc3, jc3.Config(dr=0.04), 4)[1][-1]
+        ts, tstate = request.getfixturevalue("c3d_flat64")
+        rtol, atol_rel = 0.0, 1e-10
+    else:
+        jstate = request.getfixturevalue("c3d_ref_flat32")[-1]
+        tcfg = tc3.Config(**{**C3D, **FLAT})
+        ts = tc3.make_system(tcfg)
+        tstate = ts.freeze(device="cpu")
+        tstate = frame_runner(tc3.make_step(tcfg, ts.engine), 4)(tstate)
+        rtol, atol_rel = RTOL, ATOL_REL
+    assert ts.engine.layout == "flat"
+    assert tstate.fields["x"].dtype == getattr(torch, dtype)
+    assert int(tstate.n) == int(jstate.n) == ts.n_built
+    jf, tf = _matched(jstate, tstate)
+    assert sorted(jf) == sorted(tf) and np.abs(tf["a"]).max() > 0.0
+    for field in jf:
+        ref = jf[field]
+        np.testing.assert_allclose(tf[field], ref, rtol=rtol,
+                                   atol=atol_rel * np.abs(ref).max(),
+                                   err_msg=field)
+
+
+def test_implicit_dam_break_run_matches_jax(tmp_path):
+    """``collapse_dry_implicit.run`` against the reference's own step
+    (compiled once with ``QUICK_COMPILE``) taken through the same frames,
+    the files the reference's ``run`` writes, and its default
+    configuration built and stepped."""
+    kw = dict(dr=0.1, t_end=0.034, n_frames=3)
+    tdir = str(tmp_path / "port")
+    got = tci.run(tci.Config(**kw), out_path=tdir, device="cpu")
+    jcfg = jci.Config(**kw)
+    steps_per_frame = int(round(jcfg.t_end / jcfg.n_frames / jcfg.dt))
+    states = _reference_flat_steps(jci, jcfg, 3 * steps_per_frame)[1]
+    ref = np.asarray([[float(v) for v in jci.get_globals(jcfg, st)]
+                      for st in states[steps_per_frame - 1::steps_per_frame]])
+    assert sorted(os.listdir(tdir)) == [
+        "frame0.vtp", "frame1.vtp", "frame2.vtp", "result.pvd"]
+    assert got["system"].engine.layout == "flat"
+    assert int(got["state"].n) == got["system"].n_built == 533
+    t = np.arange(1, 4) * steps_per_frame * jcfg.dt * np.sqrt(-2.0 * jcfg.g)
+    np.testing.assert_allclose(got["t"], t, rtol=1e-12)
+    for col, obs in enumerate(("X", "H", "E")):
+        assert len(got[obs]) == 3
+        np.testing.assert_allclose(got[obs], ref[:, col], rtol=1e-9,
+                                   err_msg=obs)
+    pts, data = read_vtp(os.path.join(tdir, "frame2.vtp"))
+    assert len(pts) == 533 and sorted(data) == ["P", "type", "v"]
+    assert np.abs(data["P"]).max() > 0.0
+
+    # the defaults at dr 0.05 (the card runs them at their dr 0.01), one
+    # step from rest
+    cfg = tci.Config(dr=0.05)
+    sys_ = tci.make_system(cfg)
+    state = sys_.freeze(device="cpu")
+    state = tci.make_step(cfg, sys_.engine)(state)
+    assert state.fields["x"].dtype == torch.float64
+    assert sys_.engine.layout == "flat" and int(state.n) == sys_.n_built
+    P = state.fields["P"][state.active]
+    assert torch.isfinite(P).all() and float(P.abs().max()) > 0.0
 
 
 def test_collapse_dry_run_writes_files_and_resumes_bitwise(tmp_path):
@@ -386,9 +518,11 @@ def test_collapse_dry_run_writes_files_and_resumes_bitwise(tmp_path):
     np.testing.assert_array_equal(merged["E"], whole["E"])
 
 
-@pytest.mark.parametrize("module", [tw, tcd, tc3],
-                         ids=["witch3d", "collapse_dry", "collapse3d"])
-def test_run_needs_a_card_unless_asked_for_the_cpu(module, monkeypatch):
+@pytest.mark.parametrize("module", [tw, tcd, tc3, tci],
+                         ids=["witch3d", "collapse_dry", "collapse3d",
+                              "collapse_dry_implicit"])
+def test_run_needs_a_card_unless_asked_for_the_cpu(module, monkeypatch,
+                                                  request):
     """Without ``device=`` the entry points ask for CUDA; where there is
     none they raise, and never run on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -396,27 +530,29 @@ def test_run_needs_a_card_unless_asked_for_the_cpu(module, monkeypatch):
                n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
                dtype="float32", layout="bucket", use_pallas=True),
            tcd: lambda: tcd.Config(**DRY),
-           tc3: lambda: tc3.Config(**C3D)}[module]()
+           tc3: lambda: tc3.Config(**C3D),
+           tci: lambda: tci.Config(dr=0.1)}[module]()
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         module.run(cfg)
-    if module is tc3:
-        # collapse3d's defaults (flat layout, float64) are not ported
-        with pytest.raises(NotImplementedError, match="float32"):
-            module.make_system(module.Config())
-        with pytest.raises(NotImplementedError, match="bucket layout"):
-            module.make_system(module.Config(dtype="float32")).freeze(
-                device="cpu")
-    if module is tcd:
-        # collapse_dry's defaults (flat layout, float64) build, and a
-        # float64 state on the bucket layout is refused at its first step
-        flat = module.make_system(module.Config(dr=DRY["dr"]))
-        state = flat.freeze(device="cpu")
+    if module in (tcd, tc3):
+        # the dam breaks' defaults (flat layout, float64; a small dr here)
+        # build and step, and a float64 state on the bucket layout is
+        # refused at its first step
+        kw = DRY if module is tcd else C3D
+        if module is tcd:
+            cfg = module.Config(dr=kw["dr"])
+            flat = module.make_system(cfg)
+            state = flat.freeze(device="cpu")
+            state = module.make_step(cfg, flat.engine)[0](state)
+        else:
+            flat, state = request.getfixturevalue("c3d_flat64")
         assert flat.engine.layout == "flat"
         assert state.fields["x"].dtype == torch.float64
-        bucket = module.make_system(module.Config(**{**DRY,
-                                                     "dtype": "float64"}))
+        assert int(state.n) == flat.n_built and _all_finite(state)
+        cfg64 = module.Config(**{**kw, "dtype": "float64"})
+        bucket = module.make_system(cfg64)
         state = bucket.freeze(device="cpu")
-        step, _ = module.make_step(module.Config(**{**DRY, "dtype": "float64"}),
-                                   bucket.engine)
+        step = module.make_step(cfg64, bucket.engine)
+        step = step[0] if module is tcd else step
         with pytest.raises(NotImplementedError, match="float32"):
             step(state)

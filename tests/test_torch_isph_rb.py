@@ -34,11 +34,36 @@ What is compared, and at which tolerance:
   T and max |ρ − ρ0|, equal active counts;
 * ``run(cfg, out_path=..., device="cpu")`` of both: the file set, the
   ``data.csv`` columns, the sparklines of ``live_plot`` and a resumed run bit
-  for bit equal to the uninterrupted one;
+  for bit equal to the uninterrupted one (ISPH also on the flat layout in
+  float64);
+* ``ops/solvers.py`` on a flat float64 state in 2-D (the ISPH state at
+  n_rows 8 on an 80 km domain with 3 fence rows, kicked: N = 405, flat grid
+  18 × 9, cap 8) and in 3-D
+  (witch3d at the reference's TINY: N = 1,603, 12 × 5 × 8, cap 16):
+  ``assemble_vector``, ``assemble_matvec`` with and without the diagonal
+  (a coefficient of r and of both particles' fields, on a seeded vector),
+  ``assemble_matrix``, ``assemble_matrix_bcoo`` (its pattern exactly, its
+  values and its dense form) and ``cg_solve`` with the Jacobi
+  preconditioner on the state's matrix made SPD (diagonally dominant),
+  against the reference's own functions: within 1e-12 of the largest
+  |value|;
+* the ISPH step on the flat layout from the 2-D solver state above, kicked,
+  4 steps against the reference's own flat steps (compiled with
+  ``QUICK_COMPILE``), rows matched by position: float64 with the default
+  ``precond="mg"``, which both packages announce with the same
+  ``RuntimeWarning`` and solve with Jacobi (a step with
+  ``precond="jacobi"`` gives the same P bit for bit): cg_it equal every
+  step (71, 44, 52, 52), P and v within 1e-9 of their largest |value|
+  (measured: 6.7e-12 and 7.0e-12); float32 with Jacobi against the same
+  float64 reference run, at the gate of the bucket path above (mean/max
+  |v| at rtol 2e-3, mean |P| at rel 0.1, cg_it within ±2), since the f32
+  CG's path depends on roundoff (the reference's static and projection
+  gates run on the card, ``chip_smoke.py`` phase 42);
 * ``utils/plots.py``: the files ``tests/test_plots.py`` gates.
 """
 import dataclasses
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +75,9 @@ import sph_mountain_waves_tpu.ops.pallas_pairs as pp
 from sph_mountain_waves_tpu import kernels as jk
 from sph_mountain_waves_tpu.models import isph_witch as jiw
 from sph_mountain_waves_tpu.models import rayleigh_benard as jrb
+from sph_mountain_waves_tpu.models import witch3d as jw3
 from sph_mountain_waves_tpu.ops import mg as jmg
+from sph_mountain_waves_tpu.ops import solvers as jsolvers
 from sph_mountain_waves_tpu.ops.solvers import assemble_matvec, pcg as jpcg
 from sph_mountain_waves_tpu.structs import ParticleState as JState
 
@@ -59,9 +86,12 @@ from sph_mountain_waves_tpu_torch.interop import state_from_numpy
 from sph_mountain_waves_tpu_torch.io import read_csv, read_vtp
 from sph_mountain_waves_tpu_torch.models import isph_witch as tiw
 from sph_mountain_waves_tpu_torch.models import rayleigh_benard as trb
+from sph_mountain_waves_tpu_torch.models import witch3d as tw3
 from sph_mountain_waves_tpu_torch.ops import mg as tmg
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
+from sph_mountain_waves_tpu_torch.ops import solvers as tsolvers
 from sph_mountain_waves_tpu_torch.utils import plots as tplots
+from scipy.spatial import cKDTree
 from torch_reference_harness import (
     QUICK_COMPILE, reference_body_sweep, reference_prepared_sweep,
 )
@@ -69,6 +99,10 @@ from torch_reference_harness import (
 torch.set_num_threads(1)
 
 ISPH = dict(n_rows=10, dtype="float32", layout="bucket", skin=0.2)
+ISPH_SMALL = dict(n_rows=8, dom_length=80e3, bc_rows=3, layout="flat",
+                  dtype="float64")
+TINY3D = dict(n_rows=6, dom_length=60e3, dom_depth=10e3, bc_rows=3,
+              self_density=True, dtype="float64", layout="flat")
 RB = dict(n_rows=16, dtype="float32", layout="bucket", skin=0.2)
 RTOL, ATOL_REL = 1e-5, 1e-6
 
@@ -227,9 +261,11 @@ def test_coarse_stencil_matches_jax(isph):
     rng = np.random.default_rng(0)
     diag = np.where(active, rng.standard_normal(active.shape),
                     0.0).astype(np.float32)
-    W_ref = np.asarray(jmg.coarse_stencil_2d(
-        je, _jstate(fields, active),
-        lambda r: 2.0 * h**2 * vol * jk.rDspline23(h, r), jnp.asarray(diag)))
+    jstate = _jstate(fields, active)
+    W_ref = np.asarray(jax.jit(lambda st, d: jmg.coarse_stencil_2d(
+        je, st, lambda r: 2.0 * h**2 * vol * jk.rDspline23(h, r), d)).lower(
+        jstate, jnp.asarray(diag)).compile(compiler_options=QUICK_COMPILE)(
+        jstate, jnp.asarray(diag)))
     W = tmg.coarse_stencil_2d(
         te, state_from_numpy(fields, active, "cpu"),
         lambda r: 2.0 * h**2 * vol * tk.rDspline23(h, r),
@@ -263,12 +299,13 @@ def test_vcycle_symmetric_positive_definite():
     assert np.linalg.eigvalsh(0.5 * (M + M.T)).min() > 0
     cond = np.linalg.eigvalsh(M @ A)
     assert cond.real.max() / cond.real.min() < 12.0
-    jvc = jmg.GridVcycle(jnp.asarray(W))
     rng = np.random.default_rng(2)
     u = rng.standard_normal((ny, nx))
+    jW, ju = jnp.asarray(W), jnp.asarray(u)
+    ref = jax.jit(lambda W, u: jmg.GridVcycle(W).apply(u)).lower(
+        jW, ju).compile(compiler_options=QUICK_COMPILE)(jW, ju)
     np.testing.assert_allclose(vc.apply(torch.as_tensor(u)).numpy(),
-                               np.asarray(jvc.apply(jnp.asarray(u))),
-                               rtol=1e-5, atol=1e-12)
+                               np.asarray(ref), rtol=1e-5, atol=1e-12)
     np.testing.assert_allclose(
         tmg._stencil_apply(Wt, torch.as_tensor(u)).numpy(),
         np.asarray(jmg._stencil_apply(jnp.asarray(W), jnp.asarray(u))),
@@ -304,7 +341,8 @@ def _reference_jacobi_iterations(isph, isph_ref):
             maxiter=cfg.cg_maxiter, return_info=True)[1]
 
     x0 = jnp.asarray(fields["P"])
-    return int(jax.jit(solve)(state, nbrs, x0))
+    return int(jax.jit(solve).lower(state, nbrs, x0).compile(
+        compiler_options=QUICK_COMPILE)(state, nbrs, x0))
 
 
 def test_mg_and_jacobi_iteration_counts_match_jax(isph, isph_ref, isph_port):
@@ -356,13 +394,17 @@ def test_four_kicked_steps_match_jax(isph_ref, isph_port):
     assert all(abs(t - j) <= 2 for t, j in zip(tits, jits)), (tits, jits)
 
 
-def test_isph_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
+@pytest.mark.parametrize("layout", ["bucket", "flat"],
+                         ids=["bucket-f32", "flat-f64"])
+def test_isph_run_writes_files_and_resumes_bitwise(tmp_path, capsys, layout):
     """Two frames of one step from rest with a checkpoint every frame, on a
-    60 km domain at n_rows=6 (N = 220); live plots print the sparklines; a
-    run stopped after one frame and resumed equals the uninterrupted one
-    bit for bit."""
-    cfg = tiw.ISPHWitchConfig(**{**ISPH, "n_rows": 6}, dom_length=60e3,
-                              bc_rows=3, use_pallas=True, n_frames=2,
+    60 km domain at n_rows=6 (N = 220), on the float32 bucket layout and on
+    the float64 flat one; live plots print the sparklines; a run stopped
+    after one frame and resumed equals the uninterrupted one bit for bit."""
+    kw = (dict(ISPH, use_pallas=True) if layout == "bucket" else
+          dict(layout="flat", dtype="float64", precond="jacobi"))
+    cfg = tiw.ISPHWitchConfig(**{**kw, "n_rows": 6}, dom_length=60e3,
+                              bc_rows=3, n_frames=2,
                               checkpoint_every=1, live_plot=True)
     cfg = dataclasses.replace(cfg, t_end=2 * cfg.dt_isph)
     whole = tiw.run(cfg, out_path=str(tmp_path / "whole"), device="cpu")
@@ -376,6 +418,10 @@ def test_isph_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
     assert np.all(csv["cg_it"] >= 1) and np.all(np.isfinite(csv["u_max"]))
     pts, data = read_vtp(str(tmp_path / "whole" / "frame2.vtp"))
     assert len(pts) == 220 and sorted(data) == ["P", "theta_p", "type", "v"]
+    state = whole["state"]
+    assert whole["system"].engine.layout == layout
+    assert state.fields["x"].dtype == (torch.float32 if layout == "bucket"
+                                       else torch.float64)
 
     half = dataclasses.replace(cfg, t_end=cfg.t_end / 2, n_frames=1,
                                live_plot=False)
@@ -390,6 +436,249 @@ def test_isph_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
     merged = read_csv(str(tmp_path / "part" / "data.csv"))
     for name in csv:
         np.testing.assert_array_equal(merged[name], csv[name], err_msg=name)
+
+
+# ------------------------------------------- the flat layout: the solvers
+
+def _kicked(fields, active, seed=3):
+    """v = 0.1·N(0, 1) on FLUID rows, from a seeded generator."""
+    fields = dict(fields)
+    rng = np.random.default_rng(seed)
+    fluid = (fields["type"] == 0.0)[:, None]
+    fields["v"] = np.where(fluid, 0.1 * rng.standard_normal(
+        fields["v"].shape), fields["v"]).astype(fields["x"].dtype)
+    return fields
+
+
+@pytest.fixture(scope="module", params=["2d", "3d"])
+def flat_operands(request):
+    """(dim, JAX engine/state/nbrs, port engine/state/nbrs, coefficient
+    functions, a seeded vector): the kicked ISPH state in 2-D, witch3d's
+    TINY state in 3-D, both flat float64, rebuilt by each package."""
+    if request.param == "2d":
+        cfgs = (jiw.ISPHWitchConfig(**ISPH_SMALL),
+                tiw.ISPHWitchConfig(**ISPH_SMALL))
+        mods = (jiw, tiw)
+        kers = (jk.rDspline23, tk.rDspline23)
+        field = "rho_bg"
+    else:
+        cfgs = (jw3.Witch3DConfig(**TINY3D), tw3.Witch3DConfig(**TINY3D))
+        mods = (jw3, tw3)
+        kers = (jk.rDwendland3, tk.rDwendland3)
+        field = "m"
+    jsys, tsys = mods[0].make_system(cfgs[0]), mods[1].make_system(cfgs[1])
+    fields, active = _fields(jsys.freeze())
+    tsys.freeze(device="cpu")
+    fields = _kicked(fields, active)
+    je, te = jsys.engine, tsys.engine
+    assert (te.layout, te.lims, te.cap, te.pair_mode) == (
+        je.layout, je.lims, je.cap, je.pair_mode)
+    jstate = _jstate(fields, active)
+    jstate, jn = jax.jit(je.rebuild).lower(jstate).compile(
+        compiler_options=QUICK_COMPILE)(jstate)
+    tstate, tn = te.rebuild(state_from_numpy(fields, active, "cpu"))
+    h = je.h
+    # scaled to O(1) at r = h/2, so that the CG system below is not the
+    # identity to roundoff
+    scale = 1.0 / abs(float(kers[1](h, torch.tensor(0.5 * h))))
+
+    def coeffs(ker):
+        return {"r": lambda p, q, r: scale * ker(h, r),
+                "fields": lambda p, q, r: q[field] * ker(h, r)
+                * (1.0 + p.v[..., 0] ** 2)}
+
+    v = np.where(active, np.random.default_rng(11).standard_normal(
+        active.shape), 0.0)
+    return (request.param, (je, jstate, jn, coeffs(kers[0])),
+            (te, tstate, tn, coeffs(kers[1])), v)
+
+
+def _close64(got, want):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert np.abs(want).max() > 0.0
+    np.testing.assert_allclose(got, want, rtol=0.0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def test_assemble_vector_matches_jax(flat_operands):
+    _, (_, jstate, _, _), (_, tstate, _, _), _ = flat_operands
+
+    def func(u, s):
+        return s * u.x[:, 0] * u.v[:, -1] + u.x[:, 1]
+
+    want = jsolvers.assemble_vector(jstate, func, s=2.0)
+    got = tsolvers.assemble_vector(tstate, func, s=2.0)
+    assert got.dtype == torch.float64
+    assert np.all(got.numpy()[~tstate.active.numpy()] == 0.0)
+    _close64(got, want)
+
+
+@pytest.mark.parametrize("include_self", [True, False],
+                         ids=["with_diagonal", "off_diagonal"])
+def test_assemble_matvec_matches_jax(flat_operands, include_self):
+    _, (je, jstate, jn, jc), (te, tstate, tn, tc), v = flat_operands
+    want = jsolvers.assemble_matvec(je, jstate, jn, jc["fields"],
+                                    include_self=include_self)(jnp.asarray(v))
+    got = tsolvers.assemble_matvec(te, tstate, tn, tc["fields"],
+                                   include_self=include_self)(
+        torch.as_tensor(v))
+    assert np.all(got.numpy()[~tstate.active.numpy()] == 0.0)
+    _close64(got, want)
+
+
+def test_assemble_matrix_and_bcoo_match_jax(flat_operands):
+    """The dense matrix (the diagonal included) against the reference's;
+    A·v equals the matvec; the sparse matrix with and without the diagonal
+    holds the reference's N·cap·|stencil| entries, the same indices in the
+    same order and the same values, and its dense form is A (without the
+    diagonal: A with its diagonal zeroed)."""
+    _, (je, jstate, jn, jc), (te, tstate, tn, tc), v = flat_operands
+    A = tsolvers.assemble_matrix(te, tstate, tn, tc["fields"])
+    _close64(A, jsolvers.assemble_matrix(je, jstate, jn, jc["fields"]))
+    _close64(A @ torch.as_tensor(v), tsolvers.assemble_matvec(
+        te, tstate, tn, tc["fields"])(torch.as_tensor(v)))
+    for include_self in (True, False):
+        want = jsolvers.assemble_matrix_bcoo(je, jstate, jn, jc["fields"],
+                                             include_self=include_self)
+        got = tsolvers.assemble_matrix_bcoo(te, tstate, tn, tc["fields"],
+                                            include_self=include_self)
+        n = tstate.capacity
+        assert got.shape == (n, n) and got.layout == torch.sparse_coo
+        assert got._nnz() == n * te.cap * len(te.stencil)
+        np.testing.assert_array_equal(got._indices().numpy().T,
+                                      np.asarray(want.indices))
+        _close64(got._values(), want.data)
+        dense = A if include_self else A - torch.diag(torch.diagonal(A))
+        assert torch.equal(got.to_dense(), dense)
+
+
+def test_cg_solve_matches_jax(flat_operands):
+    """``cg_solve`` with the Jacobi preconditioner from a seeded x0 on the
+    state's own operator made SPD: the dense matrix of a coefficient of r
+    (symmetric) with its diagonal replaced by 1 + Σ_j |a_ij| (each row's
+    |a_ij| sum to O(10)), applied as a dense product on both sides; ``pcg``
+    with its info gives the same solution, its iteration count and
+    residual."""
+    _, (je, jstate, jn, jc), (te, tstate, tn, tc), _ = flat_operands
+    A = tsolvers.assemble_matrix(te, tstate, tn, tc["r"])
+    A = A - torch.diag(torch.diagonal(A))
+    A = A + torch.diag(1.0 + A.abs().sum(dim=1))
+    rng = np.random.default_rng(12)
+    active = tstate.active.numpy()
+    b = np.where(active, rng.standard_normal(active.shape), 0.0)
+    x0 = np.where(active, 0.1 * rng.standard_normal(active.shape), 0.0)
+    d = torch.diagonal(A)
+    kw = dict(x0=torch.as_tensor(x0), M=lambda x: x / d, tol=1e-10,
+              maxiter=200)
+    got = tsolvers.cg_solve(lambda x: A @ x, torch.as_tensor(b), **kw)
+    x, its, res = tsolvers.pcg(lambda x: A @ x, torch.as_tensor(b), **kw,
+                               return_info=True)
+    assert torch.equal(x, got) and 5 < its < 200 and float(res) <= 1e-10
+    jA, jd = jnp.asarray(A.numpy()), jnp.asarray(d.numpy())
+    want = jsolvers.cg_solve(lambda x: jA @ x, jnp.asarray(b),
+                             x0=jnp.asarray(x0), M=lambda x: x / jd,
+                             tol=1e-10, maxiter=200)
+    _close64(got, want)
+
+
+# ---------------------------------------------- the flat layout: ISPH steps
+
+@pytest.fixture(scope="module")
+def isph_flat():
+    """The kicked flat ISPH state (n_rows 8, 80 km, 3 fence rows): the
+    reference's 4 steps in
+    float64 with the default precond "mg" (compiled once with
+    ``QUICK_COMPILE``), and the port's 4 steps in float64 with "mg" and in
+    float32 with "jacobi"; for each run the warnings of ``make_step``, the
+    per-step cg_it and the final state."""
+    kw = dict(ISPH_SMALL)
+    jcfg = jiw.ISPHWitchConfig(**kw)
+    js = jiw.make_system(jcfg)
+    fields, active = _fields(js.freeze())
+    fields = _kicked(fields, active)
+    systems, out = {}, {}
+    for tag in ("jax", "float64", "float32"):
+        if tag == "jax":
+            state = _jstate(fields, active)
+        else:
+            tcfg = tiw.ISPHWitchConfig(**{**kw, "dtype": tag}, precond=(
+                "mg" if tag == "float64" else "jacobi"))
+            ts = systems[tag] = tiw.make_system(tcfg)
+            ts.freeze(device="cpu")
+            state = state_from_numpy(
+                {k: v.astype(tag) for k, v in fields.items()}, active, "cpu")
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            step = (jiw.make_step(jcfg, js.engine) if tag == "jax" else
+                    tiw.make_step(tcfg, ts.engine))
+        if tag == "jax":
+            step = jax.jit(step).lower(state).compile(
+                compiler_options=QUICK_COMPILE)
+        its = []
+        for _ in range(4):
+            state = step(state)
+            its.append(int(state.fields["cg_it"][0]))
+        out[tag] = ([str(w.message) for w in rec], its, state)
+    return systems, fields, active, out
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_flat_isph_steps_match_jax(isph_flat, dtype):
+    """float64: cg_it equal every step, P and v within 1e-9 of their
+    largest |value|, and both packages' warning; float32 (Jacobi, no
+    warning) against the same float64 reference run, at the bucket path's
+    gate."""
+    systems, _, _, out = isph_flat
+    ts = systems[dtype]
+    (jwarn, jits, jstate), (twarn, tits, tstate) = out["jax"], out[dtype]
+    assert ts.engine.layout == "flat"
+    assert tstate.fields["x"].dtype == getattr(torch, dtype)
+    assert int(tstate.n) == int(jstate.n) == ts.n_built == 405
+    if dtype == "float64":
+        assert twarn == jwarn == [
+            "ISPH precond='mg' requires a bucket engine (got "
+            "layout='flat'); falling back to Jacobi"]
+        assert tits == jits
+        jf, ja = _fields(jstate)
+        tf, ta = tstate.fields, tstate.active.numpy()
+        tf = {k: v.numpy()[ta] for k, v in tf.items()}
+        dist, perm = cKDTree(jf["x"][ja]).query(tf["x"])
+        assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm)
+        for name in ("P", "v"):
+            want = jf[name][ja][perm]
+            np.testing.assert_allclose(tf[name], want, rtol=0.0,
+                                       atol=1e-9 * np.abs(want).max(),
+                                       err_msg=name)
+        return
+    assert twarn == []
+    ja = np.asarray(jstate.active)
+    ta = tstate.active.numpy()
+    jv = np.abs(np.asarray(jstate.fields["v"])[ja])
+    tv = np.abs(tstate.fields["v"].numpy()[ta])
+    tP = tstate.fields["P"].numpy()[ta]
+    assert np.isfinite(tv).all() and np.isfinite(tP).all()
+    np.testing.assert_allclose([tv.mean(), tv.max()], [jv.mean(), jv.max()],
+                               rtol=2e-3)
+    assert np.abs(tP).mean() == pytest.approx(
+        np.abs(np.asarray(jstate.fields["P"])[ja]).mean(), rel=0.1)
+    assert all(abs(t - j) <= 2 for t, j in zip(tits, jits)), (tits, jits)
+
+
+def test_flat_isph_mg_solves_with_jacobi(isph_flat):
+    """On a flat engine "mg" solves with Jacobi: a step with
+    ``precond="jacobi"`` from the same state gives the "mg" run's first
+    count and pressure bit for bit."""
+    systems, fields, active, out = isph_flat
+    ts = systems["float64"]
+    cfg = tiw.ISPHWitchConfig(**ISPH_SMALL, precond="jacobi")
+    mg_cfg = dataclasses.replace(cfg, precond="mg")
+    state = state_from_numpy(fields, active, "cpu")
+    jac = tiw.make_step(cfg, ts.engine)(state)
+    with pytest.warns(RuntimeWarning, match="falling back to Jacobi"):
+        mg = tiw.make_step(mg_cfg, ts.engine)(state)
+    assert int(jac.fields["cg_it"][0]) == out["float64"][1][0] > 10
+    assert torch.equal(jac.fields["P"], mg.fields["P"])
 
 
 # ------------------------------------------------------ Rayleigh–Bénard
@@ -499,27 +788,39 @@ def test_rb_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
 
 def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     """Without ``device=`` ``run`` asks for CUDA and raises where there is
-    none; float64 on the bucket layout, ISPH's flat layout, RKPM conduction
-    and a sharded engine are refused; Rayleigh–Bénard's flat layout
-    builds."""
+    none; ISPH's defaults (the flat layout, float32, "mg", which warns and
+    solves with Jacobi) and its float64 build and step; a float64 state on
+    the bucket layout is refused at its first step (ISPH and
+    Rayleigh–Bénard), and so are RKPM conduction and a sharded engine;
+    Rayleigh–Bénard's flat layout builds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for module, cfg in ((tiw, tiw.ISPHWitchConfig(**ISPH, use_pallas=True)),
                         (trb, trb.Config(**RB, use_pallas=True))):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             module.run(cfg)
-    with pytest.raises(NotImplementedError, match="float32"):
-        tiw.make_system(dataclasses.replace(
-            tiw.ISPHWitchConfig(**ISPH), dtype="float64"))
-    # Rayleigh–Bénard builds a float64 bucket state and refuses it at its
-    # first step
-    rb64 = trb.Config(**{**RB, "dtype": "float64"})
-    sys64 = trb.make_system(rb64)
-    state64 = sys64.freeze(device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        trb.make_step(rb64, sys64.engine)(state64)
-    with pytest.raises(NotImplementedError, match="bucket layout"):
-        tiw.make_system(dataclasses.replace(
-            tiw.ISPHWitchConfig(**ISPH), layout="flat")).freeze(device="cpu")
+    # ISPH's defaults at a small width (the card runs them at full width),
+    # from rest: finite, every particle kept (its float64 flat default,
+    # "mg" included, is stepped by the flat steps' test)
+    cfg = dataclasses.replace(tiw.ISPHWitchConfig(), n_rows=6,
+                              dom_length=60e3, bc_rows=3)
+    assert (cfg.layout, cfg.dtype, cfg.precond) == ("flat", "float32", "mg")
+    sys_ = tiw.make_system(cfg)
+    state = sys_.freeze(device="cpu")
+    with pytest.warns(RuntimeWarning, match="falling back to Jacobi"):
+        step = tiw.make_step(cfg, sys_.engine)
+    state = step(state)
+    assert state.fields["P"].dtype == torch.float32
+    assert int(state.n) == sys_.n_built == 220
+    assert all(bool(torch.isfinite(v).all()) for v in state.fields.values())
+    # a float64 bucket state is built and refused at its first step, as
+    # Rayleigh–Bénard's is
+    for module, cfg in (
+            (tiw, tiw.ISPHWitchConfig(**{**ISPH, "dtype": "float64"})),
+            (trb, trb.Config(**{**RB, "dtype": "float64"}))):
+        sys64 = module.make_system(cfg)
+        state64 = sys64.freeze(device="cpu")
+        with pytest.raises(NotImplementedError, match="float32"):
+            module.make_step(cfg, sys64.engine)(state64)
     flat = trb.make_system(trb.Config(**{**RB, "layout": "flat",
                                          "dtype": "float64"}))
     assert flat.freeze(device="cpu").fields["T"].dtype == torch.float64
