@@ -24,8 +24,10 @@ their configs' default sizes; then the ISPH baseline
 and the Rayleigh–Bénard baseline (``rayleigh_benard.baseline_config()``:
 N=53,621, grid 256 x 80, cap 16); last, the flat layout in float32 and
 float64 (phases 35-39): the flagship at full width, the 2-D schemes at their
-default configurations and the reference's cross-layout gates; and the 3-D
-schemes on the flat layout and the flat pressure solves (phases 40-43).
+default configurations and the reference's cross-layout gates; the 3-D
+schemes on the flat layout and the flat pressure solves (phases 40-43); and
+the terrain family on the flat layout in float32 and float64 with
+Rayleigh–Bénard's RKPM conduction (phases 44-45).
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -208,10 +210,30 @@ Phases, each printing one or more lines:
  43. ``collapse_dry_implicit.run``: the reference's gates (dr 0.05 to t_end
      0.4 in 8 frames: X never falls and ends past 1.8, H falls, E/E0 within
      [0.9, 1.01]; dr 0.06: P finite, |P| < 20 rho g H), then
-     ``Config(t_end=0.5, n_frames=50)`` at its default dr 0.01 (f64) with
-     its files; phases 40-43 each print their seconds, ms/step, peak memory
-     and the overflow of a flat rebuild of their final states, and launch
-     no sweep;
+     ``Config(t_end=0.1, n_frames=10)`` (180 steps) at its default dr 0.01
+     (f64) with its files; phases 40-43 each print their seconds, ms/step,
+     peak memory and the overflow of a flat rebuild of their final states,
+     and launch no sweep;
+ 44. the terrain family on the flat layout: the five named configs at their
+     defaults (f32 flat; ``terrain_baseline_config()`` at N = 212,819)
+     through ``legacy_witch.run(cfg, out_path=...)`` for a fixed number of
+     steps (the flow ones past their first inflow spawn event), with the
+     file set, every value finite, the flat layout and the config's dtype,
+     the active count (static) or the INFLOW count conserved with
+     spawn_drops 0 (flow), no sweep launched, ms/step, peak memory, the flat
+     grid, cap and pair mode and the device profile of 5 more steps; the
+     baseline in float64 through a spawn event, then 50 steps run twice
+     from its state, states and the binned wave observables bit for bit;
+     the reference's physics gates of tests/test_legacy.py in float64 flat
+     at their sizes and limits (drag discrimination, consistent-entropy T0,
+     true Rayleigh sponge, spawn drops at zero headroom, AV dissipative and
+     conserving to 1e-12, the outflow buffer);
+ 45. ``rayleigh_benard.Config(conduction="rkpm")`` at its flat defaults for
+     2 frames of 100 steps with the device profile of 5 more, then the
+     reference's two RKPM gates (tests/test_rayleigh_benard.py: the RKPM
+     Laplacian exact at the walls to rtol 5e-3; the short supercritical
+     run, 6,400 steps, stable with growing KE); phases 44 and 45 print their
+     seconds, and the run its whole seconds before the card line;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound, and the kernels' own
      time that torch.profiler records over 50 more runs (``device_ms``;
@@ -1871,8 +1893,9 @@ def _isph_frames(run_frame, state, n):
 
 def implicit_dam_break_phase(dev, card, counters) -> None:
     """Phase 43: ``collapse_dry_implicit.run``: the reference's gates
-    (tests/test_isph.py) at dr 0.05 and 0.06, then ``Config(t_end=0.5,
-    n_frames=50)`` at its default dr 0.01 (f64 flat) with its files."""
+    (tests/test_isph.py) at dr 0.05 and 0.06, then ``Config(t_end=0.1,
+    n_frames=10)`` (180 steps) at its default dr 0.01 (f64 flat) with its
+    files."""
     import numpy as np
 
     from sph_mountain_waves_tpu_torch.models import collapse_dry_implicit as ci
@@ -1905,7 +1928,10 @@ def implicit_dam_break_phase(dev, card, counters) -> None:
     say(43, f"collapse_dry_implicit pressure gate (dr 0.06, t_end 0.1): P "
             f"finite, max |P| {p_max:.1f} < 20 rho g H = {20 * rho_g_H:.1f}")
 
-    cfg = ci.Config(t_end=0.5, n_frames=50)
+    # a fixed 180 steps at the default dr (t_end 0.1, 10 frames): each step
+    # runs its Jacobi CG to the 200-iteration cap, so the default t_end 0.5
+    # (900 steps) took 110-147 s of the card call
+    cfg = ci.Config(t_end=0.1, n_frames=10)
     spf = max(1, int(round(cfg.t_end / cfg.n_frames / cfg.dt)))
     n_steps = int(round(cfg.t_end / cfg.dt))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1922,7 +1948,7 @@ def implicit_dam_break_phase(dev, card, counters) -> None:
             or not np.all(np.isfinite(out["E"]))):
         raise AssertionError(f"implicit dam break defaults: files {files}")
     steps_run = frames * spf
-    say(43, f"collapse_dry_implicit.run(Config(t_end=0.5, n_frames=50)) at "
+    say(43, f"collapse_dry_implicit.run(Config(t_end=0.1, n_frames=10)) at "
             f"its default dr {cfg.dr} (f64 flat): {grid_line(sysm)}; "
             f"{frames} frames of {spf} steps ({steps_run}; {n_steps} asked) "
             f"in {secs:.2f} s = {1e3 * secs / steps_run:.2f} ms/step (set-up "
@@ -1936,21 +1962,406 @@ def implicit_dam_break_phase(dev, card, counters) -> None:
                   table=False)
 
 
-def solve_and_3d_flat_phases(dev, card, counters) -> None:
-    """Phases 40-43: the 3-D schemes on the flat layout and the flat
-    pressure solves on the card."""
+def run_phases(phases, dev, card, counters) -> None:
+    """Each (number, phase) in turn, with its seconds printed and the
+    allocator's cache emptied after it."""
     import torch
-    for number, phase in ((40, collapse3d_flat_phase),
-                          (41, witch3d_flat_phase), (42, isph_flat_phase),
-                          (43, implicit_dam_break_phase)):
+    for number, phase in phases:
         t0 = time.perf_counter()
         phase(dev, card, counters)
         torch.cuda.empty_cache()
         say(number, f"phase {number}: {time.perf_counter() - t0:.1f} s")
 
 
+def solve_and_3d_flat_phases(dev, card, counters) -> None:
+    """Phases 40-43: the 3-D schemes on the flat layout and the flat
+    pressure solves on the card."""
+    run_phases(((40, collapse3d_flat_phase), (41, witch3d_flat_phase),
+                (42, isph_flat_phase), (43, implicit_dam_break_phase)),
+               dev, card, counters)
+
+
+# the five named terrain configurations at their defaults (f32 flat), each
+# run for a fixed number of steps in that many frames: the flow ones past
+# their first inflow spawn event (the boot inflow column converts at step
+# 492 for isothermal_flow_config, 55 for adiabatic_flow_config and 383 for
+# the terrain baseline)
+TERRAIN_FLAT = (("isothermal_static_config", 100, 2),
+                ("isothermal_flow_config", 520, 4),
+                ("adiabatic_static_config", 100, 2),
+                ("adiabatic_flow_config", 100, 2),
+                ("terrain_baseline_config", 400, 4))
+TERRAIN_BASELINE_N = 212_819
+
+
+class SpawnEvents:
+    """Counts the calls of ``legacy_witch.add_new_particles`` (a spawn
+    event each) while it is entered; the step looks the function up in the
+    module when it runs."""
+
+    def __init__(self, lw):
+        self.lw, self.count = lw, 0
+        self.add = lw.add_new_particles
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.count += 1
+            return self.add(*args, **kwargs)
+        self.lw.add_new_particles = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.lw.add_new_particles = self.add
+
+
+def terrain_flat_run(label, lw, cfg, n_steps, n_frames, dev, card, counters):
+    """``legacy_witch.run(cfg, out_path=...)`` of ``n_steps`` steps in
+    ``n_frames`` frames on the card, the gates of phase 44 and its line
+    (ms/step with set-up and files, the flat grid, peak memory), then the
+    device profile of 5 more steps. Returns the run's output."""
+    import numpy as np
+    cfg = dataclasses.replace(cfg, t_end=n_steps * cfg.dt, n_frames=n_frames)
+    with tempfile.TemporaryDirectory() as tmp, SpawnEvents(lw) as spawns:
+        counters.reset()
+        out, secs, peak = timed(lambda: lw.run(cfg, out_path=tmp, device=dev))
+        files = sorted(os.listdir(tmp))
+    no_sweep_launched(label, counters)
+    final, sysm = out["state"], out["system"]
+    check_run_files(label, files,
+                    [f"frame{i}.vtp" for i in range(n_frames + 1)]
+                    + ["data.csv", "result.pvd"], ["velocities.pdf"])
+    if (not all_finite(final) or sysm.engine.layout != "flat"
+            or final.fields["x"].dtype != cfg.torch_dtype
+            or len(out["u_max"]) != n_frames):
+        raise AssertionError(f"{label}: finite {all_finite(final)}, layout "
+                             f"{sysm.engine.layout}, dtype "
+                             f"{final.fields['x'].dtype}")
+    if cfg.flow:
+        n_inflow0 = int((sysm.host_fields()["type"] == lw.INFLOW).sum())
+        if (spawns.count < 1 or np.any(out["n_inflow"] != n_inflow0)
+                or np.any(out["spawn_drops"] != 0)):
+            raise AssertionError(f"{label}: spawn events {spawns.count}, "
+                                 f"INFLOW {n_inflow0} -> {out['n_inflow']}, "
+                                 f"spawn_drops {out['spawn_drops']}")
+        held = (f"{spawns.count} spawn events, INFLOW rows {n_inflow0} "
+                f"conserved, spawn_drops 0, active {sysm.n_built} -> "
+                f"{int(final.n)}")
+    else:
+        if int(final.n) != sysm.n_built:
+            raise AssertionError(f"{label}: active {int(final.n)}/"
+                                 f"{sysm.n_built}")
+        held = f"every particle kept ({sysm.n_built})"
+    say(44, f"{label} ({cfg.dtype} flat): {grid_line(sysm)}, capacity "
+            f"{final.capacity}; run(out_path) of {n_steps} steps in "
+            f"{n_frames} frames: {secs:.2f} s = {1e3 * secs / n_steps:.3f} "
+            f"ms/step (set-up and files included); peak memory {peak:.2f} "
+            f"GiB over its start; {held}; u_avg {out['u_avg'][-1]:.4e} "
+            f"u_max {out['u_max'][-1]:.4e} m/s; overflow "
+            f"{flat_overflow(sysm, final)}; wrote {len(files)} files; no "
+            f"sweep launched ({card})")
+    profile_steps(44, f"{label} {cfg.dtype} flat",
+                  lw.make_step(cfg, sysm.engine), final, n_steps=5,
+                  table=False)
+    return out
+
+
+def binned_diagnostics(lw, cfg):
+    """The binned wave observables (sorted, segment-summed bins) and the
+    drag and INFLOW counters in one function of the state; the bands sit
+    above the 13 km ridge."""
+    parts = (lw.mountain_force, lw.inflow_reservoir,
+             lw.wave_momentum_flux_binned(cfg, 16e3, 2e3),
+             lw.wave_amplitude_profile(cfg, [15e3, 18e3]),
+             lw.stationary_wave_bins(cfg, 16e3))
+
+    def diag(state):
+        out = {}
+        for d in parts:
+            out.update(d(state))
+        return out
+    return diag
+
+
+def terrain_reference_gates(lw, dev) -> None:
+    """Phase 44 (c): the reference's physics gates of the terrain family
+    (tests/test_legacy.py), on the card in float64 on the flat layout, at
+    their own sizes and limits."""
+    import numpy as np
+    import torch
+
+    def active_fluid(state):
+        return (state.active & (state.fields["type"] == lw.FLUID)).cpu().numpy()
+
+    t0 = time.perf_counter()
+    geo = dict(n_rows=24, dom_length=60e3, h_m=2000.0, a=6e3, t_end=9.0,
+               n_frames=6, dtype="float64")
+    out_flow = lw.run(lw.isothermal_flow_config(**geo), device=dev)
+    out_static = lw.run(lw.isothermal_static_config(**geo), device=dev)
+    drag_f, drag_s = out_flow["drag"], out_static["drag"]
+    lift_s = out_static["lift"]
+    if not (np.isfinite(drag_f).all() and np.isfinite(drag_s).all()
+            and (drag_f > 0).all() and drag_f[-1] > 1e7
+            and abs(drag_s[-1]) < 1e-6 * abs(lift_s[-1])
+            and abs(drag_s[-1]) < 1e-6 * drag_f[-1]
+            and int(out_flow["spawn_drops"][-1]) == 0):
+        raise AssertionError(f"drag discrimination: flow {drag_f}, static "
+                             f"{drag_s}, lift {lift_s}")
+    say(44, f"gate test_mountain_wave_drag (n_rows 24, 60 km, t_end 9 s): "
+            f"flow drag {drag_f[-1]:.4e} > 1e7 N/m and > 0 every frame; "
+            f"static drag {drag_s[-1]:.3e}, |drag| < 1e-6 x lift "
+            f"{lift_s[-1]:.4e} and < 1e-6 x the flow drag; spawn_drops 0 "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    kw = dict(n_rows=12, t_end=0.5, n_frames=1, dtype="float64")
+    ratio = {}
+    for flag in (False, True):
+        st = lw.run(lw.adiabatic_static_config(consistent_entropy=flag, **kw),
+                    device=dev)["state"]
+        T = st.fields["T"].cpu().numpy()[active_fluid(st)]
+        ratio[flag] = float(np.mean(T)) / 250.0
+    gamma = lw.adiabatic_static_config(**kw).gamma
+    if not (abs(ratio[True] - 1.0) < 0.02
+            and abs(ratio[False] - 1.0 / gamma) < 0.05):
+        raise AssertionError(f"consistent entropy: T/T0 {ratio}")
+    say(44, f"gate test_consistent_entropy_recovers_T0 (n_rows 12): mean "
+            f"T/T0 {ratio[True]:.6f} (|-1| < 0.02) consistent, "
+            f"{ratio[False]:.6f} (1/gamma = {1 / gamma:.6f}, within 0.05) "
+            f"faithful ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    kw = dict(n_rows=16, t_end=2.0, n_frames=1, dtype="float64")
+    w_sponge = {}
+    for flag in (False, True):
+        cfg = lw.isothermal_static_config(true_rayleigh=flag, **kw)
+        st = lw.run(cfg, device=dev)["state"]
+        y = st.fields["x"][:, 1].cpu().numpy()
+        sel = active_fluid(st) & (y >= cfg.z_t - cfg.z_b)
+        w_sponge[flag] = float(np.mean(st.fields["v"][:, 1].cpu().numpy()[sel]))
+    if not (w_sponge[False] < -0.8
+            and abs(w_sponge[True]) < 0.55 * abs(w_sponge[False])):
+        raise AssertionError(f"sponge: mean w in the sponge {w_sponge}")
+    say(44, f"gate test_true_rayleigh_sponge_vs_faithful (n_rows 16, t_end "
+            f"2 s): mean w in the sponge {w_sponge[False]:.4f} m/s faithful "
+            f"(< -0.8), {w_sponge[True]:.4f} corrected (|.| < 0.55 x) "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cfg = lw.isothermal_flow_config(n_rows=12, dom_length=60e3,
+                                    dtype="float64")
+    sysm = lw.make_system(cfg)
+    st = sysm.freeze(device=dev, capacity=sysm.n_built)
+    n_inflow0 = int(lw.inflow_reservoir(st)["n_inflow"])
+    step = lw.make_step(cfg, sysm.engine)
+    for _ in range(120):
+        st = step(st)
+    res = lw.inflow_reservoir(st)
+    drops = int(res["spawn_drops"])
+    if not (sysm.engine.layout == "flat" and drops > 0
+            and n_inflow0 - int(res["n_inflow"]) == drops):
+        raise AssertionError(f"spawn drops: {drops}, INFLOW {n_inflow0} -> "
+                             f"{int(res['n_inflow'])}")
+    say(44, f"gate test_spawn_drops_are_counted (flat, capacity == N = "
+            f"{sysm.n_built}, 120 steps): {drops} drops, INFLOW {n_inflow0} "
+            f"-> {int(res['n_inflow'])} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    Dv, vf = {}, {}
+    for av in (0.0, 1.0):
+        cfg = lw.adiabatic_flow_config(
+            n_rows=12, dom_length=40e3, h_m=500.0, a=6e3, dtype="float64",
+            true_rayleigh=True, consistent_entropy=True, av_alpha=av)
+        sysm = lw.make_system(cfg)
+        st = sysm.freeze(device=dev)
+        f = st.fields
+        x, y = f["x"][:, 0], f["x"][:, 1]
+        k = 2 * np.pi / (4 * cfg.dr)
+        fl = st.active & (f["type"] == lw.FLUID)
+        noise = torch.stack([3.0 * torch.sin(k * x) * torch.cos(k * y),
+                             3.0 * torch.cos(k * x) * torch.sin(k * y)], -1)
+        st = st.replace(v=torch.where(fl[:, None], f["v"] + noise, f["v"]))
+        s1 = lw.make_step(cfg, sysm.engine)(st)
+        Dv[av] = s1.fields["Dv"].cpu().numpy()
+        vf[av] = s1.fields["v"].cpu().numpy()
+        m = s1.fields["m"].cpu().numpy()
+        act = s1.active.cpu().numpy()
+    dDv = (Dv[1.0] - Dv[0.0]) * act[:, None]
+    m = m * act
+    work = float(np.sum(m[:, None] * vf[0.0] * dDv))
+    net = np.abs((m[:, None] * dDv).sum(0))
+    scale = (m[:, None] * np.abs(dDv)).sum(0)
+    if not (np.abs(dDv).max() > 0.1 and work < 0
+            and (net < 1e-12 * scale).all()):
+        raise AssertionError(f"AV: max |dDv| {np.abs(dDv).max()}, work "
+                             f"{work}, net {net} scale {scale}")
+    say(44, f"gate test_av_alpha_is_dissipative_and_conservative (n_rows 12, "
+            f"one step, av 0 vs 1): max |dDv| {np.abs(dDv).max():.4e} > 0.1, "
+            f"sum m v dDv {work:.4e} < 0, net momentum {net.max():.3e} < "
+            f"1e-12 x {scale.min():.4e} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cfg = lw.isothermal_flow_config(
+        n_rows=16, dom_length=80e3, t_end=1.0, n_frames=1, dtype="float64",
+        outflow_buffer=2 * 1.8 * (26e3 / 16))
+    out = lw.run(cfg, device=dev)
+    st = out["state"]
+    act = st.active.cpu().numpy()
+    typ = st.fields["type"].cpu().numpy()
+    x = st.fields["x"].cpu().numpy()
+    v = st.fields["v"].cpu().numpy()
+    outflow = act & (typ == lw.OUTFLOW)
+    x_out = cfg.dom_length / 2 - cfg.outflow_buffer
+    fluid = active_fluid(st)
+    if not (outflow.sum() > 0
+            and np.all(np.abs(v[outflow, 0] - cfg.U_max) <= 1e-12)
+            and np.all(np.abs(v[outflow, 1]) <= 1e-12)
+            and x[fluid, 0].max() <= x_out + cfg.U_max * cfg.dt + 1e-9
+            and np.isfinite(out["u_avg"]).all()):
+        raise AssertionError(f"outflow buffer: {outflow.sum()} OUTFLOW rows")
+    say(44, f"gate test_outflow_buffer_conversion_and_freeze (n_rows 16, 80 "
+            f"km, t_end 1 s): {int(outflow.sum())} OUTFLOW rows at (U, 0) "
+            f"within 1e-12, no FLUID row past x_out + U dt "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def terrain_flat_phase(dev, card, counters) -> None:
+    """Phase 44: the terrain family on the flat layout. (a) the five named
+    configs at their defaults (f32 flat) through ``run(out_path=...)``;
+    (b) the terrain baseline in float64 at full width through a spawn
+    event, then 50 steps run twice from its state with the binned
+    observables: bit for bit; (c) the reference's physics gates."""
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import legacy_witch as lw
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+
+    for factory, n_steps, n_frames in TERRAIN_FLAT:
+        cfg = getattr(lw, factory)()
+        out = terrain_flat_run(f"{factory}()", lw, cfg, n_steps, n_frames,
+                               dev, card, counters)
+        if (factory == "terrain_baseline_config"
+                and out["system"].n_built != TERRAIN_BASELINE_N):
+            raise AssertionError(f"terrain baseline N "
+                                 f"{out['system'].n_built}")
+        del out
+        torch.cuda.empty_cache()
+
+    cfg = lw.terrain_baseline_config(dtype="float64")
+    out = terrain_flat_run("terrain_baseline_config(dtype='float64')", lw,
+                           cfg, 400, 1, dev, card, counters)
+    sysm, state = out["system"], out["state"]
+    del out
+    diag = binned_diagnostics(lw, cfg)
+    frame = frame_runner(lw.make_step(cfg, sysm.engine), 50)
+    counters.reset()
+    a, b = frame(state), frame(state)
+    no_sweep_launched("terrain f64 reruns", counters)
+    differ = [k for k in a.fields if not torch.equal(a.fields[k], b.fields[k])]
+    da, db, da2 = diag(a), diag(b), diag(a)
+    dd = [k for k in da if not (torch.equal(da[k], db[k])
+                                and torch.equal(da[k], da2[k]))]
+    if differ or dd or not torch.equal(a.active, b.active):
+        raise AssertionError(f"terrain f64 reruns differ: fields {differ}, "
+                             f"diagnostics {dd}")
+    vals = {k: float(v) for k, v in da.items()}
+    say(44, f"terrain baseline f64: 50 steps run twice from the same state: "
+            f"states bit for bit equal ({len(a.fields)} fields, active); the "
+            f"binned observables ({len(vals)} values: wave_flux "
+            f"{vals['wave_flux']:.6e}, ampu15000 {vals['ampu15000']:.6e}, "
+            f"ampw18000 {vals['ampw18000']:.6e}, su0 {vals['su0']:.6e}) and "
+            f"drag {vals['drag']:.6e} N/m equal bit for bit on both states "
+            f"and on a second evaluation")
+    del a, b, state
+    torch.cuda.empty_cache()
+
+    terrain_reference_gates(lw, dev)
+
+
+def rkpm_phase(dev, card, counters) -> None:
+    """Phase 45: Rayleigh–Bénard with ``conduction="rkpm"`` on the flat
+    layout: its flat defaults for 2 frames of 100 steps with the profile of
+    5 more, then the reference's two RKPM gates
+    (tests/test_rayleigh_benard.py)."""
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import rayleigh_benard as rb
+    from sph_mountain_waves_tpu_torch.utils.rkpm import corrected_laplacian
+
+    cfg0 = rb.Config(conduction="rkpm")
+    cfg = dataclasses.replace(cfg0, t_end=200 * cfg0.dt, n_frames=2)
+    counters.reset()
+    out, secs, peak = timed(lambda: rb.run(cfg, device=dev))
+    no_sweep_launched("rayleigh_benard rkpm", counters)
+    kept_and_finite("rayleigh_benard rkpm", out)
+    sysm = out["system"]
+    if (sysm.engine.layout != "flat" or len(out["KE"]) != 2
+            or not np.all(np.isfinite(out["Nu"]))):
+        raise AssertionError(f"rkpm defaults: KE {out['KE']} Nu {out['Nu']}")
+    say(45, f"rayleigh_benard.run(Config(conduction='rkpm')) at its flat "
+            f"defaults ({cfg.dtype}): {grid_line(sysm)}; 2 frames of 100 "
+            f"steps in {secs:.2f} s = {1e3 * secs / 200:.3f} ms/step (set-up "
+            f"included); peak memory {peak:.2f} GiB over its start; KE "
+            f"{out['KE'][-1]:.6e} Nu {out['Nu'][-1]:.6f}; overflow "
+            f"{flat_overflow(sysm, out['state'])}; no sweep launched ({card})")
+    profile_steps(45, "rayleigh_benard rkpm f32 flat",
+                  rb.make_step(cfg, sysm.engine), out["state"], n_steps=5,
+                  table=False)
+    del out
+
+    t0 = time.perf_counter()
+    cfg = rb.Config(n_rows=20, aspect=1.0, Ra=1e-3, beta=1e-8, seed_amp=0.0,
+                    sidewalls="adiabatic", dtype="float64")
+    sysm = rb.make_system(cfg)
+    a2, b1 = 0.35, -0.2
+    for chunk in sysm._chunks:
+        y = chunk["x"][:, 1]
+        chunk["T"] = 0.7 + b1 * y + a2 * y * y
+    st = sysm.freeze(device=dev)
+    st, nbrs = sysm.engine.rebuild(st)
+    f = st.fields
+    inc = st.active & (f["type"] != rb.WALL_ADIA)
+    lap = corrected_laplacian(
+        sysm.engine, st, nbrs, f["T"], include_q=inc,
+        vol_of=lambda q: cfg.m / torch.clamp(q.rho, min=1e-30)).cpu().numpy()
+    fl = (st.active & (f["type"] == rb.FLUID)).cpu().numpy()
+    err = np.abs(lap[fl] - 2 * a2)
+    if not np.all(err <= 1e-5 + 5e-3 * 2 * a2):
+        raise AssertionError(f"rkpm exact at walls: max err {err.max()}")
+    say(45, f"gate test_rkpm_conduction_exact_at_walls (n_rows 20, f64 "
+            f"flat, adiabatic sidewalls, quadratic T): the RKPM Laplacian on "
+            f"{int(fl.sum())} FLUID rows, max |lap - {2 * a2}| "
+            f"{err.max():.3e} (rtol 5e-3, atol 1e-5) "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    cfg = rb.Config(n_rows=16, Ra=1e6, t_end=8.0, n_frames=8,
+                    conduction="rkpm")
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    out, secs, _ = timed(lambda: rb.run(cfg, device=dev))
+    st = out["state"]
+    T = st.fields["T"][st.active].cpu().numpy()
+    KE = out["KE"]
+    if not (np.isfinite(T).all() and T.min() > -0.7 and T.max() < 1.7
+            and np.all(np.isfinite(KE)) and KE[-1] > 10 * KE[2]):
+        raise AssertionError(f"rkpm short run: T [{T.min()}, {T.max()}], "
+                             f"KE {KE}")
+    say(45, f"gate test_rkpm_conduction_short_run_stable (n_rows 16, Ra 1e6, "
+            f"t_end 8, f32 flat): {n_steps} steps in {secs:.2f} s = "
+            f"{1e3 * secs / n_steps:.3f} ms/step; T in [{T.min():.4f}, "
+            f"{T.max():.4f}] within (-0.7, 1.7); KE {KE[2]:.4e} at frame 2 -> "
+            f"{KE[-1]:.4e} (> 10x) ({card})")
+
+
+def terrain_and_rkpm_phases(dev, card, counters) -> None:
+    """Phases 44-45: the terrain family on the flat layout and in float64,
+    and Rayleigh–Bénard's RKPM conduction, on the card."""
+    run_phases(((44, terrain_flat_phase), (45, rkpm_phase)), dev, card,
+               counters)
+
+
 def main(profile: bool) -> None:
     import torch
+    run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs one GPU")
     dev = torch.device("cuda", 0)
@@ -2722,34 +3133,23 @@ def main(profile: bool) -> None:
                 f"twins {gc} (rel {rel:.2e}), active {nk} == {nk}")
 
     # 27: the terrain main path, long enough to cross an inflow spawn event
-    # (the boot inflow column converts after ~380 steps); spawn events are
-    # counted by wrapping the module's add_new_particles
-    spawn_events = [0]
-    add_new_particles = lw.add_new_particles
-
-    def counted_add(*args, **kwargs):
-        spawn_events[0] += 1
-        return add_new_particles(*args, **kwargs)
-
+    # (the boot inflow column converts after ~380 steps)
     t_step = lw.make_step(tcfg, e24)
     t_frame = frame_runner(t_step, TERRAIN_STEPS_PER_FRAME)
     t_steps = 3 * TERRAIN_STEPS_PER_FRAME
     n_inflow0 = int(lw.inflow_reservoir(t_state0)["n_inflow"])
-    lw.add_new_particles = counted_add
-    try:
+    with SpawnEvents(lw) as spawns:
         t_state, t_ms, t_counts, u_avg, u_max = drive(
             27, "terrain main path", counters, t_frame, t_state0, 2,
             {"legacy_mass_sweep": t_steps, "legacy_force_sweep": t_steps},
             card, nt, steps_per_frame=TERRAIN_STEPS_PER_FRAME)
-    finally:
-        lw.add_new_particles = add_new_particles
     res = lw.inflow_reservoir(t_state)
     force = {k: float(v) for k, v in lw.mountain_force(t_state).items()}
-    if (spawn_events[0] < 1 or not all(map(math.isfinite, force.values()))
+    if (spawns.count < 1 or not all(map(math.isfinite, force.values()))
             or not math.isfinite(u_max)):
-        raise AssertionError(f"terrain: spawn events {spawn_events[0]}, "
+        raise AssertionError(f"terrain: spawn events {spawns.count}, "
                              f"force {force}, u_max {u_max}")
-    say(27, f"terrain after {t_steps} steps: {spawn_events[0]} spawn events, "
+    say(27, f"terrain after {t_steps} steps: {spawns.count} spawn events, "
             f"spawn_drops {int(res['spawn_drops'])}, INFLOW rows {n_inflow0} "
             f"-> {int(res['n_inflow'])}, active {nt} -> {int(t_state.n)}; "
             f"drag {force['drag']:.6e} N/m, lift {force['lift']:.6e} N/m; "
@@ -2858,6 +3258,8 @@ def main(profile: bool) -> None:
     flat_phases(dev, card, counters)
     # 40-43: the 3-D schemes on the flat layout and the flat pressure solves
     solve_and_3d_flat_phases(dev, card, counters)
+    # 44-45: the terrain family flat and in float64, and RKPM conduction
+    terrain_and_rkpm_phases(dev, card, counters)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):
@@ -3216,6 +3618,7 @@ def main(profile: bool) -> None:
                   errs["rb_mass_heat_sweep"][0],
                   errs["rb_mass_heat_sweep adiabatic"][0])}
     timed_as = {"hopkins_momentum_sweep": "hopkins_momentum_sweep split"}
+    say("end", f"the whole run: {time.perf_counter() - run_t0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],

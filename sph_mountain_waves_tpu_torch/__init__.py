@@ -23,10 +23,11 @@ wave (``models.witch3d``) and the dam break (``models.collapse3d``). And the
 terrain family (``models.legacy_witch``: isothermal and adiabatic, static
 and flow, with inflow recycling and the sort rescatter). They run on
 twenty-two hand-written pair sweeps. On the flat layout (rows sorted by
-cell at every rebuild), in float32 or float64, every one of these but the
-terrain family also runs, at its config's defaults, its pair sums taken by
+cell at every rebuild), in float32 or float64, every one of these also
+runs, at its config's defaults, its pair sums taken by
 ``ops.apply.apply_binary`` in plain PyTorch (the reference takes XLA pair
-sums there), and so does the implicit (ISPH) dam break
+sums there; Rayleigh–Bénard there also with the RKPM conduction of
+``utils.rkpm``), and so does the implicit (ISPH) dam break
 (``models.collapse_dry_implicit``), which has no bucket path; the flat
 pressure solves take their operator from ``ops.solvers.assemble_matvec``.
 Every scheme's ``run`` writes its files (``io``: PVD/VTP frames and

@@ -14,8 +14,7 @@ import torch
 from ..structs import ParticleState
 
 __all__ = ["frame_runner", "masked_mean", "masked_max", "masked_sum",
-           "check_sweep_route", "require_bucket_float32", "maybe_resume",
-           "maybe_checkpoint"]
+           "check_sweep_route", "maybe_resume", "maybe_checkpoint"]
 
 
 def maybe_resume(cfg, state: ParticleState):
@@ -69,24 +68,6 @@ def check_sweep_route(cfg, state: ParticleState, engine) -> None:
             "the card's bucket layout is its CUDA kernels (the plain twins "
             "are test oracles and run on CPU tensors only); set "
             "use_pallas=True, or take the flat layout")
-
-
-def require_bucket_float32(cfg, scheme: str, layout=None) -> None:
-    """Refuse what the terrain family (``legacy_witch``, the one scheme
-    still ported on the float32 bucket layout only) does not cover:
-    ``dtype`` other than float32, and ``layout`` (default ``cfg.layout``)
-    other than "bucket". Its flat layout needs spawn pools in the spare flat
-    rows (slice 6, part 3); float64 runs only there."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: {scheme} is ported on float32 states only "
-            "(its float64 flat-layout path belongs to slice 6, part 3)")
-    layout = cfg.layout if layout is None else layout
-    if layout != "bucket":
-        raise NotImplementedError(
-            f"layout={layout!r}: {scheme} is ported on the bucket layout "
-            "only (its flat-layout path, with spawn pools in the spare flat "
-            "rows, belongs to slice 6, part 3)")
 
 
 def frame_runner(step_fn: Callable[[ParticleState], ParticleState],

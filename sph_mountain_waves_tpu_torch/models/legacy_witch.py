@@ -17,16 +17,19 @@ FLUID and a fresh INFLOW particle spawns one bc_width upstream,
 its defaults (``true_rayleigh``, ``consistent_entropy``, ``outflow_buffer``,
 ``av_alpha``, ``lj_floor``).
 
-The step's pair sums are the sweeps of ``ops/pair_sweeps.py``, called through
-their wrappers (CUDA kernels on CUDA tensors, plain twins on CPU tensors):
-``legacy_mass_pass`` and ``legacy_force_pass`` (isothermal flow, the terrain
-baseline), ``iso_static_mass_pass`` and ``iso_static_force_pass``
-(isothermal static), ``adia_density_pass`` and the fused
-``adia_entropy_force_pass`` (adiabatic). A CUDA state with ``cfg.use_pallas``
-off is refused. Only the float32 bucket layout is ported for the terrain
-family: ``dtype="float64"`` raises, and so does the config's default
-``layout="flat"`` unless ``use_pallas`` is set (which takes the bucket
-layout, as in the reference).
+Two pair paths, as in the reference. On the flat layout (the config's
+default; float32 or float64) the step's pair sums are the reference's pair
+functions summed by ``ops/apply.py::apply_binary`` on the state's device, and
+the flow variants' spawns take the spare flat rows (the free pool; every
+flat rebuild re-sorts every row). With ``use_pallas`` (which selects the
+bucket layout, as in the reference; float32) they are the sweeps of
+``ops/pair_sweeps.py``, called through their wrappers (CUDA kernels on CUDA
+tensors, plain twins on CPU tensors): ``legacy_mass_pass`` and
+``legacy_force_pass`` (isothermal flow, the terrain baseline),
+``iso_static_mass_pass`` and ``iso_static_force_pass`` (isothermal static),
+``adia_density_pass`` and the fused ``adia_entropy_force_pass``
+(adiabatic). A CUDA bucket state with ``use_pallas`` off, and a float64
+bucket state, are refused (``check_sweep_route``).
 ``run`` writes the velocities figure; ``live_plot=True`` prints the
 sparklines every frame.
 """
@@ -41,13 +44,14 @@ import torch
 
 from ..geometry import BoundaryLayer, Rectangle, Specification
 from ..grids import Grid
-from ..ops.apply import apply_unary
+from ..kernels import rDwendland2, wendland2
+from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import (
     adia_density_pass, adia_entropy_force_pass, iso_static_force_pass,
     iso_static_mass_pass, legacy_force_pass, legacy_mass_pass,
 )
 from ..structs import ParticleState, ParticleSystem, generate_particles
-from .common import check_sweep_route, require_bucket_float32
+from .common import check_sweep_route
 from .witch_common import witch_profile
 
 FLUID = 0.0
@@ -91,11 +95,12 @@ class LegacyConfig:
     # terminal sparklines of the run's observables every frame
     live_plot: bool = False
     # the pair sweeps launch their CUDA kernels on CUDA tensors (CPU tensors
-    # take the plain twins either way); a CUDA state with False is refused.
-    # True also selects the bucket layout, as in the reference
+    # take the plain twins either way); a CUDA bucket state with False is
+    # refused. True also selects the bucket layout, as in the reference
     use_pallas: bool = False
     fast_math: bool = False
-    # engine layout: only "bucket" is ported
+    # engine layout: "flat" (float32 or float64: apply_binary's pair sums)
+    # or "bucket" (float32: the sweeps)
     layout: str = "flat"
     skin: float = 0.15
     # cells of exactly two lattice pitches (square lattice: 2·dr both axes;
@@ -195,9 +200,8 @@ def make_system(cfg: LegacyConfig) -> ParticleSystem:
     """The four geometries (hexagonal lattice static, square lattice flow;
     MOUNTAIN body or the ``lj_floor``), the fence split into INFLOW and WALL
     for the flow variants, the hydrostatic init, and the engine options in
-    ``freeze_opts``."""
-    require_bucket_float32(cfg, "legacy_witch", layout=(
-        "bucket" if cfg.use_pallas else cfg.layout))
+    ``freeze_opts`` (the skin only on the bucket layout, as the reference
+    sets it)."""
     grid = Grid(cfg.dr, "hexagonal" if not cfg.flow else "square")
     domain = Rectangle(-cfg.dom_length / 2, 0.0, cfg.dom_length / 2,
                        cfg.dom_height)
@@ -272,9 +276,11 @@ def make_system(cfg: LegacyConfig) -> ParticleSystem:
         for name, val in upd.items():
             if name not in imported:
                 chunk[name] = val
-    sys.freeze_opts["layout"] = ("bucket" if cfg.layout == "bucket"
-                                 or cfg.use_pallas else cfg.layout)
-    sys.freeze_opts["skin"] = cfg.skin
+    if cfg.layout == "bucket" or cfg.use_pallas:
+        sys.freeze_opts["layout"] = "bucket"
+        sys.freeze_opts["skin"] = cfg.skin
+    else:
+        sys.freeze_opts["layout"] = cfg.layout
     # the irreducible per-row state: everything else is zero at rebuild time
     # or recomputed from these before it is read
     pers = ["x", "v", "h", "m", "rho", "type", "T"]
@@ -295,9 +301,10 @@ def make_system(cfg: LegacyConfig) -> ParticleSystem:
             sys.freeze_opts["cells"] = (2.0 * a * (1.0 - 1e-6),
                                         2.0 * b * (1.0 - 1e-6))
     if cfg.flow:
-        # the free-pool spawn writes arbitrary free slots, which only the
-        # sort rescatter re-places (run_system selects the slot-targeted
-        # spawn and the stencil rescatter)
+        # the free-pool spawn writes arbitrary free slots (rows), which only
+        # the sort rescatter (on flat: the sort of every rebuild) re-places;
+        # run_system selects the slot-targeted spawn and the stencil
+        # rescatter on the bucket layout. The spare rows are the spawn pool
         sys.freeze_opts["rescatter_mode"] = "sort"
         sys.freeze_opts["capacity"] = int(sys.n_built * 1.3)
     return sys
@@ -399,7 +406,8 @@ def spawn_sources(cfg: LegacyConfig, state: ParticleState) -> torch.Tensor:
 
 
 def _slot_targeted(engine) -> bool:
-    return engine.effective_rescatter_mode == "stencil"
+    return (engine.layout == "bucket"
+            and engine.effective_rescatter_mode == "stencil")
 
 
 def add_new_particles(cfg: LegacyConfig, engine, state: ParticleState,
@@ -411,16 +419,18 @@ def add_new_particles(cfg: LegacyConfig, engine, state: ParticleState,
 
     The event fires about once per dr/U_max of simulated time; the reference
     takes it under ``lax.cond``, here it is a host branch on ``conv.any()``
-    (the terrain step reads that flag with the rebuild's drift flag, one
-    sync). Placement, as the reference's:
+    (on the bucket layout the terrain step reads that flag with the
+    rebuild's drift flag, one sync). Placement, as the reference's:
 
-    * slot-targeted (the stencil rescatter): each spawn goes to a free slot
-      of its home cell, binned with ``_screen_and_key``'s f32 arithmetic,
-      earlier candidates to earlier free ranks, and ``_xref`` is stamped with
-      the new position, so the stencil rescatter's one-cell locality holds
-      and the event forces no rescatter;
-    * free pool (the sort rescatter): the first free slots, ``_xref`` left
-      stale, so the next rebuild re-places the new rows by sort.
+    * slot-targeted (bucket layout, the stencil rescatter): each spawn goes
+      to a free slot of its home cell, binned with ``_screen_and_key``'s f32
+      arithmetic, earlier candidates to earlier free ranks, and ``_xref`` is
+      stamped with the new position, so the stencil rescatter's one-cell
+      locality holds and the event forces no rescatter;
+    * free pool (the sort rescatter, and the flat layout): the first free
+      slots (flat: the first free rows in row order), ``_xref`` left stale
+      (flat: there is none), so the next rebuild re-places the new rows by
+      sort.
 
     Spawns with no free slot (or no free rank in their home cell) are
     dropped and counted into ``_spawn_drops[0]``."""
@@ -515,18 +525,22 @@ def add_new_particles(cfg: LegacyConfig, engine, state: ParticleState,
 def make_step(cfg: LegacyConfig, engine):
     """One Verlet step of the configured variant: kick, drift, (flow:
     recycling, inflow speed, outflow buffer), rebuild, the variant's
-    density/continuity and EOS, the force, kick."""
+    density/continuity and EOS, the force, kick. The pair sums are the
+    sweeps on the bucket layout and the reference's pair functions through
+    ``apply_binary`` on the flat layout."""
     if engine is None:
         raise ValueError("make_step needs the system's engine: call "
                          "sys.freeze() before make_step(cfg, sys.engine)")
-    dt = cfg.dt
+    dt, h0 = cfg.dt, cfg.h0
     # the reference's sponge: γᵣ·sin²(π/2·(1 − (zₜ − zᵦ)/zᵦ)), a constant
     # (its z is typo'd as zᵦ), in double and rounded once to the state dtype
     sponge = cfg.gamma_r * math.sin(
         math.pi / 2 * (1 - (cfg.z_t - cfg.z_b) / cfg.z_b)) ** 2
 
     def damping(y):
-        return torch.where(y >= cfg.z_t - cfg.z_b, sponge, 0.0).to(y.dtype)
+        # built in y's dtype: a where of two Python floats is float32
+        return torch.where(y >= cfg.z_t - cfg.z_b, y.new_tensor(sponge),
+                           y.new_zeros(()))
 
     def damping_gamma(y):
         # corrected Rayleigh coefficient γ(z): sin² ramp from the sponge
@@ -536,6 +550,17 @@ def make_step(cfg: LegacyConfig, engine):
         return gmax * torch.sin(math.pi / 2 * r) ** 2
 
     # --- isothermal closures
+    def iso_balance_of_mass(p, q, r):
+        # flat layout: the continuity, global h0 (flow) or the per-particle h
+        # with p.rho·Σ (m/ρ)_q (static)
+        if cfg.flow:
+            ker = q.m * rDwendland2(h0, r)
+            return {"Drho": ker * torch.sum((p.x - q.x) * (p.v - q.v),
+                                            dim=-1)}
+        ker = (q.m / torch.clamp(q.rho, min=1e-30)) * rDwendland2(p.h, r)
+        return {"Drho": p.rho * ker
+                * torch.sum((p.x - q.x) * (p.v - q.v), dim=-1)}
+
     def iso_balance_of_smoothing(u):
         return {"Dh": -0.5 * (u.h / torch.clamp(u.rho, min=1e-30)) * u.Drho}
 
@@ -555,6 +580,15 @@ def make_step(cfg: LegacyConfig, engine):
                 ** (cfg.R_gas / cfg.cp)}
 
     # --- adiabatic closures
+    def adia_find_density(p, q, r):
+        # flat layout: the both-FLUID summation density (with the self pair);
+        # under the OUTFLOW buffer FLUID and OUTFLOW rows sum every neighbour
+        if cfg.outflow_buffer:
+            ok = (p.type == FLUID) | (p.type == OUTFLOW)
+        else:
+            ok = (p.type == FLUID) & (q.type == FLUID)
+        return {"rho": torch.where(ok, q.m * wendland2(h0, r), 0.0)}
+
     def _eos_rows(u):
         # rows whose density is summed each step and whose thermodynamic
         # state follows: FLUID, and OUTFLOW under the corrected open boundary
@@ -574,6 +608,42 @@ def make_step(cfg: LegacyConfig, engine):
                 cfg.cv * (cfg.gamma - 1.0))
         T = torch.where(fl, T, u.T)
         return {"T": T, "P": torch.where(fl, cfg.R_mass * u.rho * T, u.P)}
+
+    def adia_entropy_production(p, q, r):
+        both = (p.type == FLUID) & (q.type == FLUID)
+        ker = rDwendland2(h0, r)
+        dux = torch.sum((p.v - q.v) * (p.x - q.x), dim=-1)
+        # floors: empty rows carry T = ρ = 0
+        denom = (torch.clamp(p.T, min=1e-30) * torch.clamp(p.rho, min=1e-30)
+                 * torch.clamp(q.rho, min=1e-30))
+        dS = (-4.0 * p.m * q.m * ker * cfg.mu / denom
+              * dux**2 / (r * r + 0.01 * h0 * h0) * dt)
+        return {"S": torch.where(both, dS, 0.0)}
+
+    adaptive_h = not cfg.flow and not cfg.adiabatic
+
+    def internal_force(p, q, r):
+        # flat layout: the symmetric P/ρ² and viscous pair force (adaptive h
+        # for the isothermal static variant), with the FLUID–FLUID-gated
+        # Monaghan term on approaching pairs when av_alpha > 0
+        ker = q.m * rDwendland2(p.h if adaptive_h else h0, r)
+        x_pq = p.x - q.x
+        rho_p = torch.clamp(p.rho, min=1e-30)
+        rho_q = torch.clamp(q.rho, min=1e-30)
+        du = -(ker * (p.P / rho_p**2 + q.P / rho_q**2))[..., None] * x_pq
+        denom = (r * r + 0.0025 * (p.h + q.h) ** 2 if adaptive_h
+                 else r * r + 0.01 * h0 * h0)
+        dot = torch.sum((p.v - q.v) * x_pq, dim=-1)
+        s = 8.0 * ker * cfg.mu / (rho_p * rho_q) * dot / denom
+        if cfg.av_alpha:
+            h_av = 0.5 * (p.h + q.h) if adaptive_h else h0
+            mu_av = h_av * dot / denom
+            pi = ((-cfg.av_alpha * cfg.c_av * mu_av
+                   + 2.0 * cfg.av_alpha * mu_av**2)
+                  * 0.5 * (1.0 / rho_p + 1.0 / rho_q))
+            both_fl = (p.type == FLUID) & (q.type == FLUID)
+            s = s - torch.where(both_fl & (dot < 0.0), ker * pi, 0.0)
+        return {"Dv": du + s[..., None] * x_pq}
 
     def set_inflow_speed(u):
         pinned = u.type == INFLOW
@@ -631,6 +701,80 @@ def make_step(cfg: LegacyConfig, engine):
                                    u.rho)}
 
     slot_targeted = _slot_targeted(engine)
+    sweeps = engine.layout == "bucket"
+
+    def spawn(state):
+        # the bucket layout reads the spawn flag and the rebuild's drift flag
+        # in one host read: recycling changes no position of an active row
+        # and a slot-targeted spawn stamps its _xref, so the drift flag holds
+        # after it; a pool spawn leaves _xref stale. The flat rebuild reads
+        # no drift flag
+        conv = spawn_sources(cfg, state)
+        if not sweeps:
+            fired, need = bool(conv.any()), None
+        else:
+            fired, need = torch.stack(
+                [conv.any(), engine.needs_rescatter(state)]).tolist()
+        if fired:
+            state = add_new_particles(cfg, engine, state, conv)
+            if not slot_targeted:
+                need = None
+        return state, need
+
+    def density(state, nbrs):
+        # the adiabatic summation density or the isothermal continuity:
+        # the reference's pair function on flat, its sweep on bucket
+        if not sweeps:
+            if cfg.adiabatic:
+                return apply_binary(engine, state, nbrs, adia_find_density,
+                                    self_interaction=True)
+            return apply_binary(engine, state, nbrs, iso_balance_of_mass)
+        f = state.fields
+        act = state.active
+        if cfg.adiabatic:
+            fl = f["type"] == FLUID
+            if cfg.flow and cfg.outflow_buffer:
+                fl = fl | (f["type"] == OUTFLOW)
+            return state.replace(rho=torch.where(
+                act & fl, f["rho"] + adia_density_pass(engine, state, cfg),
+                f["rho"]))
+        if cfg.flow:
+            drho = legacy_mass_pass(engine, state, cfg)
+        else:  # Drho = ρ_p · Σ (m/ρ)_q·rDW(h_p)·(x·v)
+            drho = f["rho"] * iso_static_mass_pass(engine, state, cfg)
+        return state.replace(Drho=torch.where(act, f["Drho"] + drho, 0.0))
+
+    def eos(state):
+        if cfg.adiabatic:
+            if cfg.lj_floor:
+                state = apply_unary(state, complete_wall_density)
+            state = apply_unary(state, adia_find_s)
+            return apply_unary(state, adia_find_pressure)
+        if not cfg.flow:
+            state = apply_unary(state, iso_balance_of_smoothing)
+        state = apply_unary(state, iso_find_pressure)
+        if cfg.flow:
+            state = apply_unary(state, find_pot_temp)
+        return state
+
+    def force(state, nbrs):
+        # the force (adiabatic: after the entropy production; the bucket
+        # layout fuses the two in one sweep)
+        if not sweeps:
+            if cfg.adiabatic:
+                state = apply_binary(engine, state, nbrs,
+                                     adia_entropy_production)
+            return apply_binary(engine, state, nbrs, internal_force)
+        act = state.active
+        if cfg.adiabatic:
+            dS, *dv = adia_entropy_force_pass(engine, state, cfg)
+            state = state.replace(S=torch.where(act, state.fields["S"] + dS,
+                                                0.0))
+        else:
+            sweep = legacy_force_pass if cfg.flow else iso_static_force_pass
+            dv = sweep(engine, state, cfg)
+        return state.replace(Dv=torch.where(
+            act[:, None], state.fields["Dv"] + torch.stack(dv, dim=-1), 0.0))
 
     def step(state: ParticleState) -> ParticleState:
         check_sweep_route(cfg, state, engine)
@@ -639,57 +783,12 @@ def make_step(cfg: LegacyConfig, engine):
         need = None
         if cfg.flow:
             if cfg.max_spawn:
-                # the spawn flag and the rebuild's drift flag in one read:
-                # recycling changes no position of an active row and a
-                # slot-targeted spawn stamps its _xref, so the drift flag
-                # holds after it; a pool spawn leaves _xref stale
-                conv = spawn_sources(cfg, state)
-                fired, need = torch.stack(
-                    [conv.any(), engine.needs_rescatter(state)]).tolist()
-                if fired:
-                    state = add_new_particles(cfg, engine, state, conv)
-                    if not slot_targeted:
-                        need = None
+                state, need = spawn(state)
             state = apply_unary(state, set_inflow_speed)
             if cfg.outflow_buffer:
                 state = apply_unary(state, to_outflow)
-        state, _ = engine.rebuild(state, need=need)
-        f = state.fields
-        act = state.active
-        if cfg.adiabatic:
-            rho_add = adia_density_pass(engine, state, cfg)
-            fl = f["type"] == FLUID
-            if cfg.flow and cfg.outflow_buffer:
-                fl = fl | (f["type"] == OUTFLOW)
-            fl = act & fl
-            state = state.replace(rho=torch.where(fl, f["rho"] + rho_add,
-                                                  f["rho"]))
-            if cfg.lj_floor:
-                state = apply_unary(state, complete_wall_density)
-            state = apply_unary(state, adia_find_s)
-            state = apply_unary(state, adia_find_pressure)
-            dS, *dv = adia_entropy_force_pass(engine, state, cfg)
-            f = state.fields
-            state = state.replace(
-                S=torch.where(act, f["S"] + dS, 0.0),
-                Dv=torch.where(act[:, None], f["Dv"] + torch.stack(dv, dim=-1),
-                               0.0))
-        else:
-            if cfg.flow:
-                drho = legacy_mass_pass(engine, state, cfg)
-            else:  # Drho = ρ_p · Σ (m/ρ)_q·rDW(h_p)·(x·v)
-                drho = f["rho"] * iso_static_mass_pass(engine, state, cfg)
-            state = state.replace(Drho=torch.where(act, f["Drho"] + drho, 0.0))
-            if not cfg.flow:
-                state = apply_unary(state, iso_balance_of_smoothing)
-            state = apply_unary(state, iso_find_pressure)
-            if cfg.flow:
-                state = apply_unary(state, find_pot_temp)
-            force = legacy_force_pass if cfg.flow else iso_static_force_pass
-            dv = force(engine, state, cfg)
-            f = state.fields
-            state = state.replace(Dv=torch.where(
-                act[:, None], f["Dv"] + torch.stack(dv, dim=-1), 0.0))
+        state, nbrs = engine.rebuild(state, need=need)
+        state = force(eos(density(state, nbrs)), nbrs)
         return apply_unary(state, accelerate)
 
     return step
@@ -749,7 +848,9 @@ def wave_momentum_flux(cfg: LegacyConfig, z0: float, dz: float,
 
 
 def _bin_sums(cfg, state, z0, dz, x_window, bin_w, nbx, nbz):
-    """Mass, mass·u′ and mass·w summed per (x, z) bin of the band."""
+    """Mass, mass·u′ and mass·w summed per (x, z) bin of the band: the rows
+    sorted by bin (stable) and each bin's run summed in row order, so that
+    reruns on the card are bitwise equal (no atomics)."""
     f = state.fields
     y = f["x"][:, 1]
     sel = _band(cfg, state, z0, dz, x_window)
@@ -759,14 +860,13 @@ def _bin_sums(cfg, state, z0, dz, x_window, bin_w, nbx, nbz):
     bz = torch.clamp(((y - (z0 - dz / 2)) / (dz / nbz)).to(torch.int32),
                      0, nbz - 1)
     b = (bx * nbz + bz).to(torch.int64)
-    nb = nbx * nbz
-
-    def add(val):
-        return torch.zeros(nb, dtype=m.dtype, device=m.device).index_add_(
-            0, b, val)
-
-    return (add(m), add(m * (f["v"][:, 0] - cfg.U_max)),
-            add(m * f["v"][:, 1]))
+    vals = torch.stack([m, m * (f["v"][:, 0] - cfg.U_max), m * f["v"][:, 1]],
+                       dim=-1)
+    order = torch.argsort(b, stable=True)
+    sums = torch.segment_reduce(
+        vals[order], "sum", lengths=torch.bincount(b, minlength=nbx * nbz),
+        unsafe=True)
+    return sums[:, 0], sums[:, 1], sums[:, 2]
 
 
 def wave_momentum_flux_binned(cfg: LegacyConfig, z0: float, dz: float,

@@ -25,9 +25,11 @@ sweep ``rb_mass_heat_pass`` and the dam-break force sweep
 ``dambreak_force_pass`` (the config exposes m, h, μ and ρ0, which its body
 reads), called through their wrappers: CUDA kernels on CUDA tensors, plain
 twins on CPU tensors; a CUDA bucket state with ``use_pallas`` off is
-refused, and so is a float64 bucket state. ``conduction="rkpm"`` (the
-reference's RKPM-corrected Laplacian, ``utils/rkpm.py``) is not ported and
-raises.
+refused, and so is a float64 bucket state. ``conduction="rkpm"`` replaces
+the Cleary–Monaghan conduction by the reference's RKPM-corrected Laplacian
+(``utils/rkpm.py``, quadratic-consistent at the plates and sidewalls) on the
+flat layout; on the bucket layout it is refused (the reference runs it on
+its resident XLA pair sum, which the port does not have).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..kernels import rDwendland2
 from ..ops.apply import apply_binary, apply_unary
 from ..ops.pair_sweeps import dambreak_force_pass, rb_mass_heat_pass
 from ..structs import ParticleState, ParticleSystem, generate_particles
+from ..utils.rkpm import corrected_laplacian
 from .common import (
     check_sweep_route, frame_runner, masked_mean, masked_sum,
     maybe_checkpoint, maybe_resume,
@@ -74,8 +77,8 @@ class Config:
     # "conducting": sidewalls clamped to the conductive profile;
     # "adiabatic": zero-flux sidewalls (the published Nu(Ra) cavity)
     sidewalls: str = "conducting"
-    # "cleary" (the pair Laplacian); "rkpm" (the reference's RKPM-corrected
-    # Laplacian) is not ported
+    # "cleary" (the pair Laplacian) or "rkpm" (the RKPM-corrected Laplacian,
+    # flat layout only)
     conduction: str = "cleary"
     dtype: str = "float32"
     # "flat" (float32 or float64: ops/apply.py's pair sums) or "bucket"
@@ -131,13 +134,12 @@ class Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Refuse what the Rayleigh–Bénard port does not cover (a float64
-    bucket state is refused at its first step, ``check_sweep_route``)."""
-    if cfg.conduction != "cleary":
-        raise NotImplementedError(
-            f"conduction={cfg.conduction!r}: only the Cleary–Monaghan "
-            "conduction is ported (the RKPM Laplacian, utils/rkpm.py, "
-            "belongs to a later slice)")
+    """Refuse a config the port does not know (RKPM on the bucket layout is
+    refused by ``make_step``, a float64 bucket state at its first step by
+    ``check_sweep_route``)."""
+    if cfg.conduction not in ("cleary", "rkpm"):
+        raise ValueError(f"conduction must be 'cleary' or 'rkpm', got "
+                         f"{cfg.conduction!r}")
     if cfg.sidewalls not in ("conducting", "adiabatic"):
         raise ValueError(f"sidewalls must be 'conducting' or 'adiabatic', "
                          f"got {cfg.sidewalls!r}")
@@ -233,10 +235,29 @@ def make_step(cfg: Config, engine):
         return {"v": torch.where(fluid, u.v + 0.5 * dt * acc, u.v)}
 
     sweeps = engine.layout == "bucket"
+    if sweeps and cfg.conduction == "rkpm":
+        raise NotImplementedError(
+            "conduction='rkpm' on the bucket layout: the RKPM Laplacian runs "
+            "on the flat layout's pair sums (the reference's resident bucket "
+            "pair sum is not ported); take layout='flat'")
+
+    def rkpm_conduction(state, nbrs):
+        # the moment matrix and the sum both restricted to the conducting
+        # rows (not WALL_ADIA): the zero-flux sidewall stays consistent
+        f = state.fields
+        inc = state.active & (f["type"] != WALL_ADIA)
+        lap = corrected_laplacian(
+            engine, state, nbrs, f["T"], include_q=inc,
+            vol_of=lambda q: m / torch.clamp(q.rho, min=1e-30))
+        fluid = f["type"] == FLUID
+        return state.replace(DT=torch.where(
+            state.active & fluid, f["DT"] + cfg.kappa * lap, f["DT"]))
 
     def mass_heat(state, nbrs):
         if not sweeps:
             state = apply_binary(engine, state, nbrs, balance_of_mass)
+            if cfg.conduction == "rkpm":
+                return rkpm_conduction(state, nbrs)
             return apply_binary(engine, state, nbrs, heat_conduction)
         drho, dT = rb_mass_heat_pass(engine, state, cfg)
         f = state.fields

@@ -52,7 +52,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scipy.spatial import cKDTree
 
 from sph_mountain_waves_tpu.models import (
     collapse_dry as jcd, full_hopkins_perturbed_witch as jfh,
@@ -81,7 +80,9 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
 )
 from sph_mountain_waves_tpu_torch.ops import apply as tapply
 from sph_mountain_waves_tpu_torch.ops.neighbors import NeighborEngine as TEngine
-from torch_reference_harness import QUICK_COMPILE, jit_at_level0
+from torch_reference_harness import (
+    QUICK_COMPILE, jit_at_level0, matched_rows,
+)
 
 torch.set_num_threads(1)
 
@@ -306,18 +307,6 @@ def _observables(name, module, cfg, state):
             else t_diag)(state)
 
 
-def _matched(jstate, tstate):
-    """(JAX fields, port fields) on the active rows, the JAX rows in the
-    port's order (each port row matched to the nearest JAX row by
-    position)."""
-    jf, ja = _to_np(jstate)
-    tf, ta = state_to_numpy(tstate)
-    dist, perm = cKDTree(jf["x"][ja]).query(tf["x"][ta])
-    assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm)
-    return ({k: v[ja][perm] for k, v in jf.items()},
-            {k: v[ta] for k, v in tf.items()})
-
-
 @pytest.mark.parametrize("name", list(SCHEMES))
 def test_flat_float64_steps_match_jax(name):
     jm, tm, make_cfg = SCHEMES[name]
@@ -342,7 +331,7 @@ def test_flat_float64_steps_match_jax(name):
     to = [float(v) for v in _observables(name, tm, tcfg, tstate)]
     assert np.all(np.isfinite(to))
     np.testing.assert_allclose(to, jo, rtol=1e-8)
-    jf, tf = _matched(jstate, tstate)
+    jf, tf = matched_rows(jstate, tstate)
     assert sorted(jf) == sorted(tf)
     for field in jf:
         _close(tf[field], jf[field], 0.0, 1e-8, field)

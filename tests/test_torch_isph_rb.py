@@ -59,6 +59,14 @@ What is compared, and at which tolerance:
   |v| at rtol 2e-3, mean |P| at rel 0.1, cg_it within ±2), since the f32
   CG's path depends on roundoff (the reference's static and projection
   gates run on the card, ``chip_smoke.py`` phase 42);
+* ``utils/rkpm.py`` on a seeded flat float64 Rayleigh–Bénard state
+  (n_rows 16, N = 773): the moment matrix, the correction vector, the
+  corrected sum and the RB-form corrected Laplacian against the reference's
+  (1e-12 of the largest |value|, the Laplacian 1e-9); the partition of
+  unity and the quadratic reproduction of tests/test_rkpm.py in float32 and
+  float64; 8 flat float64 steps of ``Config(conduction="rkpm")`` against
+  the reference's step at the flat steps' gate (rtol 1e-8, fields within
+  1e-8 of their largest |value|);
 * ``utils/plots.py``: the files ``tests/test_plots.py`` gates.
 """
 import dataclasses
@@ -93,7 +101,8 @@ from sph_mountain_waves_tpu_torch.ops import solvers as tsolvers
 from sph_mountain_waves_tpu_torch.utils import plots as tplots
 from scipy.spatial import cKDTree
 from torch_reference_harness import (
-    QUICK_COMPILE, reference_body_sweep, reference_prepared_sweep,
+    QUICK_COMPILE, matched_rows, reference_body_sweep,
+    reference_prepared_sweep,
 )
 
 torch.set_num_threads(1)
@@ -735,7 +744,13 @@ def test_rb_six_steps_match_jax():
     for _ in range(6):
         jstate = jstep(jstate)
         tstate = tstep(tstate)
+    assert _rb_gate(jcfg, jstate, cfg, tstate) == ts.n_built == 773
 
+
+def _rb_gate(jcfg, jstate, cfg, tstate):
+    """tests/test_pallas.py's gate: mean |v|, max |v|, mean T and
+    max |ρ − ρ0| of the active rows, then KE and Nu, at rtol 1e-4 and atol
+    1e-8; equal active counts, which it returns."""
     def diag(v, T, rho, active):
         v, T, rho = (np.asarray(a)[np.asarray(active)] for a in (v, T, rho))
         return [np.abs(v).mean(), np.abs(v).max(), T.mean(),
@@ -745,13 +760,165 @@ def test_rb_six_steps_match_jax():
                   jstate.active)
     td, tn = diag(*(tstate.fields[k].numpy() for k in ("v", "T", "rho")),
                   tstate.active.numpy())
-    assert tn == jn == ts.n_built == 773
+    assert tn == jn
     assert np.all(np.isfinite(td)) and td[1] > 0.0
     np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-8)
     ke, nu = trb.diagnostics(cfg, tstate)
     jke, jnu = jrb.diagnostics(jcfg, jstate)
     np.testing.assert_allclose([float(ke), float(nu)], [float(jke), float(jnu)],
                                rtol=1e-4, atol=1e-8)
+    return tn
+
+
+# ------------------------------------------------------------------ RKPM
+
+RB_RKPM = dict(n_rows=16, conduction="rkpm", dtype="float64")
+
+
+@pytest.fixture(scope="module")
+def rkpm_states():
+    """A seeded flat float64 Rayleigh–Bénard state (x ± 0.2·dr, ρ ± 1 %,
+    T + 0.1·N(0, 1) on the active rows, default_rng(5)) rebuilt by both
+    packages, with per-row m and h fields (the RKPM moments read q.m and
+    p.h): (JAX engine, state, nbrs, port engine, state, nbrs)."""
+    jcfg = jrb.Config(**RB_RKPM)
+    js = jrb.make_system(jcfg)
+    fields, active = _fields(js.freeze())
+    ts = trb.make_system(trb.Config(**RB_RKPM))
+    ts.freeze(device="cpu")
+    rng = np.random.default_rng(5)
+    n = active.shape[0]
+    fields = {k: np.array(v) for k, v in fields.items()}
+    fields["x"] = np.where(active[:, None], fields["x"] + rng.uniform(
+        -0.2, 0.2, (n, 2)) * jcfg.dr, 0.0)
+    fields["rho"] = np.where(active, fields["rho"]
+                             * rng.uniform(0.99, 1.01, n), 0.0)
+    fields["T"] = np.where(active, fields["T"] + 0.1 * rng.normal(size=n),
+                           0.0)
+    fields["m"] = np.where(active, jcfg.m, 0.0)
+    fields["h"] = np.where(active, jcfg.h, 0.0)
+    jin = _jstate(fields, active)
+    jst, jn = jax.jit(js.engine.rebuild).lower(jin).compile(
+        compiler_options=QUICK_COMPILE)(jin)
+    tst, tn = ts.engine.rebuild(state_from_numpy(fields, active, "cpu"))
+    np.testing.assert_array_equal(tst.fields["x"].numpy(),
+                                  np.asarray(jst.fields["x"]))
+    assert ts.engine.layout == js.engine.layout == "flat"
+    return js.engine, jst, jn, ts.engine, tst, tn
+
+
+def test_rkpm_functions_match_jax(rkpm_states):
+    """``moment_matrix``, ``correction_vector``, ``corrected_sum`` and
+    ``corrected_laplacian`` (the RB form: the conducting rows, volume
+    m/ρ) against the reference's (compiled once with ``QUICK_COMPILE``),
+    on the active rows: within 1e-12 of each output's largest |value| for
+    the first three and 1e-9 for the Laplacian (measured: 3.2e-16, 4.5e-14,
+    8.6e-16 and 1.4e-11: the Laplacian's h-scaled solve divides by h²)."""
+    from sph_mountain_waves_tpu.utils import rkpm as jrk
+
+    from sph_mountain_waves_tpu_torch.utils import rkpm as trk
+
+    je, jst, jn, te, tst, tn = rkpm_states
+    m = trb.Config(**RB_RKPM).m
+
+    def reference(st, nb):
+        inc = st.active & (st.fields["type"] != jrb.WALL_ADIA)
+        return (jrk.moment_matrix(je, st, nb),
+                jrk.correction_vector(je, st, nb),
+                jrk.corrected_sum(je, st, nb, st.fields["T"]),
+                jrk.corrected_laplacian(
+                    je, st, nb, st.fields["T"], include_q=inc,
+                    vol_of=lambda q: m / jnp.maximum(q.rho, 1e-30)))
+
+    refs = jax.jit(reference).lower(jst, jn).compile(
+        compiler_options=QUICK_COMPILE)(jst, jn)
+    inc = tst.active & (tst.fields["type"] != trb.WALL_ADIA)
+    gots = (trk.moment_matrix(te, tst, tn), trk.correction_vector(te, tst, tn),
+            trk.corrected_sum(te, tst, tn, tst.fields["T"]),
+            trk.corrected_laplacian(
+                te, tst, tn, tst.fields["T"], include_q=inc,
+                vol_of=lambda q: m / torch.clamp(q.rho, min=1e-30)))
+    act = tst.active.numpy()
+    for name, got, ref, rel in zip(("M", "beta", "sum", "laplacian"), gots,
+                                   refs, (1e-12, 1e-12, 1e-12, 1e-9)):
+        got, ref = got.numpy()[act], np.asarray(ref)[act]
+        assert got.dtype == np.float64 and np.abs(ref).max() > 0.0
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=rel * np.abs(ref).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rkpm_partition_of_unity(dtype):
+    """The reference's gates (tests/test_rkpm.py) on the port: on a 10 × 10
+    lattice in the unit box (h = 0.25, flat layout) the plain kernel sum
+    of ones falls below 0.8 at the corners, the corrected one is 1 within
+    1e-5 everywhere, and a quadratic is reproduced at rtol 1e-4."""
+    from sph_mountain_waves_tpu_torch import ParticleSystem, Rectangle
+    from sph_mountain_waves_tpu_torch.utils import rkpm as trk
+
+    dr, h = 0.1, 0.25
+    sys_ = ParticleSystem(fields={"x": 2, "m": 0, "rho": 0, "h": 0},
+                          domain=Rectangle(0.0, 0.0, 1.0, 1.0), h=h, dim=2,
+                          defaults={"m": dr * dr, "rho": 1.0, "h": h},
+                          dtype=dtype)
+    g = np.arange(dr / 2, 1.0, dr)
+    sys_.add_particles(np.stack(np.meshgrid(g, g), -1).reshape(-1, 2), {})
+    state = sys_.freeze(device="cpu", layout="flat")
+    state, nbrs = sys_.engine.rebuild(state)
+    eng, act = sys_.engine, state.active.numpy()
+    ones = torch.ones(state.capacity, dtype=dtype)
+    plain = torch.zeros((state.capacity, 6), dtype=dtype)
+    plain[:, 0] = 1.0
+    assert trk.corrected_sum(eng, state, nbrs, ones,
+                             beta=plain).numpy()[act].min() < 0.8
+    s = trk.corrected_sum(eng, state, nbrs, ones)
+    assert s.dtype == dtype
+    np.testing.assert_allclose(s.numpy()[act], 1.0, atol=1e-5)
+    x = state.fields["x"].double().numpy()
+    f = (3.0 + 2.0 * x[:, 0] - 1.5 * x[:, 1] + 4.0 * x[:, 0] ** 2
+         + 0.5 * x[:, 1] ** 2 - 2.0 * x[:, 0] * x[:, 1])
+    got = trk.corrected_sum(eng, state, nbrs, f).double().numpy()
+    np.testing.assert_allclose(got[act], f[act], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"],
+                         ids=["f64", "f32"])
+def test_rb_rkpm_steps_match_jax(dtype):
+    """8 flat steps of ``Config(n_rows=16, conduction="rkpm")`` against the
+    reference's (compiled with ``QUICK_COMPILE``). float64: equal active
+    counts, KE and Nu at rtol 1e-8 and every field within 1e-8 of its
+    largest |value|, rows matched by position (measured: 6.3e-16 on Dv).
+    float32 (the config's default dtype, whose 6 × 6 solves the h-scaled
+    basis keeps accurate): ``test_rb_six_steps_match_jax``'s gate,
+    rtol 1e-4 (measured: the four row statistics and Nu equal, KE
+    1.0e-7)."""
+    kw = {**RB_RKPM, "dtype": dtype}
+    jcfg, tcfg = jrb.Config(**kw), trb.Config(**kw)
+    js = jrb.make_system(jcfg)
+    jstate = js.freeze()
+    jstep = jax.jit(jrb.make_step(jcfg, js.engine)).lower(jstate).compile(
+        compiler_options=QUICK_COMPILE)
+    ts = trb.make_system(tcfg)
+    tstate = ts.freeze(device="cpu")
+    assert ts.engine.layout == "flat"
+    tstep = trb.make_step(tcfg, ts.engine)
+    for _ in range(8):
+        jstate, tstate = jstep(jstate), tstep(tstate)
+    if dtype == "float32":
+        assert tstate.fields["T"].dtype == torch.float32
+        assert _rb_gate(jcfg, jstate, tcfg, tstate) == ts.n_built
+        return
+    assert int(tstate.n) == int(jstate.n) == ts.n_built
+    got = [float(v) for v in trb.diagnostics(tcfg, tstate)]
+    assert np.all(np.isfinite(got)) and got[0] > 0.0
+    np.testing.assert_allclose(
+        got, [float(v) for v in jrb.diagnostics(jcfg, jstate)], rtol=1e-8)
+    jf, tf = matched_rows(jstate, tstate)
+    for name, ref in jf.items():
+        np.testing.assert_allclose(tf[name], ref, rtol=0,
+                                   atol=1e-8 * np.abs(ref).max(),
+                                   err_msg=name)
 
 
 def test_rb_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
@@ -791,7 +958,8 @@ def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     none; ISPH's defaults (the flat layout, float32, "mg", which warns and
     solves with Jacobi) and its float64 build and step; a float64 state on
     the bucket layout is refused at its first step (ISPH and
-    Rayleigh–Bénard), and so are RKPM conduction and a sharded engine;
+    Rayleigh–Bénard); RKPM conduction on the bucket layout builds and
+    ``make_step`` refuses it, as it refuses a sharded engine;
     Rayleigh–Bénard's flat layout builds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for module, cfg in ((tiw, tiw.ISPHWitchConfig(**ISPH, use_pallas=True)),
@@ -825,8 +993,11 @@ def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
                                          "dtype": "float64"}))
     assert flat.freeze(device="cpu").fields["T"].dtype == torch.float64
     assert flat.engine.layout == "flat"
+    rkpm_bucket = trb.Config(**RB, conduction="rkpm")
+    sys_ = trb.make_system(rkpm_bucket)
+    sys_.freeze(device="cpu")
     with pytest.raises(NotImplementedError, match="rkpm"):
-        trb.make_system(trb.Config(**RB, conduction="rkpm"))
+        trb.make_step(rkpm_bucket, sys_.engine)
     sys_ = tiw.make_system(tiw.ISPHWitchConfig(**ISPH))
     sys_.freeze(device="cpu")
     sharded = type("Sharded", (), {"axis": "x"})()

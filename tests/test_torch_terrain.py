@@ -1,10 +1,12 @@
 """The port's terrain family (``legacy_witch``: isothermal and adiabatic, flow
 and static) against the JAX package on the CPU.
 
-Sizes: n_rows=14, dom_length=40 km, h_m=2 km, a=6 km, float32, bucket layout,
-skin 0.15 (the reference's own Pallas-vs-XLA gates, tests/test_pallas.py):
-the flow variants have N = 745 on a square lattice (grid 128 × 16, cap 16),
-the static ones N = 848 on the hexagonal lattice (cap 8).
+Sizes: n_rows=14, dom_length=40 km, h_m=2 km, a=6 km (the reference's own
+Pallas-vs-XLA gates, tests/test_pallas.py). On the float32 bucket layout,
+skin 0.15, the flow variants have N = 745 on a square lattice (grid 128 ×
+16, cap 16), the static ones N = 848 on the hexagonal lattice (cap 8); on
+the flat layout (skin 0, as the reference sets it) the grid is 20 × 16,
+cap 8, cell mode.
 
 What is compared, and at which tolerance:
 
@@ -27,19 +29,37 @@ What is compared, and at which tolerance:
   pair bodies summed eagerly (tests/torch_reference_harness.py), with
   ``av_alpha`` 0 and 0.05 and ``fast_math`` off and on. Gate: rtol 1e-5,
   atol = 1e-6 × the output's largest |value|;
-* 8 steps of each variant against the reference's jitted
-  ``use_pallas=False`` step at its own gate (rtol 2e-4, exactly equal active
-  counts): u_avg, u_max and, per variant, the drag and lift (isothermal
-  flow), Σh and max |h − h0| (isothermal static) or ΣS and max |S|
-  (adiabatic); the adiabatic flow runs the corrected bundle. The reference
-  runs its flat layout: compiling its XLA bucket step costs more and the
-  compared sums do not depend on the row order;
+* 8 steps of each variant, the port's float32 bucket step (the twins) and
+  its float32 flat step (``apply_binary``), against the reference's jitted
+  float32 flat step at its own gate (rtol 2e-4, exactly equal active
+  counts; measured on the flat step: 9.3e-8–1.5e-6): u_avg, u_max and, per
+  variant, the drag and lift (isothermal flow), Σh and max |h − h0|
+  (isothermal static) or ΣS and max |S| (adiabatic); the adiabatic flow runs
+  the corrected bundle. Each reference step is compiled once with
+  ``QUICK_COMPILE`` (tests/torch_reference_harness.py);
+* 8 flat float64 steps of each variant against the reference's: equal
+  active counts, the observables at rtol 1e-8 (measured ≤ 1.9e-15) and
+  every field within 1e-8 of its largest |value| with rows matched by
+  position (measured ≤ 1.7e-14): a particle on a cell edge takes the key on
+  either side as its last bit rounds, and the two stable sorts then order
+  the rows differently;
+* the reference's zero-headroom invariant (tests/test_legacy.py): frozen
+  flat at capacity == N, 120 steps, drops > 0 and the INFLOW count falls
+  by exactly the drops;
+* the faithful sponge's kick (``accelerate``, a constant body force above
+  z_t − z_b) on the frozen static state against the reference's closure,
+  bit for bit in float64 and float32 (a float32 sponge left 6.8e-11 in a
+  float64 v);
 * the observables on one identical state (rtol 1e-5), the analytic-floor
   helpers of ``lj_floor`` on the same rows (rel 1e-6), and ``run(cfg,
   out_path=..., device="cpu")`` of a tiny flow config through a spawn
-  event: the file set, the ``data.csv`` columns, no dropped spawn, a
-  checkpoint the reference reads, and a resumed run bit for bit equal to the
-  uninterrupted one.
+  event, float32 bucket and float64 flat: the file set, the ``data.csv``
+  columns, no dropped spawn, a checkpoint the reference reads (its layout
+  included), and a resumed run bit for bit equal to the uninterrupted one;
+  the flat float64 run (the inflow column 50 m upstream of the edge, 24
+  steps, spawns into the spare flat rows) also against the reference's 24
+  steps: the active count, ``n_inflow`` and ``spawn_drops`` exactly, every
+  field within 1e-8 of its largest |value| (measured 5.9e-15).
 """
 import dataclasses
 import os
@@ -55,9 +75,11 @@ from sph_mountain_waves_tpu.models import legacy_witch as jlw
 from sph_mountain_waves_tpu.models.witch_common import (
     velocity_diagnostics as j_diag,
 )
+from sph_mountain_waves_tpu.ops import apply as japply
 from sph_mountain_waves_tpu.ops import neighbors as jnb
 from sph_mountain_waves_tpu.structs import ParticleState as JState
 from sph_mountain_waves_tpu.utils.checkpoint import (
+    engine_from_meta as j_engine_from_meta,
     load_checkpoint as j_load_checkpoint,
 )
 
@@ -67,9 +89,12 @@ from sph_mountain_waves_tpu_torch.models import legacy_witch as tlw
 from sph_mountain_waves_tpu_torch.models.witch_common import (
     velocity_diagnostics as t_diag,
 )
+from sph_mountain_waves_tpu_torch.ops import apply as tapply
 from sph_mountain_waves_tpu_torch.ops import neighbors as tnb
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
-from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
+from torch_reference_harness import (
+    QUICK_COMPILE, matched_rows, reference_body_sweep,
+)
 
 torch.set_num_threads(1)
 
@@ -244,7 +269,7 @@ def test_cap_past_the_stencil_cost_limit_takes_the_sort_rescatter():
 
 def _closure(fn, name):
     """A free variable of a closure (the reference's ``add_new_particles``
-    lives inside its ``make_step``)."""
+    and both packages' ``accelerate`` live inside their ``make_step``)."""
     cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
     return cells[name].cell_contents
 
@@ -364,42 +389,156 @@ STEP_VARIANTS = {
 }
 
 
-@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
-def test_steps_match_jax(variant):
+def _observed(cfg, diag, mountain, state):
+    """u_avg, u_max and, per variant, ΣS and max |S| (adiabatic), Σh and
+    max |h − h0| (isothermal static) or the drag and lift (isothermal
+    flow)."""
+    fields = {k: np.asarray(v) for k, v in state.fields.items()}
+    active = np.asarray(state.active)
+    out = [float(v) for v in diag(state)]
+    if cfg.adiabatic:
+        S = fields["S"][active]
+        return out + [float(S.sum()), float(np.abs(S).max())]
+    if not cfg.flow:
+        h = fields["h"][active]
+        return out + [float(h.sum()), float(np.abs(h - cfg.h0).max())]
+    F = mountain(state)
+    return out + [float(F["drag"]), float(F["lift"])]
+
+
+def _variant_configs(variant, **kw):
     extra = STEP_VARIANTS[variant]
     base = "adia_flow" if variant.startswith("adia_flow") else variant
-    jcfg, tcfg = _configs(base, **extra)
-    jcfg = dataclasses.replace(jcfg, layout="flat")
+    return _configs(base, **extra, **kw)
+
+
+def _compiled_step(jcfg):
+    """The reference's flat system, its frozen state and its step compiled
+    once with ``QUICK_COMPILE``."""
     js = jlw.make_system(jcfg)
     jstate = js.freeze()
     assert js.engine.layout == "flat"
     jstep = jax.jit(jlw.make_step(jcfg, js.engine)).lower(jstate).compile(
         compiler_options=QUICK_COMPILE)
+    return js, jstate, jstep
+
+
+def _port_run(tcfg, n_steps, **freeze):
     ts = tlw.make_system(tcfg)
-    tstate = ts.freeze(device="cpu")
+    tstate = ts.freeze(device="cpu", **freeze)
     tstep = tlw.make_step(tcfg, ts.engine)
+    for _ in range(n_steps):
+        tstate = tstep(tstate)
+    return ts, tstate
+
+
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+def test_steps_match_jax(variant):
+    """The port's float32 bucket step (the sweeps' twins) and its float32
+    flat step (``apply_binary``) against 8 steps of the reference's float32
+    flat step."""
+    jcfg, tcfg = _variant_configs(variant)
+    jcfg = dataclasses.replace(jcfg, layout="flat")
+    js, jstate, jstep = _compiled_step(jcfg)
     for _ in range(8):
         jstate = jstep(jstate)
-        tstate = tstep(tstate)
+    ref = _observed(jcfg, j_diag, jlw.mountain_force, jstate)
+    flat_cfg = dataclasses.replace(tcfg, layout="flat", use_pallas=False)
+    for cfg, layout in ((tcfg, "bucket"), (flat_cfg, "flat")):
+        ts, tstate = _port_run(cfg, 8)
+        assert ts.engine.layout == layout
+        assert tstate.fields["x"].dtype == torch.float32
+        assert int(tstate.n) == int(jstate.n) == ts.n_built
+        got = _observed(cfg, t_diag, tlw.mountain_force, tstate)
+        assert np.all(np.isfinite(got)) and got[1] > 0.0
+        np.testing.assert_allclose(got, ref, rtol=2e-4, err_msg=layout)
+
+
+def _fields_close(jstate, tstate, rel=1e-8):
+    """Every field of the port within ``rel`` of the field's largest
+    |value| in the reference, rows matched by position."""
+    jf, tf = matched_rows(jstate, tstate)
+    assert sorted(jf) == sorted(tf)
+    for name in jf:
+        np.testing.assert_allclose(tf[name], jf[name], rtol=0,
+                                   atol=rel * np.abs(jf[name]).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+def test_flat_float64_steps_match_jax(variant):
+    """8 flat float64 steps of each variant (the configs' own layout)
+    against the reference's."""
+    jcfg, tcfg = _variant_configs(variant, dtype="float64", layout="flat")
+    tcfg = dataclasses.replace(tcfg, use_pallas=False)
+    js, jstate, jstep = _compiled_step(jcfg)
+    for _ in range(8):
+        jstate = jstep(jstate)
+    ts, tstate = _port_run(tcfg, 8)
+    assert (ts.engine.layout, ts.engine.pair_mode, ts.engine.lims) == (
+        "flat", js.engine.pair_mode, js.engine.lims)
+    assert tstate.fields["x"].dtype == torch.float64
     assert int(tstate.n) == int(jstate.n) == ts.n_built
-
-    def observed(diag, state, fields, active, mountain):
-        out = [float(v) for v in diag(state)]
-        if tcfg.adiabatic:
-            S = fields["S"][active]
-            return out + [float(S.sum()), float(np.abs(S).max())]
-        if not tcfg.flow:
-            h = fields["h"][active]
-            return out + [float(h.sum()), float(np.abs(h - tcfg.h0).max())]
-        F = mountain(state)
-        return out + [float(F["drag"]), float(F["lift"])]
-
-    jf, ja = _to_np(jstate)
-    tf, ta = state_to_numpy(tstate)
-    got = observed(t_diag, tstate, tf, ta, tlw.mountain_force)
-    ref = observed(j_diag, jstate, jf, ja, jlw.mountain_force)
+    got = _observed(tcfg, t_diag, tlw.mountain_force, tstate)
     assert np.all(np.isfinite(got)) and got[1] > 0.0
-    np.testing.assert_allclose(got, ref, rtol=2e-4)
+    np.testing.assert_allclose(
+        got, _observed(jcfg, j_diag, jlw.mountain_force, jstate), rtol=1e-8)
+    _fields_close(jstate, tstate)
+
+
+def _spawn_flow(**kw):
+    """The isothermal flow whose inflow column sits 50 m upstream of the
+    edge: it converts and respawns within 24 steps."""
+    return tlw.isothermal_flow_config(n_rows=12, dom_length=51.9e3,
+                                      h_m=2000.0, a=6e3, **kw)
+
+
+def test_spawn_drops_are_counted_at_zero_headroom():
+    """The reference's invariant (tests/test_legacy.py): frozen flat at
+    capacity == n_built, no spawn finds a free row, and the INFLOW
+    reservoir drains by exactly the counted drops."""
+    cfg = tlw.isothermal_flow_config(n_rows=12, dom_length=60e3,
+                                     dtype="float64")
+    ts = tlw.make_system(cfg)
+    state = ts.freeze(device="cpu", capacity=ts.n_built)
+    assert ts.engine.layout == "flat"
+    n_inflow0 = int(tlw.inflow_reservoir(state)["n_inflow"])
+    step = tlw.make_step(cfg, ts.engine)
+    for _ in range(120):
+        state = step(state)
+    res = tlw.inflow_reservoir(state)
+    drops = int(res["spawn_drops"])
+    assert drops > 0
+    assert n_inflow0 - int(res["n_inflow"]) == drops
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_faithful_sponge_kick_matches_jax(dtype):
+    """One kick (``accelerate``) with the faithful sponge, a constant body
+    force above z_t − z_b, on the frozen static state, against the
+    reference's closure: v bit for bit in float64 (the sponge built in the
+    state's dtype; a float32 sponge left 1.04e-9 m/s² in it) and in
+    float32."""
+    kw = dict(GEO, dtype=dtype, layout="flat")
+    jcfg = jlw.isothermal_static_config(**kw)
+    tcfg = tlw.isothermal_static_config(**kw)
+    js = jlw.make_system(jcfg)
+    fields, active = _to_np(js.freeze())
+    y = fields["x"][:, 1]
+    assert (active & (fields["type"] == jlw.FLUID)
+            & (y >= jcfg.z_t - jcfg.z_b)).sum() > 0
+    # any port engine (a float32 bucket one here): the kick reads none
+    ts = tlw.make_system(tlw.isothermal_static_config(**GEO, use_pallas=True))
+    ts.freeze(device="cpu")
+    te = ts.engine
+    jkick = _closure(jlw.make_step(jcfg, js.engine), "accelerate")
+    tkick = _closure(tlw.make_step(tcfg, te), "accelerate")
+    jv = np.asarray(japply.apply_unary(_to_jax(fields, active), jkick)
+                    .fields["v"])
+    tv = tapply.apply_unary(state_from_numpy(fields, active, "cpu"),
+                            tkick).fields["v"].numpy()
+    assert tv.dtype == jv.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(tv, jv)
 
 
 def test_observables_match_jax(live):
@@ -467,12 +606,20 @@ def test_lj_floor_helpers_match_jax(live):
     assert np.abs(acc).max() > 0.0  # some rows sit within r0 of the floor
 
 
-def test_flow_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
+@pytest.mark.parametrize("layout", ["bucket", "flat"],
+                         ids=["bucket-f32", "flat-f64"])
+def test_flow_run_writes_files_and_resumes_bitwise(tmp_path, capsys, layout):
     """A flow config whose inflow column sits 50 m upstream of the edge, so
-    that it converts and respawns within the run's 24 steps."""
-    cfg = tlw.isothermal_flow_config(n_rows=12, dom_length=51.9e3,
-                                     h_m=2000.0, a=6e3, use_pallas=True,
-                                     checkpoint_every=1, n_frames=2)
+    that it converts and respawns within the run's 24 steps: the float32
+    bucket layout (slot-targeted spawns under the stencil rescatter) and
+    the config's flat layout in float64 (spawns in the spare flat rows).
+    The flat float64 run's state is held against the reference's 24
+    compiled steps: active count, ``n_inflow`` and ``spawn_drops``
+    exactly, every field within 1e-8 of its max with rows matched by
+    position (measured: active 741 -> 754, fields 5.9e-15)."""
+    kw = (dict(use_pallas=True) if layout == "bucket"
+          else dict(dtype="float64"))
+    cfg = _spawn_flow(checkpoint_every=1, n_frames=2, **kw)
     cfg = dataclasses.replace(cfg, t_end=24 * cfg.dt)
     whole = tlw.run(dataclasses.replace(cfg, live_plot=True),
                     out_path=str(tmp_path / "whole"), device="cpu")
@@ -485,18 +632,38 @@ def test_flow_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
     assert list(csv) == ["t", "u_avg", "u_max", "drag", "lift", "n_inflow",
                          "spawn_drops"]
     system = whole["system"]
-    assert system.engine.rescatter_mode == "stencil"
+    assert system.engine.layout == layout
+    assert system.engine.rescatter_mode == (
+        "stencil" if layout == "bucket" else "sort")
+    assert whole["state"].fields["x"].dtype == cfg.torch_dtype
     assert int(whole["state"].n) > system.n_built  # the spawn event fired
     assert np.all(csv["spawn_drops"] == 0.0)
     assert csv["n_inflow"][-1] == csv["n_inflow"][0]
     np.testing.assert_array_equal(csv["drag"], whole["drag"])
+    if layout == "flat":
+        jcfg = jlw.isothermal_flow_config(**{
+            f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in ("flow", "adiabatic")})
+        _, jstate, jstep = _compiled_step(jcfg)
+        for _ in range(24):
+            jstate = jstep(jstate)
+        tstate = whole["state"]
+        assert tstate.capacity == jstate.capacity
+        assert int(tstate.n) == int(jstate.n)
+        jres, tres = jlw.inflow_reservoir(jstate), tlw.inflow_reservoir(tstate)
+        assert int(tres["n_inflow"]) == int(jres["n_inflow"])
+        assert int(tres["spawn_drops"]) == int(jres["spawn_drops"]) == 0
+        _fields_close(jstate, tstate)
     # the reference reads the port's checkpoint, the bookkeeping included
     jstate, meta = j_load_checkpoint(
         str(tmp_path / "whole" / "checkpoint.npz"))
     assert meta["extra"]["step"] == 24
+    assert j_engine_from_meta(meta).layout == layout
     np.testing.assert_array_equal(
         np.asarray(jstate.fields["_spawn_drops"]),
         whole["state"].fields["_spawn_drops"].numpy())
+    np.testing.assert_array_equal(np.asarray(jstate.fields["x"]),
+                                  whole["state"].fields["x"].numpy())
 
     half = dataclasses.replace(cfg, t_end=cfg.t_end / 2, n_frames=1)
     tlw.run(half, out_path=str(tmp_path / "part"), device="cpu")
@@ -513,13 +680,22 @@ def test_flow_run_writes_files_and_resumes_bitwise(tmp_path, capsys):
 
 def test_entry_points_need_a_card_and_refuse_what_is_not_ported(monkeypatch):
     """Without ``device=`` ``run`` asks for CUDA and raises where there is
-    none; float64 and the flat layout are refused."""
+    none; a float64 terrain config builds and freezes on its flat layout,
+    and a float64 state on the bucket layout is refused at its first
+    step."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = _configs("iso_flow")
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         tlw.run(cfg)
+    cfg64 = tlw.isothermal_static_config(n_rows=14, dtype="float64")
+    ts = tlw.make_system(cfg64)
+    state = ts.freeze(device="cpu")
+    assert ts.engine.layout == "flat"
+    assert state.fields["x"].dtype == torch.float64
+    assert int(state.n) == ts.n_built
+    bucket = dataclasses.replace(cfg64, layout="bucket")
+    tb = tlw.make_system(bucket)
+    state = tb.freeze(device="cpu")
+    assert tb.engine.layout == "bucket"
     with pytest.raises(NotImplementedError, match="float32"):
-        tlw.make_system(tlw.isothermal_static_config(dtype="float64"))
-    with pytest.raises(NotImplementedError, match="bucket layout"):
-        tlw.make_system(tlw.isothermal_static_config(n_rows=14)).freeze(
-            device="cpu")
+        tlw.make_step(bucket, tb.engine)(state)

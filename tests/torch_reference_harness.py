@@ -24,6 +24,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from scipy.spatial import cKDTree
 
 import sph_mountain_waves_tpu.ops.pallas_pairs as pp
 
@@ -37,6 +38,23 @@ import sph_mountain_waves_tpu.ops.pallas_pairs as pp
 QUICK_COMPILE = {"xla_backend_optimization_level": 0,
                  "xla_cpu_use_fusion_emitters": False,
                  "xla_llvm_disable_expensive_passes": True}
+
+
+def matched_rows(jstate, tstate):
+    """(JAX fields, port fields) as NumPy arrays on the active rows, the JAX
+    rows in the port's order: each port row matched to the nearest JAX row
+    by position (within 1e-6, one to one). After flat rebuilds the two
+    packages can order rows differently: a particle on a cell edge (x = 0
+    on the mountain-wave lattice) takes the key on either side as its last
+    bit rounds, and the stable sorts follow the keys."""
+    jf = {k: np.asarray(v) for k, v in jstate.fields.items()}
+    ja = np.asarray(jstate.active)
+    tf = {k: v.cpu().numpy() for k, v in tstate.fields.items()}
+    ta = tstate.active.cpu().numpy()
+    dist, perm = cKDTree(jf["x"][ja]).query(tf["x"][ta])
+    assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm)
+    return ({k: v[ja][perm] for k, v in jf.items()},
+            {k: v[ta] for k, v in tf.items()})
 
 
 def jit_at_level0(monkeypatch):
