@@ -27,7 +27,11 @@ float64 (phases 35-39): the flagship at full width, the 2-D schemes at their
 default configurations and the reference's cross-layout gates; the 3-D
 schemes on the flat layout and the flat pressure solves (phases 40-43); and
 the terrain family on the flat layout in float32 and float64 with
-Rayleigh–Bénard's RKPM conduction (phases 44-45).
+Rayleigh–Bénard's RKPM conduction (phases 44-45); the library surface
+(``point_sum``, ``rev_add``, the kernel functions) and four canonical
+examples in float64 on the flat layout: the lid-driven cavity, the DFG
+cylinder, the bit-reversible dam break and the Kepler vortex (phases
+46-49).
 
 Phases, each printing one or more lines:
   1. the card (nvidia-smi name and power limit);
@@ -234,6 +238,30 @@ Phases, each printing one or more lines:
      Laplacian exact at the walls to rtol 5e-3; the short supercritical
      run, 6,400 steps, stable with growing KE); phases 44 and 45 print their
      seconds, and the run its whole seconds before the card line;
+ 46. the library on the card: ``ops.apply.point_sum`` on the bootstrapped
+     cavity state (``cavity_flow.Config()``, v seeded; both centerlines,
+     the corners and probes outside the grid; three probe functions)
+     against the port on the CPU at rtol 1e-12; ``utils.fixpa.rev_add``
+     round trips bit for bit (and equals the CPU's); the sixteen kernel
+     functions against the CPU at rtol 1e-14 (atol 1e-14 of the max);
+ 47. ``cavity_flow`` at its default width (N=100) for 100 steps twice from
+     the bootstrapped state, bit for bit, the probes finite, ms/step and
+     the device profile of 5 more; then ``run(out_path=...)`` at the
+     reference test's configuration (N 40, Re 100, t_end 0.15) with its
+     files and its gates (tests/test_cavity_cylinder.py);
+ 48. ``cylinder`` at its default width (n_around=40, capacity 1.5 N) for
+     150 steps twice from the built state at t = t_acc (the ramp done, the
+     force measured), through spawn events (counted on the second run, with
+     the rows spawned and dropped), bit for bit, C finite; then ``run`` at
+     the reference test's configuration (n_around 12, t_end 0.8) with its
+     gates on the active count;
+ 49. ``collapse_symplectic`` at its default dr (0.01) 100 steps forward
+     and 100 reversed, the recovery error under 100·FIXPA_EPS, and the
+     reference test's configuration (dr 0.04, t_end 0.05) the same way;
+     ``kepler_vortex`` at its default N_rings (25) for 200 steps (energies
+     finite, the drift printed) and the reference's gate (N_rings 15, 0.05
+     orbits, drift < 1e-6); phases 46-49 print their seconds, and launch
+     no sweep;
  30. (run last) every kernel timed on prepared inputs (CUDA events, kernel
      over 50 runs, twin over 5) beside its bound, and the kernels' own
      time that torch.profiler records over 50 more runs (``device_ms``;
@@ -2359,6 +2387,386 @@ def terrain_and_rkpm_phases(dev, card, counters) -> None:
                counters)
 
 
+# the library and four canonical examples on the card (phases 46-49): the
+# steps each default-width run takes (twice, bit for bit) and the seed of
+# the inputs made for the comparisons
+CAVITY_STEPS = 100
+CYLINDER_STEPS = 150
+SYMPLECTIC_STEPS = 100
+KEPLER_STEPS = 200
+LIBRARY_SEED = 46
+
+
+def states_equal(a, b) -> bool:
+    """Every field and the active mask of two states equal bit for bit."""
+    import torch
+    return (a.fields.keys() == b.fields.keys()
+            and all(torch.equal(a.fields[k], b.fields[k]) for k in a.fields)
+            and torch.equal(a.active, b.active))
+
+
+def cavity_probes(cf, cfg):
+    """The probe functions of ``cavity_flow.compute_fluxes`` (FLUID mass,
+    x- and y-momentum weights) and its two centerline probe lines, with
+    probes on the domain's edge and outside the grid added."""
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.kernels import wendland2
+
+    def fluid(q, r):
+        return (q.type == cf.FLUID).to(r.dtype)
+
+    def gamma(q, r):
+        return fluid(q, r) * cfg.m * wendland2(cfg.h, r)
+
+    def vx(q, r):
+        return fluid(q, r) * cfg.m * q.v[..., 0] * wendland2(cfg.h, r)
+
+    def vy(q, r):
+        return fluid(q, r) * cfg.m * q.v[..., 1] * wendland2(cfg.h, r)
+
+    s = np.linspace(0.0, 1.0, 100)
+    probes = np.concatenate([
+        np.stack([np.full(100, 0.5), s], axis=-1),
+        np.stack([s, np.full(100, 0.5)], axis=-1),
+        [[0.0, 0.0], [1.0, 1.0], [-0.05, 0.5], [1.2, 0.5], [-5.0, 5.0]]])
+    return {"gamma": gamma, "vx": vx, "vy": vy}, probes
+
+
+def library_phase(dev, card, counters) -> None:
+    """Phase 46: the library on the card. ``point_sum`` on a cavity state
+    (``cavity_flow.Config()``, bootstrapped, v seeded) against the port on
+    the CPU on the same state; ``rev_add`` round trips bit for bit; each
+    kernel function on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch import kernels as K
+    from sph_mountain_waves_tpu_torch.interop import (
+        state_from_numpy, state_to_numpy,
+    )
+    from sph_mountain_waves_tpu_torch.models import cavity_flow as cf
+    from sph_mountain_waves_tpu_torch.ops.apply import point_sum
+    from sph_mountain_waves_tpu_torch.utils.fixpa import FIXPA_EPS, rev_add
+
+    rng = np.random.default_rng(LIBRARY_SEED)
+    cfg = cf.Config()
+    sysm = cf.make_system(cfg)
+    state = sysm.freeze(device=dev)
+    eng = sysm.engine
+    _, init = cf.make_step(cfg, eng)
+    counters.reset()
+    state = init(state)
+    v = torch.as_tensor(rng.normal(0.0, 0.1, (state.capacity, 2)), device=dev)
+    state = state.replace(v=torch.where(state.active[:, None], v, 0.0))
+    st_c, nb_c = eng.rebuild(state)
+    st_h, nb_h = eng.rebuild(state_from_numpy(*state_to_numpy(state), "cpu"))
+    fns, probes = cavity_probes(cf, cfg)
+    worst = 0.0
+    for name, fn in fns.items():
+        got = point_sum(eng, st_c, nb_c, fn, probes).cpu()
+        want = point_sum(eng, st_h, nb_h, fn, probes)
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale,
+                                   msg=f"point_sum {name}")
+        if not (torch.isfinite(got).all() and scale > 0.0 and got[-1] == 0.0):
+            raise AssertionError(f"point_sum {name}: {got}")
+        worst = max(worst, float((got - want).abs().max()) / scale)
+    ms = cuda_ms(lambda: point_sum(eng, st_c, nb_c, fns["vx"], probes), 20)
+    no_sweep_launched("point_sum", counters)
+    say(46, f"point_sum on the card (cavity_flow.Config(), f64 flat: "
+            f"{grid_line(sysm)}; {len(probes)} probes: both centerlines, "
+            f"the domain's corners, outside the grid) against the port on "
+            f"the CPU, three probe functions: max |diff| {worst:.3e} of the "
+            f"max (gate rtol 1e-12); {ms:.3f} ms a call ({card})")
+
+    x = rng.normal(0.0, 10.0, 1 << 20)
+    y = rng.normal(0.0, 1e-3, 1 << 20)
+    xc, yc = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    s_c = rev_add(xc, yc)
+    z = rev_add(s_c, -yc).cpu().numpy()
+    lattice = FIXPA_EPS * np.round(x / FIXPA_EPS)
+    same_cpu = torch.equal(s_c.cpu(), rev_add(torch.as_tensor(x),
+                                              torch.as_tensor(y)))
+    if not (np.array_equal(z, lattice) and same_cpu):
+        raise AssertionError(f"rev_add round trip: {np.abs(z - lattice).max()}"
+                             f", card = CPU {same_cpu}")
+    say(46, f"rev_add on the card: rev_add(rev_add(x, y), -y) equals x's "
+            f"lattice value bit for bit on {len(x)} float64 values, and "
+            f"rev_add(x, y) equals the CPU's bit for bit")
+
+    h = 0.37
+    r = rng.uniform(0.0, 1.2 * h, 1 << 20)
+    hs = rng.uniform(0.3, 0.45, r.shape)
+    rc, hc = torch.as_tensor(r, device=dev), torch.as_tensor(hs, device=dev)
+    worst = {}
+    for name in K.__all__:
+        if name.startswith("C_"):
+            continue
+        fn = getattr(K, name)
+        for hh_c, hh_h in ((h, h), (hc, torch.as_tensor(hs))):
+            got = fn(hh_c, rc).cpu()
+            want = fn(hh_h, torch.as_tensor(r))
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-14,
+                                       atol=1e-14 * scale, msg=name)
+            worst[name] = max(worst.get(name, 0.0),
+                              float((got - want).abs().max()) / scale)
+    say(46, f"{len(worst)} kernel functions on the card against the CPU on "
+            f"{len(r)} float64 distances (scalar and per-pair h): max |diff| "
+            f"{max(worst.values()):.3e} of each function's max "
+            f"({max(worst, key=worst.get)}; gate rtol 1e-14, atol 1e-14 of "
+            f"the max)")
+
+
+def cavity_phase(dev, card, counters) -> None:
+    """Phase 47: ``cavity_flow`` at its default width (N=100) for
+    CAVITY_STEPS steps twice from the bootstrapped state (bit for bit,
+    the probes finite), then ``run(out_path=...)`` at the reference test's
+    configuration with its gates (tests/test_cavity_cylinder.py)."""
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.models import cavity_flow as cf
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+
+    cfg = cf.Config()
+    sysm = cf.make_system(cfg)
+    state0 = sysm.freeze(device=dev)
+    step, init = cf.make_step(cfg, sysm.engine)
+    frame = frame_runner(step, CAVITY_STEPS)
+    counters.reset()
+    state0 = init(state0)
+    a, secs_a, peak = timed(lambda: frame(state0))
+    b, secs_b, _ = timed(lambda: frame(state0))
+    no_sweep_launched("cavity_flow", counters)
+    if not (states_equal(a, b) and all_finite(a)
+            and int(a.n) == sysm.n_built):
+        raise AssertionError("cavity_flow: reruns differ or values not "
+                             "finite")
+    s, v1, v2 = cf.compute_fluxes(cfg, sysm.engine, a)
+    if not (np.all(np.isfinite(v1)) and np.all(np.isfinite(v2))):
+        raise AssertionError(f"cavity probes: {v1} {v2}")
+    say(47, f"cavity_flow.Config() (f64 flat, N={cfg.N}): {grid_line(sysm)}; "
+            f"{CAVITY_STEPS} steps twice from the bootstrapped state in "
+            f"{secs_a:.2f} / {secs_b:.2f} s = "
+            f"{1e3 * secs_a / CAVITY_STEPS:.3f} / "
+            f"{1e3 * secs_b / CAVITY_STEPS:.3f} ms/step, bit for bit; peak "
+            f"memory {peak:.2f} GiB over its start; probes finite, max |v1| "
+            f"{np.abs(v1).max():.4e}, max |v2| {np.abs(v2).max():.4e}; "
+            f"no sweep launched ({card})")
+    profile_steps(47, "cavity_flow f64 flat", step, a, n_steps=5, table=False)
+
+    cfg = cf.Config(N=40, Re=100.0, t_end=0.15, n_frames=10)
+    with tempfile.TemporaryDirectory() as tmp:
+        counters.reset()
+        out, secs, _ = timed(lambda: cf.run(cfg, out_path=tmp, device=dev))
+        files = sorted(os.listdir(tmp))
+    no_sweep_launched("cavity gate", counters)
+    check_run_files("cavity gate", files,
+                    [f"frame{i}.vtp" for i in range(10)]
+                    + ["data.csv", "result.pvd"],
+                    ["ldc-x2vy.pdf", "ldc-y2vx.pdf"])
+    v1, v2 = out["v1"], out["v2"]
+    if not (np.all(np.isfinite(v1)) and np.all(np.isfinite(v2))
+            and v1[-2] > 0.05 and v1[1] < 0.05
+            and np.abs(v1).max() <= 1.05 and np.abs(v2).max() <= 1.05):
+        raise AssertionError(f"cavity gate: v1 {v1}, v2 {v2}")
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    say(47, f"gate test_cavity_short (N 40, Re 100, t_end 0.15, 10 frames, "
+            f"f64 flat, run(out_path)): {n_steps} steps in {secs:.2f} s = "
+            f"{1e3 * secs / n_steps:.3f} ms/step (set-up and files "
+            f"included); v1[-2] {v1[-2]:.4f} > 0.05, v1[1] {v1[1]:.4f} < "
+            f"0.05, max |v1| {np.abs(v1).max():.4f}, max |v2| "
+            f"{np.abs(v2).max():.4f} <= 1.05; wrote {len(files)} files "
+            f"({card})")
+
+
+class CylinderSpawns:
+    """Counts, while entered, the spawn events (steps that spawned), the
+    spawned rows and the dropped spawns (candidates with no free row) of
+    ``cylinder.add_new_particles``, which the step looks up in the module
+    when it runs. Reads the counts on the host, so kept out of timed
+    runs."""
+
+    def __init__(self, cy):
+        self.cy, self.add = cy, cy.add_new_particles
+        self.events = self.spawned = self.drops = 0
+
+    def __enter__(self):
+        def counted(cfg, state):
+            f = state.fields
+            conv = int((state.active & (f["type"] == self.cy.INFLOW)
+                        & (f["x"][:, 0] >= 0.0)).sum())
+            new = self.add(cfg, state)
+            n = int(new.active.sum()) - int(state.active.sum())
+            self.events += n > 0
+            self.spawned += n
+            self.drops += min(conv, cfg.max_spawn) - n
+            return new
+        self.cy.add_new_particles = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cy.add_new_particles = self.add
+
+
+def cylinder_phase(dev, card, counters) -> None:
+    """Phase 48: ``cylinder`` at its default width (n_around=40) for
+    CYLINDER_STEPS steps twice, from the built state with the inflow ramp
+    done (t = t_acc, the force measured from there on), through spawn
+    events: bit for bit, C finite; then ``run`` at the reference test's
+    configuration with its gates (tests/test_cavity_cylinder.py)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from sph_mountain_waves_tpu_torch.models import cylinder as cy
+
+    cfg = dc.replace(cy.Config(), t_end=2 * cy.Config().t_acc)
+    sysm = cy.make_system(cfg)
+    state0 = sysm.freeze(capacity=int(sysm.n_built * 1.5), device=dev)
+    step = cy.make_step(cfg, sysm.engine)
+    x = state0.fields["x"]
+    carry0 = (state0, x.new_tensor(cfg.t_acc), x.new_zeros(2),
+              torch.zeros((), dtype=torch.int32, device=dev))
+
+    def steps(carry):
+        for _ in range(CYLINDER_STEPS):
+            carry = step(carry)
+        return carry
+
+    counters.reset()
+    a, secs, peak = timed(lambda: steps(carry0))
+    with CylinderSpawns(cy) as spawns:
+        b = steps(carry0)
+    no_sweep_launched("cylinder", counters)
+    same = states_equal(a[0], b[0]) and all(
+        torch.equal(u, w) for u, w in zip(a[1:], b[1:]))
+    C = (a[2] / a[3]).cpu().numpy()
+    if not (same and all_finite(a[0]) and np.all(np.isfinite(C))
+            and int(a[3]) == CYLINDER_STEPS and spawns.events >= 1):
+        raise AssertionError(f"cylinder: reruns equal {same}, C {C}, "
+                             f"samples {int(a[3])}, spawn events "
+                             f"{spawns.events}")
+    say(48, f"cylinder.Config() (f64 flat, n_around={cfg.n_around}): "
+            f"{grid_line(sysm)}, capacity {state0.capacity}; "
+            f"{CYLINDER_STEPS} steps from t = t_acc in {secs:.2f} s = "
+            f"{1e3 * secs / CYLINDER_STEPS:.3f} ms/step; peak memory "
+            f"{peak:.2f} GiB over its start; {spawns.events} spawn events, "
+            f"{spawns.spawned} rows spawned, {spawns.drops} dropped; active "
+            f"{sysm.n_built} -> {int(a[0].n)}; C_SPH (drag, lift) "
+            f"({C[0]:.4e}, {C[1]:.4e}) finite; a rerun bit for bit; no sweep "
+            f"launched ({card})")
+    profile_steps(48, "cylinder f64 flat", lambda s: step((s, a[1], a[2],
+                                                          a[3]))[0],
+                  a[0], n_steps=5, table=False)
+    del a, b, carry0, state0
+
+    cfg = cy.Config(n_around=12, t_end=0.8, n_frames=4, dtype="float64")
+    counters.reset()
+    out, secs, _ = timed(lambda: cy.run(cfg, device=dev))
+    no_sweep_launched("cylinder gate", counters)
+    n, built = out["n"], out["system"].n_built
+    if not (n[-1] > built * 0.98 and n.max() < built * 1.25
+            and np.all(np.isfinite(out["C_SPH"]))):
+        raise AssertionError(f"cylinder gate: n {n} of {built}, C_SPH "
+                             f"{out['C_SPH']}")
+    n_steps = int(round(cfg.t_end / cfg.dt))
+    say(48, f"gate test_cylinder_inflow_recycling (n_around 12, t_end 0.8, "
+            f"4 frames, f64 flat): {n_steps} steps in {secs:.2f} s = "
+            f"{1e3 * secs / n_steps:.3f} ms/step (set-up included); active "
+            f"per frame {list(n)} against {built} built (> 0.98x at the end, "
+            f"< 1.25x throughout); C_SPH {out['C_SPH']} finite ({card})")
+
+
+def reversible_phase(dev, card, counters) -> None:
+    """Phase 49: ``collapse_symplectic`` at its default dr (0.01)
+    SYMPLECTIC_STEPS steps forward and as many reversed (recovery error <
+    100·FIXPA_EPS), and the reference test's configuration
+    (tests/test_examples.py); ``kepler_vortex`` at its default N_rings (25)
+    for KEPLER_STEPS steps (energies finite, the drift printed), and the
+    reference test's configuration (tests/test_legacy.py)."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from sph_mountain_waves_tpu_torch.models import (
+        collapse_symplectic as cs, kepler_vortex as kv,
+    )
+    from sph_mountain_waves_tpu_torch.models.common import frame_runner
+    from sph_mountain_waves_tpu_torch.utils.fixpa import FIXPA_EPS
+
+    for label, cfg, n_entropy in (
+            ("collapse_symplectic.Config()", dc.replace(
+                cs.Config(), t_end=SYMPLECTIC_STEPS * cs.Config().dt), 2),
+            ("gate test_symplectic_reversibility (dr 0.04, t_end 0.05)",
+             cs.Config(dr=0.04, t_end=0.05), 2)):
+        counters.reset()
+        out, secs, peak = timed(lambda: cs.run(cfg, revert=True,
+                                               n_entropy=n_entropy,
+                                               device=dev))
+        no_sweep_launched(label, counters)
+        n_steps = int(round(cfg.t_end / cfg.dt))
+        err = out["recovery_error"]
+        if not (err < 100 * FIXPA_EPS and all_finite(out["state"])
+                and int(out["state"].n) == out["system"].n_built):
+            raise AssertionError(f"{label}: recovery error {err}")
+        say(49, f"{label} (f64 flat): {grid_line(out['system'])}; {n_steps} "
+                f"steps forward and {n_steps} reversed in {secs:.2f} s = "
+                f"{1e3 * secs / (2 * n_steps):.3f} ms/step (set-up and "
+                f"entropies included); peak memory {peak:.2f} GiB over its "
+                f"start; recovery error {err:.3e} < 100 FIXPA_EPS = "
+                f"{100 * FIXPA_EPS:.3e}; S forward "
+                f"{[float(f'{v:.6e}') for v in out['S_forward']]}, backward "
+                f"{[float(f'{v:.6e}') for v in out['S_backward']]} ({card})")
+    profile_steps(49, "collapse_symplectic f64 flat",
+                  cs.make_step(cfg, out["system"].engine)[0], out["state"],
+                  n_steps=5, table=False)
+
+    cfg = kv.Config()
+    sysm = kv.make_system(cfg)
+    state = sysm.freeze(device=dev)
+    step, init = kv.make_step(cfg, sysm.engine)
+    counters.reset()
+    state = init(state)
+    E0 = sum(kv.energies(cfg, state))
+    state, secs, peak = timed(lambda: frame_runner(step, KEPLER_STEPS)(state))
+    E1 = sum(kv.energies(cfg, state))
+    no_sweep_launched("kepler_vortex", counters)
+    if not (np.isfinite(E1) and all_finite(state)
+            and int(state.n) == sysm.n_built):
+        raise AssertionError(f"kepler_vortex: E {E0} -> {E1}")
+    say(49, f"kepler_vortex.Config() (f64 flat, N_rings {cfg.N_rings}): "
+            f"{grid_line(sysm)}; {KEPLER_STEPS} steps in {secs:.2f} s = "
+            f"{1e3 * secs / KEPLER_STEPS:.3f} ms/step; peak memory "
+            f"{peak:.2f} GiB over its start; E {E0:.9e} -> {E1:.9e}, drift "
+            f"|E/E0 - 1| {abs(E1 / E0 - 1):.3e} ({card})")
+    profile_steps(49, "kepler_vortex f64 flat", step, state, n_steps=5,
+                  table=False)
+
+    cfg = kv.Config(N_rings=15)
+    out, secs, _ = timed(lambda: kv.run(cfg, n_orbits=0.05, device=dev))
+    E = out["E"]
+    drift = float(np.max(np.abs(E / E[0] - 1.0)))
+    if not (drift < 1e-6 and int(out["state"].n) == out["system"].n_built):
+        raise AssertionError(f"kepler gate: E {E}")
+    say(49, f"gate test_kepler_energy_conservation (N_rings 15, 0.05 "
+            f"orbits, f64 flat): {grid_line(out['system'])}; "
+            f"{int(round(0.05 * 2 * np.pi / cfg.omega0 / cfg.dt))} steps in "
+            f"{secs:.2f} s; max |E/E0 - 1| {drift:.3e} < 1e-6, every "
+            f"particle kept ({card})")
+
+
+def examples_phases(dev, card, counters) -> None:
+    """Phases 46-49: the library and the four canonical examples
+    (cavity_flow, cylinder, collapse_symplectic, kepler_vortex) on the
+    card."""
+    run_phases(((46, library_phase), (47, cavity_phase),
+                (48, cylinder_phase), (49, reversible_phase)), dev, card,
+               counters)
+
+
 def main(profile: bool) -> None:
     import torch
     run_t0 = time.perf_counter()
@@ -3260,6 +3668,8 @@ def main(profile: bool) -> None:
     solve_and_3d_flat_phases(dev, card, counters)
     # 44-45: the terrain family flat and in float64, and RKPM conduction
     terrain_and_rkpm_phases(dev, card, counters)
+    # 46-49: the library and four canonical examples
+    examples_phases(dev, card, counters)
 
     # 30: kernel and twin times on prepared inputs, beside their bounds
     def prepared(kernel, e, s, c):

@@ -32,6 +32,18 @@ sums there; Rayleigh–Bénard there also with the RKPM conduction of
 pressure solves take their operator from ``ops.solvers.assemble_matvec``.
 Every scheme's ``run`` writes its files (``io``: PVD/VTP frames and
 ``data.csv``; ``utils.checkpoint``: bitwise checkpoint and resume).
+
+The library surface is the reference's: ``algebra``, every kernel
+function (``kernels``), shape (``geometry``) and lattice (``grids``), the
+probe interpolation ``ops.apply.point_sum``, reversible fixed-point
+arithmetic (``utils.fixpa``), velocity-entropy diagnostics
+(``utils.entropy``), ICR renormalisation (``utils.icr``) and the frame
+timer and profiler session (``utils.metrics``). Four of the canonical
+examples run on it, flat and in float64 as their configs say: the
+lid-driven cavity (``models.cavity_flow``, with ``point_sum`` probes), the
+DFG cylinder (``models.cylinder``, inflow recycling into the spare rows),
+the bit-reversible dam break (``models.collapse_symplectic``) and the
+Kepler vortex (``models.kepler_vortex``).
 """
 import torch
 
@@ -39,14 +51,33 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .geometry import (  # noqa: E402
-    Shape, Box, Rectangle, Ball, BooleanUnion, BooleanDifference, Specification, BoundaryLayer, is_inside, boundarybox,
+from .algebra import (  # noqa: E402
+    VECX, VECY, VECZ, VEC0, MAT0, MAT1, FMAT0, FMAT1,
+    RealVector, RealMatrix, FlatMatrix,
+    dot, norm, trace, dev, det, trans, cof, inv, outer,
 )
-from .grids import Grid, Squaregrid, Hexagrid, CubicGrid, dimension, covering  # noqa: E402
-from .kernels import wendland2, rDwendland2, wendland3, rDwendland3  # noqa: E402
+from .kernels import (  # noqa: E402
+    wendland1, Dwendland1, rDwendland1,
+    wendland2, Dwendland2, rDwendland2,
+    wendland3, Dwendland3, rDwendland3, DDwendland3,
+    spline23, Dspline23, rDspline23,
+    spline24, Dspline24, rDspline24,
+)
+from .geometry import (  # noqa: E402
+    Shape, Box, Rectangle, Circle, Ellipse, Ball, Ellipsoid, Cone,
+    BooleanUnion, BooleanIntersection, BooleanDifference,
+    Specification, BoundaryLayer, Transform, Polygon, ClosedSpline,
+    RevolutionBody, Witch, is_inside, boundarybox,
+)
+from .grids import (  # noqa: E402
+    Grid, Squaregrid, Hexagrid, VogelGrid, ExpGrid, Expgrid, CubicGrid,
+    FacecenteredGrid, BodycenteredGrid, DiamondGrid, dimension, covering,
+)
 from .structs import ParticleState, ParticleSystem, generate_particles  # noqa: E402
 from .ops.neighbors import NeighborEngine, Neighbors, sorted_slot_scatter  # noqa: E402
-from .ops.apply import apply_binary, apply_unary, pair_sum  # noqa: E402
+from .ops.apply import (  # noqa: E402
+    apply_unary, apply_binary, pair_sum, point_sum, dist,
+)
 from .ops.solvers import (  # noqa: E402
     assemble_matvec, assemble_vector, cg_solve, assemble_matrix,
     assemble_matrix_bcoo,

@@ -30,7 +30,12 @@ sweeps do not run; ``ops/solvers.py`` builds the flat pressure solves'
 operators on the same per-row candidate blocks. On the bucket layout the
 schemes call the pair sweeps of ``ops/pair_sweeps.py`` instead; the
 reference's resident form of this operator (``_binary_sums_resident``)
-and ``point_sum`` belong to a later slice.
+belongs to a later slice.
+
+``point_sum`` interpolates at arbitrary probe points (the cavity's
+centerline probes): each probe binned into the cell grid, its stencil
+cells' candidates from the bucket table (on the bucket layout the slots
+themselves), a masked sum over each offset's candidates in stencil order.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ import torch
 
 from ..structs import ParticleState
 
-__all__ = ["apply_unary", "apply_binary", "pair_sum", "dist", "FieldsView"]
+__all__ = ["apply_unary", "apply_binary", "pair_sum", "point_sum", "dist",
+           "FieldsView"]
 
 
 def dist(p_x, q_x):
@@ -149,6 +155,53 @@ def pair_sum(engine, state: ParticleState, nbrs, func,
                         lambda p, q, r, **kw: {"__out__": func(p, q, r, **kw)},
                         self_interaction, params)
     return sums["__out__"]
+
+
+def point_sum(engine, state: ParticleState, nbrs, func, xs,
+              **params) -> torch.Tensor:
+    """SPH interpolation at arbitrary points: ``xs`` [M, dim] (or one
+    point [dim]; anything ``torch.as_tensor`` takes), ``func(q, r,
+    **params)`` receives the q fields gathered to [M, cap] and the
+    distances [M, cap] (2h where masked) and returns [M, cap]; the result
+    [M] is the masked sum over every particle within h of each point.
+
+    Probes are binned with the per-axis cell widths and the engine's phase
+    (cells are skin-widened and may be lattice-aligned, so not h wide); a
+    stencil cell outside the grid takes the trash key and no candidate.
+    On the flat layout a cell's candidates are its bucket-table rows; on
+    the bucket layout the cell's slots rank·(C+1) + key, the reference's
+    implicit table. Each offset's candidates are summed, then the offsets
+    added in stencil order. Plain PyTorch on the state's device."""
+    x = state.fields["x"]
+    dev = x.device
+    xs = torch.as_tensor(xs, dtype=x.dtype, device=dev)
+    if xs.ndim == 1:
+        xs = xs[None]
+    h = torch.tensor(engine.h, dtype=x.dtype, device=dev)
+    L = torch.tensor(engine.cell_size, dtype=x.dtype, device=dev)
+    phase = torch.tensor(engine.phase, dtype=torch.int32, device=dev)
+    lims = torch.tensor(engine.lims, dtype=torch.int32, device=dev)
+    C = engine.num_cells
+    cell = torch.floor(xs / L).to(torch.int32) - phase
+    ranks = torch.arange(engine.cap, dtype=torch.int32, device=dev)
+    out = torch.zeros(xs.shape[0], dtype=x.dtype, device=dev)
+    for offset in engine.stencil:
+        ncell = cell + torch.tensor(offset, dtype=torch.int32, device=dev)
+        in_grid = torch.all((ncell >= 0) & (ncell < lims), dim=-1)
+        clipped = torch.minimum(torch.clamp(ncell, min=0), lims - 1)
+        nkey = torch.where(in_grid, engine.flat_key(clipped), C).long()
+        cnt = torch.where(in_grid, nbrs.counts[nkey], 0)
+        if nbrs.bucket is not None:
+            cand = nbrs.bucket[nkey].long()
+        else:
+            cand = ranks.long()[None, :] * (C + 1) + nkey[:, None]
+        valid = ranks[None, :] < cnt[:, None]
+        r = dist(xs[:, None, :], x[cand])
+        mask = valid & (r <= h)
+        val = func(FieldsView(state.fields, idx=cand),
+                   torch.where(mask, r, 2.0 * h), **params)
+        out = out + torch.sum(torch.where(mask, val, 0), dim=1)
+    return out
 
 
 class _BucketView:

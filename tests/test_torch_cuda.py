@@ -1195,3 +1195,115 @@ def test_nusselt_ra1e5_published_value(card):
     """Ouertatani et al. (2008): Nu = 3.91 at Ra = 1e5; within 12 %."""
     nu = _nusselt(1e5, 30.0)
     assert abs(nu / 3.91 - 1.0) < 0.12, nu
+
+
+# ---------------------------------------------------------------- examples
+EXAMPLES = {"kepler_vortex": dict(N_rings=15), "collapse_symplectic": dict(dr=0.04),
+            "cavity_flow": dict(N=20), "cylinder": dict(n_around=12)}
+
+
+def _example_steps(name, device, n_steps=4):
+    """An example's bootstrap (the cylinder: its carry at t = 0) and
+    ``n_steps`` steps from its frozen state on ``device``: (cfg, state)."""
+    import importlib
+    m = importlib.import_module(f"sph_mountain_waves_tpu_torch.models.{name}")
+    cfg = m.Config(**EXAMPLES[name])
+    sys_ = m.make_system(cfg)
+    if name == "cylinder":
+        state = sys_.freeze(device=device, capacity=int(sys_.n_built * 1.5))
+        step = m.make_step(cfg, sys_.engine)
+        x = state.fields["x"]
+        carry = (state, x.new_zeros(()), x.new_zeros(2),
+                 torch.zeros((), dtype=torch.int32, device=device))
+        for _ in range(n_steps):
+            carry = step(carry)
+        return cfg, carry[0]
+    state = sys_.freeze(device=device)
+    step, init = m.make_step(cfg, sys_.engine)
+    state = init(state)
+    for _ in range(n_steps):
+        state = step(state)
+    return cfg, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_example_steps_match_cpu(card, name):
+    """Four steps of each example (after its bootstrap) on the card against
+    the same on the CPU, rows matched by position: every field within 1e-12
+    of its largest |value| (P and the pressure acceleration of the two
+    summation-density models on the cancelled terms' scale c²·max ρ, as
+    tests/test_torch_examples.py holds them against the JAX package), equal
+    active counts; no sweep launched."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    before = {k: getattr(ps, k).launches for k in dir(ps)
+              if k.endswith("_pass") and hasattr(getattr(ps, k), "launches")}
+    cfg, a = _example_steps(name, card)
+    _, b = _example_steps(name, "cpu")
+    assert all(getattr(ps, k).launches == v for k, v in before.items())
+    assert a.fields["x"].is_cuda and a.fields["x"].dtype == torch.float64
+    fa = {k: v[a.active].cpu().numpy() for k, v in a.fields.items()}
+    fb = {k: v[b.active].numpy() for k, v in b.fields.items()}
+    dist, perm = cKDTree(fb["x"]).query(fa["x"])
+    assert dist.max() < 1e-6 and len(np.unique(perm)) == len(perm) == len(fb["x"])
+    scales = {k: max(np.abs(v).max(), 1e-300) for k, v in fb.items()}
+    if name in ("kepler_vortex", "collapse_symplectic"):
+        p_scale = cfg.c**2 * np.abs(fb["rho"]).max()
+        scales["a"] *= p_scale / scales["P"]
+        scales["P"] = p_scale
+    for k, scale in scales.items():
+        assert np.abs(fa[k] - fb[k][perm]).max() <= 1e-12 * scale, k
+
+
+@pytest.mark.cuda
+def test_point_sum_on_card_matches_cpu(card):
+    """``point_sum`` on a bootstrapped cavity state (v seeded) with probes
+    inside, on the edge and outside the grid, on the card against the CPU:
+    rtol 1e-12."""
+    import numpy as np
+    from sph_mountain_waves_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from sph_mountain_waves_tpu_torch.kernels import wendland2
+    from sph_mountain_waves_tpu_torch.models import cavity_flow as cf
+    from sph_mountain_waves_tpu_torch.ops.apply import point_sum
+    cfg = cf.Config(N=20)
+    sys_ = cf.make_system(cfg)
+    state = sys_.freeze(device=card)
+    state = cf.make_step(cfg, sys_.engine)[1](state)
+    v = torch.as_tensor(np.random.default_rng(0).normal(
+        0.0, 0.1, (state.capacity, 2)), device=card)
+    state = state.replace(v=torch.where(state.active[:, None], v, 0.0))
+    eng = sys_.engine
+    st_c, nb_c = eng.rebuild(state)
+    st_h, nb_h = eng.rebuild(state_from_numpy(*state_to_numpy(state), "cpu"))
+    probes = np.array([[0.5, 0.5], [0.5, 0.0], [0.0, 0.0], [1.0, 1.0],
+                       [0.25, 0.75], [-0.05, 0.5], [1.3, 0.2], [-4.0, 4.0]])
+
+    def vx(q, r):
+        return (q.type == cf.FLUID).to(r.dtype) * cfg.m * q.v[..., 0] * wendland2(cfg.h, r)
+
+    got = point_sum(eng, st_c, nb_c, vx, probes)
+    want = point_sum(eng, st_h, nb_h, vx, probes)
+    assert got.is_cuda and got[-1] == 0.0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-12,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_symplectic_run_reverts_on_the_card(card):
+    """``collapse_symplectic.run`` forward then reversed on the card (dr
+    0.04, 42 steps each way): the recovery error under 100·FIXPA_EPS, every
+    particle kept; ``rev_add`` round trips bit for bit there."""
+    import numpy as np
+    from sph_mountain_waves_tpu_torch.models import collapse_symplectic as cs
+    from sph_mountain_waves_tpu_torch.utils.fixpa import FIXPA_EPS, rev_add
+    out = cs.run(cs.Config(dr=0.04, t_end=0.01), revert=True, n_entropy=2,
+                 device=card)
+    assert out["state"].fields["x"].is_cuda
+    assert out["recovery_error"] < 100 * FIXPA_EPS
+    assert int(out["state"].n) == out["system"].n_built
+    x = np.random.default_rng(1).normal(0.0, 10.0, 4096)
+    y = np.random.default_rng(2).normal(0.0, 1e-3, 4096)
+    xc, yc = torch.as_tensor(x, device=card), torch.as_tensor(y, device=card)
+    z = rev_add(rev_add(xc, yc), -yc).cpu().numpy()
+    np.testing.assert_array_equal(z, FIXPA_EPS * np.round(x / FIXPA_EPS))

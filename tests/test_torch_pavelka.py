@@ -83,7 +83,9 @@ from sph_mountain_waves_tpu_torch.models.witch_common import (
 from sph_mountain_waves_tpu_torch.ops import pair_sweeps as tps
 import sph_mountain_waves_tpu_torch.utils.packing as t_packing_module
 from sph_mountain_waves_tpu_torch.utils.packing import colagrossi_packing
-from torch_reference_harness import QUICK_COMPILE, reference_body_sweep
+from torch_reference_harness import (
+    QUICK_COMPILE, jit_at_level0, reference_body_sweep,
+)
 
 torch.set_num_threads(1)
 
@@ -306,9 +308,10 @@ def test_flat_setup_matches_jax(monkeypatch):
     """``setup`` (the Colagrossi packing, then the initial passes) on the
     flat layout in float64, n_rows 8 (N = 2,607, ``pair_mode="cell"``): its
     packing cut to 10 steps on both sides (each ``setup`` calls it), the
-    reference's run op by op (``jax.disable_jit``: cheaper here than its
-    compile). Every field row by row within 1e-12 of its largest |value|
-    (measured: at most 2.5e-16 of it, on Dv; x, ∇Γ, Dρ, Dh, s and S
+    reference's own ``jax.jit`` calls compiled with ``QUICK_COMPILE``
+    (``jit_at_level0``: 5.6 s against 7.1 s op by op under
+    ``jax.disable_jit`` on one core). Every field row by row within 1e-12
+    of its largest |value| (measured: at most 2.5e-16 of it, on Dv; x, ∇Γ, Dρ, Dh, s and S
     equal), equal active masks, and the packing's last |∇Γ| the norm of
     the reference's ∇Γ."""
     infos = []
@@ -333,8 +336,8 @@ def test_flat_setup_matches_jax(monkeypatch):
     ts = tpv.make_system(tcfg)
     tstate = ts.freeze(device="cpu")
     assert ts.engine.layout == "flat" and ts.engine.pair_mode == "cell"
-    with jax.disable_jit():
-        jout = jpv.setup(jcfg, js.engine, jstate)
+    jit_at_level0(monkeypatch)
+    jout = jpv.setup(jcfg, js.engine, jstate)
     tout = tpv.setup(tcfg, ts.engine, tstate)
     assert len(infos) == 1 and infos[0]["steps"] == 10
     jf, ja = _to_np(jout)

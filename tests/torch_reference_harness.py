@@ -59,21 +59,23 @@ def matched_rows(jstate, tstate):
 
 def jit_at_level0(monkeypatch):
     """For the rest of the test, ``jax.jit`` (as the reference's own code
-    calls it, e.g. inside its packings and set-ups) compiles with
-    ``QUICK_COMPILE`` (XLA backend optimisation level 0 and cheap CPU
-    code generation): the optimiser dominates the compile of these
-    small programs, and a test runs each of them a few times at most. Each
-    jitted function compiles once per argument structure and shapes, as
-    ``jax.jit`` does; a call inside another trace, or with jit options,
-    takes the real ``jax.jit``."""
+    calls it, e.g. inside its packings and set-ups, and the donated
+    ``jax.jit`` of its ``frame_runner``, which every ``run`` compiles its
+    frames with) compiles with ``QUICK_COMPILE`` (XLA backend optimisation
+    level 0 and cheap CPU code generation): the optimiser dominates the
+    compile of these small programs, and a test runs each of them a few
+    times at most. Each jitted function compiles once per argument
+    structure and shapes, as ``jax.jit`` does; a call inside another
+    trace, or with jit options other than ``donate_argnums``, takes the
+    real ``jax.jit``."""
     real_jit = jax.jit
 
     def jit(fun=None, **options):
         if fun is None:
             return functools.partial(jit, **options)
-        if options:
+        if set(options) - {"donate_argnums"}:
             return real_jit(fun, **options)
-        jitted = real_jit(fun)
+        jitted = real_jit(fun, **options)
         compiled = {}
 
         @functools.wraps(fun)
